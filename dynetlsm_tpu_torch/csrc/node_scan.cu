@@ -1,0 +1,197 @@
+// Exact single-site Metropolis node scan of the latent positions, for C
+// chains at once.
+//
+// Replaces the Pallas kernels dynetlsm_tpu/ops/pallas_scan.py::
+// _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in the
+// undirected, mixture-prior, untempered mode; T is a runtime argument, so
+// one kernel serves both.  With the same injected proposal stream
+// (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises the same Markov chain as
+// dynetlsm_tpu/mcmc/latent.py::xla_exact_scan: nodes in index order, each
+// node in two parity phases (even t, then odd t), a site accepted iff
+// log_u < ratio.
+//
+// What bounds it on the H100: the scan is 2n dependent steps per sweep, so
+// it is latency-bound, not bandwidth- or FLOP-bound.  Per step a chain does
+// ceil(T/2) * n partner terms (two sqrt/exp/log1p evaluations each) and a
+// reduction; the adjacency (T*n*n bytes, 2.5 MB at T=10, n=500) stays in
+// L2 across chains.
+//
+// Design: one thread block per chain keeps that chain's (T, n, d) position
+// field in shared memory for the whole scan (40 KB at T=10, n=500, d=2),
+// so the only device-memory traffic per step is one adjacency row per
+// in-phase time and the node's noise.  Threads spread over (in-phase time,
+// partner).  The partner sum is a pairwise tree over the partner axis
+// padded to a power of two, P >= 32: level s adds element i + s into
+// element i.  ops/node_scan.py's plain version sums in the same order, and
+// this file is compiled with -fmad=false, so the two compute bit-identical
+// ratios and accept decisions.  One thread per in-phase time then adds the
+// prior delta, decides, and writes the site back to shared memory.
+// C blocks on 132 SMs is low occupancy at few chains; a chain's steps
+// cannot be spread over blocks without a grid-wide barrier per step.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxThreads = 512;
+
+// logaddexp(eta, 0): the formula of torch.logaddexp and jax.nn.softplus.
+__device__ __forceinline__ float softplus(float eta) {
+  const float m = fmaxf(eta, 0.0f);
+  return m + log1pf(expf(-fabsf(eta)));
+}
+
+__global__ void node_scan_kernel(
+    const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
+    const float* __restrict__ step, const float* __restrict__ eps,
+    const float* __restrict__ log_u, const float* __restrict__ mu_z,
+    const float* __restrict__ sig_z, const float* __restrict__ b,
+    const float* __restrict__ lmbda, float* __restrict__ X_out,
+    float* __restrict__ acc, int T, int n, int d, int P) {
+  extern __shared__ float smem[];
+  const int field = T * n * d;
+  float* xs = smem;           // (T, n, d) this chain's positions
+  float* red = smem + field;  // (ceil(T/2), P) per-partner deltas
+
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+
+  const float* X_c = X_in + (size_t)c * field;
+  for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
+
+  const float bc = b[c];
+  const float lam = lmbda[c];
+  const float one_m = 1.0f - lam;
+  const float* step_c = step + (size_t)c * T * n;
+  const float* eps_c = eps + (size_t)c * 2 * n * T * d;
+  const float* logu_c = log_u + (size_t)c * 2 * n * T;
+  const float* muz_c = mu_z + (size_t)c * T * n * d;
+  const float* sigz_c = sig_z + (size_t)c * T * n;
+  float* acc_c = acc + (size_t)c * T * n;
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    for (int phase = 0; phase < 2; ++phase) {
+      const int th = (T - phase + 1) / 2;  // in-phase times phase, phase+2, ..
+      const float* eps_j = eps_c + ((size_t)phase * n + j) * T * d;
+
+      // 1. per-partner log-likelihood deltas at every in-phase time
+      for (int k = tid; k < th * P; k += nthr) {
+        const int m = k / P;
+        const int i = k - m * P;
+        float term = 0.0f;
+        if (i < n) {
+          const int t = phase + 2 * m;
+          const float* x_t = xs + t * n * d;
+          const float s = step_c[t * n + j];
+          const float* e = eps_j + t * d;
+          float d2p = 0.0f;
+          float d2c = 0.0f;
+          for (int q = 0; q < d; ++q) {
+            const float xc = x_t[j * d + q];
+            const float xp = xc + s * e[q];
+            const float dp = x_t[i * d + q] - xp;
+            const float dc = x_t[i * d + q] - xc;
+            d2p = (q == 0) ? dp * dp : d2p + dp * dp;
+            d2c = (q == 0) ? dc * dc : d2c + dc * dc;
+          }
+          const float y = (float)Y[((size_t)t * n + j) * n + i];
+          const float eta_p = bc - sqrtf(fmaxf(d2p, 0.0f));
+          const float eta_c = bc - sqrtf(fmaxf(d2c, 0.0f));
+          const float llp = y * eta_p - softplus(eta_p);
+          const float llc = y * eta_c - softplus(eta_c);
+          term = (llp - llc) * (i == j ? 0.0f : 1.0f);
+        }
+        red[m * P + i] = term;
+      }
+      __syncthreads();
+
+      // 2. pairwise tree over the padded partner axis
+      for (int s = P / 2; s >= 1; s >>= 1) {
+        for (int k = tid; k < th * s; k += nthr) {
+          const int m = k / s;
+          const int i = k - m * s;
+          red[m * P + i] = red[m * P + i] + red[m * P + i + s];
+        }
+        __syncthreads();
+      }
+
+      // 3. prior delta, accept and write-back, one thread per in-phase time
+      for (int m = tid; m < th; m += nthr) {
+        const int t = phase + 2 * m;
+        const float s = step_c[t * n + j];
+        const float* e = eps_j + t * d;
+        const float* x_t = xs + t * n * d;
+        const float sig = sigz_c[t * n + j];
+        const bool last = (t == T - 1);
+        const float sig_nxt = last ? 1.0f : sigz_c[(t + 1) * n + j];
+        float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
+        for (int q = 0; q < d; ++q) {
+          const float xc = x_t[j * d + q];
+          const float xp = xc + s * e[q];
+          const float mu = muz_c[(t * n + j) * d + q];
+          float dp, dc;
+          if (t == 0) {
+            dp = xp - mu;
+            dc = xc - mu;
+          } else {
+            const float prev = xs[((t - 1) * n + j) * d + q];
+            dp = (xp - one_m * prev) - lam * mu;
+            dc = (xc - one_m * prev) - lam * mu;
+          }
+          bp = (q == 0) ? dp * dp : bp + dp * dp;
+          bcur = (q == 0) ? dc * dc : bcur + dc * dc;
+          if (!last) {
+            const float nxt = xs[((t + 1) * n + j) * d + q];
+            const float mu_nxt = muz_c[((t + 1) * n + j) * d + q];
+            const float gp = (nxt - one_m * xp) - lam * mu_nxt;
+            const float gc = (nxt - one_m * xc) - lam * mu_nxt;
+            fp = (q == 0) ? gp * gp : fp + gp * gp;
+            fcur = (q == 0) ? gc * gc : fcur + gc * gc;
+          }
+        }
+        const float back_p = (-0.5f * bp) / sig;
+        const float back_c = (-0.5f * bcur) / sig;
+        const float fwd_p = last ? 0.0f : (-0.5f * fp) / sig_nxt;
+        const float fwd_c = last ? 0.0f : (-0.5f * fcur) / sig_nxt;
+        const float lp = back_p + fwd_p;
+        const float lc = back_c + fwd_c;
+        const float ratio = (red[m * P] + lp) - lc;
+        const bool accept = logu_c[((size_t)phase * n + j) * T + t] < ratio;
+        if (accept) {
+          for (int q = 0; q < d; ++q) {
+            const float xc = x_t[j * d + q];
+            xs[(t * n + j) * d + q] = xc + s * e[q];
+          }
+        }
+        acc_c[t * n + j] = accept ? 1.0f : 0.0f;
+      }
+      __syncthreads();
+    }
+  }
+
+  float* out_c = X_out + (size_t)c * field;
+  for (int k = tid; k < field; k += nthr) out_c[k] = xs[k];
+}
+
+}  // namespace
+
+// Launch on `stream`; returns the CUDA error code (0 on success).
+// P: the partner axis padded to a power of two >= 32.
+extern "C" int node_scan_launch(
+    const float* X, const uint8_t* Y, const float* step, const float* eps,
+    const float* log_u, const float* mu_z, const float* sig_z,
+    const float* b, const float* lmbda, float* X_out, float* acc, int C,
+    int T, int n, int d, int P, void* stream) {
+  const size_t smem =
+      ((size_t)T * n * d + (size_t)((T + 1) / 2) * P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      node_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = P < kMaxThreads ? P : kMaxThreads;
+  node_scan_kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
+      X, Y, step, eps, log_u, mu_z, sig_z, b, lmbda, X_out, acc, T, n, d, P);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,80 @@
+"""Blocked HMM label sampling, forward-filter backward-sample (counterpart
+of ``dynetlsm_tpu/mcmc/labels.py``), chain-batched.
+
+The recursion over T is a Python loop of batched (C, K, K) @ (C, K, n)
+matmuls; the forward pass draws every node's label per time with one
+Gumbel-argmax (``torch.argmax`` takes the first index on ties, as
+``jnp.argmax`` does).
+"""
+import torch
+
+from ..config import SMALL_EPS
+from ..math.distributions import gumbel
+from ..ops.emissions import emission_likelihoods_kn
+
+
+def _backward_messages(lik, w):
+    """lik (C, T, K, n) emission likelihoods; w (C, T, K, K) transitions
+    (w[:, t] for the t-1 -> t step).  Returns the partial marginals
+    pm (C, T, K, n) = lik[:, t] * bwds_msg[:, t], bwds_msg[:, T-1] = 1
+    (reference sample_labels.py:164-170)."""
+    T = lik.shape[1]
+    bwds = torch.ones_like(lik[:, 0])
+    pm = [None] * T
+    for t in range(T - 1, 0, -1):
+        pm[t] = lik[:, t] * bwds
+        b = torch.matmul(w[:, t], pm[t])
+        bwds = b / torch.clamp_min(torch.sum(b, dim=1, keepdim=True),
+                                   SMALL_EPS)
+    pm[0] = lik[:, 0] * bwds
+    return torch.stack(pm, dim=1)
+
+
+def _forward_sample_from_gumbel(pm, w0, w, g):
+    """Labels forward in time from the partial marginals pm (C, T, K, n),
+    initial weights w0 (C, K), transitions w (C, T, K, K) and Gumbel
+    noise g (C, T, K, n) (reference sample_labels.py:173-188).
+    Returns z (C, T, n) int64."""
+    C, T, K, n = pm.shape
+    logits0 = torch.log(torch.clamp_min(w0[:, :, None] * pm[:, 0],
+                                        SMALL_EPS))
+    z_t = torch.argmax(logits0 + g[:, 0], dim=1)
+    zs = [z_t]
+    for t in range(1, T):
+        # w[t, z_prev, :] for every node, (C, n, K) -> (C, K, n)
+        rows = torch.gather(w[:, t], 1, z_t[:, :, None].expand(C, n, K))
+        probas = rows.transpose(1, 2) * pm[:, t]
+        logits = torch.log(torch.clamp_min(probas, SMALL_EPS))
+        z_t = torch.argmax(logits + g[:, t], dim=1)
+        zs.append(z_t)
+    return torch.stack(zs, dim=1)
+
+
+def _forward_sample(gen, pm, w0, w):
+    return _forward_sample_from_gumbel(pm, w0, w,
+                                       gumbel(gen, pm.shape, pm.device))
+
+
+def _label_statistics(z, K):
+    """(n_trans (C, T, K, K), nk (C, T, K), resp (C, T, n, K)) from labels
+    z (C, T, n); n_trans[:, 0, 0] holds the initial counts (reference
+    sample_labels.py:146-152)."""
+    C, T, n = z.shape
+    resp = torch.nn.functional.one_hot(z, K).to(torch.float32)
+    nk = torch.sum(resp, dim=2)
+    trans = torch.einsum('ctij,ctik->ctjk', resp[:, :-1], resp[:, 1:])
+    init = torch.zeros((C, 1, K, K), dtype=torch.float32, device=z.device)
+    init[:, 0, 0] = nk[:, 0]
+    return torch.cat([init, trans], dim=1), nk, resp
+
+
+def sample_labels_block(gen, X, mu, sigma, lmbda, weights):
+    """Blocked FFBS with time-inhomogeneous transitions.  weights
+    (C, T, K, K), weights[:, 0, 0] the initial distribution.
+    Returns (z, n_trans, nk, resp)."""
+    K = sigma.shape[-1]
+    lik = emission_likelihoods_kn(X, mu, sigma, lmbda, normalize=True)
+    pm = _backward_messages(lik, weights)
+    z = _forward_sample(gen, pm, weights[:, 0, 0], weights)
+    n_trans, nk, resp = _label_statistics(z, K)
+    return z, n_trans, nk, resp

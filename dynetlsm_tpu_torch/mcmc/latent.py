@@ -1,0 +1,55 @@
+"""Latent-position Metropolis update, exact scheme (counterpart of
+``dynetlsm_tpu/mcmc/latent.py::sample_latent_positions``).
+
+One call runs the exact sequential single-site scan over every (t, node)
+site of C chains: the CUDA node-scan kernel for CUDA tensors at every n,
+its plain PyTorch version for CPU tensors (``ops/node_scan.py``, which
+also holds the per-partner likelihood terms and the prior terms of each
+site's conditional).
+"""
+import torch
+
+from ..math.distributions import normal, uniform
+from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
+    _mixture_prior_per_t, _partial_loglik_terms, _rw_prior_per_t,
+    node_scan, site_cluster_params)
+
+
+def latent_noise(gen, C, T, n, d, device):
+    """The proposal stream of one scan: eps (C, 2, n, T, d) standard
+    normals and log_u (C, 2, n, T) log-uniforms, in the JAX scan's
+    layout."""
+    eps = normal(gen, (C, 2, n, T, d), device)
+    log_u = torch.log(uniform(gen, (C, 2, n, T), device))
+    return eps, log_u
+
+
+def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu, sigma,
+                            lmbda, z, is_directed=False, mixture=True,
+                            scheme='exact', noise=None, cc=None):
+    """One full sweep of single-site MH updates of the positions under the
+    mixture prior.
+
+    Y (T, n, n) uint8; X (C, T, n, d); intercept (C, 1); step_size
+    (C, T, n); mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n).
+    ``noise`` = (eps, log_u) injects the proposal stream.
+    Returns (X_new (C, T, n, d), accepted (C, T, n))."""
+    if scheme != 'exact':
+        raise NotImplementedError(
+            "latent_update=%r is not ported yet; only 'exact'" % (scheme,))
+    if is_directed:
+        raise NotImplementedError('the directed latent update is not '
+                                  'ported yet')
+    if not mixture:
+        raise NotImplementedError('the random-walk (LSM) prior is not '
+                                  'ported to the sweep yet')
+    if cc is not None:
+        raise NotImplementedError('the case-control likelihood is not '
+                                  'ported yet')
+    C, T, n, d = X.shape
+    eps, log_u = (noise if noise is not None
+                  else latent_noise(gen, C, T, n, d, X.device))
+    mu_z, sig_z = site_cluster_params(mu, sigma, z)
+    return node_scan(Y, X.contiguous(), intercept.reshape(C).contiguous(),
+                     step_size.contiguous(), eps, log_u, mu_z=mu_z,
+                     sig_z=sig_z, lmbda=lmbda.contiguous())

@@ -1,0 +1,295 @@
+"""The sticky HDP-LPCM Gibbs sweep (counterpart of
+``dynetlsm_tpu/mcmc/sweeps.py::make_hdp_sweep``, reference
+hdp_lpcm.py:823-1069), on a dense undirected network with fixed Y and the
+exact latent update.
+
+The sweep is a plain function ``sweep(state, gen) -> state`` over a
+chain-batched :class:`~dynetlsm_tpu_torch.mcmc.states.MixtureState`; every
+block draws from the explicit ``torch.Generator``.  On a CUDA device the
+latent update runs the node-scan kernel and the intercept step the pair
+kernel, so the sweep never builds a (C, T, n, n) distance tensor; the log
+joint reuses the intercept step's log-likelihood at the accepted state.
+"""
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SMALL_EPS
+from ..math.distributions import (
+    dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf)
+from ..ops.distances import pairwise_distances
+from ..ops.likelihoods import undirected_loglik_full
+from ..ops.node_scan import site_cluster_params
+from .coefficients import sample_intercept_undirected
+from .conjugate import (
+    sample_cluster_means, sample_cluster_variances, sample_lambda,
+    sample_mean_variance_hyper, sample_sigma_scale_hyper)
+from .hdp import (
+    sample_alpha_kappa_rho, sample_concentration_param, sample_mbar,
+    sample_tables)
+from .labels import _label_statistics, sample_labels_block
+from .latent import sample_latent_positions
+from .metropolis import maybe_tune
+from .states import MixtureState
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """Static sweep configuration (the HDP-LPCM fields of the JAX
+    package's ``SweepConfig``)."""
+    is_directed: bool = False
+    sample_missing: bool = False
+    tune: int = 0                 # sweeps of step-size adaptation
+    tune_interval: int = 100
+    intercept_variance_prior: float = 2.0
+    n_components: int = 10
+    a: float = 2.0
+    lambda_prior: float = 0.9
+    lambda_variance_prior: float = 0.01
+    # hyper-prior shapes (None disables resampling)
+    a0: Optional[float] = None
+    b0: Optional[float] = None
+    c0: Optional[float] = None
+    d0: Optional[float] = None
+    gamma_prior_shape: float = 1.0
+    gamma_prior_rate: float = 0.1
+    alpha_init_shape: float = 1.0
+    alpha_init_rate: float = 1.0
+    alpha_kappa_shape: float = 5.0
+    alpha_kappa_rate: float = 0.1
+    n_control: Optional[int] = None
+    latent_update: str = 'exact'
+    table_cap: int = 64
+    sample_concentrations: bool = True
+    center: bool = True
+
+
+def _check_supported(cfg):
+    if cfg.is_directed:
+        raise NotImplementedError('the directed HDP-LPCM sweep is not '
+                                  'ported yet')
+    if cfg.sample_missing:
+        raise NotImplementedError('missing-dyad resampling is not ported '
+                                  'yet')
+    if cfg.n_control is not None:
+        raise NotImplementedError('the case-control likelihood is not '
+                                  'ported yet')
+    if cfg.latent_update != 'exact':
+        raise NotImplementedError(
+            "latent_update=%r is not ported yet; only 'exact'"
+            % (cfg.latent_update,))
+
+
+def _latent_mixture_loglik(X, z, mu, sigma, lmbda):
+    """Latent-position log density under the mixture dynamics (reference
+    hdp_lpcm.py:1247-1253), per chain."""
+    mu_z, sig_z = site_cluster_params(mu, sigma, z)
+    diff0 = X[:, 0] - mu_z[:, 0]
+    ll = torch.sum(-0.5 * torch.log(sig_z[:, 0])
+                   - 0.5 * torch.sum(diff0 * diff0, dim=-1) / sig_z[:, 0],
+                   dim=1)
+    if X.shape[1] > 1:
+        lam = lmbda[:, None, None, None]
+        difft = X[:, 1:] - (1.0 - lam) * X[:, :-1] - lam * mu_z[:, 1:]
+        ll = ll + torch.sum(
+            -0.5 * torch.log(sig_z[:, 1:])
+            - 0.5 * torch.sum(difft * difft, dim=-1) / sig_z[:, 1:],
+            dim=(1, 2))
+    return ll
+
+
+def _count_chain_loglik(n_trans, nk, w0, w_trans):
+    """sum_k nk[0,k] log w0[k] + sum_{t>0} n_trans[t] . log w[t], per
+    chain."""
+    ll = torch.sum(nk[:, 0] * torch.log(torch.clamp_min(w0, SMALL_EPS)),
+                   dim=1)
+    if n_trans.shape[1] > 1:
+        ll = ll + torch.sum(
+            n_trans[:, 1:] * torch.log(torch.clamp_min(w_trans[:, 1:],
+                                                       SMALL_EPS)),
+            dim=(1, 2, 3))
+    return ll
+
+
+def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
+                         mean_var, b_scale, intercept_prior, net_ll=None):
+    """Network + latent + cluster-parameter + hyper-prior terms of the log
+    joint (reference hdp_lpcm.py:1213-1278).  ``net_ll`` reuses an
+    already-computed network log-likelihood at the current state."""
+    ll = (net_ll if net_ll is not None
+          else undirected_loglik_full(Y, dist, intercept[:, 0]))
+    diff = intercept - intercept_prior
+    ll = ll - torch.sum(0.5 * diff * diff / cfg.intercept_variance_prior,
+                        dim=1)
+    ll = ll + _latent_mixture_loglik(X, z, mu, sigma, lmbda)
+    ll = ll - 0.5 * torch.sum(mu * mu, dim=(1, 2)) / mean_var
+    _, sig_z = site_cluster_params(mu, sigma, z)
+    ll = ll + torch.sum(-(0.5 * cfg.a + 1.0) * torch.log(sig_z)
+                        - 0.5 * b_scale[:, None, None] / sig_z, dim=(1, 2))
+    ll = ll + truncated_normal_logpdf(lmbda, cfg.lambda_prior,
+                                      cfg.lambda_variance_prior)
+    if cfg.a0 is not None:
+        ll = ll + (-(0.5 * cfg.a0 + 1.0) * torch.log(mean_var)
+                   - 0.5 * cfg.b0 / mean_var)
+    if cfg.c0 is not None:
+        ll = ll + (cfg.c0 - 1.0) * torch.log(b_scale) - cfg.d0 * b_scale
+    return ll
+
+
+def _hdp_weights_logp(beta, w0, weights, gamma, alpha_init, alpha, kappa):
+    """Dirichlet prior terms of beta, the initial and the transition
+    distributions, per chain."""
+    C, K = beta.shape
+    T = weights.shape[1]
+    eye = torch.eye(K, dtype=beta.dtype, device=beta.device)
+    logp = dirichlet_logpdf(beta, (gamma / K)[:, None].expand(C, K))
+    logp = logp + dirichlet_logpdf(w0, alpha_init[:, None] * beta)
+    conc_w = (alpha[:, None, None, None] * beta[:, None, None, :]
+              + kappa[:, None, None, None] * eye)
+    logp = logp + torch.sum(dirichlet_logpdf(
+        weights[:, 1:], conc_w.expand(C, T - 1, K, K)), dim=(1, 2))
+    return logp
+
+
+def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
+                      lmbda, weights, beta, gamma, alpha_init, alpha, kappa,
+                      mean_var, b_scale):
+    """Full HDP-LPCM log joint at an arbitrary chain-batched state, with
+    the network term from dense distances (reference hdp_lpcm.py:798-809).
+    Y (T, n, n); intercept_prior (1,)."""
+    K = cfg.n_components
+    n_trans, nk, _ = _label_statistics(z, K)
+    prior = torch.as_tensor(intercept_prior, dtype=X.dtype, device=X.device)
+    w0 = weights[:, 0, 0]
+    logp = _hdp_weights_logp(beta, w0, weights, gamma, alpha_init, alpha,
+                             kappa)
+    logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
+    return logp + _mixture_common_logp(
+        cfg, Y, X, intercept, pairwise_distances(X), z, mu, sigma, lmbda,
+        mean_var, b_scale, prior)
+
+
+def _finish_tuning(cfg, state, acc_X, acc_int):
+    step_X, acc_X = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
+                               state.step_X, acc_X)
+    step_int, acc_int = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
+                                   state.step_int, acc_int)
+    return step_X, acc_X, step_int, acc_int
+
+
+def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
+                   device=None):
+    """Build the sticky HDP-LPCM sweep over the fixed 0/1 network
+    ``Y_fixed`` (T, n, n), stored as uint8 on ``device``.  The returned
+    ``sweep(state, gen)`` carries its configuration as ``sweep.cfg``."""
+    _check_supported(cfg)
+    Y_np = np.asarray(Y_fixed)
+    if not np.isin(Y_np, (0, 1)).all():
+        raise ValueError('Y_fixed must be a 0/1 adjacency (missing dyads '
+                         'are not ported yet)')
+    Y = torch.as_tensor(Y_np.astype(np.uint8), device=device)
+    prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
+                            device=device).reshape(1, -1)
+    prior_mean = float(prior[0, 0])
+    K = cfg.n_components
+
+    def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
+        C, T, n, _ = state.X.shape
+        eye = torch.eye(K, dtype=state.X.dtype, device=state.X.device)
+
+        # latent positions (mixture prior), then centering
+        X, acc_new = sample_latent_positions(
+            gen, Y, state.X, state.intercept, state.step_X, mu=state.mu,
+            sigma=state.sigma, lmbda=state.lmbda, z=state.z)
+        acc_X = state.acc_X + acc_new
+        if cfg.center:
+            X = X - torch.mean(X, dim=(1, 2), keepdim=True)
+
+        # intercept
+        intercept, acc_i, net_ll = sample_intercept_undirected(
+            gen, Y, X, state.intercept, state.step_int, prior_mean,
+            cfg.intercept_variance_prior)
+        acc_int = state.acc_int + acc_i
+
+        # blocked label sampling (hdp_lpcm.py:877)
+        z, n_trans, nk, resp = sample_labels_block(
+            gen, X, state.mu, state.sigma, state.lmbda, state.weights)
+
+        # CRF auxiliary variables (hdp_lpcm.py:881-884)
+        m = sample_tables(gen, n_trans, state.beta, state.alpha_init,
+                          state.alpha, state.kappa, n_max=n,
+                          cap=cfg.table_cap)
+        m_bar, w_override = sample_mbar(gen, m, state.beta, state.kappa,
+                                        state.alpha, n_max=n,
+                                        cap=cfg.table_cap)
+
+        # global stick weights, initial and transition distributions
+        beta = sample_dirichlet(gen, state.gamma[:, None] / K + m_bar)
+        w0 = sample_dirichlet(gen, state.alpha_init[:, None] * beta
+                              + nk[:, 0])
+        conc_t = (state.alpha[:, None, None, None] * beta[:, None, None, :]
+                  + state.kappa[:, None, None, None] * eye + n_trans[:, 1:])
+        w_rest = sample_dirichlet(gen, conc_t)
+        w_first = torch.zeros((C, 1, K, K), dtype=X.dtype, device=X.device)
+        w_first[:, 0, 0] = w0
+        weights = torch.cat([w_first, w_rest], dim=1)
+
+        # conjugate cluster blocks (hdp_lpcm.py:901-954)
+        mu = sample_cluster_means(gen, X, resp, nk, state.sigma,
+                                  state.lmbda, state.mean_var)
+        sigma = sample_cluster_variances(gen, X, resp, nk, mu, state.lmbda,
+                                         cfg.a, state.b_scale)
+        lmbda = sample_lambda(gen, X, z, mu, sigma, cfg.lambda_prior,
+                              cfg.lambda_variance_prior)
+
+        # hyper-priors (hdp_lpcm.py:957-972)
+        mean_var = state.mean_var
+        if cfg.a0 is not None:
+            mean_var = sample_mean_variance_hyper(gen, mu, cfg.a0, cfg.b0)
+        b_scale = state.b_scale
+        if cfg.c0 is not None:
+            b_scale = sample_sigma_scale_hyper(gen, sigma, cfg.a, cfg.c0,
+                                               cfg.d0)
+
+        # concentration parameters (hdp_lpcm.py:977-1023)
+        if cfg.sample_concentrations:
+            gamma = sample_concentration_param(
+                gen, state.gamma,
+                n_clusters=torch.sum(m_bar > 0, dim=1).to(X.dtype),
+                n_samples=torch.clamp_min(torch.sum(m_bar, dim=1), 1.0),
+                prior_shape=cfg.gamma_prior_shape,
+                prior_rate=cfg.gamma_prior_rate)
+            alpha_init = sample_concentration_param(
+                gen, state.alpha_init,
+                n_clusters=torch.sum(m[:, 0, 0], dim=1),
+                n_samples=torch.full_like(state.alpha_init, float(n)),
+                prior_shape=cfg.alpha_init_shape,
+                prior_rate=cfg.alpha_init_rate)
+            alpha, kappa = sample_alpha_kappa_rho(
+                gen, n_trans, m, w_override, state.alpha, state.kappa,
+                cfg.alpha_kappa_shape, cfg.alpha_kappa_rate)
+        else:
+            gamma, alpha_init = state.gamma, state.alpha_init
+            alpha, kappa = state.alpha, state.kappa
+
+        # log joint (hdp_lpcm.py:1188-1280)
+        logp = _hdp_weights_logp(beta, w0, weights, gamma, alpha_init,
+                                 alpha, kappa)
+        logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
+        logp = logp + _mixture_common_logp(
+            cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var,
+            b_scale, prior, net_ll=net_ll)
+
+        step_X, acc_X, step_int, acc_int = _finish_tuning(cfg, state, acc_X,
+                                                          acc_int)
+        return state.replace(
+            it=state.it + 1, X=X, intercept=intercept, z=z, mu=mu,
+            sigma=sigma, lmbda=lmbda, weights=weights, beta=beta,
+            gamma=gamma, alpha_init=alpha_init, alpha=alpha, kappa=kappa,
+            mean_var=mean_var, b_scale=b_scale, step_X=step_X, acc_X=acc_X,
+            step_int=step_int, acc_int=acc_int, logp=logp)
+
+    sweep.cfg = cfg
+    return sweep

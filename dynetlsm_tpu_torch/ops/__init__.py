@@ -1,0 +1,1 @@
+"""Dense likelihood ops and the wrappers of the hand-written kernels."""

@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded through ``ctypes``.  The
+build runs at first use, into ``build/torch_kernels/`` beside the package
+(listed in ``.gitignore``), under a name that hashes the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+``-fmad=false`` keeps every multiply and add separately rounded, as
+PyTorch's elementwise operators round them: the node-scan kernel's accept
+decisions are compared bit for bit with its plain version.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG.parent / 'build' / 'torch_kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    'node_scan_launch': [_P] * 11 + [_I] * 5 + [_P],
+    'pair_loglik_launch': [_P] * 6 + [_I] * 4 + [_P],
+    'pair_loglik_row_blocks': [_I],
+}
+
+
+def _nvcc():
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    path = os.path.join(home, 'bin', 'nvcc')
+    if os.path.exists(path):
+        return path
+    path = shutil.which('nvcc')
+    if path is None:
+        raise RuntimeError('nvcc not found (set CUDA_HOME): the CUDA '
+                           'kernels are built from source at first use')
+    return path
+
+
+def sources():
+    return sorted(CSRC.glob('*.cu'))
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded kernel library, built first if needed.  Attributes
+    ``build_seconds`` (0.0 when reused) and ``build_log`` (nvcc's output,
+    including ``-Xptxas -v`` register and shared-memory counts) describe
+    the build."""
+    srcs = sources()
+    digest = hashlib.sha256()
+    for p in srcs:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / ('libdynetlsm_kernels_%s.so' % digest.hexdigest()[:16])
+    log = ''
+    seconds = 0.0
+    if not so.exists():
+        tmp = so.with_suffix('.so.%d.tmp' % os.getpid())
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed (rc=%d):\n%s'
+                               % (proc.returncode, log))
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.build_seconds = seconds
+    lib.build_log = log
+    lib.path = str(so)
+    return lib
+
+
+def check_tensor(kernel, name, t, shape, dtype, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels take raw pointers and trust their layout."""
+    if (t.device != device or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(
+            '%s: %s must be a contiguous %s tensor of shape %s on %s, got '
+            '%s %s on %s (contiguous=%s)'
+            % (kernel, name, dtype, tuple(shape), device, t.dtype,
+               tuple(t.shape), t.device, t.is_contiguous()))
+
+
+def check_launch(name, rc):
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError('%s: CUDA error %d at launch' % (name, rc))
+
+
+def stream_handle(device):
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,216 @@
+"""Exact sequential latent-position node scan (counterpart of
+``dynetlsm_tpu/ops/pallas_scan.py``).
+
+One call is one full sweep of single-site random-walk MH updates over all
+(t, node) sites of C chains, on an injected proposal stream: eps
+(C, 2, n, T, d) and log_u (C, 2, n, T), the layout of
+``dynetlsm_tpu/mcmc/latent.py::xla_exact_scan``.  Nodes go in index order;
+each node has two parity phases (even t, then odd t); a site is accepted
+iff log_u < ratio.
+
+* :func:`node_scan_plain` is the chain-batched PyTorch port of
+  ``xla_exact_scan`` (undirected; mixture or random-walk prior; optional
+  per-chain temperature).
+* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (undirected,
+  mixture prior, untempered).
+* :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
+  error for what it does not take), the plain version for CPU tensors.
+
+Both sum each site's partner terms as a pairwise tree over the partner
+axis padded to :func:`partner_pad` (level s adds element i + s into
+element i), so they compute bit-identical ratios.
+"""
+import torch
+
+from . import cuda_lib
+from .distances import _sum_sq_last
+from .likelihoods import softplus
+
+# shared memory a block may opt into on sm_90 (232,448 bytes)
+_MAX_SMEM_BYTES = 232448
+
+
+def partner_pad(n):
+    """Length of the padded partner axis: a power of two, at least 32."""
+    p = 32
+    while p < n:
+        p *= 2
+    return p
+
+
+def _tree_sum(a, P):
+    """Pairwise tree sum over the last axis, zero-padded to length P."""
+    a = torch.nn.functional.pad(a, (0, P - a.shape[-1]))
+    while a.shape[-1] > 1:
+        h = a.shape[-1] // 2
+        a = a[..., :h] + a[..., h:]
+    return a[..., 0]
+
+
+def site_cluster_params(mu, sigma, z):
+    """Per-site cluster mean (C, T, n, d) and variance (C, T, n) of the
+    labels z (C, T, n); gathered once per scan (labels are fixed during
+    the latent update)."""
+    c_idx = torch.arange(z.shape[0], device=z.device)[:, None, None]
+    return mu[c_idx, z], sigma[c_idx, z]
+
+
+def _partial_loglik_terms(Y_row, X, x, b):
+    """Per-partner Bernoulli log-lik terms of one node at candidate x
+    (C, T, d) against the field X (C, T, n, d); Y_row (T, n); b (C,).
+    Returns (C, T, n), the node's own slot not masked."""
+    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[:, :, None, :]),
+                                      0.0))
+    eta = b[:, None, None] - dist
+    return Y_row * eta - softplus(eta)
+
+
+def _shift_prev(a, fill=0.0):
+    """a[:, t-1] along axis 1, ``fill`` at t = 0."""
+    return torch.cat([torch.full_like(a[:, :1], fill), a[:, :-1]], dim=1)
+
+
+def _shift_next(a, fill=0.0):
+    """a[:, t+1] along axis 1, ``fill`` at t = T-1."""
+    return torch.cat([a[:, 1:], torch.full_like(a[:, :1], fill)], dim=1)
+
+
+def _mixture_prior_per_t(xs, x_cur, mu_z, sigma_z, lmbda):
+    """AR(1)-to-cluster-mean prior terms of each time's conditional at
+    candidates xs (C, T, d), temporal neighbours fixed at x_cur
+    (reference sample_latent_positions.py:187-199).  mu_z (C, T, d),
+    sigma_z (C, T), lmbda (C,).  Returns (C, T)."""
+    T = xs.shape[1]
+    t_idx = torch.arange(T, device=xs.device)[None, :]
+    lam = lmbda[:, None, None]
+    one_m = 1.0 - lam
+    prev = _shift_prev(x_cur)
+    nxt = _shift_next(x_cur)
+    mu_nxt = _shift_next(mu_z)
+    sig_nxt = _shift_next(sigma_z, 1.0)
+    diff0 = xs - mu_z
+    difft = xs - one_m * prev - lam * mu_z
+    diff = torch.where((t_idx == 0)[..., None], diff0, difft)
+    back = -0.5 * _sum_sq_last(diff) / sigma_z
+    fdiff = nxt - one_m * xs - lam * mu_nxt
+    fwd = -0.5 * _sum_sq_last(fdiff) / sig_nxt
+    fwd = torch.where(t_idx == T - 1, torch.zeros_like(fwd), fwd)
+    return back + fwd
+
+
+def _rw_prior_per_t(xs, x_cur, tau_sq, sigma_sq):
+    """Gaussian random-walk prior terms of each time's conditional
+    (reference sample_latent_positions.py:131-141).  Returns (C, T)."""
+    T = xs.shape[1]
+    t_idx = torch.arange(T, device=xs.device)[None, :]
+    prev = _shift_prev(x_cur)
+    nxt = _shift_next(x_cur)
+    back0 = -0.5 * _sum_sq_last(xs) / tau_sq
+    backt = -0.5 * _sum_sq_last(xs - prev) / sigma_sq
+    back = torch.where(t_idx == 0, back0, backt)
+    fwd = -0.5 * _sum_sq_last(nxt - xs) / sigma_sq
+    fwd = torch.where(t_idx == T - 1, torch.zeros_like(fwd), fwd)
+    return back + fwd
+
+
+def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
+                    sig_z=None, lmbda=None, tau_sq=None, sigma_sq=None,
+                    mixture=True, temper=None):
+    """Chain-batched port of ``xla_exact_scan`` (undirected).
+
+    Y (T, n, n) 0/1; X (C, T, n, d); intercept (C,); step_size (C, T, n);
+    eps (C, 2, n, T, d); log_u (C, 2, n, T).  Mixture prior: mu_z
+    (C, T, n, d), sig_z (C, T, n), lmbda (C,); random-walk prior: scalar
+    tau_sq, sigma_sq.  temper (C,) scales the log-likelihood delta.
+    Returns (X_new (C, T, n, d), accepted (C, T, n) float 0/1)."""
+    C, T, n, d = X.shape
+    P = partner_pad(n)
+    X = X.clone()
+    Yf = Y.to(X.dtype)
+    b = intercept.reshape(C)
+    t_idx = torch.arange(T, device=X.device)
+    partner = torch.arange(n, device=X.device)
+    acc = torch.zeros((C, T, n), dtype=X.dtype, device=X.device)
+    for j in range(n):
+        Y_row = Yf[:, j, :]
+        mask = (partner != j).to(X.dtype)
+        for phase in (0, 1):
+            x_cur = X[:, :, j, :]
+            x_prop = x_cur + step_size[:, :, j, None] * eps[:, phase, j]
+            ll_prop = _partial_loglik_terms(Y_row, X, x_prop, b)
+            ll_cur = _partial_loglik_terms(Y_row, X, x_cur, b)
+            delta_ll = _tree_sum((ll_prop - ll_cur) * mask, P)     # (C, T)
+            if mixture:
+                mz, sz = mu_z[:, :, j], sig_z[:, :, j]
+                lp = _mixture_prior_per_t(x_prop, x_cur, mz, sz, lmbda)
+                lc = _mixture_prior_per_t(x_cur, x_cur, mz, sz, lmbda)
+            else:
+                lp = _rw_prior_per_t(x_prop, x_cur, tau_sq, sigma_sq)
+                lc = _rw_prior_per_t(x_cur, x_cur, tau_sq, sigma_sq)
+            if temper is not None:
+                delta_ll = temper[:, None] * delta_ll
+            ratio = delta_ll + lp - lc
+            accept = (log_u[:, phase, j] < ratio) & ((t_idx % 2) == phase)
+            X[:, :, j, :] = torch.where(accept[..., None], x_prop, x_cur)
+            acc[:, :, j] += accept.to(X.dtype)
+    return X, acc
+
+
+def smem_bytes(T, n, d):
+    """Shared memory one chain's block takes: its (T, n, d) position field
+    plus the (ceil(T/2), P) partner-reduction buffer, float32."""
+    return 4 * (T * n * d + ((T + 1) // 2) * partner_pad(n))
+
+
+def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
+                   lmbda):
+    """Launch the CUDA node-scan kernel (undirected, mixture prior,
+    untempered).  Y (T, n, n) uint8; every other tensor float32 on the
+    same CUDA device, contiguous, shaped as in :func:`node_scan_plain`."""
+    C, T, n, d = X.shape
+    dev = X.device
+    f32 = torch.float32
+    if dev.type != 'cuda':
+        raise ValueError('node_scan_cuda: X must be a CUDA tensor')
+    for name, t, shape, dtype in (
+            ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, n), torch.uint8),
+            ('intercept', intercept, (C,), f32),
+            ('step_size', step_size, (C, T, n), f32),
+            ('eps', eps, (C, 2, n, T, d), f32),
+            ('log_u', log_u, (C, 2, n, T), f32),
+            ('mu_z', mu_z, (C, T, n, d), f32),
+            ('sig_z', sig_z, (C, T, n), f32), ('lmbda', lmbda, (C,), f32)):
+        cuda_lib.check_tensor('node_scan', name, t, shape, dtype, dev)
+    smem = smem_bytes(T, n, d)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            'node_scan_cuda: one chain needs %d bytes of shared memory at '
+            'T=%d, n=%d, d=%d (position field plus reduction buffer); the '
+            'kernel holds at most %d.  Streaming larger fields is not '
+            'implemented.' % (smem, T, n, d, _MAX_SMEM_BYTES))
+    X_out = torch.empty_like(X)
+    acc = torch.empty((C, T, n), dtype=f32, device=dev)
+    lib = cuda_lib.library()
+    rc = lib.node_scan_launch(
+        X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
+        log_u.data_ptr(), mu_z.data_ptr(), sig_z.data_ptr(),
+        intercept.data_ptr(), lmbda.data_ptr(), X_out.data_ptr(),
+        acc.data_ptr(), C, T, n, d, partner_pad(n),
+        cuda_lib.stream_handle(dev))
+    node_scan_cuda.launches += 1
+    cuda_lib.check_launch('node_scan', rc)
+    return X_out, acc
+
+
+node_scan_cuda.launches = 0
+
+
+def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z, sig_z,
+              lmbda):
+    """The exact node scan with the mixture prior: the CUDA kernel for CUDA
+    tensors, :func:`node_scan_plain` for CPU tensors."""
+    if X.is_cuda:
+        return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
+                              sig_z, lmbda)
+    return node_scan_plain(Y, X, intercept, step_size, eps, log_u,
+                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda, mixture=True)

@@ -1,0 +1,160 @@
+"""The port's node scan (dynetlsm_tpu_torch/ops/node_scan.py) against the
+JAX package's exact scan on the same injected proposal stream.
+
+The plain PyTorch version must realise the same Markov chain as
+``xla_exact_scan``: identical accept indicators, positions within
+atol 1e-6 (float32 partner sums taken in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dynetlsm_tpu.mcmc.latent import xla_exact_scan
+from dynetlsm_tpu.ops.pallas_scan import _node_scan_with_noise
+from dynetlsm_tpu_torch.ops.node_scan import (
+    node_scan, node_scan_cuda, node_scan_plain, partner_pad,
+    site_cluster_params)
+
+# (chains, T, n, mixture, tempered): the cases of tests/test_pallas_scan.py
+# that the port covers (undirected)
+CASES = {
+    'lsm': (1, 4, 30, False, False),
+    'mixture': (1, 4, 30, True, False),
+    'odd_T3_lsm': (1, 3, 30, False, False),
+    'odd_T5_lsm': (1, 5, 30, False, False),
+    'odd_T5_mixture': (1, 5, 30, True, False),
+    'large_T10_lsm': (1, 10, 20, False, False),
+    'large_T11_mixture': (1, 11, 20, True, False),
+    'chain_batched_mixture': (3, 4, 30, True, False),
+    'chain_batched_large_T': (2, 10, 20, True, False),
+    'tempered': (3, 4, 30, False, True),
+}
+K = 3
+
+
+def _inputs(seed, C, T, n, d=2):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(C, T, n, d).astype(np.float32)
+    Y = rng.binomial(1, 0.2, (T, n, n)).astype(np.float32)
+    Y = np.triu(Y, 1) + np.transpose(np.triu(Y, 1), (0, 2, 1))
+    step = np.full((C, T, n), 0.3, np.float32)
+    eps = rng.randn(C, 2, n, T, d).astype(np.float32)
+    log_u = np.log(rng.rand(C, 2, n, T)).astype(np.float32)
+    b = (1.0 + 0.2 * rng.randn(C)).astype(np.float32)
+    mu = rng.randn(C, K, d).astype(np.float32)
+    sig = (rng.rand(C, K) + 0.3).astype(np.float32)
+    z = rng.randint(0, K, (C, T, n))
+    lmbda = np.full(C, 0.8, np.float32)
+    temper = np.linspace(1.0, 0.4, C).astype(np.float32)
+    return dict(X=X, Y=Y, step=step, eps=eps, log_u=log_u, b=b, mu=mu,
+                sig=sig, z=z, lmbda=lmbda, temper=temper)
+
+
+def _jax_scan(a, mixture, tempered):
+    """xla_exact_scan vmapped over chains (one compile per case)."""
+    Y = jnp.asarray(a['Y'])
+
+    def one(X, b, step, eps, log_u, mu, sig, z, lmbda, temper):
+        kw = (dict(mu=mu, sigma=sig, z=z, lmbda=lmbda, mixture=True)
+              if mixture else dict(tau_sq=2.0, sigma_sq=0.1, mixture=False))
+        return xla_exact_scan(Y, X, b[None], step, eps, log_u,
+                              temper=temper if tempered else None, **kw)
+
+    out = jax.jit(jax.vmap(one))(
+        *(jnp.asarray(a[k]) for k in ('X', 'b', 'step', 'eps', 'log_u',
+                                      'mu', 'sig')),
+        jnp.asarray(a['z'], jnp.int32), jnp.asarray(a['lmbda']),
+        jnp.asarray(a['temper']))
+    return np.asarray(out[0]), np.asarray(out[1])
+
+
+def _torch_scan(a, mixture, tempered):
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    if mixture:
+        mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+        kw = dict(mu_z=mu_z, sig_z=sig_z, lmbda=t['lmbda'], mixture=True)
+    else:
+        kw = dict(tau_sq=2.0, sigma_sq=0.1, mixture=False)
+    X, acc = node_scan_plain(t['Y'], t['X'], t['b'], t['step'], t['eps'],
+                             t['log_u'],
+                             temper=t['temper'] if tempered else None, **kw)
+    return X.numpy(), acc.numpy()
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_node_scan_matches_xla_scan(case):
+    C, T, n, mixture, tempered = CASES[case]
+    a = _inputs(sorted(CASES).index(case), C, T, n)
+    X_j, acc_j = _jax_scan(a, mixture, tempered)
+    X_t, acc_t = _torch_scan(a, mixture, tempered)
+    assert 0.0 < acc_t.mean() < 1.0
+    np.testing.assert_array_equal(acc_t, acc_j)
+    np.testing.assert_allclose(X_t, X_j, atol=1e-6)
+
+
+def test_plain_node_scan_matches_pallas_kernel():
+    """The Pallas kernel (interpret mode) on the mixture case: the port
+    realises the same chain as the TPU kernel it replaces."""
+    a = _inputs(99, 1, 4, 30)
+    X_p, acc_p = _node_scan_with_noise(
+        jnp.asarray(a['Y']), jnp.asarray(a['X'][0]), float(a['b'][0]),
+        jnp.asarray(a['step'][0]), jnp.asarray(a['eps'][0]),
+        jnp.asarray(a['log_u'][0]), mu=jnp.asarray(a['mu'][0]),
+        sigma=jnp.asarray(a['sig'][0]), lmbda=jnp.float32(a['lmbda'][0]),
+        z=jnp.asarray(a['z'][0], jnp.int32), mixture=True, interpret=True)
+    X_t, acc_t = _torch_scan(a, True, False)
+    np.testing.assert_array_equal(acc_t[0], np.asarray(acc_p))
+    np.testing.assert_allclose(X_t[0], np.asarray(X_p), atol=1e-6)
+
+
+def test_node_scan_dispatch_uses_plain_on_cpu():
+    a = _inputs(5, 2, 4, 12)
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    before = node_scan_cuda.launches
+    X_d, acc_d = node_scan(t['Y'].to(torch.uint8), t['X'], t['b'],
+                           t['step'], t['eps'], t['log_u'], mu_z=mu_z,
+                           sig_z=sig_z, lmbda=t['lmbda'])
+    X_p, acc_p = _torch_scan(a, True, False)
+    assert node_scan_cuda.launches == before
+    np.testing.assert_array_equal(acc_d.numpy(), acc_p)
+    np.testing.assert_array_equal(X_d.numpy(), X_p)
+
+
+def test_node_scan_cuda_rejects_cpu_tensors():
+    a = _inputs(6, 1, 3, 8)
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    with pytest.raises(ValueError, match='CUDA'):
+        node_scan_cuda(t['Y'].to(torch.uint8), t['X'], t['b'], t['step'],
+                       t['eps'], t['log_u'], mu_z, sig_z, t['lmbda'])
+
+
+def test_partner_pad():
+    assert [partner_pad(n) for n in (1, 18, 32, 33, 500)] == \
+        [32, 32, 32, 64, 512]
+
+
+@pytest.mark.cuda
+def test_node_scan_kernel_matches_plain_on_card():
+    """Needs an NVIDIA card with nvcc: the CUDA kernel against its plain
+    version on the card, bit-identical accepts (also checked at the
+    slice's shapes by chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the node-scan kernel has no CPU '
+                    'mode')
+    a = _inputs(7, 4, 5, 40)
+    t = {k: torch.as_tensor(v).cuda() for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    Y8 = t['Y'].to(torch.uint8)
+    X_k, acc_k = node_scan_cuda(Y8, t['X'], t['b'], t['step'], t['eps'],
+                                t['log_u'], mu_z, sig_z, t['lmbda'])
+    X_p, acc_p = node_scan_plain(Y8, t['X'], t['b'], t['step'], t['eps'],
+                                 t['log_u'], mu_z=mu_z, sig_z=sig_z,
+                                 lmbda=t['lmbda'])
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)
