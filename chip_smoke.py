@@ -16,13 +16,24 @@ Phases, each of which fails the run (exit code 1) when it fails:
    K=10): identical accept indicators, positions within 1e-5;
 4. the pair log-likelihood kernel against its plain version at 32 chains,
    T=10, n=500: rtol 1e-5 per candidate, and bit-identical on rerun;
-5. the slice: the HDP-LPCM sweep built by ``entry.build_state_and_sweep``
+5. the directed mode of the node-scan kernel against its plain version,
+   as in 3, on packed ``Y + 2 Y^T`` adjacencies with social radii, at the
+   directed north star (T=10, n=500, 32 chains, K=25) and directed Sampson
+   (T=3, n=18, 512 chains, K=10);
+6. the directed log-likelihood kernel against its plain version at the
+   north star with 1, 2 and 3 candidates, negative intercepts included:
+   rtol 1e-5 per candidate, and bit-identical on rerun;
+7. the slices: the HDP-LPCM sweep built by ``entry.build_state_and_sweep``
    at the north star (synthetic network, K=25, 32 chains) and on Sampson's
-   monastery (K=10, 512 chains), 2 warm-up and 20 timed sweeps through the
-   port's runner; every logp finite, ``it`` = 22, each kernel launched once
-   per sweep, and the final logp equal to the log joint recomputed densely
-   from the final state (rtol 1e-5);
-6. each kernel's time beside its plain version's at the slice's shapes
+   monastery (K=10, 512 chains), undirected and directed, 2 warm-up and 20
+   timed sweeps each through the port's runner, with every launch counter
+   set to 0 just before and read just after; every logp finite, ``it`` =
+   22, the node scan launched once per sweep and the pair kernel once per
+   undirected sweep or the directed kernel three times per directed sweep
+   (and the other not at all), and the final logp equal to the log joint
+   recomputed densely from the final state (rtol 1e-5 plus atol 1e-3:
+   one float32 ulp of the log joint's largest terms);
+8. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -41,6 +52,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NS = dict(T=10, n=500, K=25, C=32)
 SAMPSON = dict(T=3, n=18, K=10, C=512)
 WARM, TIMED = 2, 20
+KERNELS = ('node_scan', 'pair_loglik', 'dir_loglik')
 
 
 class SmokeFailure(Exception):
@@ -84,24 +96,38 @@ def cuda_ms(fn, repeats, warmup=1):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: node scan
+# phases 3 and 5: node scan, undirected and directed
 # ---------------------------------------------------------------------------
 
-def scan_inputs(C, T, n, K, dev, seed, d=2):
+def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False):
+    """Numpy-seeded inputs of one scan.  Directed: a zero-diagonal directed
+    Y packed as Y + 2 Y^T, intercepts (C, 2) with a negative b_in in every
+    fourth chain, and radii of order 1 (so eta is of order 1 and the
+    likelihood, not the prior, decides most sites)."""
     import torch
-    from dynetlsm_tpu_torch.ops.node_scan import site_cluster_params
+    from dynetlsm_tpu_torch.ops.node_scan import (
+        pack_directed, site_cluster_params)
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.05, (T, n, n))
-    Y = np.triu(Y, 1)
-    Y = (Y + Y.transpose(0, 2, 1)).astype(np.uint8)
+    if directed:
+        Y[:, np.arange(n), np.arange(n)] = 0
+    else:
+        Y = np.triu(Y, 1)
+        Y = Y + Y.transpose(0, 2, 1)
     arrs = dict(
         X=rng.randn(C, T, n, d), step=np.full((C, T, n), 0.1),
         eps=rng.randn(C, 2, n, T, d), log_u=np.log(rng.rand(C, 2, n, T)),
         b=1.0 + 0.1 * rng.randn(C), mu=rng.randn(C, K, d),
         sig=rng.rand(C, K) + 0.3, lmbda=np.full(C, 0.9))
+    if directed:
+        b = 1.0 + 0.1 * rng.randn(C, 2)
+        b[::4, 0] = -0.5
+        arrs.update(b=b, radii=0.5 + rng.rand(C, n))
     t = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
          for k, v in arrs.items()}
-    t['Y'] = torch.as_tensor(Y, device=dev)
+    t['Y'] = torch.as_tensor(Y.astype(np.uint8), device=dev)
+    if directed:
+        t['Y'] = pack_directed(t['Y'])
     z = torch.as_tensor(rng.randint(0, K, (C, T, n)), device=dev)
     t['mu_z'], t['sig_z'] = site_cluster_params(t['mu'], t['sig'], z)
     return t
@@ -111,13 +137,26 @@ def scan_args(t):
     return (t['Y'], t['X'], t['b'], t['step'], t['eps'], t['log_u'])
 
 
+def run_scan(t, kernel):
+    """The kernel or its plain version on the inputs ``t``."""
+    from dynetlsm_tpu_torch.ops.node_scan import (
+        node_scan_cuda, node_scan_plain)
+    radii = t.get('radii')
+    if kernel:
+        return node_scan_cuda(*scan_args(t), t['mu_z'], t['sig_z'],
+                              t['lmbda'], radii=radii)
+    return node_scan_plain(*scan_args(t), mu_z=t['mu_z'], sig_z=t['sig_z'],
+                           lmbda=t['lmbda'], radii=radii)
+
+
 def first_mismatch(t, acc_k, acc_p, X_k):
     """The first differing site in scan order and its margin
     |log_u - ratio|, recomputed with the plain formulas from the field at
     that moment (identical in both runs up to that site)."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
-        _mixture_prior_per_t, _partial_loglik_terms, _tree_sum, partner_pad)
+        _directed_partial_loglik_terms, _mixture_prior_per_t,
+        _partial_loglik_terms, _tree_sum, partner_pad)
     diff = (acc_k != acc_p).nonzero().tolist()          # (c, t, j)
     c, t_, j = min(diff, key=lambda s: (s[0], s[2], s[1] % 2, s[1]))
     phase = t_ % 2
@@ -128,11 +167,23 @@ def first_mismatch(t, acc_k, acc_p, X_k):
     x_cur = X[:, :, j]
     x_prop = x_cur + t['step'][c:c + 1, :, j, None] * t['eps'][c:c + 1,
                                                               phase, j]
-    Yf = t['Y'][:, j].to(torch.float32)
     mask = (torch.arange(X.shape[2], device=X.device) != j).float()
     b = t['b'][c:c + 1]
-    delta = _tree_sum((_partial_loglik_terms(Yf, X, x_prop, b)
-                       - _partial_loglik_terms(Yf, X, x_cur, b)) * mask,
+    if 'radii' in t:
+        r = t['radii'][c:c + 1]
+        b_in, b_out = b[:, 0], b[:, 1]
+        p_out = b_in[:, None] / r + b_out[:, None] / r[:, j, None]
+        p_in = b_out[:, None] / r + b_in[:, None] / r[:, j, None]
+
+        def terms(x):
+            return _directed_partial_loglik_terms(t['Y'][:, j], X, x,
+                                                  b_in + b_out, p_out, p_in)
+    else:
+        Yf = t['Y'][:, j].to(torch.float32)
+
+        def terms(x):
+            return _partial_loglik_terms(Yf, X, x, b)
+    delta = _tree_sum((terms(x_prop) - terms(x_cur)) * mask,
                       partner_pad(X.shape[2]))
     mz, sz, lam = t['mu_z'][c:c + 1, :, j], t['sig_z'][c:c + 1, :, j], \
         t['lmbda'][c:c + 1]
@@ -142,16 +193,12 @@ def first_mismatch(t, acc_k, acc_p, X_k):
     return dict(chain=c, node=j, phase=phase, t=t_, margin=margin)
 
 
-def check_node_scan(shape, dev, seed):
+def check_node_scan(shape, dev, seed, directed=False):
     import torch
-    from dynetlsm_tpu_torch.ops.node_scan import (
-        node_scan_cuda, node_scan_plain)
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
-                    seed)
-    X_k, acc_k = node_scan_cuda(*scan_args(t), t['mu_z'], t['sig_z'],
-                                t['lmbda'])
-    X_p, acc_p = node_scan_plain(*scan_args(t), mu_z=t['mu_z'],
-                                 sig_z=t['sig_z'], lmbda=t['lmbda'])
+                    seed, directed=directed)
+    X_k, acc_k = run_scan(t, kernel=True)
+    X_p, acc_p = run_scan(t, kernel=False)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(X_k).all()), 'node_scan: non-finite X')
     if not torch.equal(acc_k, acc_p):
@@ -162,8 +209,8 @@ def check_node_scan(shape, dev, seed):
     check(err <= 1e-5, 'node_scan: max |dX| = %g > 1e-5' % err)
     rate = float(acc_k.mean())
     check(0.0 < rate < 1.0, 'node_scan: acceptance rate %g' % rate)
-    log('node_scan %s: accepts identical (rate %.4f), max |dX| %g'
-        % (shape, rate, err))
+    log('node_scan%s %s: accepts identical (rate %.4f), max |dX| %g'
+        % (' directed' if directed else '', shape, rate, err))
     return t, err
 
 
@@ -204,57 +251,117 @@ def check_pair(shape, dev, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the slice
+# phase 6: directed log-likelihood
 # ---------------------------------------------------------------------------
 
-def run_slice(name, Y, shape, dev):
+def dir_inputs(C, T, n, n_cand, dev, seed):
+    """Packed directed Y, radii of order 1 and intercepts with a negative
+    b_in in every chain's first candidate."""
+    import torch
+    from dynetlsm_tpu_torch.ops.node_scan import pack_directed
+    rng = np.random.RandomState(seed)
+    Y = rng.binomial(1, 0.05, (T, n, n))
+    Y[:, np.arange(n), np.arange(n)] = 0
+    b = 0.3 + 0.5 * rng.randn(C, n_cand, 2)
+    b[:, 0, 0] = -np.abs(b[:, 0, 0]) - 0.1
+    f = dict(dtype=torch.float32, device=dev)
+    return (pack_directed(torch.as_tensor(Y.astype(np.uint8), device=dev)),
+            torch.as_tensor(rng.randn(C, T, n, 2), **f),
+            torch.as_tensor(0.5 + rng.rand(C, n_cand, n), **f),
+            torch.as_tensor(b, **f))
+
+
+def check_dir(shape, n_cand, dev, seed):
+    import torch
+    from dynetlsm_tpu_torch.ops.dir_loglik import (
+        dir_loglik_cuda, dir_loglik_plain)
+    args = dir_inputs(shape['C'], shape['T'], shape['n'], n_cand, dev, seed)
+    got = dir_loglik_cuda(*args)
+    again = dir_loglik_cuda(*args)
+    want = dir_loglik_plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), 'dir_loglik: non-finite')
+    check(torch.equal(got, again), 'dir_loglik: rerun not bit-identical')
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= 1e-5, 'dir_loglik n_cand=%d: max rel err %g > 1e-5'
+          % (n_cand, rel))
+    err = float((got - want).abs().max())
+    log('dir_loglik %s n_cand=%d: max rel err %g (abs %g), rerun '
+        'bit-identical' % (shape, n_cand, rel, err))
+    return args, err
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the slices
+# ---------------------------------------------------------------------------
+
+def launch_counters():
+    from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_cuda
+    from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
+    from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_cuda
+    return {'node_scan': node_scan_cuda, 'pair_loglik': pair_loglik_cuda,
+            'dir_loglik': dir_loglik_cuda}
+
+
+def run_slice(name, Y, shape, dev, directed=False):
     import torch
     from dynetlsm_tpu_torch.entry import build_state_and_sweep
     from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
     from dynetlsm_tpu_torch.mcmc.sweeps import hdp_logp_at_state
-    from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
-    from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_cuda
     C = shape['C']
     state, sweep, gen = build_state_and_sweep(Y, C, K=shape['K'],
-                                              device=dev)
+                                              device=dev,
+                                              is_directed=directed)
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
                               chunk=TIMED)
-    node_scan_cuda.launches = 0
-    pair_loglik_cuda.launches = 0
+    sweeps = WARM + TIMED
+    expected = ({'node_scan': sweeps, 'pair_loglik': 0,
+                 'dir_loglik': 3 * sweeps} if directed else
+                {'node_scan': sweeps, 'pair_loglik': sweeps,
+                 'dir_loglik': 0})
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     state, warm = runner(state, gen, WARM)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, traced = runner(state, gen, TIMED)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {'node_scan': node_scan_cuda.launches,
-                'pair_loglik': pair_loglik_cuda.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     logps = torch.cat([warm['logp'][:WARM], traced['logp'][:TIMED]])
     check(bool(torch.isfinite(logps).all()), '%s: non-finite logp' % name)
-    check(bool((state.it == WARM + TIMED).all()), '%s: it != %d'
-          % (name, WARM + TIMED))
+    check(bool((state.it == sweeps).all()), '%s: it != %d'
+          % (name, sweeps))
     for k, v in launches.items():
-        check(v == WARM + TIMED, '%s: %s launched %d times in %d sweeps'
-              % (name, k, v, WARM + TIMED))
+        check(v == expected[k], '%s: %s launched %d times in %d sweeps, '
+              'expected %d' % (name, k, v, sweeps, expected[k]))
     T, n = Y.shape[:2]
     check(tuple(state.X.shape) == (C, T, n, 2), '%s: X shape' % name)
-    acc_rate = float(state.acc_X.mean()) / (WARM + TIMED)
+    acc_rate = float(state.acc_X.mean()) / sweeps
     check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
     s = state
     dense = hdp_logp_at_state(
-        sweep.cfg, torch.as_tensor(Y, device=dev), np.zeros(1, np.float32),
+        sweep.cfg, torch.as_tensor(Y, device=dev),
+        np.zeros(2 if directed else 1, np.float32),
         s.X, s.intercept, s.z, s.mu, s.sigma, s.lmbda, s.weights, s.beta,
-        s.gamma, s.alpha_init, s.alpha, s.kappa, s.mean_var, s.b_scale)
+        s.gamma, s.alpha_init, s.alpha, s.kappa, s.mean_var, s.b_scale,
+        radii=s.radii)
     gap = (dense - s.logp).abs()
     rel = float((gap / s.logp.abs()).max())
     check(bool((gap <= 1e-5 * s.logp.abs() + 1e-3).all()),
           '%s: sweep logp vs dense log joint rel err %g' % (name, rel))
     ms = 1e3 * elapsed / TIMED
+    extra = ''
+    if directed:
+        extra = (', radii acceptance %.3f, intercepts mean %s'
+                 % (float(s.acc_radii.mean()) / sweeps,
+                    [round(float(v), 4) for v in s.intercept.mean(0)]))
     log('slice %s (T=%d, n=%d, K=%d, %d chains): %.3f ms/sweep, %.1f '
         'sweeps/s x chains, X acceptance %.3f, logp mean %.2f, '
-        'dense-logp rel err %g, launches %s'
+        'dense-logp rel err %g (abs %g), launches %s%s'
         % (name, T, n, shape['K'], C, ms, C / (ms / 1e3), acc_rate,
-           float(s.logp.mean()), rel, launches))
+           float(s.logp.mean()), rel, float(gap.max()), launches, extra))
     return launches, ms
 
 
@@ -288,6 +395,13 @@ def main():
         scan_sa, err_scan_sa = check_node_scan(SAMPSON, dev, seed=2)
         pair_ns, err_pair_ns = check_pair(NS, dev, seed=3)
         pair_sa, err_pair_sa = check_pair(SAMPSON, dev, seed=4)
+        dscan_ns, err_dscan_ns = check_node_scan(NS, dev, seed=5,
+                                                 directed=True)
+        dscan_sa, err_dscan_sa = check_node_scan(SAMPSON, dev, seed=6,
+                                                 directed=True)
+        dir_ns = {}
+        for n_cand in (1, 2, 3):
+            dir_ns[n_cand] = check_dir(NS, n_cand, dev, seed=6 + n_cand)
 
         from dynetlsm_tpu_torch.datasets import (
             load_dynamic_monks, northstar_network)
@@ -295,49 +409,70 @@ def main():
                                      dev)
         launch_sa, ms_sa = run_slice('sampson', load_dynamic_monks(),
                                      SAMPSON, dev)
+        launch_dns, ms_dns = run_slice(
+            'northstar directed', northstar_network(directed=True), NS, dev,
+            directed=True)
+        launch_dsa, ms_dsa = run_slice(
+            'sampson directed', load_dynamic_monks(is_directed=True),
+            SAMPSON, dev, directed=True)
 
-        from dynetlsm_tpu_torch.ops.node_scan import (
-            node_scan_cuda, node_scan_plain)
+        from dynetlsm_tpu_torch.ops.dir_loglik import (
+            dir_loglik_cuda, dir_loglik_plain)
         from dynetlsm_tpu_torch.ops.pair_loglik import (
             pair_loglik_cuda, pair_loglik_plain)
 
         def scan_times(t):
-            k = cuda_ms(lambda: node_scan_cuda(*scan_args(t), t['mu_z'],
-                                               t['sig_z'], t['lmbda']), 10)
-            p = cuda_ms(lambda: node_scan_plain(
-                *scan_args(t), mu_z=t['mu_z'], sig_z=t['sig_z'],
-                lmbda=t['lmbda']), 3)
-            return k, p
+            return (cuda_ms(lambda: run_scan(t, kernel=True), 10),
+                    cuda_ms(lambda: run_scan(t, kernel=False), 3))
 
         def pair_times(args):
             return (cuda_ms(lambda: pair_loglik_cuda(*args), 20),
                     cuda_ms(lambda: pair_loglik_plain(*args), 5))
 
+        def dir_times(args):
+            return (cuda_ms(lambda: dir_loglik_cuda(*args), 20),
+                    cuda_ms(lambda: dir_loglik_plain(*args), 5))
+
+        for n_cand in (1, 3):
+            log('dir_loglik %s n_cand=%d: kernel %.4f ms, plain %.4f ms'
+                % (NS, n_cand, *dir_times(dir_ns[n_cand][0])))
+
         kernels = []
+        scan_cu = 'dynetlsm_tpu_torch/csrc/node_scan.cu'
+        pair_cu = 'dynetlsm_tpu_torch/csrc/pair_loglik.cu'
+        dir_cu = 'dynetlsm_tpu_torch/csrc/dir_loglik.cu'
+        scan_py = 'dynetlsm_tpu/ops/pallas_scan.py'
+        loglik_py = 'dynetlsm_tpu/ops/pallas_loglik.py'
         rows = [
-            ('node_scan', 'dynetlsm_tpu_torch/csrc/node_scan.cu',
-             'dynetlsm_tpu/ops/pallas_scan.py:157', NS, launch_ns,
-             err_scan_ns, scan_times(scan_ns)),
-            ('node_scan', 'dynetlsm_tpu_torch/csrc/node_scan.cu',
-             'dynetlsm_tpu/ops/pallas_scan.py:637', SAMPSON, launch_sa,
-             err_scan_sa, scan_times(scan_sa)),
-            ('pair_loglik', 'dynetlsm_tpu_torch/csrc/pair_loglik.cu',
-             'dynetlsm_tpu/ops/pallas_loglik.py:25', NS, launch_ns,
-             err_pair_ns, pair_times(pair_ns)),
-            ('pair_loglik', 'dynetlsm_tpu_torch/csrc/pair_loglik.cu',
-             'dynetlsm_tpu/ops/pallas_loglik.py:25', SAMPSON, launch_sa,
-             err_pair_sa, pair_times(pair_sa)),
+            ('node_scan', 'undirected', scan_cu, scan_py + ':157', NS,
+             launch_ns, err_scan_ns, scan_times(scan_ns)),
+            ('node_scan', 'undirected', scan_cu, scan_py + ':637', SAMPSON,
+             launch_sa, err_scan_sa, scan_times(scan_sa)),
+            ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25', NS,
+             launch_ns, err_pair_ns, pair_times(pair_ns)),
+            ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25',
+             SAMPSON, launch_sa, err_pair_sa, pair_times(pair_sa)),
+            ('node_scan', 'directed', scan_cu, scan_py + ':157', NS,
+             launch_dns, err_dscan_ns, scan_times(dscan_ns)),
+            ('node_scan', 'directed', scan_cu, scan_py + ':637', SAMPSON,
+             launch_dsa, err_dscan_sa, scan_times(dscan_sa)),
+            ('dir_loglik', 'directed, n_cand=2', dir_cu, loglik_py + ':219',
+             NS, launch_dns, max(e for _, e in dir_ns.values()),
+             dir_times(dir_ns[2][0])),
         ]
-        for name, source, replaces, shape, launches, err, (ms, pms) in rows:
-            log('%s %s: kernel %.4f ms, plain %.4f ms'
-                % (name, shape, ms, pms))
+        for (name, mode, source, replaces, shape, launches, err,
+             (ms, pms)) in rows:
+            log('%s (%s) %s: kernel %.4f ms, plain %.4f ms'
+                % (name, mode, shape, ms, pms))
             kernels.append({
                 'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, 'launches': launches[name],
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
+                'mode': mode,
                 'shape': 'T=%(T)d n=%(n)d K=%(K)d chains=%(C)d' % shape})
-        log('slice ms/sweep: northstar %.3f, sampson %.3f'
-            % (ms_ns, ms_sa))
+        log('slice ms/sweep: northstar %.3f, sampson %.3f, northstar '
+            'directed %.3f, sampson directed %.3f'
+            % (ms_ns, ms_sa, ms_dns, ms_dsa))
     except SmokeFailure as e:
         log('chip_smoke FAILED: %s' % e)
         return 1

@@ -3,18 +3,18 @@
 //
 // Replaces the Pallas kernels dynetlsm_tpu/ops/pallas_scan.py::
 // _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in the
-// undirected, mixture-prior, untempered mode; T is a runtime argument, so
-// one kernel serves both.  With the same injected proposal stream
-// (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises the same Markov chain as
-// dynetlsm_tpu/mcmc/latent.py::xla_exact_scan: nodes in index order, each
-// node in two parity phases (even t, then odd t), a site accepted iff
-// log_u < ratio.
+// mixture-prior, untempered mode, undirected or directed social-radii; T
+// is a runtime argument, so one kernel serves both.  With the same
+// injected proposal stream (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises
+// the same Markov chain as dynetlsm_tpu/mcmc/latent.py::xla_exact_scan:
+// nodes in index order, each node in two parity phases (even t, then odd
+// t), a site accepted iff log_u < ratio.
 //
 // What bounds it on the H100: the scan is 2n dependent steps per sweep, so
 // it is latency-bound, not bandwidth- or FLOP-bound.  Per step a chain does
-// ceil(T/2) * n partner terms (two sqrt/exp/log1p evaluations each) and a
-// reduction; the adjacency (T*n*n bytes, 2.5 MB at T=10, n=500) stays in
-// L2 across chains.
+// ceil(T/2) * n partner terms (two sqrt/exp/log1p evaluations each, four
+// directed) and a reduction; the adjacency (T*n*n bytes, 2.5 MB at T=10,
+// n=500) stays in L2 across chains.
 //
 // Design: one thread block per chain keeps that chain's (T, n, d) position
 // field in shared memory for the whole scan (40 KB at T=10, n=500, d=2),
@@ -28,6 +28,16 @@
 // prior delta, decides, and writes the site back to shared memory.
 // C blocks on 132 SMs is low occupancy at few chains; a chain's steps
 // cannot be spread over blocks without a grid-wide barrier per step.
+//
+// Directed mode (template kDirected): the adjacency arrives packed as
+// Y + 2 Y^T (uint8), so row j of it gives both the out-edge bit y = Y[j,i]
+// and the in-edge bit yt = Y[i,j] of every partner i in one contiguous
+// read.  eta is evaluated in the hoisted-reciprocal form of the JAX scan,
+//   eta_out = (b_in + b_out) - d * (b_in / r_i + b_out / r_j),
+//   eta_in  = (b_in + b_out) - d * (b_out / r_i + b_in / r_j),
+// with u = b_in / r and v = b_out / r divided once per launch into shared
+// memory (IEEE division, as PyTorch divides), so the plain version rounds
+// every term alike.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -41,17 +51,25 @@ __device__ __forceinline__ float softplus(float eta) {
   return m + log1pf(expf(-fabsf(eta)));
 }
 
+// b: (C,) intercepts, or (C, 2) = (b_in, b_out) when kDirected; radii:
+// (C, n) when kDirected, unused otherwise; Y: the 0/1 adjacency, or the
+// packed Y + 2 Y^T when kDirected.
+template <bool kDirected>
 __global__ void node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
     const float* __restrict__ step, const float* __restrict__ eps,
     const float* __restrict__ log_u, const float* __restrict__ mu_z,
     const float* __restrict__ sig_z, const float* __restrict__ b,
-    const float* __restrict__ lmbda, float* __restrict__ X_out,
-    float* __restrict__ acc, int T, int n, int d, int P) {
+    const float* __restrict__ radii, const float* __restrict__ lmbda,
+    float* __restrict__ X_out, float* __restrict__ acc, int T, int n, int d,
+    int P) {
   extern __shared__ float smem[];
   const int field = T * n * d;
   float* xs = smem;           // (T, n, d) this chain's positions
   float* red = smem + field;  // (ceil(T/2), P) per-partner deltas
+  float* u_s = red + ((T + 1) / 2) * P;  // directed: b_in / r, (n,)
+  float* v_s = u_s + n;                  // directed: b_out / r, (n,)
+  float* r_s = v_s + n;                  // directed: r, (n,)
 
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
@@ -60,7 +78,19 @@ __global__ void node_scan_kernel(
   const float* X_c = X_in + (size_t)c * field;
   for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
 
-  const float bc = b[c];
+  const float bc = kDirected ? 0.0f : b[c];
+  const float b_in = kDirected ? b[2 * c] : 0.0f;
+  const float b_out = kDirected ? b[2 * c + 1] : 0.0f;
+  const float both = b_in + b_out;
+  if (kDirected) {
+    const float* radii_c = radii + (size_t)c * n;
+    for (int k = tid; k < n; k += nthr) {
+      const float r = radii_c[k];
+      r_s[k] = r;
+      u_s[k] = b_in / r;
+      v_s[k] = b_out / r;
+    }
+  }
   const float lam = lmbda[c];
   const float one_m = 1.0f - lam;
   const float* step_c = step + (size_t)c * T * n;
@@ -72,6 +102,9 @@ __global__ void node_scan_kernel(
   __syncthreads();
 
   for (int j = 0; j < n; ++j) {
+    // directed: the node's own reciprocal terms b_out / r_j and b_in / r_j
+    const float bo_rj = kDirected ? b_out / r_s[j] : 0.0f;
+    const float bi_rj = kDirected ? b_in / r_s[j] : 0.0f;
     for (int phase = 0; phase < 2; ++phase) {
       const int th = (T - phase + 1) / 2;  // in-phase times phase, phase+2, ..
       const float* eps_j = eps_c + ((size_t)phase * n + j) * T * d;
@@ -96,11 +129,30 @@ __global__ void node_scan_kernel(
             d2p = (q == 0) ? dp * dp : d2p + dp * dp;
             d2c = (q == 0) ? dc * dc : d2c + dc * dc;
           }
-          const float y = (float)Y[((size_t)t * n + j) * n + i];
-          const float eta_p = bc - sqrtf(fmaxf(d2p, 0.0f));
-          const float eta_c = bc - sqrtf(fmaxf(d2c, 0.0f));
-          const float llp = y * eta_p - softplus(eta_p);
-          const float llc = y * eta_c - softplus(eta_c);
+          const uint8_t yb = Y[((size_t)t * n + j) * n + i];
+          float llp, llc;
+          if (kDirected) {
+            const float y = (float)(yb & 1);    // edge j -> i
+            const float yt = (float)(yb >> 1);  // edge i -> j
+            const float p_out = u_s[i] + bo_rj;
+            const float p_in = v_s[i] + bi_rj;
+            const float dist_p = sqrtf(fmaxf(d2p, 0.0f));
+            const float dist_c = sqrtf(fmaxf(d2c, 0.0f));
+            const float eo_p = both - dist_p * p_out;
+            const float ei_p = both - dist_p * p_in;
+            const float eo_c = both - dist_c * p_out;
+            const float ei_c = both - dist_c * p_in;
+            llp = y * eo_p - softplus(eo_p);
+            llp = llp + (yt * ei_p - softplus(ei_p));
+            llc = y * eo_c - softplus(eo_c);
+            llc = llc + (yt * ei_c - softplus(ei_c));
+          } else {
+            const float y = (float)yb;
+            const float eta_p = bc - sqrtf(fmaxf(d2p, 0.0f));
+            const float eta_c = bc - sqrtf(fmaxf(d2c, 0.0f));
+            llp = y * eta_p - softplus(eta_p);
+            llc = y * eta_c - softplus(eta_c);
+          }
           term = (llp - llc) * (i == j ? 0.0f : 1.0f);
         }
         red[m * P + i] = term;
@@ -178,20 +230,29 @@ __global__ void node_scan_kernel(
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).
-// P: the partner axis padded to a power of two >= 32.
+// P: the partner axis padded to a power of two >= 32.  directed != 0
+// selects the social-radii likelihood (b (C, 2), radii (C, n), Y packed
+// Y + 2 Y^T); otherwise b is (C,) and radii may be null.
 extern "C" int node_scan_launch(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
-    const float* b, const float* lmbda, float* X_out, float* acc, int C,
-    int T, int n, int d, int P, void* stream) {
+    const float* b, const float* radii, const float* lmbda, float* X_out,
+    float* acc, int C, int T, int n, int d, int P, int directed,
+    void* stream) {
   const size_t smem =
-      ((size_t)T * n * d + (size_t)((T + 1) / 2) * P) * sizeof(float);
+      ((size_t)T * n * d + (size_t)((T + 1) / 2) * P
+       + (directed ? 3 * (size_t)n : 0)) * sizeof(float);
+  void (*kernel)(const float*, const uint8_t*, const float*, const float*,
+                 const float*, const float*, const float*, const float*,
+                 const float*, const float*, float*, float*, int, int, int,
+                 int) =
+      directed ? node_scan_kernel<true> : node_scan_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      node_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = P < kMaxThreads ? P : kMaxThreads;
-  node_scan_kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
-      X, Y, step, eps, log_u, mu_z, sig_z, b, lmbda, X_out, acc, T, n, d, P);
+  kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
+      X, Y, step, eps, log_u, mu_z, sig_z, b, radii, lmbda, X_out, acc, T, n,
+      d, P);
   return (int)cudaGetLastError();
 }

@@ -4,25 +4,26 @@
 * :func:`entry` — one HDP-LPCM Gibbs sweep on a tiny random problem, with
   its arguments.
 * :func:`build_state_and_sweep` — a replicated chain state and the sweep
-  for a dense undirected network, with random initialisation (the
-  ``quality_init=False`` path of ``bench.py``; GMDS and k-means
+  for a dense undirected or directed network, with random initialisation
+  (the ``quality_init=False`` path of ``bench.py``; GMDS and k-means
   initialisation belong to the estimator, not ported yet).
 """
 import numpy as np
 import torch
 
+from .math.init import initialize_radii
 from .mcmc.driver import replicate_state
 from .mcmc.sweeps import SweepConfig, make_hdp_sweep
 
 
-def _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0):
+def _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0, n_int=1):
     return {
-        'it': 0, 'X': X0, 'intercept': np.ones(1), 'z': z0, 'mu': mu0,
+        'it': 0, 'X': X0, 'intercept': np.ones(n_int), 'z': z0, 'mu': mu0,
         'sigma': sigma0, 'lmbda': 0.9, 'weights': weights0, 'beta': beta0,
         'gamma': 1.0, 'alpha_init': 1.0, 'alpha': 1.0, 'kappa': 4.0,
         'mean_var': 1.0, 'b_scale': 2.4, 'step_X': np.full((T, n), 0.1),
-        'acc_X': np.zeros((T, n)), 'step_int': np.full((1,), 0.1),
-        'acc_int': np.zeros(1), 'logp': 0.0}
+        'acc_X': np.zeros((T, n)), 'step_int': np.full((n_int,), 0.1),
+        'acc_int': np.zeros(n_int), 'logp': 0.0}
 
 
 def _tiny_problem(n_chains=1, T=3, n=18, K=5, d=2, seed=0, device=None):
@@ -49,12 +50,14 @@ def entry(device=None):
 
 
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
-                          device=None):
+                          device=None, is_directed=False):
     """A replicated chain state, the HDP sweep and its generator for the
-    dense undirected network Y (T, n, n), with the configuration of
-    ``bench.py``'s headline rows.  The initial state draws the same NumPy
-    random numbers as ``bench.build_state_and_sweep(...,
-    quality_init=False)``.  Returns (state, sweep, gen)."""
+    dense network Y (T, n, n), undirected or directed (social radii
+    initialised from the degrees, step 175000, tuned), with the
+    configuration of ``bench.py``'s headline and directed rows.  The
+    initial state draws the same NumPy random numbers as
+    ``bench.build_state_and_sweep(..., quality_init=False)``.
+    Returns (state, sweep, gen)."""
     rng = np.random.RandomState(seed)
     T, n, _ = Y.shape
     d = 2
@@ -69,10 +72,16 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
         for k in range(K):
             weights0[t, k] = rng.dirichlet(beta0 + 4.0 * np.eye(K)[k])
 
-    cfg = SweepConfig(tune=0, tune_interval=100, n_components=K,
-                      a0=36.0, b0=40.0, c0=5.0, d0=2.0, table_cap=table_cap)
-    sweep = make_hdp_sweep(Y, np.zeros(1, np.float32), cfg, device=device)
-    s0 = _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0)
+    cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
+                      n_components=K, a0=36.0, b0=40.0, c0=5.0, d0=2.0,
+                      table_cap=table_cap, tune_radii=is_directed)
+    n_int = 2 if is_directed else 1
+    sweep = make_hdp_sweep(Y, np.zeros(n_int, np.float32), cfg,
+                           device=device)
+    s0 = _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0, n_int)
+    if is_directed:
+        s0.update(radii=initialize_radii(Y), step_radii=175000.0,
+                  acc_radii=0.0)
     state = replicate_state(s0, n_chains, device)
     gen = torch.Generator(device=device or 'cpu').manual_seed(seed + 1)
     return state, sweep, gen

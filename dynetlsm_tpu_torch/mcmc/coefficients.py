@@ -1,16 +1,19 @@
-"""Intercept Metropolis update of the undirected model (counterpart of
-``dynetlsm_tpu/mcmc/coefficients.py::sample_intercept_undirected``,
-reference sample_coefficients.py:77-86).
+"""Intercept and social-radii Metropolis updates (counterpart of
+``dynetlsm_tpu/mcmc/coefficients.py``, reference sample_coefficients.py).
 
-Both candidates are scored by ``ops/pair_loglik.py``: the CUDA pair kernel
-for CUDA tensors at every n (no (C, T, n, n) distance tensor is built),
-its plain version for CPU tensors.
+Every candidate is scored from the positions without a distance tensor:
+the undirected intercept's two candidates by ``ops/pair_loglik.py``, the
+directed model's (b_in, b_out, radii) candidates by ``ops/dir_loglik.py``
+(CUDA kernels for CUDA tensors, their plain versions for CPU tensors).
+Each sampler returns the network log-likelihood at the accepted state, so
+the next step and the sweep's log joint reuse it.
 """
 import torch
 
 from ..math.distributions import normal
+from ..ops.dir_loglik import dir_loglik
 from ..ops.pair_loglik import pair_loglik
-from .metropolis import random_walk_accept
+from .metropolis import dirichlet_metropolis_step, random_walk_accept
 
 
 def sample_intercept_undirected(gen, Y, X, intercept, step_size,
@@ -35,3 +38,62 @@ def sample_intercept_undirected(gen, Y, X, intercept, step_size,
     new = torch.where(accept[:, None], prop, intercept)
     ll_new = torch.where(accept, ll_prop, ll_cur)
     return new, accept.to(intercept.dtype)[:, None], ll_new
+
+
+def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
+                               prior_mean, prior_var):
+    """Sequential MH for (b_in, b_out) (reference
+    sample_coefficients.py:18-75): b_in's current and proposed values in
+    one two-candidate kernel call, then b_out against the accepted b_in,
+    whose log-likelihood is its current value.
+
+    Yp (T, n, n) packed Y + 2 Y^T; X (C, T, n, d); intercept, step_size
+    (C, 2); radii (C, n); prior_mean a pair of floats.  Returns (new (C, 2),
+    accepted (C, 2) float, loglik at the accepted state (C,))."""
+    C = X.shape[0]
+    X = X.contiguous()
+
+    def logprior(b, idx):
+        return -(b - prior_mean[idx]) ** 2 / (2.0 * prior_var)
+
+    b_in0, b_out0 = intercept[:, 0], intercept[:, 1]
+    prop_in = b_in0 + step_size[:, 0] * normal(gen, (C,), X.device)
+    b_cands = torch.stack([torch.stack([b_in0, b_out0], dim=-1),
+                           torch.stack([prop_in, b_out0], dim=-1)], dim=1)
+    radii_cands = torch.stack([radii, radii], dim=1)
+    ll = dir_loglik(Yp, X, radii_cands, b_cands)
+    ll_cur, ll_prop = ll[:, 0], ll[:, 1]
+    acc_in = random_walk_accept(
+        gen, ll_prop - ll_cur + logprior(prop_in, 0)
+        - logprior(b_in0, 0))
+    b_in = torch.where(acc_in, prop_in, b_in0)
+    ll_in = torch.where(acc_in, ll_prop, ll_cur)
+
+    prop_out = b_out0 + step_size[:, 1] * normal(gen, (C,), X.device)
+    ll_prop_out = dir_loglik(
+        Yp, X, radii[:, None].contiguous(),
+        torch.stack([b_in, prop_out], dim=-1)[:, None].contiguous())[:, 0]
+    acc_out = random_walk_accept(
+        gen, ll_prop_out - ll_in + logprior(prop_out, 1)
+        - logprior(b_out0, 1))
+    b_out = torch.where(acc_out, prop_out, b_out0)
+    ll_new = torch.where(acc_out, ll_prop_out, ll_in)
+    acc = torch.stack([acc_in, acc_out], dim=-1).to(intercept.dtype)
+    return torch.stack([b_in, b_out], dim=-1), acc, ll_new
+
+
+def sample_radii(gen, Yp, X, intercept, radii, step_size, loglik_cur=None):
+    """Dirichlet-proposal MH on the radii simplex (reference
+    sample_coefficients.py:91-121); the Dirichlet(1) prior is constant, so
+    only the likelihood enters.  ``loglik_cur`` (C,) is the likelihood at
+    the current radii, from the intercept step.  intercept (C, 2); radii
+    (C, n); step_size (C,).  Returns (new_radii, accepted (C,) float,
+    loglik at the accepted radii (C,))."""
+    X = X.contiguous()
+    b = intercept[:, None].contiguous()
+
+    def logp(r):
+        return dir_loglik(Yp, X, r[:, None].contiguous(), b)[:, 0]
+
+    return dirichlet_metropolis_step(gen, radii, logp, step_size,
+                                     logp_cur=loglik_cur)

@@ -16,10 +16,11 @@ from .states import MixtureState, state_from_numpy
 def replicate_state(state0, n_chains, device=None):
     """Broadcast a single-chain state, given as a dict of arrays keyed by
     the :class:`MixtureState` field names (no chain axis), across a new
-    leading chain axis of length ``n_chains``."""
+    leading chain axis of length ``n_chains``; ``None`` fields stay
+    ``None``."""
     batched = {k: np.broadcast_to(np.asarray(v), (n_chains,)
                                   + np.shape(v)).copy()
-               for k, v in state0.items()}
+               for k, v in state0.items() if v is not None}
     return state_from_numpy(batched, device)
 
 

@@ -11,8 +11,8 @@ import torch
 
 from ..math.distributions import normal, uniform
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
-    _mixture_prior_per_t, _partial_loglik_terms, _rw_prior_per_t,
-    node_scan, site_cluster_params)
+    _directed_partial_loglik_terms, _mixture_prior_per_t,
+    _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
 
 
 def latent_noise(gen, C, T, n, d, device):
@@ -25,21 +25,23 @@ def latent_noise(gen, C, T, n, d, device):
 
 
 def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu, sigma,
-                            lmbda, z, is_directed=False, mixture=True,
-                            scheme='exact', noise=None, cc=None):
+                            lmbda, z, radii=None, is_directed=False,
+                            mixture=True, scheme='exact', noise=None,
+                            cc=None):
     """One full sweep of single-site MH updates of the positions under the
     mixture prior.
 
-    Y (T, n, n) uint8; X (C, T, n, d); intercept (C, 1); step_size
-    (C, T, n); mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n).
+    Undirected: Y (T, n, n) uint8 0/1, intercept (C, 1).  Directed
+    (``is_directed``): Y the packed ``Y + 2 Y^T`` uint8, intercept (C, 2)
+    = (b_in, b_out), radii (C, n).  X (C, T, n, d); step_size (C, T, n);
+    mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n).
     ``noise`` = (eps, log_u) injects the proposal stream.
     Returns (X_new (C, T, n, d), accepted (C, T, n))."""
     if scheme != 'exact':
         raise NotImplementedError(
             "latent_update=%r is not ported yet; only 'exact'" % (scheme,))
-    if is_directed:
-        raise NotImplementedError('the directed latent update is not '
-                                  'ported yet')
+    if is_directed and radii is None:
+        raise ValueError('the directed latent update needs radii')
     if not mixture:
         raise NotImplementedError('the random-walk (LSM) prior is not '
                                   'ported to the sweep yet')
@@ -50,6 +52,8 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu, sigma,
     eps, log_u = (noise if noise is not None
                   else latent_noise(gen, C, T, n, d, X.device))
     mu_z, sig_z = site_cluster_params(mu, sigma, z)
-    return node_scan(Y, X.contiguous(), intercept.reshape(C).contiguous(),
+    b = intercept if is_directed else intercept.reshape(C)
+    return node_scan(Y, X.contiguous(), b.contiguous(),
                      step_size.contiguous(), eps, log_u, mu_z=mu_z,
-                     sig_z=sig_z, lmbda=lmbda.contiguous())
+                     sig_z=sig_z, lmbda=lmbda.contiguous(),
+                     radii=radii.contiguous() if is_directed else None)

@@ -8,8 +8,13 @@ has no field here: a ``torch.Generator`` is passed to each sweep.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across the two
 implementations as a dict of NumPy arrays keyed by the JAX field names, so
 tests can hand both samplers the same state.
+
+The directed social-radii model adds ``radii``, ``step_radii`` and
+``acc_radii`` and carries two intercepts (b_in, b_out); an undirected state
+has one intercept and ``None`` in the three radii fields.
 """
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,7 +26,7 @@ from ..config import DTYPE, ITYPE
 class MixtureState:
     it: torch.Tensor            # (C,) int64 sweep counter
     X: torch.Tensor             # (C, T, n, d) latent positions
-    intercept: torch.Tensor     # (C, 1)
+    intercept: torch.Tensor     # (C, 1), or (C, 2) = (b_in, b_out) directed
     z: torch.Tensor             # (C, T, n) int64 labels
     mu: torch.Tensor            # (C, K, d)
     sigma: torch.Tensor         # (C, K)
@@ -36,9 +41,12 @@ class MixtureState:
     b_scale: torch.Tensor       # (C,)
     step_X: torch.Tensor        # (C, T, n)
     acc_X: torch.Tensor         # (C, T, n)
-    step_int: torch.Tensor      # (C, 1)
-    acc_int: torch.Tensor       # (C, 1)
+    step_int: torch.Tensor      # (C, 1) or (C, 2)
+    acc_int: torch.Tensor       # (C, 1) or (C, 2)
     logp: torch.Tensor          # (C,)
+    radii: Optional[torch.Tensor] = None       # (C, n), directed only
+    step_radii: Optional[torch.Tensor] = None  # (C,)
+    acc_radii: Optional[torch.Tensor] = None   # (C,)
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
@@ -50,10 +58,13 @@ _INT_FIELDS = ('it', 'z')
 def state_from_numpy(arrays, device):
     """Build a :class:`MixtureState` from a dict of chain-batched NumPy
     arrays keyed by field name (extra keys, such as the JAX state's
-    ``key`` or its ``None`` LPCM fields, are ignored).  Integer fields are
-    cast to int64, float fields to float32."""
+    ``key`` or its ``None`` LPCM fields, are ignored; a missing or ``None``
+    radii field stays ``None``).  Integer fields are cast to int64, float
+    fields to float32."""
     kwargs = {}
     for f in dataclasses.fields(MixtureState):
+        if arrays.get(f.name) is None:
+            continue
         a = np.asarray(arrays[f.name])
         dtype = ITYPE if f.name in _INT_FIELDS else DTYPE
         kwargs[f.name] = torch.tensor(a, device=device).to(dtype)
@@ -61,10 +72,14 @@ def state_from_numpy(arrays, device):
 
 
 def state_to_numpy(state, int_dtype=np.int32):
-    """Dict of NumPy arrays keyed by field name; integer fields are cast to
-    ``int_dtype`` (int32, the JAX package's label dtype, by default)."""
+    """Dict of NumPy arrays keyed by field name, ``None`` fields left out;
+    integer fields are cast to ``int_dtype`` (int32, the JAX package's
+    label dtype, by default)."""
     out = {}
     for f in dataclasses.fields(MixtureState):
-        a = getattr(state, f.name).detach().cpu().numpy()
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        a = v.detach().cpu().numpy()
         out[f.name] = a.astype(int_dtype) if f.name in _INT_FIELDS else a
     return out

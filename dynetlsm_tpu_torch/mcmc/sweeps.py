@@ -1,14 +1,16 @@
 """The sticky HDP-LPCM Gibbs sweep (counterpart of
 ``dynetlsm_tpu/mcmc/sweeps.py::make_hdp_sweep``, reference
-hdp_lpcm.py:823-1069), on a dense undirected network with fixed Y and the
-exact latent update.
+hdp_lpcm.py:823-1069), on a dense undirected or directed (social-radii)
+network with fixed Y and the exact latent update.
 
 The sweep is a plain function ``sweep(state, gen) -> state`` over a
 chain-batched :class:`~dynetlsm_tpu_torch.mcmc.states.MixtureState`; every
 block draws from the explicit ``torch.Generator``.  On a CUDA device the
-latent update runs the node-scan kernel and the intercept step the pair
-kernel, so the sweep never builds a (C, T, n, n) distance tensor; the log
-joint reuses the intercept step's log-likelihood at the accepted state.
+latent update runs the node-scan kernel, and the coefficient steps the
+pair kernel (undirected intercept) or the directed kernel (b_in, b_out and
+radii: three launches per sweep), so the sweep never builds a
+(C, T, n, n) distance tensor; the log joint reuses the last coefficient
+step's log-likelihood at the accepted state.
 """
 import dataclasses
 from typing import Optional
@@ -20,9 +22,10 @@ from ..config import SMALL_EPS
 from ..math.distributions import (
     dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf)
 from ..ops.distances import pairwise_distances
-from ..ops.likelihoods import undirected_loglik_full
-from ..ops.node_scan import site_cluster_params
-from .coefficients import sample_intercept_undirected
+from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
+from ..ops.node_scan import pack_directed, site_cluster_params
+from .coefficients import (
+    sample_intercept_undirected, sample_intercepts_directed, sample_radii)
 from .conjugate import (
     sample_cluster_means, sample_cluster_variances, sample_lambda,
     sample_mean_variance_hyper, sample_sigma_scale_hyper)
@@ -43,6 +46,7 @@ class SweepConfig:
     sample_missing: bool = False
     tune: int = 0                 # sweeps of step-size adaptation
     tune_interval: int = 100
+    tune_radii: bool = False      # adapt the directed radii's step size
     intercept_variance_prior: float = 2.0
     n_components: int = 10
     a: float = 2.0
@@ -67,9 +71,6 @@ class SweepConfig:
 
 
 def _check_supported(cfg):
-    if cfg.is_directed:
-        raise NotImplementedError('the directed HDP-LPCM sweep is not '
-                                  'ported yet')
     if cfg.sample_missing:
         raise NotImplementedError('missing-dyad resampling is not ported '
                                   'yet')
@@ -113,13 +114,23 @@ def _count_chain_loglik(n_trans, nk, w0, w_trans):
     return ll
 
 
+def _network_loglik(cfg, Y, dist, intercept, radii):
+    """Dense network log-likelihood; Y (T, n, n) 0/1."""
+    if cfg.is_directed:
+        return directed_loglik_full(Y, dist, radii, intercept[:, 0],
+                                    intercept[:, 1])
+    return undirected_loglik_full(Y, dist, intercept[:, 0])
+
+
 def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
-                         mean_var, b_scale, intercept_prior, net_ll=None):
+                         mean_var, b_scale, intercept_prior, net_ll=None,
+                         radii=None):
     """Network + latent + cluster-parameter + hyper-prior terms of the log
-    joint (reference hdp_lpcm.py:1213-1278).  ``net_ll`` reuses an
-    already-computed network log-likelihood at the current state."""
+    joint (reference hdp_lpcm.py:1213-1278), with the radii's Dirichlet(1)
+    prior when directed.  ``net_ll`` reuses an already-computed network
+    log-likelihood at the current state."""
     ll = (net_ll if net_ll is not None
-          else undirected_loglik_full(Y, dist, intercept[:, 0]))
+          else _network_loglik(cfg, Y, dist, intercept, radii))
     diff = intercept - intercept_prior
     ll = ll - torch.sum(0.5 * diff * diff / cfg.intercept_variance_prior,
                         dim=1)
@@ -130,6 +141,8 @@ def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
                         - 0.5 * b_scale[:, None, None] / sig_z, dim=(1, 2))
     ll = ll + truncated_normal_logpdf(lmbda, cfg.lambda_prior,
                                       cfg.lambda_variance_prior)
+    if cfg.is_directed:
+        ll = ll + dirichlet_logpdf(radii, torch.ones_like(radii))
     if cfg.a0 is not None:
         ll = ll + (-(0.5 * cfg.a0 + 1.0) * torch.log(mean_var)
                    - 0.5 * cfg.b0 / mean_var)
@@ -155,10 +168,11 @@ def _hdp_weights_logp(beta, w0, weights, gamma, alpha_init, alpha, kappa):
 
 def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                       lmbda, weights, beta, gamma, alpha_init, alpha, kappa,
-                      mean_var, b_scale):
+                      mean_var, b_scale, radii=None):
     """Full HDP-LPCM log joint at an arbitrary chain-batched state, with
     the network term from dense distances (reference hdp_lpcm.py:798-809).
-    Y (T, n, n); intercept_prior (1,)."""
+    Y (T, n, n) 0/1; intercept_prior (1,), or (2,) and radii (C, n) for
+    the directed model."""
     K = cfg.n_components
     n_trans, nk, _ = _label_statistics(z, K)
     prior = torch.as_tensor(intercept_prior, dtype=X.dtype, device=X.device)
@@ -168,31 +182,41 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
     logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
     return logp + _mixture_common_logp(
         cfg, Y, X, intercept, pairwise_distances(X), z, mu, sigma, lmbda,
-        mean_var, b_scale, prior)
+        mean_var, b_scale, prior, radii=radii)
 
 
-def _finish_tuning(cfg, state, acc_X, acc_int):
+def _finish_tuning(cfg, state, acc_X, acc_int, acc_radii):
     step_X, acc_X = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
                                state.step_X, acc_X)
     step_int, acc_int = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
                                    state.step_int, acc_int)
-    return step_X, acc_X, step_int, acc_int
+    step_radii = state.step_radii
+    if cfg.is_directed and cfg.tune_radii:
+        step_radii, acc_radii = maybe_tune(
+            state.it, cfg.tune, cfg.tune_interval, state.step_radii,
+            acc_radii, kind='dirichlet')
+    return step_X, acc_X, step_int, acc_int, step_radii, acc_radii
 
 
 def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
                    device=None):
     """Build the sticky HDP-LPCM sweep over the fixed 0/1 network
-    ``Y_fixed`` (T, n, n), stored as uint8 on ``device``.  The returned
-    ``sweep(state, gen)`` carries its configuration as ``sweep.cfg``."""
+    ``Y_fixed`` (T, n, n), stored as uint8 on ``device`` (packed as
+    ``Y + 2 Y^T`` for the directed model, once here).  ``intercept_prior``
+    holds one prior mean, or (b_in, b_out)'s two when directed.  The
+    returned ``sweep(state, gen)`` carries its configuration as
+    ``sweep.cfg``."""
     _check_supported(cfg)
     Y_np = np.asarray(Y_fixed)
     if not np.isin(Y_np, (0, 1)).all():
         raise ValueError('Y_fixed must be a 0/1 adjacency (missing dyads '
                          'are not ported yet)')
     Y = torch.as_tensor(Y_np.astype(np.uint8), device=device)
+    if cfg.is_directed:
+        Y = pack_directed(Y)
     prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
                             device=device).reshape(1, -1)
-    prior_mean = float(prior[0, 0])
+    prior_means = [float(m) for m in prior[0]]
     K = cfg.n_components
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
@@ -202,15 +226,26 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         # latent positions (mixture prior), then centering
         X, acc_new = sample_latent_positions(
             gen, Y, state.X, state.intercept, state.step_X, mu=state.mu,
-            sigma=state.sigma, lmbda=state.lmbda, z=state.z)
+            sigma=state.sigma, lmbda=state.lmbda, z=state.z,
+            radii=state.radii, is_directed=cfg.is_directed)
         acc_X = state.acc_X + acc_new
         if cfg.center:
             X = X - torch.mean(X, dim=(1, 2), keepdim=True)
 
-        # intercept
-        intercept, acc_i, net_ll = sample_intercept_undirected(
-            gen, Y, X, state.intercept, state.step_int, prior_mean,
-            cfg.intercept_variance_prior)
+        # intercept(s), then the radii (directed)
+        radii, acc_radii = state.radii, state.acc_radii
+        if cfg.is_directed:
+            intercept, acc_i, net_ll = sample_intercepts_directed(
+                gen, Y, X, state.intercept, state.radii, state.step_int,
+                prior_means, cfg.intercept_variance_prior)
+            radii, acc_r, net_ll = sample_radii(
+                gen, Y, X, intercept, state.radii, state.step_radii,
+                loglik_cur=net_ll)
+            acc_radii = state.acc_radii + acc_r
+        else:
+            intercept, acc_i, net_ll = sample_intercept_undirected(
+                gen, Y, X, state.intercept, state.step_int, prior_means[0],
+                cfg.intercept_variance_prior)
         acc_int = state.acc_int + acc_i
 
         # blocked label sampling (hdp_lpcm.py:877)
@@ -280,16 +315,17 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
         logp = logp + _mixture_common_logp(
             cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var,
-            b_scale, prior, net_ll=net_ll)
+            b_scale, prior, net_ll=net_ll, radii=radii)
 
-        step_X, acc_X, step_int, acc_int = _finish_tuning(cfg, state, acc_X,
-                                                          acc_int)
+        step_X, acc_X, step_int, acc_int, step_radii, acc_radii = (
+            _finish_tuning(cfg, state, acc_X, acc_int, acc_radii))
         return state.replace(
             it=state.it + 1, X=X, intercept=intercept, z=z, mu=mu,
             sigma=sigma, lmbda=lmbda, weights=weights, beta=beta,
             gamma=gamma, alpha_init=alpha_init, alpha=alpha, kappa=kappa,
             mean_var=mean_var, b_scale=b_scale, step_X=step_X, acc_X=acc_X,
-            step_int=step_int, acc_int=acc_int, logp=logp)
+            step_int=step_int, acc_int=acc_int, radii=radii,
+            step_radii=step_radii, acc_radii=acc_radii, logp=logp)
 
     sweep.cfg = cfg
     return sweep

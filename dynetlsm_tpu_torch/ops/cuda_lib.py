@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``.  The
-build runs at first use, into ``build/torch_kernels/`` beside the package
-(listed in ``.gitignore``), under a name that hashes the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and the objects are linked into
+one shared library with a plain C interface, loaded through ``ctypes``.
+The build runs at first use, into ``build/torch_kernels/`` beside the
+package (listed in ``.gitignore``), under a name that hashes the sources
+and flags, so an edited source is rebuilt and an unchanged one is reused.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise operators round them: the node-scan kernel's accept
 decisions are compared bit for bit with its plain version.
@@ -23,16 +24,18 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'torch_kernels'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
+GENCODE = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = GENCODE + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
+                        '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'node_scan_launch': [_P] * 11 + [_I] * 5 + [_P],
+    'node_scan_launch': [_P] * 12 + [_I] * 6 + [_P],
     'pair_loglik_launch': [_P] * 6 + [_I] * 4 + [_P],
     'pair_loglik_row_blocks': [_I],
+    'dir_loglik_launch': [_P] * 7 + [_I] * 5 + [_P],
+    'dir_loglik_row_blocks': [_I],
 }
 
 
@@ -52,6 +55,42 @@ def sources():
     return sorted(CSRC.glob('*.cu'))
 
 
+def _run_all(cmds):
+    """Run the commands at once; return their combined output, or raise
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError('nvcc failed (rc=%d): %s\n%s'
+                               % (p.returncode, ' '.join(c), out))
+    return ''.join(outs)
+
+
+def _build(srcs, so):
+    """Compile each source to an object, all at once, then link ``so``
+    (written under a temporary name and moved into place).  The objects
+    are removed whether or not the build succeeds.  Returns nvcc's
+    output."""
+    tag = '%d' % os.getpid()
+    objs = [so.with_name('%s.%s.%s.o' % (so.stem, p.stem, tag))
+            for p in srcs]
+    tmp = so.with_suffix('.so.%s.tmp' % tag)
+    nvcc = _nvcc()
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', str(o), str(p)]
+                        for p, o in zip(srcs, objs)])
+        log += _run_all([[nvcc, *GENCODE, '-shared', '-o', str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """The loaded kernel library, built first if needed.  Attributes
@@ -69,16 +108,9 @@ def library():
     log = ''
     seconds = 0.0
     if not so.exists():
-        tmp = so.with_suffix('.so.%d.tmp' % os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(srcs, so)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed (rc=%d):\n%s'
-                               % (proc.returncode, log))
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -9,16 +9,20 @@ each node has two parity phases (even t, then odd t); a site is accepted
 iff log_u < ratio.
 
 * :func:`node_scan_plain` is the chain-batched PyTorch port of
-  ``xla_exact_scan`` (undirected; mixture or random-walk prior; optional
-  per-chain temperature).
-* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (undirected,
-  mixture prior, untempered).
+  ``xla_exact_scan`` (undirected or directed social-radii; mixture or
+  random-walk prior; optional per-chain temperature).
+* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (mixture prior,
+  untempered; undirected, or directed when given ``radii``).
 * :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
   error for what it does not take), the plain version for CPU tensors.
 
 Both sum each site's partner terms as a pairwise tree over the partner
 axis padded to :func:`partner_pad` (level s adds element i + s into
 element i), so they compute bit-identical ratios.
+
+The directed model takes the adjacency packed as ``Y + 2 Y^T`` uint8
+(:func:`pack_directed`): row j of it holds both the out-edge bit Y[j, i]
+(``& 1``) and the in-edge bit Y[i, j] (``>> 1``) of every partner i.
 """
 import torch
 
@@ -55,6 +59,13 @@ def site_cluster_params(mu, sigma, z):
     return mu[c_idx, z], sigma[c_idx, z]
 
 
+def pack_directed(Y):
+    """The packed directed adjacency ``Y + 2 Y^T`` (T, n, n) uint8 of a 0/1
+    adjacency Y (T, n, n)."""
+    Y = torch.as_tensor(Y).to(torch.uint8)
+    return Y + 2 * Y.transpose(-1, -2)
+
+
 def _partial_loglik_terms(Y_row, X, x, b):
     """Per-partner Bernoulli log-lik terms of one node at candidate x
     (C, T, d) against the field X (C, T, n, d); Y_row (T, n); b (C,).
@@ -63,6 +74,23 @@ def _partial_loglik_terms(Y_row, X, x, b):
                                       0.0))
     eta = b[:, None, None] - dist
     return Y_row * eta - softplus(eta)
+
+
+def _directed_partial_loglik_terms(P_row, X, x, both, p_out, p_in):
+    """Directed per-partner terms of one node at candidate x (C, T, d)
+    against the field X (C, T, n, d), in the hoisted-reciprocal op order of
+    ``dynetlsm_tpu/mcmc/latent.py::_partial_loglik_terms``.  P_row (T, n)
+    packed uint8; both (C,) = b_in + b_out; p_out, p_in (C, n) the
+    reciprocal rows b_in/r_i + b_out/r_j and b_out/r_i + b_in/r_j.
+    Returns (C, T, n), the node's own slot not masked."""
+    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[:, :, None, :]),
+                                      0.0))
+    y = (P_row & 1).to(X.dtype)
+    yt = (P_row >> 1).to(X.dtype)
+    eta_out = both[:, None, None] - dist * p_out[:, None, :]
+    eta_in = both[:, None, None] - dist * p_in[:, None, :]
+    ll = y * eta_out - softplus(eta_out)
+    return ll + (yt * eta_in - softplus(eta_in))
 
 
 def _shift_prev(a, fill=0.0):
@@ -115,10 +143,12 @@ def _rw_prior_per_t(xs, x_cur, tau_sq, sigma_sq):
 
 def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
                     sig_z=None, lmbda=None, tau_sq=None, sigma_sq=None,
-                    mixture=True, temper=None):
-    """Chain-batched port of ``xla_exact_scan`` (undirected).
+                    mixture=True, temper=None, radii=None):
+    """Chain-batched port of ``xla_exact_scan``.
 
-    Y (T, n, n) 0/1; X (C, T, n, d); intercept (C,); step_size (C, T, n);
+    Undirected: Y (T, n, n) 0/1, intercept (C,).  Directed (``radii``
+    (C, n) given): Y the packed ``Y + 2 Y^T`` (T, n, n) uint8, intercept
+    (C, 2) = (b_in, b_out).  X (C, T, n, d); step_size (C, T, n);
     eps (C, 2, n, T, d); log_u (C, 2, n, T).  Mixture prior: mu_z
     (C, T, n, d), sig_z (C, T, n), lmbda (C,); random-walk prior: scalar
     tau_sq, sigma_sq.  temper (C,) scales the log-likelihood delta.
@@ -126,19 +156,40 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     C, T, n, d = X.shape
     P = partner_pad(n)
     X = X.clone()
-    Yf = Y.to(X.dtype)
-    b = intercept.reshape(C)
+    directed = radii is not None
+    if directed:
+        Yp = Y.to(torch.uint8)
+        b_in, b_out = intercept[:, 0], intercept[:, 1]
+        both = b_in + b_out
+        u_row = b_in[:, None] / radii
+        v_row = b_out[:, None] / radii
+    else:
+        Yf = Y.to(X.dtype)
+        b = intercept.reshape(C)
     t_idx = torch.arange(T, device=X.device)
     partner = torch.arange(n, device=X.device)
     acc = torch.zeros((C, T, n), dtype=X.dtype, device=X.device)
     for j in range(n):
-        Y_row = Yf[:, j, :]
+        if directed:
+            Y_row = Yp[:, j, :]
+            r_node = radii[:, j, None]
+            p_out = u_row + b_out[:, None] / r_node
+            p_in = v_row + b_in[:, None] / r_node
+
+            def terms(x):
+                return _directed_partial_loglik_terms(Y_row, X, x, both,
+                                                      p_out, p_in)
+        else:
+            Y_row = Yf[:, j, :]
+
+            def terms(x):
+                return _partial_loglik_terms(Y_row, X, x, b)
         mask = (partner != j).to(X.dtype)
         for phase in (0, 1):
             x_cur = X[:, :, j, :]
             x_prop = x_cur + step_size[:, :, j, None] * eps[:, phase, j]
-            ll_prop = _partial_loglik_terms(Y_row, X, x_prop, b)
-            ll_cur = _partial_loglik_terms(Y_row, X, x_cur, b)
+            ll_prop = terms(x_prop)
+            ll_cur = terms(x_cur)
             delta_ll = _tree_sum((ll_prop - ll_cur) * mask, P)     # (C, T)
             if mixture:
                 mz, sz = mu_z[:, :, j], sig_z[:, :, j]
@@ -156,47 +207,55 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     return X, acc
 
 
-def smem_bytes(T, n, d):
+def smem_bytes(T, n, d, directed=False):
     """Shared memory one chain's block takes: its (T, n, d) position field
-    plus the (ceil(T/2), P) partner-reduction buffer, float32."""
-    return 4 * (T * n * d + ((T + 1) // 2) * partner_pad(n))
+    plus the (ceil(T/2), P) partner-reduction buffer, and the directed
+    mode's u, v and radii rows (3 n), float32."""
+    return 4 * (T * n * d + ((T + 1) // 2) * partner_pad(n)
+                + (3 * n if directed else 0))
 
 
 def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
-                   lmbda):
-    """Launch the CUDA node-scan kernel (undirected, mixture prior,
-    untempered).  Y (T, n, n) uint8; every other tensor float32 on the
-    same CUDA device, contiguous, shaped as in :func:`node_scan_plain`."""
+                   lmbda, radii=None):
+    """Launch the CUDA node-scan kernel (mixture prior, untempered).
+    Undirected: Y (T, n, n) uint8 0/1, intercept (C,).  Directed (``radii``
+    (C, n) given): Y packed ``Y + 2 Y^T`` uint8, intercept (C, 2).  Every
+    other tensor float32 on the same CUDA device, contiguous, shaped as in
+    :func:`node_scan_plain`."""
     C, T, n, d = X.shape
     dev = X.device
     f32 = torch.float32
+    directed = radii is not None
     if dev.type != 'cuda':
         raise ValueError('node_scan_cuda: X must be a CUDA tensor')
+    if directed:
+        cuda_lib.check_tensor('node_scan', 'radii', radii, (C, n), f32, dev)
     for name, t, shape, dtype in (
             ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, n), torch.uint8),
-            ('intercept', intercept, (C,), f32),
+            ('intercept', intercept, (C, 2) if directed else (C,), f32),
             ('step_size', step_size, (C, T, n), f32),
             ('eps', eps, (C, 2, n, T, d), f32),
             ('log_u', log_u, (C, 2, n, T), f32),
             ('mu_z', mu_z, (C, T, n, d), f32),
             ('sig_z', sig_z, (C, T, n), f32), ('lmbda', lmbda, (C,), f32)):
         cuda_lib.check_tensor('node_scan', name, t, shape, dtype, dev)
-    smem = smem_bytes(T, n, d)
+    smem = smem_bytes(T, n, d, directed)
     if smem > _MAX_SMEM_BYTES:
         raise ValueError(
             'node_scan_cuda: one chain needs %d bytes of shared memory at '
-            'T=%d, n=%d, d=%d (position field plus reduction buffer); the '
-            'kernel holds at most %d.  Streaming larger fields is not '
-            'implemented.' % (smem, T, n, d, _MAX_SMEM_BYTES))
+            'T=%d, n=%d, d=%d, directed=%s (position field, reduction '
+            'buffer and directed rows); the kernel holds at most %d.  '
+            'Streaming larger fields is not implemented.'
+            % (smem, T, n, d, directed, _MAX_SMEM_BYTES))
     X_out = torch.empty_like(X)
     acc = torch.empty((C, T, n), dtype=f32, device=dev)
     lib = cuda_lib.library()
     rc = lib.node_scan_launch(
         X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
         log_u.data_ptr(), mu_z.data_ptr(), sig_z.data_ptr(),
-        intercept.data_ptr(), lmbda.data_ptr(), X_out.data_ptr(),
-        acc.data_ptr(), C, T, n, d, partner_pad(n),
-        cuda_lib.stream_handle(dev))
+        intercept.data_ptr(), radii.data_ptr() if directed else None,
+        lmbda.data_ptr(), X_out.data_ptr(), acc.data_ptr(), C, T, n, d,
+        partner_pad(n), int(directed), cuda_lib.stream_handle(dev))
     node_scan_cuda.launches += 1
     cuda_lib.check_launch('node_scan', rc)
     return X_out, acc
@@ -206,11 +265,13 @@ node_scan_cuda.launches = 0
 
 
 def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z, sig_z,
-              lmbda):
-    """The exact node scan with the mixture prior: the CUDA kernel for CUDA
-    tensors, :func:`node_scan_plain` for CPU tensors."""
+              lmbda, radii=None):
+    """The exact node scan with the mixture prior, directed when given
+    ``radii``: the CUDA kernel for CUDA tensors, :func:`node_scan_plain`
+    for CPU tensors."""
     if X.is_cuda:
         return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
-                              sig_z, lmbda)
+                              sig_z, lmbda, radii=radii)
     return node_scan_plain(Y, X, intercept, step_size, eps, log_u,
-                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda, mixture=True)
+                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda, mixture=True,
+                           radii=radii)

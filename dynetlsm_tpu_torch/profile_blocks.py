@@ -1,0 +1,168 @@
+"""Where the HDP-LPCM sweep's time goes, block by block, on one GPU.
+
+    python3 -m dynetlsm_tpu_torch.profile_blocks [--sweeps 10]
+
+For each slice that ``chip_smoke.py`` drives (the north star and Sampson,
+undirected and directed, built by ``entry.build_state_and_sweep``) it
+prints one JSON line with:
+
+* ``sweep_ms``: ms per sweep with no instrumentation;
+* ``sweep_synced_ms`` and ``blocks_ms``: ms per sweep when every block
+  function the sweep calls from ``mcmc.sweeps`` is wrapped with a device
+  synchronisation and a host clock (``other`` is the rest of the sweep);
+* ``kernels_ms``: device time per sweep of the largest kernels, from the
+  ``torch.profiler`` trace of the same number of sweeps, and
+  ``device_busy``: the union of all kernel intervals over the span from
+  the first kernel's start to the last one's end.  The profiler slows the
+  host's dispatch, so the busy share is a lower bound.
+
+Every slice is timed before any is traced: timed after three traced
+slices, directed Sampson read 23.5 ms/sweep on an H100 where
+``chip_smoke.py`` read 17.1 ms; timed before any tracing, it read 18.6
+ms where ``chip_smoke.py`` read 16.0 ms.
+"""
+import argparse
+import contextlib
+import json
+import time
+
+import torch
+
+from .mcmc import sweeps as _sweeps
+
+# the functions the sweep calls through mcmc.sweeps' namespace; none of
+# them calls another one of them through it, so no time is counted twice
+BLOCKS = (
+    'sample_latent_positions', 'sample_intercept_undirected',
+    'sample_intercepts_directed', 'sample_radii', 'sample_labels_block',
+    'sample_tables', 'sample_mbar', 'sample_dirichlet',
+    'sample_cluster_means', 'sample_cluster_variances', 'sample_lambda',
+    'sample_mean_variance_hyper', 'sample_sigma_scale_hyper',
+    'sample_concentration_param', 'sample_alpha_kappa_rho',
+    '_hdp_weights_logp', '_count_chain_loglik', '_mixture_common_logp',
+    '_finish_tuning')
+
+
+def _sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def timed_blocks(device):
+    """Wrap each of ``BLOCKS`` in ``mcmc.sweeps`` with a synchronisation
+    and a host clock while the context is open.  Yields a dict that
+    accumulates seconds by block name."""
+    totals = {}
+    saved = {name: getattr(_sweeps, name) for name in BLOCKS}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(_sweeps, name, wrap(name, fn))
+    try:
+        yield totals
+    finally:
+        for name, fn in saved.items():
+            setattr(_sweeps, name, fn)
+
+
+def _run(sweep, state, gen, n):
+    device = state.X.device
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state = sweep(state, gen)
+    _sync(device)
+    return state, time.perf_counter() - t0
+
+
+def _union_us(intervals):
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def device_times(sweep, state, gen, n, top=8):
+    """Kernel device time per sweep (ms) of the ``top`` largest kernels,
+    and the device's busy share, over ``n`` profiled sweeps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run(sweep, state, gen, n)
+    per_name, intervals = {}, []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        intervals.append((s, e))
+        per_name[ev.name] = per_name.get(ev.name, 0) + (e - s)
+    if not intervals:
+        return {'kernels_ms': [], 'device_busy': None}
+    span = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    largest = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
+    # a list, not a dict: templated kernels share long name prefixes
+    return {'kernels_ms': [[k[:100], v / 1e3 / n] for k, v in largest],
+            'kernel_ms_total': sum(per_name.values()) / 1e3 / n,
+            'device_busy': _union_us(intervals) / span}
+
+
+def profile_slice(sweep, state, gen, sweeps=10, warm=2):
+    """Time ``sweeps`` sweeps plain, then with the blocks timed.  Returns
+    (a dict of ms per sweep, the state after them)."""
+    state, _ = _run(sweep, state, gen, warm)
+    state, plain = _run(sweep, state, gen, sweeps)
+    with timed_blocks(state.X.device) as totals:
+        state, synced = _run(sweep, state, gen, sweeps)
+    blocks = {k: 1e3 * v / sweeps for k, v in totals.items()}
+    blocks['other'] = 1e3 * synced / sweeps - sum(blocks.values())
+    return {'sweep_ms': 1e3 * plain / sweeps,
+            'sweep_synced_ms': 1e3 * synced / sweeps,
+            'blocks_ms': blocks}, state
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--sweeps', type=int, default=10)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print('profile_blocks: no CUDA device')
+        return 1
+    from .datasets import load_dynamic_monks, northstar_network
+    from .entry import build_state_and_sweep
+    dev = torch.device('cuda', 0)
+    slices = [('northstar', northstar_network(), 25, 32, False),
+              ('sampson', load_dynamic_monks(), 10, 512, False),
+              ('northstar directed', northstar_network(directed=True), 25,
+               32, True),
+              ('sampson directed', load_dynamic_monks(is_directed=True), 10,
+               512, True)]
+    runs = []
+    for name, Y, K, C, directed in slices:
+        state, sweep, gen = build_state_and_sweep(
+            Y, C, K=K, device=dev, is_directed=directed)
+        out, state = profile_slice(sweep, state, gen, sweeps=args.sweeps)
+        runs.append((name, C, out, sweep, state, gen))
+    for name, C, out, sweep, state, gen in runs:
+        out.update(device_times(sweep, state, gen, args.sweeps))
+        print(json.dumps({'slice': name, 'chains': C, **out}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -185,6 +185,85 @@ def test_maybe_tune():
     assert not torch.equal(got[0][0], got[0][1])
 
 
+def test_tune_step_size_dirichlet():
+    rate = np.array([0.0, 0.01, 0.1, 0.3, 0.5, 0.8, 0.99], np.float32)
+    step = np.full_like(rate, 175000.0)
+    close(tmetro.tune_step_size_dirichlet(torch.as_tensor(step),
+                                          torch.as_tensor(rate)),
+          jmetro.tune_step_size_dirichlet(jnp.asarray(step),
+                                          jnp.asarray(rate)))
+
+
+def test_maybe_tune_dirichlet():
+    """The radii's scalar step per chain under the inverted schedule."""
+    it = np.array([49, 50, 99, 149], np.int32)
+    step = np.full(4, 175000.0, np.float32)
+    acc = np.array([0.0, 3.0, 49.0, 10.0], np.float32)
+    want = jax.vmap(lambda i, s, a: jmetro.maybe_tune(
+        i, 120, 50, s, a, kind='dirichlet'))(
+        jnp.asarray(it), jnp.asarray(step), jnp.asarray(acc))
+    got = tmetro.maybe_tune(torch.as_tensor(it).long(), 120, 50,
+                            torch.as_tensor(step), torch.as_tensor(acc),
+                            kind='dirichlet')
+    for g, w in zip(got, want):
+        close(g, w)
+    assert float(got[0][0]) == 1750000.0 and float(got[0][2]) == 17500.0
+
+
+def _dirichlet_move(step=175000.0, seed=5, n=N):
+    """A radii-like x0 (C, n) on the simplex, a Dirichlet(step * x0)
+    proposal x, log densities at both and the per-chain step."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    x0 = rng.dirichlet(np.full(n, 5.0), size=C).astype(f32)
+    x = np.stack([rng.dirichlet(step * x0[c].astype(np.float64))
+                  for c in range(C)]).astype(f32)
+    lc = (-500.0 + 10.0 * rng.randn(C)).astype(f32)
+    lp = (lc + rng.randn(C)).astype(f32)
+    return x0, x, lc, lp, np.full(C, step, f32)
+
+
+def _jax_dirichlet_ratio(x0, x, lc, lp, s):
+    """The ratio of dynetlsm_tpu/mcmc/metropolis.py::
+    dirichlet_metropolis_step, untempered, in its op order, per chain."""
+    def one(x0, x, lc, lp, s):
+        ratio = lp - lc
+        ratio += (jdist.dirichlet_logpdf(x0, s * x)
+                  - jdist.dirichlet_logpdf(x, s * x0))
+        return ratio
+    return np.asarray(jax.vmap(one)(x0, x, lc, lp, s))
+
+
+@pytest.mark.parametrize('step', [175000.0, 1750.0])
+def test_dirichlet_mh_ratio_matches_jax_formula(step):
+    """Target difference plus proposal-asymmetry correction at the radii's
+    step 175000 (and a wider proposal), against the JAX formula evaluated
+    in float64 (the port evaluates it in float64; see the next test)."""
+    move = _dirichlet_move(step=step)
+    with jax.enable_x64(True):
+        want = _jax_dirichlet_ratio(*(np.asarray(a, np.float64)
+                                      for a in move))
+    got = tmetro.dirichlet_mh_ratio(*map(torch.as_tensor, move))
+    assert got.dtype == torch.float64
+    close(got, want)
+
+
+@pytest.mark.parametrize('n', [N, 500])
+def test_dirichlet_mh_ratio_float32_rounding(n):
+    """The fault the port repairs: at step 175000 the correction's lgamma
+    terms are ~2e6 and cancel to O(1), so the JAX package's float32
+    evaluation is off by more than a tenth of a nat (0.1-0.7 nat over
+    seeds at n = 12 to 500); the port's is not."""
+    move = _dirichlet_move(n=n)
+    with jax.enable_x64(True):
+        exact = _jax_dirichlet_ratio(*(np.asarray(a, np.float64)
+                                       for a in move))
+    f32 = _jax_dirichlet_ratio(*move)
+    assert np.abs(f32 - exact).max() > 0.1
+    got = tmetro.dirichlet_mh_ratio(*map(torch.as_tensor, move)).numpy()
+    assert np.abs(got - exact).max() < 1e-6
+
+
 def test_hdp_logp_at_state():
     cfg_j = jsweeps.SweepConfig(n_components=K, a0=A0, b0=B0, c0=C0, d0=D0)
     cfg_t = tsweeps.SweepConfig(n_components=K, a0=A0, b0=B0, c0=C0, d0=D0)

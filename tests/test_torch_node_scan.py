@@ -3,7 +3,8 @@ JAX package's exact scan on the same injected proposal stream.
 
 The plain PyTorch version must realise the same Markov chain as
 ``xla_exact_scan``: identical accept indicators, positions within
-atol 1e-6 (float32 partner sums taken in another order).
+atol 1e-6 (float32 partner sums taken in another order), undirected and
+directed social-radii (packed ``Y + 2 Y^T`` adjacency).
 """
 import numpy as np
 import pytest
@@ -15,8 +16,8 @@ import jax.numpy as jnp
 from dynetlsm_tpu.mcmc.latent import xla_exact_scan
 from dynetlsm_tpu.ops.pallas_scan import _node_scan_with_noise
 from dynetlsm_tpu_torch.ops.node_scan import (
-    node_scan, node_scan_cuda, node_scan_plain, partner_pad,
-    site_cluster_params)
+    node_scan, node_scan_cuda, node_scan_plain, pack_directed, partner_pad,
+    site_cluster_params, smem_bytes)
 
 # (chains, T, n, mixture, tempered): the cases of tests/test_pallas_scan.py
 # that the port covers (undirected)
@@ -31,6 +32,17 @@ CASES = {
     'chain_batched_mixture': (3, 4, 30, True, False),
     'chain_batched_large_T': (2, 10, 20, True, False),
     'tempered': (3, 4, 30, False, True),
+}
+# (chains, T, n, mixture, tempered, (b_in, b_out)): the directed cases of
+# tests/test_pallas_scan.py
+DIRECTED_CASES = {
+    'directed_lsm': (1, 4, 30, False, False, (0.4, 0.8)),
+    'directed_mixture': (1, 4, 30, True, False, (0.4, 0.8)),
+    'directed_negative_intercept': (1, 4, 21, False, False, (-0.5, 0.3)),
+    'directed_large_T9_mixture': (1, 9, 20, True, False, (0.4, 0.8)),
+    'directed_T3_mixture': (1, 3, 20, True, False, (0.4, 0.8)),
+    'directed_chain_batched_mixture': (3, 4, 30, True, False, (0.4, 0.8)),
+    'directed_tempered': (3, 4, 30, False, True, (0.4, 0.8)),
 }
 K = 3
 
@@ -53,34 +65,54 @@ def _inputs(seed, C, T, n, d=2):
                 sig=sig, z=z, lmbda=lmbda, temper=temper)
 
 
-def _jax_scan(a, mixture, tempered):
+def _directed_inputs(seed, C, T, n, b, d=2):
+    """The directed setup of tests/test_pallas_scan.py, chain-batched:
+    zero-diagonal directed Y, Dirichlet(1) radii, step 0.05."""
+    a = _inputs(seed, C, T, n, d)
+    rng = np.random.RandomState(seed + 1000)
+    Y = rng.binomial(1, 0.2, (T, n, n)).astype(np.float32)
+    for t in range(T):
+        np.fill_diagonal(Y[t], 0.0)
+    a.update(Y=Y, step=np.full((C, T, n), 0.05, np.float32),
+             radii=rng.dirichlet(np.ones(n), size=C).astype(np.float32),
+             b=(np.asarray(b, np.float32)
+                + 0.1 * rng.randn(C, 2)).astype(np.float32))
+    return a
+
+
+def _jax_scan(a, mixture, tempered, directed=False):
     """xla_exact_scan vmapped over chains (one compile per case)."""
     Y = jnp.asarray(a['Y'])
+    radii = a['radii'] if directed else np.zeros(a['b'].shape[:1])
 
-    def one(X, b, step, eps, log_u, mu, sig, z, lmbda, temper):
+    def one(X, b, step, eps, log_u, mu, sig, z, lmbda, temper, r):
         kw = (dict(mu=mu, sigma=sig, z=z, lmbda=lmbda, mixture=True)
               if mixture else dict(tau_sq=2.0, sigma_sq=0.1, mixture=False))
-        return xla_exact_scan(Y, X, b[None], step, eps, log_u,
+        return xla_exact_scan(Y, X, b if directed else b[None], step, eps,
+                              log_u, radii=r if directed else None,
+                              is_directed=directed,
                               temper=temper if tempered else None, **kw)
 
     out = jax.jit(jax.vmap(one))(
         *(jnp.asarray(a[k]) for k in ('X', 'b', 'step', 'eps', 'log_u',
                                       'mu', 'sig')),
         jnp.asarray(a['z'], jnp.int32), jnp.asarray(a['lmbda']),
-        jnp.asarray(a['temper']))
+        jnp.asarray(a['temper']), jnp.asarray(radii))
     return np.asarray(out[0]), np.asarray(out[1])
 
 
-def _torch_scan(a, mixture, tempered):
+def _torch_scan(a, mixture, tempered, directed=False):
     t = {k: torch.as_tensor(v) for k, v in a.items()}
     if mixture:
         mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
         kw = dict(mu_z=mu_z, sig_z=sig_z, lmbda=t['lmbda'], mixture=True)
     else:
         kw = dict(tau_sq=2.0, sigma_sq=0.1, mixture=False)
-    X, acc = node_scan_plain(t['Y'], t['X'], t['b'], t['step'], t['eps'],
+    Y = pack_directed(t['Y']) if directed else t['Y']
+    X, acc = node_scan_plain(Y, t['X'], t['b'], t['step'], t['eps'],
                              t['log_u'],
-                             temper=t['temper'] if tempered else None, **kw)
+                             temper=t['temper'] if tempered else None,
+                             radii=t['radii'] if directed else None, **kw)
     return X.numpy(), acc.numpy()
 
 
@@ -93,6 +125,34 @@ def test_plain_node_scan_matches_xla_scan(case):
     assert 0.0 < acc_t.mean() < 1.0
     np.testing.assert_array_equal(acc_t, acc_j)
     np.testing.assert_allclose(X_t, X_j, atol=1e-6)
+
+
+@pytest.mark.parametrize('case', sorted(DIRECTED_CASES))
+def test_plain_directed_node_scan_matches_xla_scan(case):
+    C, T, n, mixture, tempered, b = DIRECTED_CASES[case]
+    a = _directed_inputs(50 + sorted(DIRECTED_CASES).index(case), C, T, n,
+                         b)
+    X_j, acc_j = _jax_scan(a, mixture, tempered, directed=True)
+    X_t, acc_t = _torch_scan(a, mixture, tempered, directed=True)
+    assert 0.0 < acc_t.mean() < 1.0
+    np.testing.assert_array_equal(acc_t, acc_j)
+    np.testing.assert_allclose(X_t, X_j, atol=1e-6)
+
+
+def test_plain_directed_node_scan_matches_pallas_kernel():
+    """The Pallas kernel (interpret mode) on the directed mixture case."""
+    a = _directed_inputs(98, 1, 4, 30, (0.4, 0.8))
+    X_p, acc_p = _node_scan_with_noise(
+        jnp.asarray(a['Y']), jnp.asarray(a['X'][0]), jnp.asarray(a['b'][0]),
+        jnp.asarray(a['step'][0]), jnp.asarray(a['eps'][0]),
+        jnp.asarray(a['log_u'][0]), radii=jnp.asarray(a['radii'][0]),
+        mu=jnp.asarray(a['mu'][0]), sigma=jnp.asarray(a['sig'][0]),
+        lmbda=jnp.float32(a['lmbda'][0]),
+        z=jnp.asarray(a['z'][0], jnp.int32), mixture=True, interpret=True)
+    X_t, acc_t = _torch_scan(a, True, False, directed=True)
+    assert 0.0 < acc_t.mean() < 1.0
+    np.testing.assert_array_equal(acc_t[0], np.asarray(acc_p))
+    np.testing.assert_allclose(X_t[0], np.asarray(X_p), atol=1e-6)
 
 
 def test_plain_node_scan_matches_pallas_kernel():
@@ -133,6 +193,42 @@ def test_node_scan_cuda_rejects_cpu_tensors():
                        t['eps'], t['log_u'], mu_z, sig_z, t['lmbda'])
 
 
+def test_directed_node_scan_dispatch_uses_plain_on_cpu():
+    a = _directed_inputs(8, 2, 3, 12, (0.4, 0.8))
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    before = node_scan_cuda.launches
+    X_d, acc_d = node_scan(pack_directed(t['Y']), t['X'], t['b'], t['step'],
+                           t['eps'], t['log_u'], mu_z=mu_z, sig_z=sig_z,
+                           lmbda=t['lmbda'], radii=t['radii'])
+    X_p, acc_p = _torch_scan(a, True, False, directed=True)
+    assert node_scan_cuda.launches == before
+    np.testing.assert_array_equal(acc_d.numpy(), acc_p)
+    np.testing.assert_array_equal(X_d.numpy(), X_p)
+
+
+def test_directed_node_scan_cuda_rejects_cpu_tensors():
+    a = _directed_inputs(9, 1, 3, 8, (0.4, 0.8))
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    with pytest.raises(ValueError, match='CUDA'):
+        node_scan_cuda(pack_directed(t['Y']), t['X'], t['b'], t['step'],
+                       t['eps'], t['log_u'], mu_z, sig_z, t['lmbda'],
+                       radii=t['radii'])
+
+
+def test_pack_directed_and_smem():
+    Y = (np.arange(2 * 3 * 3).reshape(2, 3, 3) % 2).astype(np.float32)
+    P = pack_directed(torch.as_tensor(Y))
+    assert P.dtype == torch.uint8
+    np.testing.assert_array_equal((P & 1).numpy(), Y)
+    np.testing.assert_array_equal((P >> 1).numpy(), Y.transpose(0, 2, 1))
+    # north star: 40 KB of positions, 10 KB of reduction buffer, 6 KB of
+    # directed rows
+    assert smem_bytes(10, 500, 2) == 4 * (10000 + 5 * 512)
+    assert smem_bytes(10, 500, 2, directed=True) == 4 * (11500 + 5 * 512)
+
+
 def test_partner_pad():
     assert [partner_pad(n) for n in (1, 18, 32, 33, 500)] == \
         [32, 32, 32, 64, 512]
@@ -155,6 +251,29 @@ def test_node_scan_kernel_matches_plain_on_card():
     X_p, acc_p = node_scan_plain(Y8, t['X'], t['b'], t['step'], t['eps'],
                                  t['log_u'], mu_z=mu_z, sig_z=sig_z,
                                  lmbda=t['lmbda'])
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_directed_node_scan_kernel_matches_plain_on_card():
+    """Needs an NVIDIA card with nvcc: the directed mode of the CUDA kernel
+    against its plain version on the card, bit-identical accepts (also
+    checked at the directed slice's shapes by chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the node-scan kernel has no CPU '
+                    'mode')
+    a = _directed_inputs(10, 4, 5, 40, (-0.3, 0.9))
+    t = {k: torch.as_tensor(v).cuda() for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    P = pack_directed(t['Y'])
+    X_k, acc_k = node_scan_cuda(P, t['X'], t['b'], t['step'], t['eps'],
+                                t['log_u'], mu_z, sig_z, t['lmbda'],
+                                radii=t['radii'])
+    X_p, acc_p = node_scan_plain(P, t['X'], t['b'], t['step'], t['eps'],
+                                 t['log_u'], mu_z=mu_z, sig_z=sig_z,
+                                 lmbda=t['lmbda'], radii=t['radii'])
     torch.cuda.synchronize()
     assert torch.equal(acc_k, acc_p)
     torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)

@@ -1,0 +1,45 @@
+"""The per-block profiler of the port's sweep, on the CPU at a tiny size:
+every block of the sweep is timed once per sweep, and the sweep module's
+functions are restored afterwards."""
+import numpy as np
+import pytest
+
+from dynetlsm_tpu_torch import profile_blocks
+from dynetlsm_tpu_torch.entry import build_state_and_sweep
+from dynetlsm_tpu_torch.mcmc import sweeps
+
+
+def _tiny_network(directed, T=3, n=10, seed=0):
+    rng = np.random.RandomState(seed)
+    Y = rng.binomial(1, 0.3, (T, n, n)).astype(np.float64)
+    Y[:, np.arange(n), np.arange(n)] = 0
+    if not directed:
+        Y = np.triu(Y, 1)
+        Y = Y + Y.transpose(0, 2, 1)
+    return Y
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_profile_slice_times_every_block(directed):
+    state, sweep, gen = build_state_and_sweep(
+        _tiny_network(directed), 4, K=3, is_directed=directed)
+    before = {name: getattr(sweeps, name) for name in profile_blocks.BLOCKS}
+    out, state = profile_blocks.profile_slice(sweep, state, gen, sweeps=2,
+                                              warm=1)
+    assert {name: getattr(sweeps, name)
+            for name in profile_blocks.BLOCKS} == before
+    blocks = out['blocks_ms']
+    coef = (('sample_intercepts_directed', 'sample_radii') if directed
+            else ('sample_intercept_undirected',))
+    for name in ('sample_latent_positions', 'sample_labels_block',
+                 'sample_dirichlet', '_mixture_common_logp',
+                 '_finish_tuning', 'other') + coef:
+        assert name in blocks
+    assert all(v > 0 for k, v in blocks.items() if k != 'other')
+    assert sum(blocks.values()) == pytest.approx(out['sweep_synced_ms'])
+    assert int(state.it[0]) == 5
+
+
+def test_union_of_kernel_intervals():
+    assert profile_blocks._union_us([]) == 0
+    assert profile_blocks._union_us([(5, 9), (0, 2), (1, 3), (8, 10)]) == 8

@@ -130,7 +130,8 @@ def test_runner_and_collect_traces():
 
 def test_port_runs_without_jax():
     """The port imports no jax: with jax blocked, it imports and runs two
-    CPU sweeps, on the tiny problem and on Sampson's monastery."""
+    CPU sweeps, on the tiny problem and on Sampson's monastery, undirected
+    and directed."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -144,6 +145,11 @@ def test_port_runs_without_jax():
         "state, sweep, gen = build_state_and_sweep(load_dynamic_monks(), 4)\n"
         "state = sweep(sweep(state, gen), gen)\n"
         "assert bool(state.logp.isfinite().all())\n"
+        "state, sweep, gen = build_state_and_sweep(\n"
+        "    load_dynamic_monks(is_directed=True), 4, is_directed=True)\n"
+        "state = sweep(sweep(state, gen), gen)\n"
+        "assert int(state.it[0]) == 2 and bool(state.logp.isfinite().all())\n"
+        "assert tuple(state.radii.shape) == (4, 18)\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
