@@ -23,18 +23,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
 6. the directed log-likelihood kernel against its plain version at the
    north star with 1, 2 and 3 candidates, negative intercepts included:
    rtol 1e-5 per candidate, and bit-identical on rerun;
-7. the slices: the HDP-LPCM sweep built by ``entry.build_state_and_sweep``
-   at the north star (synthetic network, K=25, 32 chains) and on Sampson's
-   monastery (K=10, 512 chains), undirected and directed, 2 warm-up and 20
-   timed sweeps each through the port's runner, with every launch counter
-   set to 0 just before and read just after; every logp finite, ``it`` =
-   22, the node scan launched once per sweep and the pair kernel once per
+7. the random-walk-prior (LSM) mode of the node-scan kernel against its
+   plain version, as in 3 and 5, undirected and directed, at the north
+   star and Sampson shapes (tau_sq 2.0, sigma_sq 0.1);
+8. the slices, each built by ``entry.build_state_and_sweep`` and run for
+   2 warm-up and 20 timed sweeps through the port's runner, with every
+   launch counter set to 0 just before and read just after: the sticky
+   HDP-LPCM at the north star (synthetic network, K=25, 32 chains) and on
+   Sampson's monastery (K=10, 512 chains), the LSM at both, and the LPCM
+   at the north star (K=8, the generator's communities) and on Sampson
+   (K=4), each undirected and directed.  Every logp finite, ``it`` = 22,
+   the node scan launched once per sweep and the pair kernel once per
    undirected sweep or the directed kernel three times per directed sweep
    (and the other not at all), and the final logp equal to the log joint
    recomputed densely from the final state (rtol 1e-5 plus atol 1e-3:
    one float32 ulp of the log joint's largest terms);
-8. each kernel's time beside its plain version's at the slices' shapes
-   (CUDA events, median of repeats).
+9. each kernel's time beside its plain version's at the slices' shapes
+   (CUDA events, median of repeats), and its bound: the larger of its
+   operations over the card's float32 rate (67 TFLOP/s, each sqrt, exp
+   and log1p counted as one operation) and its bytes (each input read
+   once, each output written once) over 3.35 TB/s.  No single PyTorch
+   call computes any of these functions, so ``library_ms`` is null.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -52,7 +61,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NS = dict(T=10, n=500, K=25, C=32)
 SAMPSON = dict(T=3, n=18, K=10, C=512)
 WARM, TIMED = 2, 20
-KERNELS = ('node_scan', 'pair_loglik', 'dir_loglik')
+# the LSM's random-walk prior variances (models/lsm.py defaults)
+TAU_SQ, SIGMA_SQ = 2.0, 0.1
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 class SmokeFailure(Exception):
@@ -96,14 +108,15 @@ def cuda_ms(fn, repeats, warmup=1):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 5: node scan, undirected and directed
+# phases 3, 5 and 7: node scan, undirected and directed, both priors
 # ---------------------------------------------------------------------------
 
-def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False):
+def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True):
     """Numpy-seeded inputs of one scan.  Directed: a zero-diagonal directed
     Y packed as Y + 2 Y^T, intercepts (C, 2) with a negative b_in in every
     fourth chain, and radii of order 1 (so eta is of order 1 and the
-    likelihood, not the prior, decides most sites)."""
+    likelihood, not the prior, decides most sites).  ``mixture`` selects
+    the prior the scan runs with (``t['mixture']``)."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
         pack_directed, site_cluster_params)
@@ -130,6 +143,7 @@ def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False):
         t['Y'] = pack_directed(t['Y'])
     z = torch.as_tensor(rng.randint(0, K, (C, T, n)), device=dev)
     t['mu_z'], t['sig_z'] = site_cluster_params(t['mu'], t['sig'], z)
+    t['mixture'] = mixture
     return t
 
 
@@ -138,15 +152,17 @@ def scan_args(t):
 
 
 def run_scan(t, kernel):
-    """The kernel or its plain version on the inputs ``t``."""
+    """The kernel or its plain version on the inputs ``t``, with the prior
+    ``t['mixture']`` selects."""
     from dynetlsm_tpu_torch.ops.node_scan import (
         node_scan_cuda, node_scan_plain)
     radii = t.get('radii')
-    if kernel:
-        return node_scan_cuda(*scan_args(t), t['mu_z'], t['sig_z'],
-                              t['lmbda'], radii=radii)
-    return node_scan_plain(*scan_args(t), mu_z=t['mu_z'], sig_z=t['sig_z'],
-                           lmbda=t['lmbda'], radii=radii)
+    if t['mixture']:
+        prior = dict(mu_z=t['mu_z'], sig_z=t['sig_z'], lmbda=t['lmbda'])
+    else:
+        prior = dict(mixture=False, tau_sq=TAU_SQ, sigma_sq=SIGMA_SQ)
+    fn = node_scan_cuda if kernel else node_scan_plain
+    return fn(*scan_args(t), radii=radii, **prior)
 
 
 def first_mismatch(t, acc_k, acc_p, X_k):
@@ -156,7 +172,7 @@ def first_mismatch(t, acc_k, acc_p, X_k):
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
         _directed_partial_loglik_terms, _mixture_prior_per_t,
-        _partial_loglik_terms, _tree_sum, partner_pad)
+        _partial_loglik_terms, _rw_prior_per_t, _tree_sum, partner_pad)
     diff = (acc_k != acc_p).nonzero().tolist()          # (c, t, j)
     c, t_, j = min(diff, key=lambda s: (s[0], s[2], s[1] % 2, s[1]))
     phase = t_ % 2
@@ -185,18 +201,32 @@ def first_mismatch(t, acc_k, acc_p, X_k):
             return _partial_loglik_terms(Yf, X, x, b)
     delta = _tree_sum((terms(x_prop) - terms(x_cur)) * mask,
                       partner_pad(X.shape[2]))
-    mz, sz, lam = t['mu_z'][c:c + 1, :, j], t['sig_z'][c:c + 1, :, j], \
-        t['lmbda'][c:c + 1]
-    ratio = (delta + _mixture_prior_per_t(x_prop, x_cur, mz, sz, lam)
-             - _mixture_prior_per_t(x_cur, x_cur, mz, sz, lam))[0, t_]
+    if t['mixture']:
+        mz, sz = t['mu_z'][c:c + 1, :, j], t['sig_z'][c:c + 1, :, j]
+        lam = t['lmbda'][c:c + 1]
+
+        def prior(x):
+            return _mixture_prior_per_t(x, x_cur, mz, sz, lam)
+    else:
+        tau, sig = (torch.tensor(v, device=X.device)
+                    for v in (TAU_SQ, SIGMA_SQ))
+
+        def prior(x):
+            return _rw_prior_per_t(x, x_cur, tau, sig)
+    ratio = (delta + prior(x_prop) - prior(x_cur))[0, t_]
     margin = abs(float(t['log_u'][c, phase, j, t_]) - float(ratio))
     return dict(chain=c, node=j, phase=phase, t=t_, margin=margin)
 
 
-def check_node_scan(shape, dev, seed, directed=False):
+def scan_mode(directed, mixture):
+    return '%s, %s prior' % ('directed' if directed else 'undirected',
+                             'mixture' if mixture else 'random-walk')
+
+
+def check_node_scan(shape, dev, seed, directed=False, mixture=True):
     import torch
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
-                    seed, directed=directed)
+                    seed, directed=directed, mixture=mixture)
     X_k, acc_k = run_scan(t, kernel=True)
     X_p, acc_p = run_scan(t, kernel=False)
     torch.cuda.synchronize()
@@ -209,8 +239,8 @@ def check_node_scan(shape, dev, seed, directed=False):
     check(err <= 1e-5, 'node_scan: max |dX| = %g > 1e-5' % err)
     rate = float(acc_k.mean())
     check(0.0 < rate < 1.0, 'node_scan: acceptance rate %g' % rate)
-    log('node_scan%s %s: accepts identical (rate %.4f), max |dX| %g'
-        % (' directed' if directed else '', shape, rate, err))
+    log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g'
+        % (scan_mode(directed, mixture), shape, rate, err))
     return t, err
 
 
@@ -292,7 +322,7 @@ def check_dir(shape, n_cand, dev, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the slices
+# phase 8: the slices
 # ---------------------------------------------------------------------------
 
 def launch_counters():
@@ -303,15 +333,22 @@ def launch_counters():
             'dir_loglik': dir_loglik_cuda}
 
 
-def run_slice(name, Y, shape, dev, directed=False):
+def run_slice(name, Y, shape, dev, directed=False, model='hdp'):
+    """Build ``model`` ('hdp', 'lpcm' or 'lsm') on Y with
+    ``entry.build_state_and_sweep``, run WARM + TIMED sweeps through the
+    runner with the launch counters set to 0 just before and read just
+    after, and check them.  Returns (launches, ms per timed sweep)."""
     import torch
     from dynetlsm_tpu_torch.entry import build_state_and_sweep
     from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
-    from dynetlsm_tpu_torch.mcmc.sweeps import hdp_logp_at_state
+    from dynetlsm_tpu_torch.mcmc.sweeps import (
+        _lsm_logp, hdp_logp_at_state, lpcm_logp_at_state)
+    from dynetlsm_tpu_torch.ops.distances import pairwise_distances
     C = shape['C']
     state, sweep, gen = build_state_and_sweep(Y, C, K=shape['K'],
                                               device=dev,
-                                              is_directed=directed)
+                                              is_directed=directed,
+                                              model=model)
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
                               chunk=TIMED)
     sweeps = WARM + TIMED
@@ -341,28 +378,100 @@ def run_slice(name, Y, shape, dev, directed=False):
     acc_rate = float(state.acc_X.mean()) / sweeps
     check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
     s = state
-    dense = hdp_logp_at_state(
-        sweep.cfg, torch.as_tensor(Y, device=dev),
-        np.zeros(2 if directed else 1, np.float32),
-        s.X, s.intercept, s.z, s.mu, s.sigma, s.lmbda, s.weights, s.beta,
-        s.gamma, s.alpha_init, s.alpha, s.kappa, s.mean_var, s.b_scale,
-        radii=s.radii)
+    Yd = torch.as_tensor(Y, device=dev)
+    prior = np.zeros(2 if directed else 1, np.float32)
+    if model == 'lsm':
+        dense = _lsm_logp(sweep.cfg, Yd, s.X, s.intercept, s.radii,
+                          pairwise_distances(s.X),
+                          torch.as_tensor(prior, device=dev))
+    elif model == 'lpcm':
+        dense = lpcm_logp_at_state(
+            sweep.cfg, Yd, prior, s.X, s.intercept, s.z, s.mu, s.sigma,
+            s.lmbda, s.init_weights, s.trans_weights, s.mean_var, s.b_scale,
+            radii=s.radii)
+    else:
+        dense = hdp_logp_at_state(
+            sweep.cfg, Yd, prior, s.X, s.intercept, s.z, s.mu, s.sigma,
+            s.lmbda, s.weights, s.beta, s.gamma, s.alpha_init, s.alpha,
+            s.kappa, s.mean_var, s.b_scale, radii=s.radii)
     gap = (dense - s.logp).abs()
     rel = float((gap / s.logp.abs()).max())
     check(bool((gap <= 1e-5 * s.logp.abs() + 1e-3).all()),
           '%s: sweep logp vs dense log joint rel err %g' % (name, rel))
     ms = 1e3 * elapsed / TIMED
     extra = ''
+    if model == 'lsm':
+        check(bool((s.logp_map >= s.logp).all()), '%s: MAP logp below the '
+              'current logp' % name)
+        extra += ', MAP logp mean %.2f' % float(s.logp_map.mean())
     if directed:
-        extra = (', radii acceptance %.3f, intercepts mean %s'
-                 % (float(s.acc_radii.mean()) / sweeps,
-                    [round(float(v), 4) for v in s.intercept.mean(0)]))
-    log('slice %s (T=%d, n=%d, K=%d, %d chains): %.3f ms/sweep, %.1f '
+        extra += (', radii acceptance %.3f, intercepts mean %s'
+                  % (float(s.acc_radii.mean()) / sweeps,
+                     [round(float(v), 4) for v in s.intercept.mean(0)]))
+    log('slice %s (T=%d, n=%d%s, %d chains): %.3f ms/sweep, %.1f '
         'sweeps/s x chains, X acceptance %.3f, logp mean %.2f, '
         'dense-logp rel err %g (abs %g), launches %s%s'
-        % (name, T, n, shape['K'], C, ms, C / (ms / 1e3), acc_rate,
-           float(s.logp.mean()), rel, float(gap.max()), launches, extra))
+        % (name, T, n, '' if model == 'lsm' else ', K=%d' % shape['K'], C,
+           ms, C / (ms / 1e3), acc_rate, float(s.logp.mean()), rel,
+           float(gap.max()), launches, extra))
     return launches, ms
+
+
+# ---------------------------------------------------------------------------
+# phase 9: bounds
+# ---------------------------------------------------------------------------
+
+def _bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the card's
+    float32 rate and the bytes over its memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def scan_bound(t):
+    """Per site and partner: two squared distances (10), two sqrt, two
+    etas and two softplus (6 each: max, abs, negate, exp, log1p, add),
+    two y * eta - softplus, their difference and the sum: 32; directed,
+    four etas and four softplus: 58.  Per site, the prior and the accept:
+    61 (mixture) or 37 (random walk).  Bytes: every input once, X and the
+    accept indicators written once."""
+    C, T, n, d = t['X'].shape
+    per_pair = 58 if 'radii' in t else 32
+    per_site = 61 if t['mixture'] else 37
+    ops = C * T * n * ((n - 1) * per_pair + per_site)
+    prior = ((t['mu_z'], t['sig_z'], t['lmbda']) if t['mixture'] else ())
+    nbytes = _bytes(t['X'], t['Y'], t['step'], t['eps'], t['log_u'], t['b'],
+                    t.get('radii'), *prior) + 4 * C * T * n * (d + 1)
+    return bound(ops, nbytes)
+
+
+def pair_bound(args):
+    """Per unordered dyad: a distance (7 with the clamp and sqrt), then per
+    intercept eta, y * eta, softplus (6), their difference and the sum
+    (10)."""
+    Y, X, b_cur, b_prop = args
+    C, T, n, _ = X.shape
+    dyads = C * T * n * (n - 1) // 2
+    return bound(dyads * (7 + 2 * 10),
+                 _bytes(Y, X, b_cur, b_prop) + 4 * C * 2)
+
+
+def dir_bound(args):
+    """Per unordered dyad: a distance (7), then per candidate both
+    directions' scale, eta, softplus and y * eta - softplus (24); per
+    candidate and node, two reciprocals."""
+    Yp, X, radii, b = args
+    C, T, n, _ = X.shape
+    n_cand = radii.shape[1]
+    ops = (C * T * n * (n - 1) // 2 * (7 + 24 * n_cand)
+           + 2 * C * n_cand * n)
+    return bound(ops, _bytes(Yp, X, radii, b) + 4 * C * n_cand)
 
 
 def main():
@@ -391,30 +500,46 @@ def main():
             if 'registers' in line or 'smem' in line or 'Compiling' in line:
                 log('  ptxas: ' + line.strip())
 
-        scan_ns, err_scan_ns = check_node_scan(NS, dev, seed=1)
-        scan_sa, err_scan_sa = check_node_scan(SAMPSON, dev, seed=2)
+        # (name, shape, directed, mixture, seed) of each node-scan check
+        scan_cases = [
+            ('mix', NS, False, True, 1), ('mix', SAMPSON, False, True, 2),
+            ('mix dir', NS, True, True, 5),
+            ('mix dir', SAMPSON, True, True, 6),
+            ('rw', NS, False, False, 11), ('rw', SAMPSON, False, False, 12),
+            ('rw dir', NS, True, False, 13),
+            ('rw dir', SAMPSON, True, False, 14)]
+        scans = {}
+        for key, shape, directed, mixture, seed in scan_cases:
+            scans[key, shape['n']] = check_node_scan(
+                shape, dev, seed=seed, directed=directed, mixture=mixture)
         pair_ns, err_pair_ns = check_pair(NS, dev, seed=3)
         pair_sa, err_pair_sa = check_pair(SAMPSON, dev, seed=4)
-        dscan_ns, err_dscan_ns = check_node_scan(NS, dev, seed=5,
-                                                 directed=True)
-        dscan_sa, err_dscan_sa = check_node_scan(SAMPSON, dev, seed=6,
-                                                 directed=True)
         dir_ns = {}
         for n_cand in (1, 2, 3):
             dir_ns[n_cand] = check_dir(NS, n_cand, dev, seed=6 + n_cand)
 
         from dynetlsm_tpu_torch.datasets import (
             load_dynamic_monks, northstar_network)
-        launch_ns, ms_ns = run_slice('northstar', northstar_network(), NS,
-                                     dev)
-        launch_sa, ms_sa = run_slice('sampson', load_dynamic_monks(),
-                                     SAMPSON, dev)
-        launch_dns, ms_dns = run_slice(
-            'northstar directed', northstar_network(directed=True), NS, dev,
-            directed=True)
-        launch_dsa, ms_dsa = run_slice(
-            'sampson directed', load_dynamic_monks(is_directed=True),
-            SAMPSON, dev, directed=True)
+        networks = {
+            (NS['n'], False): northstar_network(),
+            (NS['n'], True): northstar_network(directed=True),
+            (SAMPSON['n'], False): load_dynamic_monks(),
+            (SAMPSON['n'], True): load_dynamic_monks(is_directed=True)}
+        # (model, shape): the HDP-LPCM at bench.py's K, the LSM, and the
+        # LPCM at the north-star generator's 8 communities and at K=4 on
+        # Sampson (models/lpcm.py:42)
+        slice_cases = [('hdp', NS), ('hdp', SAMPSON), ('lsm', NS),
+                       ('lsm', SAMPSON), ('lpcm', dict(NS, K=8)),
+                       ('lpcm', dict(SAMPSON, K=4))]
+        slices = {}
+        for model, shape in slice_cases:
+            for directed in (False, True):
+                name = '%s %s%s' % (
+                    model, 'northstar' if shape['n'] == NS['n']
+                    else 'sampson', ' directed' if directed else '')
+                slices[name] = run_slice(
+                    name, networks[shape['n'], directed], shape, dev,
+                    directed=directed, model=model)
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -443,36 +568,43 @@ def main():
         dir_cu = 'dynetlsm_tpu_torch/csrc/dir_loglik.cu'
         scan_py = 'dynetlsm_tpu/ops/pallas_scan.py'
         loglik_py = 'dynetlsm_tpu/ops/pallas_loglik.py'
-        rows = [
-            ('node_scan', 'undirected', scan_cu, scan_py + ':157', NS,
-             launch_ns, err_scan_ns, scan_times(scan_ns)),
-            ('node_scan', 'undirected', scan_cu, scan_py + ':637', SAMPSON,
-             launch_sa, err_scan_sa, scan_times(scan_sa)),
+        # the Pallas kernel of each shape: T > 8 or T <= 8
+        scan_at = {NS['n']: scan_py + ':157', SAMPSON['n']: scan_py + ':637'}
+        rows = []
+        for key, shape, directed, mixture, _ in scan_cases:
+            t, err = scans[key, shape['n']]
+            where = 'northstar' if shape is NS else 'sampson'
+            slice_name = '%s %s%s' % ('hdp' if mixture else 'lsm', where,
+                                      ' directed' if directed else '')
+            rows.append(('node_scan', scan_mode(directed, mixture), scan_cu,
+                         scan_at[shape['n']], shape, slice_name, err,
+                         scan_times(t), scan_bound(t)))
+        rows += [
             ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25', NS,
-             launch_ns, err_pair_ns, pair_times(pair_ns)),
+             'hdp northstar', err_pair_ns, pair_times(pair_ns),
+             pair_bound(pair_ns)),
             ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25',
-             SAMPSON, launch_sa, err_pair_sa, pair_times(pair_sa)),
-            ('node_scan', 'directed', scan_cu, scan_py + ':157', NS,
-             launch_dns, err_dscan_ns, scan_times(dscan_ns)),
-            ('node_scan', 'directed', scan_cu, scan_py + ':637', SAMPSON,
-             launch_dsa, err_dscan_sa, scan_times(dscan_sa)),
+             SAMPSON, 'hdp sampson', err_pair_sa, pair_times(pair_sa),
+             pair_bound(pair_sa)),
             ('dir_loglik', 'directed, n_cand=2', dir_cu, loglik_py + ':219',
-             NS, launch_dns, max(e for _, e in dir_ns.values()),
-             dir_times(dir_ns[2][0])),
+             NS, 'hdp northstar directed',
+             max(e for _, e in dir_ns.values()), dir_times(dir_ns[2][0]),
+             dir_bound(dir_ns[2][0])),
         ]
-        for (name, mode, source, replaces, shape, launches, err,
-             (ms, pms)) in rows:
-            log('%s (%s) %s: kernel %.4f ms, plain %.4f ms'
-                % (name, mode, shape, ms, pms))
+        for (name, mode, source, replaces, shape, slice_name, err,
+             (ms, pms), (bound_ms, bound_by)) in rows:
+            log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f ms '
+                '(%s)' % (name, mode, shape, ms, pms, bound_ms, bound_by))
             kernels.append({
                 'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces, 'launches': launches[name],
+                'replaces': replaces,
+                'launches': slices[slice_name][0][name],
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
-                'mode': mode,
-                'shape': 'T=%(T)d n=%(n)d K=%(K)d chains=%(C)d' % shape})
-        log('slice ms/sweep: northstar %.3f, sampson %.3f, northstar '
-            'directed %.3f, sampson directed %.3f'
-            % (ms_ns, ms_sa, ms_dns, ms_dsa))
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'library_ms': None, 'mode': mode, 'slice': slice_name,
+                'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape})
+        log('slice ms/sweep: ' + ', '.join(
+            '%s %.3f' % (k, v[1]) for k, v in slices.items()))
     except SmokeFailure as e:
         log('chip_smoke FAILED: %s' % e)
         return 1

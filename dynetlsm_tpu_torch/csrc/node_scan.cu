@@ -2,19 +2,23 @@
 // chains at once.
 //
 // Replaces the Pallas kernels dynetlsm_tpu/ops/pallas_scan.py::
-// _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in the
-// mixture-prior, untempered mode, undirected or directed social-radii; T
-// is a runtime argument, so one kernel serves both.  With the same
-// injected proposal stream (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises
-// the same Markov chain as dynetlsm_tpu/mcmc/latent.py::xla_exact_scan:
-// nodes in index order, each node in two parity phases (even t, then odd
-// t), a site accepted iff log_u < ratio.
+// _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in their
+// untempered modes: undirected or directed social-radii (template
+// kDirected), with the mixture (AR(1)-to-cluster-mean) prior or the
+// Gaussian random-walk prior (template kMixture; pallas_scan.py:320-332 and
+// :760-765 compute the random-walk prior).  T is a runtime argument, so one
+// kernel serves both Pallas kernels.  With the same injected proposal
+// stream (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises the same Markov
+// chain as dynetlsm_tpu/mcmc/latent.py::xla_exact_scan: nodes in index
+// order, each node in two parity phases (even t, then odd t), a site
+// accepted iff log_u < ratio.
 //
 // What bounds it on the H100: the scan is 2n dependent steps per sweep, so
 // it is latency-bound, not bandwidth- or FLOP-bound.  Per step a chain does
 // ceil(T/2) * n partner terms (two sqrt/exp/log1p evaluations each, four
 // directed) and a reduction; the adjacency (T*n*n bytes, 2.5 MB at T=10,
-// n=500) stays in L2 across chains.
+// n=500) stays in L2 across chains.  The prior is a handful of operations
+// per in-phase time, so the two priors cost the same step latency.
 //
 // Design: one thread block per chain keeps that chain's (T, n, d) position
 // field in shared memory for the whole scan (40 KB at T=10, n=500, d=2),
@@ -28,6 +32,14 @@
 // prior delta, decides, and writes the site back to shared memory.
 // C blocks on 132 SMs is low occupancy at few chains; a chain's steps
 // cannot be spread over blocks without a grid-wide barrier per step.
+//
+// Random-walk prior (kMixture false): with the node's own neighbours
+// prev = x[t-1] and nxt = x[t+1],
+//   back = (-0.5 * |x|^2) / tau_sq at t = 0, (-0.5 * |x - prev|^2) / sigma_sq
+//   after; fwd = (-0.5 * |nxt - x|^2) / sigma_sq, 0 at t = T-1,
+// summed in index order and divided in IEEE single precision, the op order
+// of the plain version (ops/node_scan.py::_rw_prior_per_t).  mu_z, sig_z and
+// lmbda are not read and may be null.
 //
 // Directed mode (template kDirected): the adjacency arrives packed as
 // Y + 2 Y^T (uint8), so row j of it gives both the out-edge bit y = Y[j,i]
@@ -53,8 +65,10 @@ __device__ __forceinline__ float softplus(float eta) {
 
 // b: (C,) intercepts, or (C, 2) = (b_in, b_out) when kDirected; radii:
 // (C, n) when kDirected, unused otherwise; Y: the 0/1 adjacency, or the
-// packed Y + 2 Y^T when kDirected.
-template <bool kDirected>
+// packed Y + 2 Y^T when kDirected.  mu_z, sig_z, lmbda: the mixture prior's
+// per-site cluster means and variances and per-chain lambda (kMixture);
+// tau_sq, sigma_sq: the random-walk prior's variances (!kMixture).
+template <bool kDirected, bool kMixture>
 __global__ void node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
     const float* __restrict__ step, const float* __restrict__ eps,
@@ -62,7 +76,7 @@ __global__ void node_scan_kernel(
     const float* __restrict__ sig_z, const float* __restrict__ b,
     const float* __restrict__ radii, const float* __restrict__ lmbda,
     float* __restrict__ X_out, float* __restrict__ acc, int T, int n, int d,
-    int P) {
+    int P, float tau_sq, float sigma_sq) {
   extern __shared__ float smem[];
   const int field = T * n * d;
   float* xs = smem;           // (T, n, d) this chain's positions
@@ -91,13 +105,13 @@ __global__ void node_scan_kernel(
       v_s[k] = b_out / r;
     }
   }
-  const float lam = lmbda[c];
+  const float lam = kMixture ? lmbda[c] : 0.0f;
   const float one_m = 1.0f - lam;
   const float* step_c = step + (size_t)c * T * n;
   const float* eps_c = eps + (size_t)c * 2 * n * T * d;
   const float* logu_c = log_u + (size_t)c * 2 * n * T;
-  const float* muz_c = mu_z + (size_t)c * T * n * d;
-  const float* sigz_c = sig_z + (size_t)c * T * n;
+  const float* muz_c = kMixture ? mu_z + (size_t)c * T * n * d : nullptr;
+  const float* sigz_c = kMixture ? sig_z + (size_t)c * T * n : nullptr;
   float* acc_c = acc + (size_t)c * T * n;
   __syncthreads();
 
@@ -175,38 +189,67 @@ __global__ void node_scan_kernel(
         const float s = step_c[t * n + j];
         const float* e = eps_j + t * d;
         const float* x_t = xs + t * n * d;
-        const float sig = sigz_c[t * n + j];
         const bool last = (t == T - 1);
-        const float sig_nxt = last ? 1.0f : sigz_c[(t + 1) * n + j];
-        float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
-        for (int q = 0; q < d; ++q) {
-          const float xc = x_t[j * d + q];
-          const float xp = xc + s * e[q];
-          const float mu = muz_c[(t * n + j) * d + q];
-          float dp, dc;
-          if (t == 0) {
-            dp = xp - mu;
-            dc = xc - mu;
-          } else {
-            const float prev = xs[((t - 1) * n + j) * d + q];
-            dp = (xp - one_m * prev) - lam * mu;
-            dc = (xc - one_m * prev) - lam * mu;
+        float back_p, back_c, fwd_p, fwd_c;
+        if (kMixture) {
+          const float sig = sigz_c[t * n + j];
+          const float sig_nxt = last ? 1.0f : sigz_c[(t + 1) * n + j];
+          float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
+          for (int q = 0; q < d; ++q) {
+            const float xc = x_t[j * d + q];
+            const float xp = xc + s * e[q];
+            const float mu = muz_c[(t * n + j) * d + q];
+            float dp, dc;
+            if (t == 0) {
+              dp = xp - mu;
+              dc = xc - mu;
+            } else {
+              const float prev = xs[((t - 1) * n + j) * d + q];
+              dp = (xp - one_m * prev) - lam * mu;
+              dc = (xc - one_m * prev) - lam * mu;
+            }
+            bp = (q == 0) ? dp * dp : bp + dp * dp;
+            bcur = (q == 0) ? dc * dc : bcur + dc * dc;
+            if (!last) {
+              const float nxt = xs[((t + 1) * n + j) * d + q];
+              const float mu_nxt = muz_c[((t + 1) * n + j) * d + q];
+              const float gp = (nxt - one_m * xp) - lam * mu_nxt;
+              const float gc = (nxt - one_m * xc) - lam * mu_nxt;
+              fp = (q == 0) ? gp * gp : fp + gp * gp;
+              fcur = (q == 0) ? gc * gc : fcur + gc * gc;
+            }
           }
-          bp = (q == 0) ? dp * dp : bp + dp * dp;
-          bcur = (q == 0) ? dc * dc : bcur + dc * dc;
-          if (!last) {
-            const float nxt = xs[((t + 1) * n + j) * d + q];
-            const float mu_nxt = muz_c[((t + 1) * n + j) * d + q];
-            const float gp = (nxt - one_m * xp) - lam * mu_nxt;
-            const float gc = (nxt - one_m * xc) - lam * mu_nxt;
-            fp = (q == 0) ? gp * gp : fp + gp * gp;
-            fcur = (q == 0) ? gc * gc : fcur + gc * gc;
+          back_p = (-0.5f * bp) / sig;
+          back_c = (-0.5f * bcur) / sig;
+          fwd_p = last ? 0.0f : (-0.5f * fp) / sig_nxt;
+          fwd_c = last ? 0.0f : (-0.5f * fcur) / sig_nxt;
+        } else {
+          float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
+          for (int q = 0; q < d; ++q) {
+            const float xc = x_t[j * d + q];
+            const float xp = xc + s * e[q];
+            float dp = xp, dc = xc;
+            if (t > 0) {
+              const float prev = xs[((t - 1) * n + j) * d + q];
+              dp = xp - prev;
+              dc = xc - prev;
+            }
+            bp = (q == 0) ? dp * dp : bp + dp * dp;
+            bcur = (q == 0) ? dc * dc : bcur + dc * dc;
+            if (!last) {
+              const float nxt = xs[((t + 1) * n + j) * d + q];
+              const float gp = nxt - xp;
+              const float gc = nxt - xc;
+              fp = (q == 0) ? gp * gp : fp + gp * gp;
+              fcur = (q == 0) ? gc * gc : fcur + gc * gc;
+            }
           }
+          const float var0 = (t == 0) ? tau_sq : sigma_sq;
+          back_p = (-0.5f * bp) / var0;
+          back_c = (-0.5f * bcur) / var0;
+          fwd_p = last ? 0.0f : (-0.5f * fp) / sigma_sq;
+          fwd_c = last ? 0.0f : (-0.5f * fcur) / sigma_sq;
         }
-        const float back_p = (-0.5f * bp) / sig;
-        const float back_c = (-0.5f * bcur) / sig;
-        const float fwd_p = last ? 0.0f : (-0.5f * fp) / sig_nxt;
-        const float fwd_c = last ? 0.0f : (-0.5f * fcur) / sig_nxt;
         const float lp = back_p + fwd_p;
         const float lc = back_c + fwd_c;
         const float ratio = (red[m * P] + lp) - lc;
@@ -232,27 +275,32 @@ __global__ void node_scan_kernel(
 // Launch on `stream`; returns the CUDA error code (0 on success).
 // P: the partner axis padded to a power of two >= 32.  directed != 0
 // selects the social-radii likelihood (b (C, 2), radii (C, n), Y packed
-// Y + 2 Y^T); otherwise b is (C,) and radii may be null.
+// Y + 2 Y^T); otherwise b is (C,) and radii may be null.  mixture != 0
+// selects the mixture prior (mu_z, sig_z, lmbda); otherwise the random-walk
+// prior with tau_sq and sigma_sq, and mu_z, sig_z, lmbda may be null.
 extern "C" int node_scan_launch(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
     const float* b, const float* radii, const float* lmbda, float* X_out,
-    float* acc, int C, int T, int n, int d, int P, int directed,
-    void* stream) {
+    float* acc, int C, int T, int n, int d, int P, int directed, int mixture,
+    float tau_sq, float sigma_sq, void* stream) {
   const size_t smem =
       ((size_t)T * n * d + (size_t)((T + 1) / 2) * P
        + (directed ? 3 * (size_t)n : 0)) * sizeof(float);
   void (*kernel)(const float*, const uint8_t*, const float*, const float*,
                  const float*, const float*, const float*, const float*,
                  const float*, const float*, float*, float*, int, int, int,
-                 int) =
-      directed ? node_scan_kernel<true> : node_scan_kernel<false>;
+                 int, float, float) =
+      directed ? (mixture ? node_scan_kernel<true, true>
+                          : node_scan_kernel<true, false>)
+               : (mixture ? node_scan_kernel<false, true>
+                          : node_scan_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = P < kMaxThreads ? P : kMaxThreads;
   kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
       X, Y, step, eps, log_u, mu_z, sig_z, b, radii, lmbda, X_out, acc, T, n,
-      d, P);
+      d, P, tau_sq, sigma_sq);
   return (int)cudaGetLastError();
 }

@@ -4,84 +4,153 @@
 * :func:`entry` — one HDP-LPCM Gibbs sweep on a tiny random problem, with
   its arguments.
 * :func:`build_state_and_sweep` — a replicated chain state and the sweep
-  for a dense undirected or directed network, with random initialisation
-  (the ``quality_init=False`` path of ``bench.py``; GMDS and k-means
+  of the sticky HDP-LPCM, the finite LPCM or the dynamic LSM for a dense
+  undirected or directed network, with random initialisation (the
+  ``quality_init=False`` path of ``bench.py``; GMDS and k-means
   initialisation belong to the estimator, not ported yet).
+
+Both run on the card unless the caller passes ``device='cpu'``; without a
+CUDA device they raise (``config.resolve_device``).
 """
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .math.init import initialize_radii
 from .mcmc.driver import replicate_state
-from .mcmc.sweeps import SweepConfig, make_hdp_sweep
+from .mcmc.sweeps import (
+    SweepConfig, _lsm_logp, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
+from .ops.distances import pairwise_distances
+
+# the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
+_HYPER = dict(a0=36.0, b0=40.0, c0=5.0, d0=2.0)
 
 
-def _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0, n_int=1):
+def _single_state(T, n, X0, n_int=1):
+    """The fields every model's initial state shares: positions X0,
+    intercept(s) 1.0, step sizes 0.1."""
     return {
-        'it': 0, 'X': X0, 'intercept': np.ones(n_int), 'z': z0, 'mu': mu0,
-        'sigma': sigma0, 'lmbda': 0.9, 'weights': weights0, 'beta': beta0,
-        'gamma': 1.0, 'alpha_init': 1.0, 'alpha': 1.0, 'kappa': 4.0,
-        'mean_var': 1.0, 'b_scale': 2.4, 'step_X': np.full((T, n), 0.1),
-        'acc_X': np.zeros((T, n)), 'step_int': np.full((n_int,), 0.1),
-        'acc_int': np.zeros(n_int), 'logp': 0.0}
+        'it': 0, 'X': X0, 'intercept': np.ones(n_int),
+        'step_X': np.full((T, n), 0.1), 'acc_X': np.zeros((T, n)),
+        'step_int': np.full((n_int,), 0.1), 'acc_int': np.zeros(n_int),
+        'logp': 0.0}
 
 
-def _tiny_problem(n_chains=1, T=3, n=18, K=5, d=2, seed=0, device=None):
+def _mixture_fields(mu0, sigma0, z0):
+    return {'z': z0, 'mu': mu0, 'sigma': sigma0, 'lmbda': 0.9,
+            'mean_var': 1.0, 'b_scale': 2.4}
+
+
+def _hdp_fields(weights0, beta0):
+    return {'weights': weights0, 'beta': beta0, 'gamma': 1.0,
+            'alpha_init': 1.0, 'alpha': 1.0, 'kappa': 4.0}
+
+
+def _tiny_problem(device, n_chains=1, T=3, n=18, K=5, d=2, seed=0):
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.3, size=(T, n, n)).astype(np.float32)
     Y = np.triu(Y, 1)
     Y = Y + Y.transpose(0, 2, 1)
     z0 = rng.randint(0, K, size=(T, n))
     weights0 = np.full((T, K, K), 1.0 / K)
-    cfg = SweepConfig(tune=100, tune_interval=100, n_components=K,
-                      a0=36.0, b0=40.0, c0=5.0, d0=2.0)
+    cfg = SweepConfig(tune=100, tune_interval=100, n_components=K, **_HYPER)
     sweep = make_hdp_sweep(Y, np.zeros(1, np.float32), cfg, device=device)
-    s0 = _single_state(T, n, rng.randn(T, n, d), rng.randn(K, d),
-                       np.ones(K), z0, weights0, np.full(K, 1.0 / K))
+    s0 = _single_state(T, n, rng.randn(T, n, d))
+    s0.update(_mixture_fields(rng.randn(K, d), np.ones(K), z0),
+              **_hdp_fields(weights0, np.full(K, 1.0 / K)))
     state = replicate_state(s0, n_chains, device)
-    gen = torch.Generator(device=device or 'cpu').manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
     return sweep, state, gen
 
 
-def entry(device=None):
-    """(fn, example_args): one HDP-LPCM Gibbs sweep, ``fn(state, gen)``."""
-    sweep, state, gen = _tiny_problem(n_chains=1, device=device)
+def entry(device='cuda'):
+    """(fn, example_args): one HDP-LPCM Gibbs sweep, ``fn(state, gen)``,
+    on ``device`` (the card by default)."""
+    sweep, state, gen = _tiny_problem(resolve_device(device))
     return sweep, (state, gen)
 
 
+def _initial_lsm_logp(cfg, Y, s0, prior, device):
+    """The LSM log joint of the single-chain start, from dense distances
+    (the initial sample's logp, lsm.py:252-257)."""
+    X = torch.as_tensor(s0['X'], dtype=torch.float32, device=device)[None]
+    b = torch.as_tensor(s0['intercept'], dtype=torch.float32,
+                        device=device)[None]
+    radii = s0.get('radii')
+    if radii is not None:
+        radii = torch.as_tensor(radii, dtype=torch.float32,
+                                device=device)[None]
+    Yd = torch.as_tensor(np.asarray(Y, np.float32), device=device)
+    prior = torch.as_tensor(prior, device=device)
+    return float(_lsm_logp(cfg, Yd, X, b, radii, pairwise_distances(X),
+                           prior)[0])
+
+
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
-                          device=None, is_directed=False):
-    """A replicated chain state, the HDP sweep and its generator for the
-    dense network Y (T, n, n), undirected or directed (social radii
-    initialised from the degrees, step 175000, tuned), with the
-    configuration of ``bench.py``'s headline and directed rows.  The
-    initial state draws the same NumPy random numbers as
-    ``bench.build_state_and_sweep(..., quality_init=False)``.
-    Returns (state, sweep, gen)."""
+                          device='cuda', is_directed=False, model='hdp'):
+    """A replicated chain state, the sweep and its generator for the dense
+    network Y (T, n, n), undirected or directed, on ``device`` (the card
+    by default).  Returns (state, sweep, gen).
+
+    * ``model='hdp'``: the sticky HDP-LPCM with K components, in the
+      configuration of ``bench.py``'s headline and directed rows; the
+      initial state draws the same NumPy random numbers as
+      ``bench.build_state_and_sweep(..., quality_init=False)``.
+    * ``model='lpcm'``: the finite LPCM with K components, the same
+      hyper-priors, ``dirichlet_prior=1.0``, uniform transitions and the
+      initial distribution of the random labels (lpcm.py:157-162).
+    * ``model='lsm'``: the dynamic LSM with ``tau_sq=2.0``,
+      ``sigma_sq=0.1``, no tuning and no burn-in (``n_burn=0``: the
+      Procrustes rotation toward the start runs from the first sweep);
+      its logp, MAP and Procrustes reference start at the log joint of the
+      initial positions.
+
+    Every model starts from N(0, 1) positions and intercept(s) 1.0;
+    directed, from radii of the degrees (``initialize_radii``) with step
+    175000, tuned in the mixture models (``tune_radii``) and not in the
+    LSM (lsm.py:222)."""
+    if model not in ('hdp', 'lpcm', 'lsm'):
+        raise ValueError("model must be 'hdp', 'lpcm' or 'lsm', got %r"
+                         % (model,))
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     T, n, _ = Y.shape
     d = 2
-    X0 = rng.randn(T, n, d)
-    mu0 = rng.randn(K, d)
-    sigma0 = np.ones(K)
-    z0 = rng.randint(0, K, size=(T, n))
-    weights0 = np.zeros((T, K, K))
-    weights0[0, 0] = np.bincount(z0[0], minlength=K) / n
-    beta0 = rng.dirichlet(np.full(K, 1.0 / K))
-    for t in range(1, T):
-        for k in range(K):
-            weights0[t, k] = rng.dirichlet(beta0 + 4.0 * np.eye(K)[k])
-
-    cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
-                      n_components=K, a0=36.0, b0=40.0, c0=5.0, d0=2.0,
-                      table_cap=table_cap, tune_radii=is_directed)
     n_int = 2 if is_directed else 1
-    sweep = make_hdp_sweep(Y, np.zeros(n_int, np.float32), cfg,
-                           device=device)
-    s0 = _single_state(T, n, X0, mu0, sigma0, z0, weights0, beta0, n_int)
+    prior = np.zeros(n_int, np.float32)
+    s0 = _single_state(T, n, rng.randn(T, n, d), n_int)
     if is_directed:
         s0.update(radii=initialize_radii(Y), step_radii=175000.0,
                   acc_radii=0.0)
+
+    if model == 'lsm':
+        cfg = SweepConfig(is_directed=is_directed, tune=0, n_burn=0,
+                          tau_sq=2.0, sigma_sq=0.1)
+        sweep = make_lsm_sweep(Y, prior, cfg, device=device)
+        logp0 = _initial_lsm_logp(cfg, Y, s0, prior, device)
+        s0.update(logp=logp0, logp_map=logp0, X_map=s0['X'],
+                  intercept_map=s0['intercept'], logp_ref=logp0,
+                  X_ref=s0['X'], radii_map=s0.get('radii'))
+    else:
+        mu0 = rng.randn(K, d)
+        z0 = rng.randint(0, K, size=(T, n))
+        s0.update(_mixture_fields(mu0, np.ones(K), z0))
+        cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
+                          n_components=K, table_cap=table_cap,
+                          tune_radii=is_directed, **_HYPER)
+        if model == 'hdp':
+            weights0 = np.zeros((T, K, K))
+            weights0[0, 0] = np.bincount(z0[0], minlength=K) / n
+            beta0 = rng.dirichlet(np.full(K, 1.0 / K))
+            for t in range(1, T):
+                for k in range(K):
+                    weights0[t, k] = rng.dirichlet(beta0 + 4.0 * np.eye(K)[k])
+            s0.update(_hdp_fields(weights0, beta0))
+            sweep = make_hdp_sweep(Y, prior, cfg, device=device)
+        else:
+            s0.update(init_weights=np.bincount(z0[0], minlength=K) / n,
+                      trans_weights=np.full((K, K), 1.0 / K))
+            sweep = make_lpcm_sweep(Y, prior, cfg, device=device)
     state = replicate_state(s0, n_chains, device)
-    gen = torch.Generator(device=device or 'cpu').manual_seed(seed + 1)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
     return state, sweep, gen

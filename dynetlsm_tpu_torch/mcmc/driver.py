@@ -10,13 +10,15 @@ the device; ``collect_traces`` copies each chunk to the host.
 import numpy as np
 import torch
 
-from .states import MixtureState, state_from_numpy
+from .states import state_from_numpy
 
 
-def replicate_state(state0, n_chains, device=None):
+def replicate_state(state0, n_chains, device):
     """Broadcast a single-chain state, given as a dict of arrays keyed by
-    the :class:`MixtureState` field names (no chain axis), across a new
-    leading chain axis of length ``n_chains``; ``None`` fields stay
+    the field names of :class:`~.states.LSMState` or
+    :class:`~.states.MixtureState` (no chain axis; the fields given pick
+    the class, :func:`~.states.state_class`), across a new leading chain
+    axis of length ``n_chains`` on ``device``; ``None`` fields stay
     ``None``."""
     batched = {k: np.broadcast_to(np.asarray(v), (n_chains,)
                                   + np.shape(v)).copy()
@@ -30,7 +32,7 @@ def make_scan_runner(sweep_fn, trace_fn, chunk=512):
     ``trace_fn(state)`` (a dict of tensors) after each into buffers of
     length ``chunk`` (rows past ``n_samples`` are left unwritten)."""
 
-    def run(state: MixtureState, gen, n_samples):
+    def run(state, gen, n_samples):
         if n_samples > chunk:
             raise ValueError('n_samples=%d exceeds the runner chunk %d'
                              % (n_samples, chunk))

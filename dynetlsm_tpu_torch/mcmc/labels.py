@@ -78,3 +78,19 @@ def sample_labels_block(gen, X, mu, sigma, lmbda, weights):
     z = _forward_sample(gen, pm, weights[:, 0, 0], weights)
     n_trans, nk, resp = _label_statistics(z, K)
     return z, n_trans, nk, resp
+
+
+def sample_labels_block_lpcm(gen, X, mu, sigma, lmbda, init_weights,
+                             trans_weights):
+    """Blocked FFBS with one time-constant transition matrix (LPCM,
+    reference sample_labels.py:73-131).  init_weights (C, K);
+    trans_weights (C, K, K), broadcast over T.
+    Returns (z, n_trans, nk, resp)."""
+    C, T = X.shape[:2]
+    K = sigma.shape[-1]
+    w = trans_weights[:, None].expand(C, T, K, K)
+    lik = emission_likelihoods_kn(X, mu, sigma, lmbda, normalize=True)
+    pm = _backward_messages(lik, w)
+    z = _forward_sample(gen, pm, init_weights, w)
+    n_trans, nk, resp = _label_statistics(z, K)
+    return z, n_trans, nk, resp

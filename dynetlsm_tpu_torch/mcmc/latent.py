@@ -24,36 +24,39 @@ def latent_noise(gen, C, T, n, d, device):
     return eps, log_u
 
 
-def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu, sigma,
-                            lmbda, z, radii=None, is_directed=False,
+def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
+                            sigma=None, lmbda=None, z=None, tau_sq=None,
+                            sigma_sq=None, radii=None, is_directed=False,
                             mixture=True, scheme='exact', noise=None,
                             cc=None):
     """One full sweep of single-site MH updates of the positions under the
-    mixture prior.
+    mixture prior (mu, sigma, lmbda, z) or, with ``mixture=False``, the
+    Gaussian random-walk prior of the LSM (tau_sq, sigma_sq).
 
     Undirected: Y (T, n, n) uint8 0/1, intercept (C, 1).  Directed
     (``is_directed``): Y the packed ``Y + 2 Y^T`` uint8, intercept (C, 2)
     = (b_in, b_out), radii (C, n).  X (C, T, n, d); step_size (C, T, n);
-    mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n).
-    ``noise`` = (eps, log_u) injects the proposal stream.
+    mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n); tau_sq, sigma_sq
+    floats.  ``noise`` = (eps, log_u) injects the proposal stream.
     Returns (X_new (C, T, n, d), accepted (C, T, n))."""
     if scheme != 'exact':
         raise NotImplementedError(
             "latent_update=%r is not ported yet; only 'exact'" % (scheme,))
     if is_directed and radii is None:
         raise ValueError('the directed latent update needs radii')
-    if not mixture:
-        raise NotImplementedError('the random-walk (LSM) prior is not '
-                                  'ported to the sweep yet')
     if cc is not None:
         raise NotImplementedError('the case-control likelihood is not '
                                   'ported yet')
     C, T, n, d = X.shape
     eps, log_u = (noise if noise is not None
                   else latent_noise(gen, C, T, n, d, X.device))
-    mu_z, sig_z = site_cluster_params(mu, sigma, z)
+    if mixture:
+        mu_z, sig_z = site_cluster_params(mu, sigma, z)
+        prior = dict(mu_z=mu_z, sig_z=sig_z, lmbda=lmbda.contiguous())
+    else:
+        prior = dict(tau_sq=tau_sq, sigma_sq=sigma_sq, mixture=False)
     b = intercept if is_directed else intercept.reshape(C)
     return node_scan(Y, X.contiguous(), b.contiguous(),
-                     step_size.contiguous(), eps, log_u, mu_z=mu_z,
-                     sig_z=sig_z, lmbda=lmbda.contiguous(),
-                     radii=radii.contiguous() if is_directed else None)
+                     step_size.contiguous(), eps, log_u,
+                     radii=radii.contiguous() if is_directed else None,
+                     **prior)

@@ -1,17 +1,25 @@
-"""Sampler state of the HDP-LPCM (counterpart of ``MixtureState`` in
-``dynetlsm_tpu/mcmc/states.py``, HDP fields only).
+"""Sampler states (counterparts of ``LSMState`` and ``MixtureState`` in
+``dynetlsm_tpu/mcmc/states.py``), for a fixed network with no
+case-control and no tempering.
 
 Every tensor carries the chain axis as its leading dimension; the JAX
 package vmaps a single-chain state instead.  The PRNG key of the JAX state
 has no field here: a ``torch.Generator`` is passed to each sweep.
 
-``state_from_numpy`` / ``state_to_numpy`` carry a state across the two
-implementations as a dict of NumPy arrays keyed by the JAX field names, so
-tests can hand both samplers the same state.
+* :class:`LSMState`: the dynamic LSM (random-walk prior), with its MAP and
+  Procrustes-reference tracking.
+* :class:`MixtureState`: the LPCM and the sticky HDP-LPCM.  The HDP
+  fields (``weights``, ``beta`` and the concentrations) are ``None`` in an
+  LPCM state, whose transitions are ``init_weights`` and
+  ``trans_weights``; the LPCM fields are ``None`` in an HDP state.
 
 The directed social-radii model adds ``radii``, ``step_radii`` and
 ``acc_radii`` and carries two intercepts (b_in, b_out); an undirected state
-has one intercept and ``None`` in the three radii fields.
+has one intercept and ``None`` in the radii fields.
+
+``state_from_numpy`` / ``state_to_numpy`` carry a state across the two
+implementations as a dict of NumPy arrays keyed by the JAX field names, so
+tests can hand both samplers the same state.
 """
 import dataclasses
 from typing import Optional
@@ -23,7 +31,34 @@ from ..config import DTYPE, ITYPE
 
 
 @dataclasses.dataclass
-class MixtureState:
+class _State:
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class LSMState(_State):
+    it: torch.Tensor            # (C,) int64 sweep counter
+    X: torch.Tensor             # (C, T, n, d) latent positions
+    intercept: torch.Tensor     # (C, 1), or (C, 2) = (b_in, b_out) directed
+    step_X: torch.Tensor        # (C, T, n)
+    acc_X: torch.Tensor         # (C, T, n)
+    step_int: torch.Tensor      # (C, 1) or (C, 2)
+    acc_int: torch.Tensor       # (C, 1) or (C, 2)
+    logp: torch.Tensor          # (C,)
+    logp_map: torch.Tensor      # (C,) best logp so far (reset at tune end)
+    X_map: torch.Tensor         # (C, T, n, d)
+    intercept_map: torch.Tensor  # (C, 1) or (C, 2)
+    logp_ref: torch.Tensor      # (C,) best logp up to the end of burn-in
+    X_ref: torch.Tensor         # (C, T, n, d) the Procrustes reference
+    radii: Optional[torch.Tensor] = None       # (C, n), directed only
+    step_radii: Optional[torch.Tensor] = None  # (C,)
+    acc_radii: Optional[torch.Tensor] = None   # (C,)
+    radii_map: Optional[torch.Tensor] = None   # (C, n)
+
+
+@dataclasses.dataclass
+class MixtureState(_State):
     it: torch.Tensor            # (C,) int64 sweep counter
     X: torch.Tensor             # (C, T, n, d) latent positions
     intercept: torch.Tensor     # (C, 1), or (C, 2) = (b_in, b_out) directed
@@ -31,12 +66,6 @@ class MixtureState:
     mu: torch.Tensor            # (C, K, d)
     sigma: torch.Tensor         # (C, K)
     lmbda: torch.Tensor         # (C,)
-    weights: torch.Tensor       # (C, T, K, K); weights[:, 0, 0] initial
-    beta: torch.Tensor          # (C, K)
-    gamma: torch.Tensor         # (C,)
-    alpha_init: torch.Tensor    # (C,)
-    alpha: torch.Tensor         # (C,)
-    kappa: torch.Tensor         # (C,)
     mean_var: torch.Tensor      # (C,)
     b_scale: torch.Tensor       # (C,)
     step_X: torch.Tensor        # (C, T, n)
@@ -44,31 +73,46 @@ class MixtureState:
     step_int: torch.Tensor      # (C, 1) or (C, 2)
     acc_int: torch.Tensor       # (C, 1) or (C, 2)
     logp: torch.Tensor          # (C,)
-    radii: Optional[torch.Tensor] = None       # (C, n), directed only
+    # HDP only
+    weights: Optional[torch.Tensor] = None     # (C, T, K, K), [:, 0, 0] w0
+    beta: Optional[torch.Tensor] = None        # (C, K)
+    gamma: Optional[torch.Tensor] = None       # (C,)
+    alpha_init: Optional[torch.Tensor] = None  # (C,)
+    alpha: Optional[torch.Tensor] = None       # (C,)
+    kappa: Optional[torch.Tensor] = None       # (C,)
+    # LPCM only
+    init_weights: Optional[torch.Tensor] = None   # (C, K)
+    trans_weights: Optional[torch.Tensor] = None  # (C, K, K)
+    # directed only
+    radii: Optional[torch.Tensor] = None       # (C, n)
     step_radii: Optional[torch.Tensor] = None  # (C,)
     acc_radii: Optional[torch.Tensor] = None   # (C,)
-
-    def replace(self, **changes):
-        return dataclasses.replace(self, **changes)
 
 
 _INT_FIELDS = ('it', 'z')
 
 
+def state_class(arrays):
+    """The state class a dict of fields describes: an LSM state has a
+    Procrustes reference ``X_ref``, a mixture state does not."""
+    return LSMState if arrays.get('X_ref') is not None else MixtureState
+
+
 def state_from_numpy(arrays, device):
-    """Build a :class:`MixtureState` from a dict of chain-batched NumPy
-    arrays keyed by field name (extra keys, such as the JAX state's
-    ``key`` or its ``None`` LPCM fields, are ignored; a missing or ``None``
-    radii field stays ``None``).  Integer fields are cast to int64, float
-    fields to float32."""
+    """Build an :class:`LSMState` or a :class:`MixtureState` (by
+    :func:`state_class`) from a dict of chain-batched NumPy arrays keyed by
+    field name (extra keys, such as the JAX state's ``key``, are ignored; a
+    missing or ``None`` optional field stays ``None``).  Integer fields are
+    cast to int64, float fields to float32."""
+    cls = state_class(arrays)
     kwargs = {}
-    for f in dataclasses.fields(MixtureState):
+    for f in dataclasses.fields(cls):
         if arrays.get(f.name) is None:
             continue
         a = np.asarray(arrays[f.name])
         dtype = ITYPE if f.name in _INT_FIELDS else DTYPE
         kwargs[f.name] = torch.tensor(a, device=device).to(dtype)
-    return MixtureState(**kwargs)
+    return cls(**kwargs)
 
 
 def state_to_numpy(state, int_dtype=np.int32):
@@ -76,7 +120,7 @@ def state_to_numpy(state, int_dtype=np.int32):
     integer fields are cast to ``int_dtype`` (int32, the JAX package's
     label dtype, by default)."""
     out = {}
-    for f in dataclasses.fields(MixtureState):
+    for f in dataclasses.fields(state):
         v = getattr(state, f.name)
         if v is None:
             continue

@@ -30,8 +30,9 @@ NVCC_FLAGS = GENCODE + ('-std=c++17', '-O3', '-fmad=false', '-Xcompiler',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    'node_scan_launch': [_P] * 12 + [_I] * 6 + [_P],
+    'node_scan_launch': [_P] * 12 + [_I] * 7 + [_F] * 2 + [_P],
     'pair_loglik_launch': [_P] * 6 + [_I] * 4 + [_P],
     'pair_loglik_row_blocks': [_I],
     'dir_loglik_launch': [_P] * 7 + [_I] * 5 + [_P],
@@ -125,6 +126,9 @@ def library():
 def check_tensor(kernel, name, t, shape, dtype, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: the kernels take raw pointers and trust their layout."""
+    if t is None:
+        raise ValueError('%s: %s is required (a %s tensor of shape %s)'
+                         % (kernel, name, dtype, tuple(shape)))
     if (t.device != device or t.dtype != dtype
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
         raise ValueError(

@@ -11,8 +11,9 @@ iff log_u < ratio.
 * :func:`node_scan_plain` is the chain-batched PyTorch port of
   ``xla_exact_scan`` (undirected or directed social-radii; mixture or
   random-walk prior; optional per-chain temperature).
-* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (mixture prior,
-  untempered; undirected, or directed when given ``radii``).
+* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (untempered;
+  mixture or random-walk prior; undirected, or directed when given
+  ``radii``).
 * :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
   error for what it does not take), the plain version for CPU tensors.
 
@@ -128,7 +129,11 @@ def _mixture_prior_per_t(xs, x_cur, mu_z, sigma_z, lmbda):
 
 def _rw_prior_per_t(xs, x_cur, tau_sq, sigma_sq):
     """Gaussian random-walk prior terms of each time's conditional
-    (reference sample_latent_positions.py:131-141).  Returns (C, T)."""
+    (reference sample_latent_positions.py:131-141).  tau_sq, sigma_sq:
+    floats, or 0-d tensors on the device of ``xs`` (then a CUDA tensor is
+    divided element by element, as the kernel divides, and not multiplied
+    by a reciprocal, as PyTorch divides a CUDA tensor by a Python float).
+    Returns (C, T)."""
     T = xs.shape[1]
     t_idx = torch.arange(T, device=xs.device)[None, :]
     prev = _shift_prev(x_cur)
@@ -157,6 +162,9 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     P = partner_pad(n)
     X = X.clone()
     directed = radii is not None
+    if not mixture:
+        tau_sq = torch.as_tensor(tau_sq, dtype=X.dtype, device=X.device)
+        sigma_sq = torch.as_tensor(sigma_sq, dtype=X.dtype, device=X.device)
     if directed:
         Yp = Y.to(torch.uint8)
         b_in, b_out = intercept[:, 0], intercept[:, 1]
@@ -215,13 +223,15 @@ def smem_bytes(T, n, d, directed=False):
                 + (3 * n if directed else 0))
 
 
-def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
-                   lmbda, radii=None):
-    """Launch the CUDA node-scan kernel (mixture prior, untempered).
-    Undirected: Y (T, n, n) uint8 0/1, intercept (C,).  Directed (``radii``
-    (C, n) given): Y packed ``Y + 2 Y^T`` uint8, intercept (C, 2).  Every
-    other tensor float32 on the same CUDA device, contiguous, shaped as in
-    :func:`node_scan_plain`."""
+def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
+                   sig_z=None, lmbda=None, radii=None, *, mixture=True,
+                   tau_sq=None, sigma_sq=None):
+    """Launch the CUDA node-scan kernel (untempered).  Undirected: Y
+    (T, n, n) uint8 0/1, intercept (C,).  Directed (``radii`` (C, n)
+    given): Y packed ``Y + 2 Y^T`` uint8, intercept (C, 2).  Mixture prior:
+    mu_z, sig_z, lmbda; random-walk prior (``mixture=False``): float
+    tau_sq, sigma_sq.  Every tensor float32 on the same CUDA device,
+    contiguous, shaped as in :func:`node_scan_plain`."""
     C, T, n, d = X.shape
     dev = X.device
     f32 = torch.float32
@@ -230,14 +240,20 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
         raise ValueError('node_scan_cuda: X must be a CUDA tensor')
     if directed:
         cuda_lib.check_tensor('node_scan', 'radii', radii, (C, n), f32, dev)
+    if mixture:
+        for name, t, shape in (('mu_z', mu_z, (C, T, n, d)),
+                               ('sig_z', sig_z, (C, T, n)),
+                               ('lmbda', lmbda, (C,))):
+            cuda_lib.check_tensor('node_scan', name, t, shape, f32, dev)
+    elif tau_sq is None or sigma_sq is None:
+        raise ValueError('node_scan_cuda: the random-walk prior needs '
+                         'tau_sq and sigma_sq')
     for name, t, shape, dtype in (
             ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, n), torch.uint8),
             ('intercept', intercept, (C, 2) if directed else (C,), f32),
             ('step_size', step_size, (C, T, n), f32),
             ('eps', eps, (C, 2, n, T, d), f32),
-            ('log_u', log_u, (C, 2, n, T), f32),
-            ('mu_z', mu_z, (C, T, n, d), f32),
-            ('sig_z', sig_z, (C, T, n), f32), ('lmbda', lmbda, (C,), f32)):
+            ('log_u', log_u, (C, 2, n, T), f32)):
         cuda_lib.check_tensor('node_scan', name, t, shape, dtype, dev)
     smem = smem_bytes(T, n, d, directed)
     if smem > _MAX_SMEM_BYTES:
@@ -249,13 +265,18 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
             % (smem, T, n, d, directed, _MAX_SMEM_BYTES))
     X_out = torch.empty_like(X)
     acc = torch.empty((C, T, n), dtype=f32, device=dev)
+    if mixture:
+        prior = (mu_z.data_ptr(), sig_z.data_ptr(), lmbda.data_ptr(), 0.0,
+                 1.0)
+    else:
+        prior = (None, None, None, float(tau_sq), float(sigma_sq))
     lib = cuda_lib.library()
     rc = lib.node_scan_launch(
         X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
-        log_u.data_ptr(), mu_z.data_ptr(), sig_z.data_ptr(),
-        intercept.data_ptr(), radii.data_ptr() if directed else None,
-        lmbda.data_ptr(), X_out.data_ptr(), acc.data_ptr(), C, T, n, d,
-        partner_pad(n), int(directed), cuda_lib.stream_handle(dev))
+        log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
+        radii.data_ptr() if directed else None, prior[2], X_out.data_ptr(),
+        acc.data_ptr(), C, T, n, d, partner_pad(n), int(directed),
+        int(mixture), prior[3], prior[4], cuda_lib.stream_handle(dev))
     node_scan_cuda.launches += 1
     cuda_lib.check_launch('node_scan', rc)
     return X_out, acc
@@ -264,14 +285,18 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z, sig_z,
 node_scan_cuda.launches = 0
 
 
-def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z, sig_z,
-              lmbda, radii=None):
-    """The exact node scan with the mixture prior, directed when given
-    ``radii``: the CUDA kernel for CUDA tensors, :func:`node_scan_plain`
-    for CPU tensors."""
+def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
+              sig_z=None, lmbda=None, tau_sq=None, sigma_sq=None,
+              mixture=True, radii=None):
+    """The exact node scan with the mixture prior (mu_z, sig_z, lmbda) or
+    the random-walk prior (``mixture=False``: tau_sq, sigma_sq), directed
+    when given ``radii``: the CUDA kernel for CUDA tensors,
+    :func:`node_scan_plain` for CPU tensors."""
     if X.is_cuda:
         return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
-                              sig_z, lmbda, radii=radii)
+                              sig_z, lmbda, radii=radii, mixture=mixture,
+                              tau_sq=tau_sq, sigma_sq=sigma_sq)
     return node_scan_plain(Y, X, intercept, step_size, eps, log_u,
-                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda, mixture=True,
+                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda,
+                           tau_sq=tau_sq, sigma_sq=sigma_sq, mixture=mixture,
                            radii=radii)

@@ -1,10 +1,11 @@
-"""Where the HDP-LPCM sweep's time goes, block by block, on one GPU.
+"""Where the sweeps' time goes, block by block, on one GPU.
 
     python3 -m dynetlsm_tpu_torch.profile_blocks [--sweeps 10]
 
-For each slice that ``chip_smoke.py`` drives (the north star and Sampson,
-undirected and directed, built by ``entry.build_state_and_sweep``) it
-prints one JSON line with:
+For the HDP-LPCM slices that ``chip_smoke.py`` drives (the north star and
+Sampson, undirected and directed) and its LSM and LPCM slices at the north
+star (undirected and directed), all built by
+``entry.build_state_and_sweep``, it prints one JSON line per slice with:
 
 * ``sweep_ms``: ms per sweep with no instrumentation;
 * ``sweep_synced_ms`` and ``blocks_ms``: ms per sweep when every block
@@ -33,14 +34,15 @@ from .mcmc import sweeps as _sweeps
 # the functions the sweep calls through mcmc.sweeps' namespace; none of
 # them calls another one of them through it, so no time is counted twice
 BLOCKS = (
-    'sample_latent_positions', 'sample_intercept_undirected',
-    'sample_intercepts_directed', 'sample_radii', 'sample_labels_block',
+    'sample_latent_positions', 'longitudinal_procrustes_rotation',
+    'sample_intercept_undirected', 'sample_intercepts_directed',
+    'sample_radii', 'sample_labels_block', 'sample_labels_block_lpcm',
     'sample_tables', 'sample_mbar', 'sample_dirichlet',
     'sample_cluster_means', 'sample_cluster_variances', 'sample_lambda',
     'sample_mean_variance_hyper', 'sample_sigma_scale_hyper',
     'sample_concentration_param', 'sample_alpha_kappa_rho',
-    '_hdp_weights_logp', '_count_chain_loglik', '_mixture_common_logp',
-    '_finish_tuning')
+    '_hdp_weights_logp', '_lpcm_weights_logp', '_count_chain_loglik',
+    '_mixture_common_logp', '_lsm_logp', '_finish_tuning')
 
 
 def _sync(device):
@@ -146,16 +148,20 @@ def main(argv=None):
     from .datasets import load_dynamic_monks, northstar_network
     from .entry import build_state_and_sweep
     dev = torch.device('cuda', 0)
-    slices = [('northstar', northstar_network(), 25, 32, False),
-              ('sampson', load_dynamic_monks(), 10, 512, False),
-              ('northstar directed', northstar_network(directed=True), 25,
-               32, True),
+    ns, ns_dir = northstar_network(), northstar_network(directed=True)
+    slices = [('northstar', ns, 25, 32, False, 'hdp'),
+              ('sampson', load_dynamic_monks(), 10, 512, False, 'hdp'),
+              ('northstar directed', ns_dir, 25, 32, True, 'hdp'),
               ('sampson directed', load_dynamic_monks(is_directed=True), 10,
-               512, True)]
+               512, True, 'hdp'),
+              ('lsm northstar', ns, None, 32, False, 'lsm'),
+              ('lsm northstar directed', ns_dir, None, 32, True, 'lsm'),
+              ('lpcm northstar', ns, 8, 32, False, 'lpcm'),
+              ('lpcm northstar directed', ns_dir, 8, 32, True, 'lpcm')]
     runs = []
-    for name, Y, K, C, directed in slices:
+    for name, Y, K, C, directed, model in slices:
         state, sweep, gen = build_state_and_sweep(
-            Y, C, K=K, device=dev, is_directed=directed)
+            Y, C, K=K, device=dev, is_directed=directed, model=model)
         out, state = profile_slice(sweep, state, gen, sweeps=args.sweeps)
         runs.append((name, C, out, sweep, state, gen))
     for name, C, out, sweep, state, gen in runs:

@@ -97,7 +97,7 @@ def one_sweep_each():
                                JaxSweepConfig(**CFG))
     jax_out = _to_numpy(jax.jit(jax.vmap(sweep))(state))
     start = _to_numpy(state)
-    port_sweep = make_hdp_sweep(Y, PRIOR, SweepConfig(**CFG))
+    port_sweep = make_hdp_sweep(Y, PRIOR, SweepConfig(**CFG), device='cpu')
     gen = torch.Generator().manual_seed(12)
     port_out = state_to_numpy(port_sweep(state_from_numpy(start, 'cpu'),
                                          gen))

@@ -277,3 +277,77 @@ def test_directed_node_scan_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     assert torch.equal(acc_k, acc_p)
     torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)
+
+
+def _rw_dispatch_args(a, directed):
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    Y = pack_directed(t['Y']) if directed else t['Y'].to(torch.uint8)
+    return t, (Y, t['X'], t['b'], t['step'], t['eps'], t['log_u'])
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_rw_node_scan_dispatch_uses_plain_on_cpu(directed):
+    """The random-walk (LSM) prior through the dispatching ``node_scan``:
+    the plain version on CPU tensors, the same chain as xla_exact_scan."""
+    a = (_directed_inputs(11, 2, 3, 12, (0.4, 0.8)) if directed
+         else _inputs(12, 2, 4, 12))
+    t, args = _rw_dispatch_args(a, directed)
+    before = node_scan_cuda.launches
+    X_d, acc_d = node_scan(*args, tau_sq=2.0, sigma_sq=0.1, mixture=False,
+                           radii=t['radii'] if directed else None)
+    assert node_scan_cuda.launches == before
+    X_p, acc_p = _torch_scan(a, False, False, directed=directed)
+    np.testing.assert_array_equal(acc_d.numpy(), acc_p)
+    np.testing.assert_array_equal(X_d.numpy(), X_p)
+    X_j, acc_j = _jax_scan(a, False, False, directed=directed)
+    assert 0.0 < acc_j.mean() < 1.0
+    np.testing.assert_array_equal(acc_d.numpy(), acc_j)
+    np.testing.assert_allclose(X_d.numpy(), X_j, atol=1e-6)
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_rw_node_scan_cuda_rejects_cpu_tensors(directed):
+    a = (_directed_inputs(13, 1, 3, 8, (0.4, 0.8)) if directed
+         else _inputs(14, 1, 3, 8))
+    t, args = _rw_dispatch_args(a, directed)
+    with pytest.raises(ValueError, match='CUDA'):
+        node_scan_cuda(*args, radii=t['radii'] if directed else None,
+                       mixture=False, tau_sq=2.0, sigma_sq=0.1)
+
+
+def test_rw_plain_node_scan_divides_by_tensors():
+    """The plain version divides the random-walk prior's squared norms by
+    tau_sq and sigma_sq as tensors, so that on the card it divides as the
+    kernel does; on the CPU that is the same as dividing by the floats."""
+    rng = np.random.RandomState(3)
+    xs = torch.as_tensor(rng.randn(2, 4, 2).astype(np.float32))
+    x_cur = torch.as_tensor(rng.randn(2, 4, 2).astype(np.float32))
+    from dynetlsm_tpu_torch.ops.node_scan import _rw_prior_per_t
+    by_float = _rw_prior_per_t(xs, x_cur, 2.0, 0.1)
+    by_tensor = _rw_prior_per_t(xs, x_cur, torch.tensor(2.0),
+                                torch.tensor(0.1))
+    np.testing.assert_array_equal(by_float.numpy(), by_tensor.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('directed', [False, True])
+def test_rw_node_scan_kernel_matches_plain_on_card(directed):
+    """Needs an NVIDIA card with nvcc: the random-walk-prior mode of the
+    CUDA kernel against its plain version on the card, bit-identical
+    accepts (also checked at the LSM slices' shapes by chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the node-scan kernel has no CPU '
+                    'mode')
+    a = (_directed_inputs(15, 4, 5, 40, (-0.3, 0.9)) if directed
+         else _inputs(16, 4, 5, 40))
+    t = {k: torch.as_tensor(v).cuda() for k, v in a.items()}
+    Y = pack_directed(t['Y']) if directed else t['Y'].to(torch.uint8)
+    args = (Y, t['X'], t['b'], t['step'], t['eps'], t['log_u'])
+    radii = t['radii'] if directed else None
+    X_k, acc_k = node_scan_cuda(*args, radii=radii, mixture=False,
+                                tau_sq=2.0, sigma_sq=0.1)
+    X_p, acc_p = node_scan_plain(*args, radii=radii, mixture=False,
+                                 tau_sq=2.0, sigma_sq=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)

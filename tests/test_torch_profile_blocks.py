@@ -19,10 +19,12 @@ def _tiny_network(directed, T=3, n=10, seed=0):
     return Y
 
 
-@pytest.mark.parametrize('directed', [False, True])
-def test_profile_slice_times_every_block(directed):
+@pytest.mark.parametrize('directed, model', [
+    (False, 'hdp'), (True, 'hdp'), (False, 'lsm'), (True, 'lpcm')])
+def test_profile_slice_times_every_block(directed, model):
     state, sweep, gen = build_state_and_sweep(
-        _tiny_network(directed), 4, K=3, is_directed=directed)
+        _tiny_network(directed), 4, K=3, device='cpu', is_directed=directed,
+        model=model)
     before = {name: getattr(sweeps, name) for name in profile_blocks.BLOCKS}
     out, state = profile_blocks.profile_slice(sweep, state, gen, sweeps=2,
                                               warm=1)
@@ -31,9 +33,14 @@ def test_profile_slice_times_every_block(directed):
     blocks = out['blocks_ms']
     coef = (('sample_intercepts_directed', 'sample_radii') if directed
             else ('sample_intercept_undirected',))
-    for name in ('sample_latent_positions', 'sample_labels_block',
-                 'sample_dirichlet', '_mixture_common_logp',
-                 '_finish_tuning', 'other') + coef:
+    per_model = {
+        'hdp': ('sample_labels_block', 'sample_dirichlet',
+                '_hdp_weights_logp', '_mixture_common_logp'),
+        'lpcm': ('sample_labels_block_lpcm', 'sample_dirichlet',
+                 '_lpcm_weights_logp', '_mixture_common_logp'),
+        'lsm': ('longitudinal_procrustes_rotation', '_lsm_logp')}[model]
+    for name in ('sample_latent_positions', '_finish_tuning',
+                 'other') + coef + per_model:
         assert name in blocks
     assert all(v > 0 for k, v in blocks.items() if k != 'other')
     assert sum(blocks.values()) == pytest.approx(out['sweep_synced_ms'])

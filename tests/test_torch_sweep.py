@@ -86,7 +86,7 @@ def one_sweep_each():
     jax_out = _to_numpy(jax.jit(jax.vmap(sweep))(state))
     start = _to_numpy(state)
     port_sweep = make_hdp_sweep(Y, np.zeros(1, np.float32),
-                                SweepConfig(**CFG))
+                                SweepConfig(**CFG), device='cpu')
     gen = torch.Generator().manual_seed(12)
     port_out = state_to_numpy(port_sweep(state_from_numpy(start, 'cpu'),
                                          gen))
@@ -118,7 +118,7 @@ def test_one_sweep_matches_jax_in_distribution(one_sweep_each, name):
 
 def test_runner_and_collect_traces():
     from dynetlsm_tpu_torch.entry import entry
-    sweep, (state, gen) = entry()
+    sweep, (state, gen) = entry(device='cpu')
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp,
                                                 'X': s.X}, chunk=3)
     state, traces = collect_traces(runner, state, gen, 5, chunk=3)
@@ -130,8 +130,9 @@ def test_runner_and_collect_traces():
 
 def test_port_runs_without_jax():
     """The port imports no jax: with jax blocked, it imports and runs two
-    CPU sweeps, on the tiny problem and on Sampson's monastery, undirected
-    and directed."""
+    CPU sweeps of the tiny problem, and two CPU sweeps of each of the
+    HDP-LPCM, the LPCM and the LSM on Sampson's monastery, undirected and
+    directed."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -139,16 +140,18 @@ def test_port_runs_without_jax():
         "import dynetlsm_tpu_torch\n"
         "from dynetlsm_tpu_torch.entry import entry, build_state_and_sweep\n"
         "from dynetlsm_tpu_torch.datasets import load_dynamic_monks\n"
-        "sweep, (state, gen) = entry()\n"
+        "sweep, (state, gen) = entry(device='cpu')\n"
         "state = sweep(sweep(state, gen), gen)\n"
         "assert int(state.it[0]) == 2 and bool(state.logp.isfinite().all())\n"
-        "state, sweep, gen = build_state_and_sweep(load_dynamic_monks(), 4)\n"
-        "state = sweep(sweep(state, gen), gen)\n"
-        "assert bool(state.logp.isfinite().all())\n"
-        "state, sweep, gen = build_state_and_sweep(\n"
-        "    load_dynamic_monks(is_directed=True), 4, is_directed=True)\n"
-        "state = sweep(sweep(state, gen), gen)\n"
-        "assert int(state.it[0]) == 2 and bool(state.logp.isfinite().all())\n"
+        "for model in ('hdp', 'lpcm', 'lsm'):\n"
+        "    for directed in (False, True):\n"
+        "        state, sweep, gen = build_state_and_sweep(\n"
+        "            load_dynamic_monks(is_directed=directed), 4, K=4,\n"
+        "            device='cpu', is_directed=directed, model=model)\n"
+        "        state = sweep(sweep(state, gen), gen)\n"
+        "        assert int(state.it[0]) == 2, model\n"
+        "        assert bool(state.logp.isfinite().all()), model\n"
+        "        assert (state.radii is not None) == directed, model\n"
         "assert tuple(state.radii.shape) == (4, 18)\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
