@@ -26,6 +26,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
 7. the random-walk-prior (LSM) mode of the node-scan kernel against its
    plain version, as in 3 and 5, undirected and directed, at the north
    star and Sampson shapes (tau_sq 2.0, sigma_sq 0.1);
+7b. the tempered lane of the node-scan kernel (per-chain inverse
+   temperatures ``geomspace(1, 0.2, 4)`` tiled over the chains) against
+   its plain version, as in 3, 5 and 7, in all four modes (undirected and
+   directed, mixture and random-walk prior) at both shapes;
 8. the slices, each built by ``entry.build_state_and_sweep`` and run for
    2 warm-up and 20 timed sweeps through the port's runner, with every
    launch counter set to 0 just before and read just after: the sticky
@@ -38,6 +42,22 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (and the other not at all), and the final logp equal to the log joint
    recomputed densely from the final state (rtol 1e-5 plus atol 1e-3:
    one float32 ulp of the log joint's largest terms);
+8b. the tempered slices, built by ``build_state_and_sweep(...,
+   n_temps=4)`` (ladders of 4 rungs from 1 to 0.2, bench.py's
+   ``tempered`` row) and run as in 8 through the parallel-tempering step:
+   the HDP-LPCM at the north star (8 ladders), undirected and directed,
+   and on directed Sampson (128 ladders), the LPCM on Sampson, and the LSM
+   at both shapes, undirected and directed.  Per step the node scan once
+   and the pair kernel twice (undirected: the intercept step and the
+   swap's log-likelihood) or the directed kernel four times; every slot's
+   logp equal to its dense untempered log joint (as in 8), the ladder
+   unchanged bit for bit (no adaptation) and each pair's accepted swaps
+   between 0 and its 11 attempts; each rung pair's swap acceptance and the
+   cold slots' logp mean are printed;
+8c. the tempered against the untempered HDP-LPCM north-star slice, ms per
+   sweep, ten alternating rounds of 20 sweeps each in this process, and
+   the median of the rounds' paired ratios (the host's speed drifts within
+   a run by more than the swap costs);
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats), and its bound: the larger of its
    operations over the card's float32 rate (67 TFLOP/s, each sqrt, exp
@@ -61,6 +81,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NS = dict(T=10, n=500, K=25, C=32)
 SAMPSON = dict(T=3, n=18, K=10, C=512)
 WARM, TIMED = 2, 20
+# parallel tempering: rungs per ladder and the hottest inverse temperature
+# (bench.py's tempered row)
+N_TEMPS, BETA_MIN = 4, 0.2
 # the LSM's random-walk prior variances (models/lsm.py defaults)
 TAU_SQ, SIGMA_SQ = 2.0, 0.1
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
@@ -111,12 +134,15 @@ def cuda_ms(fn, repeats, warmup=1):
 # phases 3, 5 and 7: node scan, undirected and directed, both priors
 # ---------------------------------------------------------------------------
 
-def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True):
+def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True,
+                tempered=False):
     """Numpy-seeded inputs of one scan.  Directed: a zero-diagonal directed
     Y packed as Y + 2 Y^T, intercepts (C, 2) with a negative b_in in every
     fourth chain, and radii of order 1 (so eta is of order 1 and the
     likelihood, not the prior, decides most sites).  ``mixture`` selects
-    the prior the scan runs with (``t['mixture']``)."""
+    the prior the scan runs with (``t['mixture']``); ``tempered`` adds the
+    per-chain inverse temperatures ``t['temper']``, 4-rung ladders from 1
+    to 0.2 (the other inputs are those of the untempered seed)."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
         pack_directed, site_cluster_params)
@@ -144,6 +170,10 @@ def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True):
     z = torch.as_tensor(rng.randint(0, K, (C, T, n)), device=dev)
     t['mu_z'], t['sig_z'] = site_cluster_params(t['mu'], t['sig'], z)
     t['mixture'] = mixture
+    if tempered:
+        t['temper'] = torch.as_tensor(
+            np.tile(np.geomspace(1.0, 0.2, N_TEMPS), C // N_TEMPS),
+            dtype=torch.float32, device=dev)
     return t
 
 
@@ -162,7 +192,7 @@ def run_scan(t, kernel):
     else:
         prior = dict(mixture=False, tau_sq=TAU_SQ, sigma_sq=SIGMA_SQ)
     fn = node_scan_cuda if kernel else node_scan_plain
-    return fn(*scan_args(t), radii=radii, **prior)
+    return fn(*scan_args(t), radii=radii, temper=t.get('temper'), **prior)
 
 
 def first_mismatch(t, acc_k, acc_p, X_k):
@@ -201,6 +231,8 @@ def first_mismatch(t, acc_k, acc_p, X_k):
             return _partial_loglik_terms(Yf, X, x, b)
     delta = _tree_sum((terms(x_prop) - terms(x_cur)) * mask,
                       partner_pad(X.shape[2]))
+    if 'temper' in t:
+        delta = t['temper'][c:c + 1, None] * delta
     if t['mixture']:
         mz, sz = t['mu_z'][c:c + 1, :, j], t['sig_z'][c:c + 1, :, j]
         lam = t['lmbda'][c:c + 1]
@@ -218,15 +250,18 @@ def first_mismatch(t, acc_k, acc_p, X_k):
     return dict(chain=c, node=j, phase=phase, t=t_, margin=margin)
 
 
-def scan_mode(directed, mixture):
-    return '%s, %s prior' % ('directed' if directed else 'undirected',
-                             'mixture' if mixture else 'random-walk')
+def scan_mode(directed, mixture, tempered=False):
+    return '%s, %s prior%s' % ('directed' if directed else 'undirected',
+                               'mixture' if mixture else 'random-walk',
+                               ', tempered' if tempered else '')
 
 
-def check_node_scan(shape, dev, seed, directed=False, mixture=True):
+def check_node_scan(shape, dev, seed, directed=False, mixture=True,
+                    tempered=False):
     import torch
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
-                    seed, directed=directed, mixture=mixture)
+                    seed, directed=directed, mixture=mixture,
+                    tempered=tempered)
     X_k, acc_k = run_scan(t, kernel=True)
     X_p, acc_p = run_scan(t, kernel=False)
     torch.cuda.synchronize()
@@ -239,8 +274,16 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True):
     check(err <= 1e-5, 'node_scan: max |dX| = %g > 1e-5' % err)
     rate = float(acc_k.mean())
     check(0.0 < rate < 1.0, 'node_scan: acceptance rate %g' % rate)
+    if tempered:
+        # the cold chains (beta = 1) are the untempered scan's; the hot
+        # ones are not
+        _, acc_u = run_scan(dict(t, temper=None), kernel=True)
+        check(torch.equal(acc_u[::N_TEMPS], acc_k[::N_TEMPS]),
+              'node_scan: cold chains differ from the untempered scan')
+        check(not torch.equal(acc_u, acc_k),
+              'node_scan: the temperatures changed no accept decision')
     log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g'
-        % (scan_mode(directed, mixture), shape, rate, err))
+        % (scan_mode(directed, mixture, tempered), shape, rate, err))
     return t, err
 
 
@@ -333,11 +376,13 @@ def launch_counters():
             'dir_loglik': dir_loglik_cuda}
 
 
-def run_slice(name, Y, shape, dev, directed=False, model='hdp'):
+def run_slice(name, Y, shape, dev, directed=False, model='hdp',
+              n_temps=None):
     """Build ``model`` ('hdp', 'lpcm' or 'lsm') on Y with
-    ``entry.build_state_and_sweep``, run WARM + TIMED sweeps through the
-    runner with the launch counters set to 0 just before and read just
-    after, and check them.  Returns (launches, ms per timed sweep)."""
+    ``entry.build_state_and_sweep`` (with ``n_temps``, its parallel-
+    tempering step), run WARM + TIMED sweeps through the runner with the
+    launch counters set to 0 just before and read just after, and check
+    them.  Returns (launches, ms per timed sweep)."""
     import torch
     from dynetlsm_tpu_torch.entry import build_state_and_sweep
     from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
@@ -348,13 +393,18 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp'):
     state, sweep, gen = build_state_and_sweep(Y, C, K=shape['K'],
                                               device=dev,
                                               is_directed=directed,
-                                              model=model)
+                                              model=model, n_temps=n_temps,
+                                              beta_min=BETA_MIN)
+    ladder = None if n_temps is None else state.temper.clone()
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
                               chunk=TIMED)
     sweeps = WARM + TIMED
+    # a tempered step adds the swap's log-likelihood: one more pair or
+    # directed launch
+    swap = 0 if n_temps is None else 1
     expected = ({'node_scan': sweeps, 'pair_loglik': 0,
-                 'dir_loglik': 3 * sweeps} if directed else
-                {'node_scan': sweeps, 'pair_loglik': sweeps,
+                 'dir_loglik': (3 + swap) * sweeps} if directed else
+                {'node_scan': sweeps, 'pair_loglik': (1 + swap) * sweeps,
                  'dir_loglik': 0})
     counters = launch_counters()
     for fn in counters.values():
@@ -400,9 +450,22 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp'):
           '%s: sweep logp vs dense log joint rel err %g' % (name, rel))
     ms = 1e3 * elapsed / TIMED
     extra = ''
+    if n_temps is not None:
+        check(torch.equal(s.temper, ladder), '%s: the ladder moved' % name)
+        # each pair (i, i + 1) is attempted every other sweep
+        attempts = sweeps // 2
+        check(bool(((s.acc_swap >= 0) & (s.acc_swap <= attempts)).all()),
+              '%s: acc_swap outside [0, %d]' % (name, attempts))
+        rates = (s.acc_swap.reshape(-1, n_temps)[:, :n_temps - 1].mean(0)
+                 / attempts)
+        extra += (', swap acceptance by rung pair %s, cold-slot logp mean '
+                  '%.2f' % ([round(float(r), 4) for r in rates],
+                            float(s.logp[::n_temps].mean())))
     if model == 'lsm':
-        check(bool((s.logp_map >= s.logp).all()), '%s: MAP logp below the '
-              'current logp' % name)
+        # the MAP stays with the slot and a swap can bring it a better
+        # configuration after the sweep tracked it, so only untempered
+        check(n_temps is not None or bool((s.logp_map >= s.logp).all()),
+              '%s: MAP logp below the current logp' % name)
         extra += ', MAP logp mean %.2f' % float(s.logp_map.mean())
     if directed:
         extra += (', radii acceptance %.3f, intercepts mean %s'
@@ -415,6 +478,45 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp'):
            ms, C / (ms / 1e3), acc_rate, float(s.logp.mean()), rel,
            float(gap.max()), launches, extra))
     return launches, ms
+
+
+def slice_name(model, shape, directed, n_temps):
+    return '%s %s%s%s' % (model,
+                          'northstar' if shape['n'] == NS['n'] else 'sampson',
+                          ' directed' if directed else '',
+                          '' if n_temps is None else ' tempered')
+
+
+def alternate_tempered(Y, shape, dev, rounds=10):
+    """ms per sweep of the untempered HDP-LPCM slice and of its
+    parallel-tempering step (``n_temps`` = N_TEMPS) on Y, in ``rounds``
+    alternating rounds of TIMED sweeps after WARM sweeps each.  Returns
+    {'untempered': [...], 'tempered': [...]}."""
+    import torch
+    from dynetlsm_tpu_torch.entry import build_state_and_sweep
+    runs = {}
+    for label, n_temps in (('untempered', None), ('tempered', N_TEMPS)):
+        state, step, gen = build_state_and_sweep(
+            Y, shape['C'], K=shape['K'], device=dev, n_temps=n_temps,
+            beta_min=BETA_MIN)
+        for _ in range(WARM):
+            state = step(state, gen)
+        runs[label] = [step, state, gen]
+    times = {label: [] for label in runs}
+    for _ in range(rounds):
+        for label, run in runs.items():
+            step, state, gen = run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED):
+                state = step(state, gen)
+            torch.cuda.synchronize()
+            times[label].append(1e3 * (time.perf_counter() - t0) / TIMED)
+            run[1] = state
+    for run in runs.values():
+        check(bool(torch.isfinite(run[1].logp).all()),
+              'alternating rounds: non-finite logp')
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -439,15 +541,20 @@ def scan_bound(t):
     etas and two softplus (6 each: max, abs, negate, exp, log1p, add),
     two y * eta - softplus, their difference and the sum: 32; directed,
     four etas and four softplus: 58.  Per site, the prior and the accept:
-    61 (mixture) or 37 (random walk).  Bytes: every input once, X and the
-    accept indicators written once."""
+    61 (mixture) or 37 (random walk), and one more when tempered (the
+    temperature times the delta).  Bytes: every input once (the tempered
+    lane's (C,) temperatures included), X and the accept indicators written
+    once."""
     C, T, n, d = t['X'].shape
     per_pair = 58 if 'radii' in t else 32
     per_site = 61 if t['mixture'] else 37
     ops = C * T * n * ((n - 1) * per_pair + per_site)
     prior = ((t['mu_z'], t['sig_z'], t['lmbda']) if t['mixture'] else ())
     nbytes = _bytes(t['X'], t['Y'], t['step'], t['eps'], t['log_u'], t['b'],
-                    t.get('radii'), *prior) + 4 * C * T * n * (d + 1)
+                    t.get('radii'), t.get('temper'), *prior) \
+        + 4 * C * T * n * (d + 1)
+    if 'temper' in t:
+        ops += C * T * n      # the temperature times each site's delta
     return bound(ops, nbytes)
 
 
@@ -500,18 +607,25 @@ def main():
             if 'registers' in line or 'smem' in line or 'Compiling' in line:
                 log('  ptxas: ' + line.strip())
 
-        # (name, shape, directed, mixture, seed) of each node-scan check
-        scan_cases = [
+        # (name, shape, directed, mixture, seed) of each node-scan check,
+        # untempered and then tempered
+        untempered_cases = [
             ('mix', NS, False, True, 1), ('mix', SAMPSON, False, True, 2),
             ('mix dir', NS, True, True, 5),
             ('mix dir', SAMPSON, True, True, 6),
             ('rw', NS, False, False, 11), ('rw', SAMPSON, False, False, 12),
             ('rw dir', NS, True, False, 13),
             ('rw dir', SAMPSON, True, False, 14)]
+        scan_cases = ([c + (False,) for c in untempered_cases]
+                      + [(key + ' tempered', shape, directed, mixture,
+                          seed + 20, True)
+                         for key, shape, directed, mixture, seed
+                         in untempered_cases])
         scans = {}
-        for key, shape, directed, mixture, seed in scan_cases:
+        for key, shape, directed, mixture, seed, tempered in scan_cases:
             scans[key, shape['n']] = check_node_scan(
-                shape, dev, seed=seed, directed=directed, mixture=mixture)
+                shape, dev, seed=seed, directed=directed, mixture=mixture,
+                tempered=tempered)
         pair_ns, err_pair_ns = check_pair(NS, dev, seed=3)
         pair_sa, err_pair_sa = check_pair(SAMPSON, dev, seed=4)
         dir_ns = {}
@@ -531,15 +645,23 @@ def main():
         slice_cases = [('hdp', NS), ('hdp', SAMPSON), ('lsm', NS),
                        ('lsm', SAMPSON), ('lpcm', dict(NS, K=8)),
                        ('lpcm', dict(SAMPSON, K=4))]
+        # (model, shape, directed) of the tempered slices: every mode of
+        # the tempered node scan at both shapes
+        tempered_cases = [
+            ('hdp', NS, False), ('hdp', NS, True), ('lsm', NS, False),
+            ('lsm', NS, True), ('lpcm', dict(SAMPSON, K=4), False),
+            ('hdp', SAMPSON, True), ('lsm', SAMPSON, False),
+            ('lsm', SAMPSON, True)]
+        runs = ([(model, shape, directed, None) for model, shape in slice_cases
+                 for directed in (False, True)]
+                + [c + (N_TEMPS,) for c in tempered_cases])
         slices = {}
-        for model, shape in slice_cases:
-            for directed in (False, True):
-                name = '%s %s%s' % (
-                    model, 'northstar' if shape['n'] == NS['n']
-                    else 'sampson', ' directed' if directed else '')
-                slices[name] = run_slice(
-                    name, networks[shape['n'], directed], shape, dev,
-                    directed=directed, model=model)
+        for model, shape, directed, n_temps in runs:
+            name = slice_name(model, shape, directed, n_temps)
+            slices[name] = run_slice(
+                name, networks[shape['n'], directed], shape, dev,
+                directed=directed, model=model, n_temps=n_temps)
+        pt_ms = alternate_tempered(networks[NS['n'], False], NS, dev)
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -571,14 +693,17 @@ def main():
         # the Pallas kernel of each shape: T > 8 or T <= 8
         scan_at = {NS['n']: scan_py + ':157', SAMPSON['n']: scan_py + ':637'}
         rows = []
-        for key, shape, directed, mixture, _ in scan_cases:
+        for key, shape, directed, mixture, _, tempered in scan_cases:
             t, err = scans[key, shape['n']]
-            where = 'northstar' if shape is NS else 'sampson'
-            slice_name = '%s %s%s' % ('hdp' if mixture else 'lsm', where,
-                                      ' directed' if directed else '')
-            rows.append(('node_scan', scan_mode(directed, mixture), scan_cu,
-                         scan_at[shape['n']], shape, slice_name, err,
-                         scan_times(t), scan_bound(t)))
+            # the slice that runs this mode at this shape
+            model = 'hdp' if mixture else 'lsm'
+            if tempered and mixture and not directed and shape is SAMPSON:
+                model = 'lpcm'
+            rows.append(('node_scan', scan_mode(directed, mixture, tempered),
+                         scan_cu, scan_at[shape['n']], shape,
+                         slice_name(model, shape, directed,
+                                    N_TEMPS if tempered else None),
+                         err, scan_times(t), scan_bound(t)))
         rows += [
             ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25', NS,
              'hdp northstar', err_pair_ns, pair_times(pair_ns),
@@ -591,20 +716,27 @@ def main():
              max(e for _, e in dir_ns.values()), dir_times(dir_ns[2][0]),
              dir_bound(dir_ns[2][0])),
         ]
-        for (name, mode, source, replaces, shape, slice_name, err,
+        for (name, mode, source, replaces, shape, slice_at, err,
              (ms, pms), (bound_ms, bound_by)) in rows:
             log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f ms '
                 '(%s)' % (name, mode, shape, ms, pms, bound_ms, bound_by))
             kernels.append({
                 'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces,
-                'launches': slices[slice_name][0][name],
+                'launches': slices[slice_at][0][name],
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
                 'bound_ms': bound_ms, 'bound_by': bound_by,
-                'library_ms': None, 'mode': mode, 'slice': slice_name,
+                'library_ms': None, 'mode': mode, 'slice': slice_at,
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape})
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
+        ratios = np.divide(pt_ms['tempered'], pt_ms['untempered'])
+        log('hdp northstar ms/sweep in alternating rounds: untempered %s, '
+            'tempered %s; medians %.3f and %.3f; tempered / untempered '
+            'per round %s, median %.4f'
+            % (pt_ms['untempered'], pt_ms['tempered'],
+               np.median(pt_ms['untempered']), np.median(pt_ms['tempered']),
+               [round(float(r), 4) for r in ratios], np.median(ratios)))
     except SmokeFailure as e:
         log('chip_smoke FAILED: %s' % e)
         return 1

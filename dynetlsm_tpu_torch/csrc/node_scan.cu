@@ -2,16 +2,17 @@
 // chains at once.
 //
 // Replaces the Pallas kernels dynetlsm_tpu/ops/pallas_scan.py::
-// _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in their
-// untempered modes: undirected or directed social-radii (template
-// kDirected), with the mixture (AR(1)-to-cluster-mean) prior or the
-// Gaussian random-walk prior (template kMixture; pallas_scan.py:320-332 and
-// :760-765 compute the random-walk prior).  T is a runtime argument, so one
-// kernel serves both Pallas kernels.  With the same injected proposal
-// stream (eps (C,2,n,T,d), log_u (C,2,n,T)) it realises the same Markov
-// chain as dynetlsm_tpu/mcmc/latent.py::xla_exact_scan: nodes in index
-// order, each node in two parity phases (even t, then odd t), a site
-// accepted iff log_u < ratio.
+// _node_scan_kernel (T > 8) and ::_node_scan_kernel_fullT (T <= 8) in all
+// their modes: undirected or directed social-radii (template kDirected),
+// with the mixture (AR(1)-to-cluster-mean) prior or the Gaussian
+// random-walk prior (template kMixture; pallas_scan.py:320-332 and
+// :760-765 compute the random-walk prior), untempered or with a per-chain
+// inverse temperature (template kTempered; the tempering lane,
+// pallas_scan.py:244-250, :409 and :821).  T is a runtime argument, so one kernel serves both Pallas
+// kernels.  With the same injected proposal stream (eps (C,2,n,T,d), log_u
+// (C,2,n,T)) it realises the same Markov chain as dynetlsm_tpu/mcmc/
+// latent.py::xla_exact_scan: nodes in index order, each node in two parity
+// phases (even t, then odd t), a site accepted iff log_u < ratio.
 //
 // What bounds it on the H100: the scan is 2n dependent steps per sweep, so
 // it is latency-bound, not bandwidth- or FLOP-bound.  Per step a chain does
@@ -41,6 +42,17 @@
 // of the plain version (ops/node_scan.py::_rw_prior_per_t).  mu_z, sig_z and
 // lmbda are not read and may be null.
 //
+// Tempering (template kTempered; parallel tempering, mcmc/tempering.py):
+// temper (C,) scales the summed likelihood delta of chain c's sites,
+// ratio = (temper[c] * delta + lp) - lc, the op order of the plain version,
+// of the JAX scan and of the Pallas kernel; never each partner term.  Each
+// block reads its chain's value once, into shared memory, where only the
+// accept threads read it: held in a register across the scan instead, it
+// made the directed mixture instantiation 7% slower on an H100 (the
+// partner loop scheduled differently).  A null temper launches the
+// untempered instantiation, which has no multiply and no load: it computes
+// the ratios of the kernel without the lane, in its time.
+//
 // Directed mode (template kDirected): the adjacency arrives packed as
 // Y + 2 Y^T (uint8), so row j of it gives both the out-edge bit y = Y[j,i]
 // and the in-edge bit yt = Y[i,j] of every partner i in one contiguous
@@ -67,16 +79,18 @@ __device__ __forceinline__ float softplus(float eta) {
 // (C, n) when kDirected, unused otherwise; Y: the 0/1 adjacency, or the
 // packed Y + 2 Y^T when kDirected.  mu_z, sig_z, lmbda: the mixture prior's
 // per-site cluster means and variances and per-chain lambda (kMixture);
-// tau_sq, sigma_sq: the random-walk prior's variances (!kMixture).
-template <bool kDirected, bool kMixture>
+// tau_sq, sigma_sq: the random-walk prior's variances (!kMixture).  temper:
+// (C,) per-chain inverse temperatures (kTempered), unused otherwise.
+template <bool kDirected, bool kMixture, bool kTempered>
 __global__ void node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
     const float* __restrict__ step, const float* __restrict__ eps,
     const float* __restrict__ log_u, const float* __restrict__ mu_z,
     const float* __restrict__ sig_z, const float* __restrict__ b,
     const float* __restrict__ radii, const float* __restrict__ lmbda,
-    float* __restrict__ X_out, float* __restrict__ acc, int T, int n, int d,
-    int P, float tau_sq, float sigma_sq) {
+    const float* __restrict__ temper, float* __restrict__ X_out,
+    float* __restrict__ acc, int T, int n, int d, int P, float tau_sq,
+    float sigma_sq) {
   extern __shared__ float smem[];
   const int field = T * n * d;
   float* xs = smem;           // (T, n, d) this chain's positions
@@ -105,6 +119,9 @@ __global__ void node_scan_kernel(
       v_s[k] = b_out / r;
     }
   }
+  // the chain's inverse temperature, read by the accept threads only
+  __shared__ float beta_s;
+  if (kTempered && tid == 0) beta_s = temper[c];
   const float lam = kMixture ? lmbda[c] : 0.0f;
   const float one_m = 1.0f - lam;
   const float* step_c = step + (size_t)c * T * n;
@@ -252,7 +269,8 @@ __global__ void node_scan_kernel(
         }
         const float lp = back_p + fwd_p;
         const float lc = back_c + fwd_c;
-        const float ratio = (red[m * P] + lp) - lc;
+        const float dll = kTempered ? beta_s * red[m * P] : red[m * P];
+        const float ratio = (dll + lp) - lc;
         const bool accept = logu_c[((size_t)phase * n + j) * T + t] < ratio;
         if (accept) {
           for (int q = 0; q < d; ++q) {
@@ -270,6 +288,17 @@ __global__ void node_scan_kernel(
   for (int k = tid; k < field; k += nthr) out_c[k] = xs[k];
 }
 
+using NodeScanKernel = void (*)(
+    const float*, const uint8_t*, const float*, const float*, const float*,
+    const float*, const float*, const float*, const float*, const float*,
+    const float*, float*, float*, int, int, int, int, float, float);
+
+template <bool kDirected, bool kMixture>
+NodeScanKernel pick_tempered(bool tempered) {
+  return tempered ? node_scan_kernel<kDirected, kMixture, true>
+                  : node_scan_kernel<kDirected, kMixture, false>;
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).
@@ -278,29 +307,29 @@ __global__ void node_scan_kernel(
 // Y + 2 Y^T); otherwise b is (C,) and radii may be null.  mixture != 0
 // selects the mixture prior (mu_z, sig_z, lmbda); otherwise the random-walk
 // prior with tau_sq and sigma_sq, and mu_z, sig_z, lmbda may be null.
+// temper: (C,) inverse temperatures, or null for the untempered scan.
 extern "C" int node_scan_launch(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
-    const float* b, const float* radii, const float* lmbda, float* X_out,
-    float* acc, int C, int T, int n, int d, int P, int directed, int mixture,
-    float tau_sq, float sigma_sq, void* stream) {
+    const float* b, const float* radii, const float* lmbda,
+    const float* temper, float* X_out, float* acc, int C, int T, int n,
+    int d, int P, int directed, int mixture, float tau_sq, float sigma_sq,
+    void* stream) {
   const size_t smem =
       ((size_t)T * n * d + (size_t)((T + 1) / 2) * P
        + (directed ? 3 * (size_t)n : 0)) * sizeof(float);
-  void (*kernel)(const float*, const uint8_t*, const float*, const float*,
-                 const float*, const float*, const float*, const float*,
-                 const float*, const float*, float*, float*, int, int, int,
-                 int, float, float) =
-      directed ? (mixture ? node_scan_kernel<true, true>
-                          : node_scan_kernel<true, false>)
-               : (mixture ? node_scan_kernel<false, true>
-                          : node_scan_kernel<false, false>);
+  const bool tempered = temper != nullptr;
+  const NodeScanKernel kernel =
+      directed ? (mixture ? pick_tempered<true, true>(tempered)
+                          : pick_tempered<true, false>(tempered))
+               : (mixture ? pick_tempered<false, true>(tempered)
+                          : pick_tempered<false, false>(tempered));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = P < kMaxThreads ? P : kMaxThreads;
   kernel<<<C, threads, smem, (cudaStream_t)stream>>>(
-      X, Y, step, eps, log_u, mu_z, sig_z, b, radii, lmbda, X_out, acc, T, n,
-      d, P, tau_sq, sigma_sq);
+      X, Y, step, eps, log_u, mu_z, sig_z, b, radii, lmbda, temper, X_out, acc,
+      T, n, d, P, tau_sq, sigma_sq);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@
   of the sticky HDP-LPCM, the finite LPCM or the dynamic LSM for a dense
   undirected or directed network, with random initialisation (the
   ``quality_init=False`` path of ``bench.py``; GMDS and k-means
-  initialisation belong to the estimator, not ported yet).
+  initialisation belong to the estimator, not ported yet); with
+  ``n_temps``, the parallel-tempering step over ladders of that many
+  rungs (``bench.py``'s ``tempered`` row).
 
 Both run on the card unless the caller passes ``device='cpu'``; without a
 CUDA device they raise (``config.resolve_device``).
@@ -20,6 +22,7 @@ from .math.init import initialize_radii
 from .mcmc.driver import replicate_state
 from .mcmc.sweeps import (
     SweepConfig, _lsm_logp, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
+from .mcmc.tempering import make_pt_step, temper_ladder
 from .ops.distances import pairwise_distances
 
 # the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
@@ -87,10 +90,17 @@ def _initial_lsm_logp(cfg, Y, s0, prior, device):
 
 
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
-                          device='cuda', is_directed=False, model='hdp'):
+                          device='cuda', is_directed=False, model='hdp',
+                          n_temps=None, beta_min=0.2):
     """A replicated chain state, the sweep and its generator for the dense
     network Y (T, n, n), undirected or directed, on ``device`` (the card
     by default).  Returns (state, sweep, gen).
+
+    With ``n_temps``, the ``n_chains`` slots form ``n_chains // n_temps``
+    ladders of ``n_temps`` rungs from 1 down to ``beta_min``
+    (``temper_ladder``; ``acc_swap`` zeros), and the returned step is
+    ``make_pt_step(sweep, cfg, sweep.Y, n_temps)``: the tempered sweep then
+    a replica exchange, as ``bench.py``'s ``tempered`` row builds it.
 
     * ``model='hdp'``: the sticky HDP-LPCM with K components, in the
       configuration of ``bench.py``'s headline and directed rows; the
@@ -112,6 +122,9 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
     if model not in ('hdp', 'lpcm', 'lsm'):
         raise ValueError("model must be 'hdp', 'lpcm' or 'lsm', got %r"
                          % (model,))
+    if n_temps is not None and n_chains % n_temps:
+        raise ValueError('n_chains=%d is not a whole number of %d-rung '
+                         'ladders' % (n_chains, n_temps))
     device = resolve_device(device)
     rng = np.random.RandomState(seed)
     T, n, _ = Y.shape
@@ -153,4 +166,9 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
             sweep = make_lpcm_sweep(Y, prior, cfg, device=device)
     state = replicate_state(s0, n_chains, device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if n_temps is not None:
+        betas = temper_ladder(n_temps, beta_min, n_chains // n_temps,
+                              device=device)
+        state = state.replace(temper=betas, acc_swap=torch.zeros_like(betas))
+        return state, make_pt_step(sweep, sweep.cfg, sweep.Y, n_temps), gen
     return state, sweep, gen

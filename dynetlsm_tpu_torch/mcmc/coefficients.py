@@ -6,7 +6,9 @@ the undirected intercept's two candidates by ``ops/pair_loglik.py``, the
 directed model's (b_in, b_out, radii) candidates by ``ops/dir_loglik.py``
 (CUDA kernels for CUDA tensors, their plain versions for CPU tensors).
 Each sampler returns the network log-likelihood at the accepted state, so
-the next step and the sweep's log joint reuse it.
+the next step and the sweep's log joint reuse it.  Under parallel tempering
+each takes ``temper`` (C,), which scales the log-likelihood difference in
+its ratio and nothing else (the returned log-likelihoods stay untempered).
 """
 import torch
 
@@ -41,7 +43,7 @@ def sample_intercept_undirected(gen, Y, X, intercept, step_size,
 
 
 def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
-                               prior_mean, prior_var):
+                               prior_mean, prior_var, temper=None):
     """Sequential MH for (b_in, b_out) (reference
     sample_coefficients.py:18-75): b_in's current and proposed values in
     one two-candidate kernel call, then b_out against the accepted b_in,
@@ -56,6 +58,9 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
     def logprior(b, idx):
         return -(b - prior_mean[idx]) ** 2 / (2.0 * prior_var)
 
+    def tempered(delta_ll):
+        return delta_ll if temper is None else temper * delta_ll
+
     b_in0, b_out0 = intercept[:, 0], intercept[:, 1]
     prop_in = b_in0 + step_size[:, 0] * normal(gen, (C,), X.device)
     b_cands = torch.stack([torch.stack([b_in0, b_out0], dim=-1),
@@ -64,7 +69,7 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
     ll = dir_loglik(Yp, X, radii_cands, b_cands)
     ll_cur, ll_prop = ll[:, 0], ll[:, 1]
     acc_in = random_walk_accept(
-        gen, ll_prop - ll_cur + logprior(prop_in, 0)
+        gen, tempered(ll_prop - ll_cur) + logprior(prop_in, 0)
         - logprior(b_in0, 0))
     b_in = torch.where(acc_in, prop_in, b_in0)
     ll_in = torch.where(acc_in, ll_prop, ll_cur)
@@ -74,7 +79,7 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
         Yp, X, radii[:, None].contiguous(),
         torch.stack([b_in, prop_out], dim=-1)[:, None].contiguous())[:, 0]
     acc_out = random_walk_accept(
-        gen, ll_prop_out - ll_in + logprior(prop_out, 1)
+        gen, tempered(ll_prop_out - ll_in) + logprior(prop_out, 1)
         - logprior(b_out0, 1))
     b_out = torch.where(acc_out, prop_out, b_out0)
     ll_new = torch.where(acc_out, ll_prop_out, ll_in)
@@ -82,7 +87,8 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
     return torch.stack([b_in, b_out], dim=-1), acc, ll_new
 
 
-def sample_radii(gen, Yp, X, intercept, radii, step_size, loglik_cur=None):
+def sample_radii(gen, Yp, X, intercept, radii, step_size, loglik_cur=None,
+                 temper=None):
     """Dirichlet-proposal MH on the radii simplex (reference
     sample_coefficients.py:91-121); the Dirichlet(1) prior is constant, so
     only the likelihood enters.  ``loglik_cur`` (C,) is the likelihood at
@@ -96,4 +102,4 @@ def sample_radii(gen, Yp, X, intercept, radii, step_size, loglik_cur=None):
         return dir_loglik(Yp, X, r[:, None].contiguous(), b)[:, 0]
 
     return dirichlet_metropolis_step(gen, radii, logp, step_size,
-                                     logp_cur=loglik_cur)
+                                     logp_cur=loglik_cur, temper=temper)

@@ -28,7 +28,7 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                             sigma=None, lmbda=None, z=None, tau_sq=None,
                             sigma_sq=None, radii=None, is_directed=False,
                             mixture=True, scheme='exact', noise=None,
-                            cc=None):
+                            cc=None, temper=None):
     """One full sweep of single-site MH updates of the positions under the
     mixture prior (mu, sigma, lmbda, z) or, with ``mixture=False``, the
     Gaussian random-walk prior of the LSM (tau_sq, sigma_sq).
@@ -38,7 +38,9 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
     = (b_in, b_out), radii (C, n).  X (C, T, n, d); step_size (C, T, n);
     mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n); tau_sq, sigma_sq
     floats.  ``noise`` = (eps, log_u) injects the proposal stream.
-    Returns (X_new (C, T, n, d), accepted (C, T, n))."""
+    ``temper`` (C,) scales each chain's log-likelihood delta (parallel
+    tempering; ``None``: untempered).  Returns (X_new (C, T, n, d),
+    accepted (C, T, n))."""
     if scheme != 'exact':
         raise NotImplementedError(
             "latent_update=%r is not ported yet; only 'exact'" % (scheme,))
@@ -59,4 +61,5 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
     return node_scan(Y, X.contiguous(), b.contiguous(),
                      step_size.contiguous(), eps, log_u,
                      radii=radii.contiguous() if is_directed else None,
+                     temper=None if temper is None else temper.contiguous(),
                      **prior)

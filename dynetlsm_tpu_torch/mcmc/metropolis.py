@@ -66,11 +66,13 @@ def random_walk_accept(gen, logp_diff):
     return torch.log(u) < logp_diff
 
 
-def dirichlet_mh_ratio(x0, x, logp_cur, logp_prop, step_size):
+def dirichlet_mh_ratio(x0, x, logp_cur, logp_prop, step_size, temper=None):
     """Log MH ratio (C,) float64 of a move x0 -> x (C, n) under a
-    Dirichlet(step_size * x0) proposal: the target difference plus the
-    proposal asymmetry correction, in the JAX package's op order
-    (reference metropolis.py:57-82).  step_size (C,).
+    Dirichlet(step_size * x0) proposal: the target difference, times
+    ``temper`` (C,) when given (parallel tempering), plus the proposal
+    asymmetry correction, in the JAX package's op order (reference
+    metropolis.py:57-82; dynetlsm_tpu/mcmc/metropolis.py:95-100).
+    step_size (C,).
 
     The correction is evaluated in float64: its lgamma terms are ~2e6 at
     step_size 175000 and cancel to O(1), so in float32 (as the JAX package
@@ -79,21 +81,26 @@ def dirichlet_mh_ratio(x0, x, logp_cur, logp_prop, step_size):
     s = step_size[:, None].to(f64)
     x0, x = x0.to(f64), x.to(f64)
     ratio = logp_prop.to(f64) - logp_cur.to(f64)
+    if temper is not None:
+        ratio = temper.to(f64) * ratio
     return ratio + (dirichlet_logpdf(x0, s * x) - dirichlet_logpdf(x, s * x0))
 
 
-def dirichlet_metropolis_step(gen, x0, logp_fn, step_size, logp_cur=None):
+def dirichlet_metropolis_step(gen, x0, logp_fn, step_size, logp_cur=None,
+                              temper=None):
     """One MH step per chain with a Dirichlet(step_size * x0) proposal
     (reference metropolis.py:57-82).  x0 (C, n); step_size (C,);
     ``logp_fn(x)`` returns the (C,) target log density, and ``logp_cur``
-    reuses an already computed ``logp_fn(x0)``.  Returns (x_new,
-    accepted (C,) float, logp_new)."""
+    reuses an already computed ``logp_fn(x0)``.  ``temper`` (C,) scales the
+    target difference in the ratio; the returned log densities stay
+    untempered.  Returns (x_new, accepted (C,) float, logp_new)."""
     x = sample_dirichlet(gen, step_size[:, None] * x0)
     logp_prop = logp_fn(x)
     if logp_cur is None:
         logp_cur = logp_fn(x0)
     accept = random_walk_accept(
-        gen, dirichlet_mh_ratio(x0, x, logp_cur, logp_prop, step_size))
+        gen, dirichlet_mh_ratio(x0, x, logp_cur, logp_prop, step_size,
+                                temper))
     x_new = torch.where(accept[:, None], x, x0)
     logp_new = torch.where(accept, logp_prop, logp_cur)
     return x_new, accept.to(x0.dtype), logp_new

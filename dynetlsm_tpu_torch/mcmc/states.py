@@ -1,6 +1,6 @@
 """Sampler states (counterparts of ``LSMState`` and ``MixtureState`` in
 ``dynetlsm_tpu/mcmc/states.py``), for a fixed network with no
-case-control and no tempering.
+case-control, untempered or under parallel tempering.
 
 Every tensor carries the chain axis as its leading dimension; the JAX
 package vmaps a single-chain state instead.  The PRNG key of the JAX state
@@ -16,6 +16,11 @@ has no field here: a ``torch.Generator`` is passed to each sweep.
 The directed social-radii model adds ``radii``, ``step_radii`` and
 ``acc_radii`` and carries two intercepts (b_in, b_out); an undirected state
 has one intercept and ``None`` in the radii fields.
+
+Parallel tempering (``mcmc/tempering.py``) adds ``temper``, each slot's
+inverse temperature of the network likelihood, and ``acc_swap``, the
+accepted replica swaps of the pair (slot, slot + 1); both are ``None`` in
+an untempered state.
 
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across the two
 implementations as a dict of NumPy arrays keyed by the JAX field names, so
@@ -55,6 +60,9 @@ class LSMState(_State):
     step_radii: Optional[torch.Tensor] = None  # (C,)
     acc_radii: Optional[torch.Tensor] = None   # (C,)
     radii_map: Optional[torch.Tensor] = None   # (C, n)
+    # parallel tempering only
+    temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
+    acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
 
 
 @dataclasses.dataclass
@@ -87,6 +95,9 @@ class MixtureState(_State):
     radii: Optional[torch.Tensor] = None       # (C, n)
     step_radii: Optional[torch.Tensor] = None  # (C,)
     acc_radii: Optional[torch.Tensor] = None   # (C,)
+    # parallel tempering only
+    temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
+    acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
 
 
 _INT_FIELDS = ('it', 'z')

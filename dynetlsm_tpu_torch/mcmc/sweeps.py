@@ -19,7 +19,15 @@ runs the node-scan kernel, and the coefficient steps the pair kernel
 three launches per sweep), so no sweep builds a (C, T, n, n) distance
 tensor; the log joint reuses the last coefficient step's log-likelihood at
 the accepted state.  The factories store Y on ``device``, the card unless
-the caller asks for the CPU (``config.resolve_device``).
+the caller asks for the CPU (``config.resolve_device``), and expose it as
+``sweep.Y`` beside ``sweep.cfg``.
+
+A state with ``temper`` (C,) runs the tempered sweep of parallel tempering
+(``mcmc/tempering.py``): the latent update, the intercept step(s) and the
+radii step scale their log-likelihood differences by each chain's inverse
+temperature; the prior-side blocks (labels, CRF, Dirichlet, conjugate,
+concentrations) do not see Y and are unchanged, and ``logp`` stays the
+untempered log joint.
 """
 import dataclasses
 from typing import Optional
@@ -126,15 +134,15 @@ def _sample_coefficients(cfg, gen, Y, X, state, prior_means):
     if cfg.is_directed:
         intercept, acc_i, net_ll = sample_intercepts_directed(
             gen, Y, X, state.intercept, state.radii, state.step_int,
-            prior_means, cfg.intercept_variance_prior)
+            prior_means, cfg.intercept_variance_prior, temper=state.temper)
         radii, acc_r, net_ll = sample_radii(
             gen, Y, X, intercept, state.radii, state.step_radii,
-            loglik_cur=net_ll)
+            loglik_cur=net_ll, temper=state.temper)
         acc_radii = state.acc_radii + acc_r
     else:
         intercept, acc_i, net_ll = sample_intercept_undirected(
             gen, Y, X, state.intercept, state.step_int, prior_means[0],
-            cfg.intercept_variance_prior)
+            cfg.intercept_variance_prior, temper=state.temper)
     return intercept, state.acc_int + acc_i, radii, acc_radii, net_ll
 
 
@@ -288,7 +296,8 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     the intercept(s) and, directed, the radii; the log joint; MAP tracking
     (reset at the end of tuning) and ``X_ref`` tracking up to
     ``cfg.n_burn``; step-size tuning.  The returned ``sweep(state, gen)``
-    carries its configuration as ``sweep.cfg``."""
+    carries its configuration as ``sweep.cfg`` and the stored network as
+    ``sweep.Y``."""
     Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
                                            device)
 
@@ -299,7 +308,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         X, acc_new = sample_latent_positions(
             gen, Y, state.X, state.intercept, state.step_X,
             tau_sq=cfg.tau_sq, sigma_sq=cfg.sigma_sq, radii=state.radii,
-            is_directed=cfg.is_directed, mixture=False)
+            is_directed=cfg.is_directed, mixture=False, temper=state.temper)
         acc_X = state.acc_X + acc_new
 
         # Procrustes toward the burn-phase reference (lsm.py:495-498),
@@ -341,6 +350,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref)
 
     sweep.cfg = cfg
+    sweep.Y = Y
     return sweep
 
 
@@ -403,7 +413,7 @@ def _mixture_latent_and_coefficients(cfg, gen, Y, state, prior_means):
     X, acc_new = sample_latent_positions(
         gen, Y, state.X, state.intercept, state.step_X, mu=state.mu,
         sigma=state.sigma, lmbda=state.lmbda, z=state.z, radii=state.radii,
-        is_directed=cfg.is_directed)
+        is_directed=cfg.is_directed, temper=state.temper)
     if cfg.center:
         X = X - torch.mean(X, dim=(1, 2), keepdim=True)
     return (X, state.acc_X + acc_new) + _sample_coefficients(
@@ -418,7 +428,7 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     blocked FFBS labels with one transition matrix, Dirichlet draws of the
     initial and transition distributions, the conjugate cluster blocks and
     hyper-priors, the log joint and tuning.  ``sweep.cfg`` is its
-    configuration."""
+    configuration and ``sweep.Y`` the stored network."""
     Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
                                            device)
 
@@ -459,6 +469,7 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             logp=logp)
 
     sweep.cfg = cfg
+    sweep.Y = Y
     return sweep
 
 
@@ -469,7 +480,7 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     ``Y + 2 Y^T`` for the directed model, once here).  ``intercept_prior``
     holds one prior mean, or (b_in, b_out)'s two when directed.  The
     returned ``sweep(state, gen)`` carries its configuration as
-    ``sweep.cfg``."""
+    ``sweep.cfg`` and the stored network as ``sweep.Y``."""
     Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
                                            device)
     K = cfg.n_components
@@ -547,4 +558,5 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp)
 
     sweep.cfg = cfg
+    sweep.Y = Y
     return sweep

@@ -11,9 +11,9 @@ iff log_u < ratio.
 * :func:`node_scan_plain` is the chain-batched PyTorch port of
   ``xla_exact_scan`` (undirected or directed social-radii; mixture or
   random-walk prior; optional per-chain temperature).
-* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (untempered;
-  mixture or random-walk prior; undirected, or directed when given
-  ``radii``).
+* :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (mixture or
+  random-walk prior; undirected, or directed when given ``radii``;
+  untempered, or with a per-chain temperature ``temper``).
 * :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
   error for what it does not take), the plain version for CPU tensors.
 
@@ -225,13 +225,14 @@ def smem_bytes(T, n, d, directed=False):
 
 def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                    sig_z=None, lmbda=None, radii=None, *, mixture=True,
-                   tau_sq=None, sigma_sq=None):
-    """Launch the CUDA node-scan kernel (untempered).  Undirected: Y
-    (T, n, n) uint8 0/1, intercept (C,).  Directed (``radii`` (C, n)
-    given): Y packed ``Y + 2 Y^T`` uint8, intercept (C, 2).  Mixture prior:
-    mu_z, sig_z, lmbda; random-walk prior (``mixture=False``): float
-    tau_sq, sigma_sq.  Every tensor float32 on the same CUDA device,
-    contiguous, shaped as in :func:`node_scan_plain`."""
+                   tau_sq=None, sigma_sq=None, temper=None):
+    """Launch the CUDA node-scan kernel.  Undirected: Y (T, n, n) uint8
+    0/1, intercept (C,).  Directed (``radii`` (C, n) given): Y packed
+    ``Y + 2 Y^T`` uint8, intercept (C, 2).  Mixture prior: mu_z, sig_z,
+    lmbda; random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
+    ``temper`` (C,) scales each chain's log-likelihood delta (``None``:
+    untempered).  Every tensor float32 on the same CUDA device, contiguous,
+    shaped as in :func:`node_scan_plain`."""
     C, T, n, d = X.shape
     dev = X.device
     f32 = torch.float32
@@ -240,6 +241,8 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
         raise ValueError('node_scan_cuda: X must be a CUDA tensor')
     if directed:
         cuda_lib.check_tensor('node_scan', 'radii', radii, (C, n), f32, dev)
+    if temper is not None:
+        cuda_lib.check_tensor('node_scan', 'temper', temper, (C,), f32, dev)
     if mixture:
         for name, t, shape in (('mu_z', mu_z, (C, T, n, d)),
                                ('sig_z', sig_z, (C, T, n)),
@@ -274,7 +277,8 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     rc = lib.node_scan_launch(
         X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
         log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
-        radii.data_ptr() if directed else None, prior[2], X_out.data_ptr(),
+        radii.data_ptr() if directed else None, prior[2],
+        temper.data_ptr() if temper is not None else None, X_out.data_ptr(),
         acc.data_ptr(), C, T, n, d, partner_pad(n), int(directed),
         int(mixture), prior[3], prior[4], cuda_lib.stream_handle(dev))
     node_scan_cuda.launches += 1
@@ -287,16 +291,16 @@ node_scan_cuda.launches = 0
 
 def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
               sig_z=None, lmbda=None, tau_sq=None, sigma_sq=None,
-              mixture=True, radii=None):
+              mixture=True, radii=None, temper=None):
     """The exact node scan with the mixture prior (mu_z, sig_z, lmbda) or
     the random-walk prior (``mixture=False``: tau_sq, sigma_sq), directed
-    when given ``radii``: the CUDA kernel for CUDA tensors,
-    :func:`node_scan_plain` for CPU tensors."""
+    when given ``radii``, tempered when given ``temper`` (C,): the CUDA
+    kernel for CUDA tensors, :func:`node_scan_plain` for CPU tensors."""
     if X.is_cuda:
         return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
                               sig_z, lmbda, radii=radii, mixture=mixture,
-                              tau_sq=tau_sq, sigma_sq=sigma_sq)
+                              tau_sq=tau_sq, sigma_sq=sigma_sq, temper=temper)
     return node_scan_plain(Y, X, intercept, step_size, eps, log_u,
                            mu_z=mu_z, sig_z=sig_z, lmbda=lmbda,
                            tau_sq=tau_sq, sigma_sq=sigma_sq, mixture=mixture,
-                           radii=radii)
+                           temper=temper, radii=radii)

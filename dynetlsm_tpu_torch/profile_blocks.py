@@ -3,14 +3,17 @@
     python3 -m dynetlsm_tpu_torch.profile_blocks [--sweeps 10]
 
 For the HDP-LPCM slices that ``chip_smoke.py`` drives (the north star and
-Sampson, undirected and directed) and its LSM and LPCM slices at the north
-star (undirected and directed), all built by
+Sampson, undirected and directed), its LSM and LPCM slices at the north
+star (undirected and directed) and its tempered HDP-LPCM north star (8
+ladders x 4 rungs, ``n_temps=4``), all built by
 ``entry.build_state_and_sweep``, it prints one JSON line per slice with:
 
 * ``sweep_ms``: ms per sweep with no instrumentation;
 * ``sweep_synced_ms`` and ``blocks_ms``: ms per sweep when every block
   function the sweep calls from ``mcmc.sweeps`` is wrapped with a device
   synchronisation and a host clock (``other`` is the rest of the sweep);
+  a tempered step also times its replica exchange (``replica_exchange``,
+  the swap's log-likelihood launch included) as one block;
 * ``kernels_ms``: device time per sweep of the largest kernels, from the
   ``torch.profiler`` trace of the same number of sweeps, and
   ``device_busy``: the union of all kernel intervals over the span from
@@ -30,6 +33,7 @@ import time
 import torch
 
 from .mcmc import sweeps as _sweeps
+from .mcmc import tempering as _tempering
 
 # the functions the sweep calls through mcmc.sweeps' namespace; none of
 # them calls another one of them through it, so no time is counted twice
@@ -43,6 +47,9 @@ BLOCKS = (
     'sample_concentration_param', 'sample_alpha_kappa_rho',
     '_hdp_weights_logp', '_lpcm_weights_logp', '_count_chain_loglik',
     '_mixture_common_logp', '_lsm_logp', '_finish_tuning')
+# the swap of a parallel-tempering step, called through mcmc.tempering's
+# namespace after the sweep returns
+SWAP_BLOCKS = ('replica_exchange',)
 
 
 def _sync(device):
@@ -52,11 +59,15 @@ def _sync(device):
 
 @contextlib.contextmanager
 def timed_blocks(device):
-    """Wrap each of ``BLOCKS`` in ``mcmc.sweeps`` with a synchronisation
-    and a host clock while the context is open.  Yields a dict that
-    accumulates seconds by block name."""
+    """Wrap each of ``BLOCKS`` in ``mcmc.sweeps`` and ``SWAP_BLOCKS`` in
+    ``mcmc.tempering`` with a synchronisation and a host clock while the
+    context is open.  Yields a dict that accumulates seconds by block
+    name."""
     totals = {}
-    saved = {name: getattr(_sweeps, name) for name in BLOCKS}
+    saved = {(module, name): getattr(module, name)
+             for module, names in ((_sweeps, BLOCKS),
+                                   (_tempering, SWAP_BLOCKS))
+             for name in names}
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -68,13 +79,13 @@ def timed_blocks(device):
             return out
         return timed
 
-    for name, fn in saved.items():
-        setattr(_sweeps, name, wrap(name, fn))
+    for (module, name), fn in saved.items():
+        setattr(module, name, wrap(name, fn))
     try:
         yield totals
     finally:
-        for name, fn in saved.items():
-            setattr(_sweeps, name, fn)
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
 
 
 def _run(sweep, state, gen, n):
@@ -149,19 +160,22 @@ def main(argv=None):
     from .entry import build_state_and_sweep
     dev = torch.device('cuda', 0)
     ns, ns_dir = northstar_network(), northstar_network(directed=True)
-    slices = [('northstar', ns, 25, 32, False, 'hdp'),
-              ('sampson', load_dynamic_monks(), 10, 512, False, 'hdp'),
-              ('northstar directed', ns_dir, 25, 32, True, 'hdp'),
+    # (name, Y, K, chains, directed, model, n_temps)
+    slices = [('northstar', ns, 25, 32, False, 'hdp', None),
+              ('northstar tempered', ns, 25, 32, False, 'hdp', 4),
+              ('sampson', load_dynamic_monks(), 10, 512, False, 'hdp', None),
+              ('northstar directed', ns_dir, 25, 32, True, 'hdp', None),
               ('sampson directed', load_dynamic_monks(is_directed=True), 10,
-               512, True, 'hdp'),
-              ('lsm northstar', ns, None, 32, False, 'lsm'),
-              ('lsm northstar directed', ns_dir, None, 32, True, 'lsm'),
-              ('lpcm northstar', ns, 8, 32, False, 'lpcm'),
-              ('lpcm northstar directed', ns_dir, 8, 32, True, 'lpcm')]
+               512, True, 'hdp', None),
+              ('lsm northstar', ns, None, 32, False, 'lsm', None),
+              ('lsm northstar directed', ns_dir, None, 32, True, 'lsm', None),
+              ('lpcm northstar', ns, 8, 32, False, 'lpcm', None),
+              ('lpcm northstar directed', ns_dir, 8, 32, True, 'lpcm', None)]
     runs = []
-    for name, Y, K, C, directed, model in slices:
+    for name, Y, K, C, directed, model, n_temps in slices:
         state, sweep, gen = build_state_and_sweep(
-            Y, C, K=K, device=dev, is_directed=directed, model=model)
+            Y, C, K=K, device=dev, is_directed=directed, model=model,
+            n_temps=n_temps)
         out, state = profile_slice(sweep, state, gen, sweeps=args.sweeps)
         runs.append((name, C, out, sweep, state, gen))
     for name, C, out, sweep, state, gen in runs:

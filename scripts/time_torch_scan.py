@@ -8,9 +8,11 @@ card and its power limit, DIR, and the median CUDA-event milliseconds of
 one ``node_scan_cuda`` launch at T=10, n=500, d=2, 32 chains (numpy-seeded
 inputs, as ``chip_smoke.py`` makes them) in each mode the checkout's
 wrapper takes: the mixture prior, undirected and directed, and, where the
-wrapper takes ``mixture=``, the random-walk prior.  To compare two
-checkouts on one card, run it on both in turns (A, B, B, A) in one
-command.
+wrapper takes ``mixture=``, the random-walk prior; where it takes
+``temper=``, each of those modes again with per-chain inverse temperatures
+(4-rung ladders from 1 to 0.2 tiled over the chains, ``, tempered``), on
+the same inputs.  To compare two checkouts on one card, run it on both in
+turns (A, B, B, A) in one command.
 """
 import argparse
 import inspect
@@ -81,21 +83,28 @@ def main(argv=None):
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    has_rw = 'mixture' in inspect.signature(
-        node_scan.node_scan_cuda).parameters
+    params = inspect.signature(node_scan.node_scan_cuda).parameters
+    has_rw, has_temper = 'mixture' in params, 'temper' in params
+    ladder = torch.as_tensor(np.tile(np.geomspace(1.0, 0.2, 4), C // 4),
+                             dtype=torch.float32, device='cuda')
     ms = {}
     for directed in (False, True):
         scan_args, mixture, radii = _inputs(torch, node_scan, directed)
         name = 'directed' if directed else 'undirected'
-        ms[name + ', mixture prior'] = _median_ms(
-            torch, lambda: node_scan.node_scan_cuda(*scan_args, *mixture,
-                                                    radii=radii),
-            args.repeats)
+        modes = {', mixture prior': (mixture, {})}
         if has_rw:
-            ms[name + ', random-walk prior'] = _median_ms(
+            modes[', random-walk prior'] = ((), dict(
+                mixture=False, tau_sq=2.0, sigma_sq=0.1))
+        for mode, (prior, kw) in list(modes.items()):
+            ms[name + mode] = _median_ms(
                 torch, lambda: node_scan.node_scan_cuda(
-                    *scan_args, radii=radii, mixture=False, tau_sq=2.0,
-                    sigma_sq=0.1), args.repeats)
+                    *scan_args, *prior, radii=radii, **kw), args.repeats)
+        if has_temper:
+            for mode, (prior, kw) in modes.items():
+                ms[name + mode + ', tempered'] = _median_ms(
+                    torch, lambda: node_scan.node_scan_cuda(
+                        *scan_args, *prior, radii=radii, temper=ladder,
+                        **kw), args.repeats)
     print(json.dumps({'card': card, 'root': root, 'repeats': args.repeats,
                       'shape': 'T=%d n=%d d=%d chains=%d' % (T, N, D, C),
                       'ms': ms}), flush=True)

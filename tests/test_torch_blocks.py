@@ -223,15 +223,19 @@ def _dirichlet_move(step=175000.0, seed=5, n=N):
     return x0, x, lc, lp, np.full(C, step, f32)
 
 
-def _jax_dirichlet_ratio(x0, x, lc, lp, s):
+def _jax_dirichlet_ratio(x0, x, lc, lp, s, temper=None):
     """The ratio of dynetlsm_tpu/mcmc/metropolis.py::
-    dirichlet_metropolis_step, untempered, in its op order, per chain."""
-    def one(x0, x, lc, lp, s):
+    dirichlet_metropolis_step in its op order, per chain: untempered, or
+    with the target difference times ``temper`` (C,)."""
+    def one(x0, x, lc, lp, s, t):
         ratio = lp - lc
+        if temper is not None:
+            ratio = t * ratio
         ratio += (jdist.dirichlet_logpdf(x0, s * x)
                   - jdist.dirichlet_logpdf(x, s * x0))
         return ratio
-    return np.asarray(jax.vmap(one)(x0, x, lc, lp, s))
+    t = np.ones_like(lc) if temper is None else temper
+    return np.asarray(jax.vmap(one)(x0, x, lc, lp, s, t))
 
 
 @pytest.mark.parametrize('step', [175000.0, 1750.0])
@@ -262,6 +266,73 @@ def test_dirichlet_mh_ratio_float32_rounding(n):
     assert np.abs(f32 - exact).max() > 0.1
     got = tmetro.dirichlet_mh_ratio(*map(torch.as_tensor, move)).numpy()
     assert np.abs(got - exact).max() < 1e-6
+
+
+@pytest.mark.parametrize('step', [175000.0, 1750.0])
+def test_tempered_dirichlet_mh_ratio_matches_jax_formula(step):
+    """Under tempering the target difference is scaled before the
+    asymmetry correction is added (metropolis.py:95-100), both in float64
+    here; rtol 1e-5."""
+    move = _dirichlet_move(step=step, seed=6)
+    temper = np.asarray([1.0, 0.5, 0.2], np.float32)
+    with jax.enable_x64(True):
+        want = _jax_dirichlet_ratio(*(np.asarray(a, np.float64)
+                                      for a in move),
+                                    temper=temper.astype(np.float64))
+    got = tmetro.dirichlet_mh_ratio(*map(torch.as_tensor, move),
+                                    temper=torch.as_tensor(temper))
+    assert got.dtype == torch.float64
+    close(got, want)
+    untempered = tmetro.dirichlet_mh_ratio(*map(torch.as_tensor, move))
+    assert float(got[0]) == float(untempered[0])
+    assert not np.allclose(got[1:].numpy(), untempered[1:].numpy())
+
+
+def _directed_coefficient_args(seed=9):
+    """A directed problem for the coefficient steps: packed Y, positions,
+    intercepts (C, 2), radii on the simplex, step sizes."""
+    from dynetlsm_tpu_torch.ops.node_scan import pack_directed
+    rng = np.random.RandomState(seed)
+    Y = rng.binomial(1, 0.3, (T, N, N)).astype(np.uint8)
+    Y[:, np.arange(N), np.arange(N)] = 0
+    f = np.float32
+    return dict(
+        Yp=pack_directed(torch.as_tensor(Y)),
+        X=torch.as_tensor(0.3 * rng.randn(C, T, N, D).astype(f)),
+        intercept=torch.as_tensor((1.0 + 0.2 * rng.randn(C, 2)).astype(f)),
+        radii=torch.as_tensor(rng.dirichlet(np.ones(N), size=C).astype(f)),
+        step_int=torch.full((C, 2), 0.3), step_radii=torch.full((C,), 500.0))
+
+
+def _coefficient_steps(temper, seed):
+    """The three coefficient samplers from one generator seed."""
+    from dynetlsm_tpu_torch.mcmc import coefficients as tcoef
+    a = _directed_coefficient_args()
+    gen = torch.Generator().manual_seed(seed)
+    und = tcoef.sample_intercept_undirected(
+        gen, torch.as_tensor(S['Y']).to(torch.uint8), t('X'), t('intercept'),
+        torch.full((C, 1), 0.3), 0.0, 2.0, temper=temper)
+    new, acc, ll = tcoef.sample_intercepts_directed(
+        gen, a['Yp'], a['X'], a['intercept'], a['radii'], a['step_int'],
+        [0.0, 0.0], 2.0, temper=temper)
+    radii = tcoef.sample_radii(gen, a['Yp'], a['X'], new, a['radii'],
+                               a['step_radii'], loglik_cur=ll, temper=temper)
+    return und + (new, acc, ll) + radii
+
+
+def test_temper_one_is_untempered():
+    """``temper`` = 1 in every coefficient step (the undirected intercept,
+    b_in and b_out, the radii's Dirichlet step) gives exactly the untempered
+    results from one generator seed; ``temper`` = 0.2 does not."""
+    ones = torch.ones(C)
+    for seed in (1, 2, 3):
+        for got, want in zip(_coefficient_steps(ones, seed),
+                             _coefficient_steps(None, seed)):
+            assert torch.equal(got, want)
+    hot = [_coefficient_steps(torch.full((C,), 0.2), s) for s in range(4)]
+    cold = [_coefficient_steps(None, s) for s in range(4)]
+    assert any(not torch.equal(h[i], c[i]) for h, c in zip(hot, cold)
+               for i in (1, 4, 7))
 
 
 def test_hdp_logp_at_state():

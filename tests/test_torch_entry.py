@@ -56,6 +56,34 @@ def test_build_on_cpu_when_asked(model):
     assert int(state.it[0]) == 1 and bool(state.logp.isfinite().all())
 
 
+@pytest.mark.parametrize('model, directed', [
+    ('hdp', False), ('lpcm', False), ('lsm', True)])
+def test_build_tempered_on_cpu_when_asked(model, directed):
+    """``n_temps`` builds bench.py's tempered path: 2 ladders of 4 rungs
+    from 1 to ``beta_min``, zero swap counters, and a PT step that runs the
+    tempered sweep and a swap without moving the ladder."""
+    from dynetlsm_tpu_torch.mcmc.tempering import temper_ladder
+    state, step, gen = entry_mod.build_state_and_sweep(
+        load_dynamic_monks(is_directed=directed), 8, K=3, device='cpu',
+        is_directed=directed, model=model, n_temps=4, beta_min=0.3)
+    ladder = temper_ladder(4, 0.3, 2)
+    assert torch.equal(state.temper, ladder)
+    assert torch.equal(state.acc_swap, torch.zeros(8))
+    assert step.n_temps == 4 and step.cfg.is_directed == directed
+    assert step.Y.dtype == torch.uint8 and step.Y.device.type == 'cpu'
+    for _ in range(3):
+        state = step(state, gen)
+    assert (state.it == 3).all() and bool(state.logp.isfinite().all())
+    assert torch.equal(state.temper, ladder)
+    assert ((state.acc_swap >= 0) & (state.acc_swap <= 2)).all()
+
+
+def test_build_tempered_needs_whole_ladders():
+    with pytest.raises(ValueError, match='whole number'):
+        entry_mod.build_state_and_sweep(load_dynamic_monks(), 6, K=3,
+                                        device='cpu', n_temps=4)
+
+
 def test_resolve_device_and_unknown_model():
     assert resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError, match='model'):

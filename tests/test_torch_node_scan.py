@@ -351,3 +351,118 @@ def test_rw_node_scan_kernel_matches_plain_on_card(directed):
     torch.cuda.synchronize()
     assert torch.equal(acc_k, acc_p)
     torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)
+
+
+def _latent_wiring(a, directed, mixture):
+    """JAX's ``sample_latent_positions`` (vmapped over chains) and the
+    port's, tempered, on the same injected proposal stream."""
+    from dynetlsm_tpu.mcmc.latent import (
+        sample_latent_positions as jax_sample_latent_positions)
+    from dynetlsm_tpu_torch.mcmc.latent import sample_latent_positions
+    Y = jnp.asarray(a['Y'])
+    radii = a['radii'] if directed else np.zeros(a['b'].shape[:1])
+    b = a['b'] if directed else a['b'][:, None]
+    prior = (dict(mixture=True) if mixture
+             else dict(tau_sq=2.0, sigma_sq=0.1, mixture=False))
+
+    def one(X, b, step, eps, log_u, mu, sig, z, lmbda, temper, r):
+        kw = dict(mu=mu, sigma=sig, z=z, lmbda=lmbda) if mixture else {}
+        return jax_sample_latent_positions(
+            None, Y, X, b, step, radii=r if directed else None,
+            is_directed=directed, noise=(eps, log_u), temper=temper,
+            **prior, **kw)
+
+    X_j, acc_j = jax.jit(jax.vmap(one))(
+        *(jnp.asarray(v) for v in (a['X'], b, a['step'], a['eps'],
+                                   a['log_u'], a['mu'], a['sig'])),
+        jnp.asarray(a['z'], jnp.int32), jnp.asarray(a['lmbda']),
+        jnp.asarray(a['temper']), jnp.asarray(radii))
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    kw = (dict(mu=t['mu'], sigma=t['sig'], lmbda=t['lmbda'], z=t['z'])
+          if mixture else {})
+    Yt = pack_directed(t['Y']) if directed else t['Y'].to(torch.uint8)
+    X_t, acc_t = sample_latent_positions(
+        None, Yt, t['X'], torch.as_tensor(b), t['step'],
+        radii=t['radii'] if directed else None, is_directed=directed,
+        noise=(t['eps'], t['log_u']), temper=t['temper'], **prior, **kw)
+    return (np.asarray(X_j), np.asarray(acc_j)), (X_t.numpy(), acc_t.numpy())
+
+
+@pytest.mark.parametrize('directed', [False, True])
+@pytest.mark.parametrize('mixture', [False, True])
+def test_tempered_latent_update_matches_jax(directed, mixture):
+    """``sample_latent_positions(..., temper=, noise=)`` against JAX's with
+    a per-chain ladder: identical accepts, positions within atol 1e-6; and
+    the temperature changes the decisions (the untempered scan differs)."""
+    C = 4
+    a = (_directed_inputs(60 + mixture, C, 4, 20, (0.4, 0.8)) if directed
+         else _inputs(62 + mixture, C, 4, 20))
+    a['temper'] = np.geomspace(1.0, 0.2, C).astype(np.float32)
+    (X_j, acc_j), (X_t, acc_t) = _latent_wiring(a, directed, mixture)
+    assert 0.0 < acc_t.mean() < 1.0
+    np.testing.assert_array_equal(acc_t, acc_j)
+    np.testing.assert_allclose(X_t, X_j, atol=1e-6)
+    _, acc_u = _torch_scan(a, mixture, False, directed=directed)
+    np.testing.assert_array_equal(acc_u[0], acc_t[0])
+    assert not np.array_equal(acc_u[1:], acc_t[1:])
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_tempered_node_scan_dispatch_uses_plain_on_cpu(directed):
+    """``node_scan(..., temper=)`` on CPU tensors is the plain version, and
+    ``temper`` = 1 gives the untempered chain exactly."""
+    a = (_directed_inputs(64, 3, 3, 12, (0.4, 0.8)) if directed
+         else _inputs(65, 3, 3, 12))
+    t, args = _rw_dispatch_args(a, directed)
+    radii = t['radii'] if directed else None
+    before = node_scan_cuda.launches
+    X_d, acc_d = node_scan(*args, tau_sq=2.0, sigma_sq=0.1, mixture=False,
+                           radii=radii, temper=t['temper'])
+    X_1, acc_1 = node_scan(*args, tau_sq=2.0, sigma_sq=0.1, mixture=False,
+                           radii=radii, temper=torch.ones(3))
+    assert node_scan_cuda.launches == before
+    X_p, acc_p = _torch_scan(a, False, True, directed=directed)
+    np.testing.assert_array_equal(acc_d.numpy(), acc_p)
+    np.testing.assert_array_equal(X_d.numpy(), X_p)
+    X_u, acc_u = _torch_scan(a, False, False, directed=directed)
+    np.testing.assert_array_equal(acc_1.numpy(), acc_u)
+    np.testing.assert_array_equal(X_1.numpy(), X_u)
+
+
+def test_tempered_node_scan_cuda_rejects_bad_temper():
+    """A CUDA launch checks ``temper`` like every other input: CPU tensors
+    are refused before the temperature is looked at."""
+    a = _inputs(66, 2, 3, 8)
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    with pytest.raises(ValueError, match='CUDA'):
+        node_scan_cuda(t['Y'].to(torch.uint8), t['X'], t['b'], t['step'],
+                       t['eps'], t['log_u'], mu_z, sig_z, t['lmbda'],
+                       temper=t['temper'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('directed', [False, True])
+@pytest.mark.parametrize('mixture', [False, True])
+def test_tempered_node_scan_kernel_matches_plain_on_card(directed, mixture):
+    """Needs an NVIDIA card with nvcc: the tempered lane of the CUDA kernel
+    against its plain version on the card, bit-identical accepts (also
+    checked at the slices' shapes by chip_smoke.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the node-scan kernel has no CPU '
+                    'mode')
+    a = (_directed_inputs(67, 4, 5, 40, (-0.3, 0.9)) if directed
+         else _inputs(68, 4, 5, 40))
+    t = {k: torch.as_tensor(v).cuda() for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    Y = pack_directed(t['Y']) if directed else t['Y'].to(torch.uint8)
+    args = (Y, t['X'], t['b'], t['step'], t['eps'], t['log_u'])
+    kw = (dict(mu_z=mu_z, sig_z=sig_z, lmbda=t['lmbda']) if mixture
+          else dict(mixture=False, tau_sq=2.0, sigma_sq=0.1))
+    radii = t['radii'] if directed else None
+    X_k, acc_k = node_scan_cuda(*args, radii=radii, temper=t['temper'], **kw)
+    X_p, acc_p = node_scan_plain(*args, radii=radii, temper=t['temper'],
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    torch.testing.assert_close(X_k, X_p, atol=1e-5, rtol=0.0)

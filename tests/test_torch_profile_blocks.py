@@ -6,7 +6,7 @@ import pytest
 
 from dynetlsm_tpu_torch import profile_blocks
 from dynetlsm_tpu_torch.entry import build_state_and_sweep
-from dynetlsm_tpu_torch.mcmc import sweeps
+from dynetlsm_tpu_torch.mcmc import sweeps, tempering
 
 
 def _tiny_network(directed, T=3, n=10, seed=0):
@@ -19,17 +19,20 @@ def _tiny_network(directed, T=3, n=10, seed=0):
     return Y
 
 
-@pytest.mark.parametrize('directed, model', [
-    (False, 'hdp'), (True, 'hdp'), (False, 'lsm'), (True, 'lpcm')])
-def test_profile_slice_times_every_block(directed, model):
+@pytest.mark.parametrize('directed, model, n_temps', [
+    (False, 'hdp', None), (True, 'hdp', None), (False, 'lsm', None),
+    (True, 'lpcm', None), (False, 'hdp', 4), (True, 'lsm', 2)])
+def test_profile_slice_times_every_block(directed, model, n_temps):
     state, sweep, gen = build_state_and_sweep(
         _tiny_network(directed), 4, K=3, device='cpu', is_directed=directed,
-        model=model)
+        model=model, n_temps=n_temps)
     before = {name: getattr(sweeps, name) for name in profile_blocks.BLOCKS}
+    swap = tempering.replica_exchange
     out, state = profile_blocks.profile_slice(sweep, state, gen, sweeps=2,
                                               warm=1)
     assert {name: getattr(sweeps, name)
             for name in profile_blocks.BLOCKS} == before
+    assert tempering.replica_exchange is swap
     blocks = out['blocks_ms']
     coef = (('sample_intercepts_directed', 'sample_radii') if directed
             else ('sample_intercept_undirected',))
@@ -39,9 +42,11 @@ def test_profile_slice_times_every_block(directed, model):
         'lpcm': ('sample_labels_block_lpcm', 'sample_dirichlet',
                  '_lpcm_weights_logp', '_mixture_common_logp'),
         'lsm': ('longitudinal_procrustes_rotation', '_lsm_logp')}[model]
+    swap_block = ('replica_exchange',) if n_temps else ()
     for name in ('sample_latent_positions', '_finish_tuning',
-                 'other') + coef + per_model:
+                 'other') + coef + per_model + swap_block:
         assert name in blocks
+    assert n_temps or 'replica_exchange' not in blocks
     assert all(v > 0 for k, v in blocks.items() if k != 'other')
     assert sum(blocks.values()) == pytest.approx(out['sweep_synced_ms'])
     assert int(state.it[0]) == 5
