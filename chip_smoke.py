@@ -13,7 +13,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
 3. the node-scan kernel against its plain PyTorch version on the card, on
    one numpy-seeded proposal stream, at the north-star shape (T=10, n=500,
    d=2, 32 chains, K=25) and the Sampson shape (T=3, n=18, 512 chains,
-   K=10): identical accept indicators, positions within 1e-5;
+   K=10), at every cluster size (blocks per chain) that the launch rule
+   or a forced ``cluster=`` reaches there (1, 2 and 4 at the north star,
+   1 at Sampson): identical accept indicators and positions (max |dX| =
+   0);
 4. the pair log-likelihood kernel against its plain version at 32 chains,
    T=10, n=500: rtol 1e-5 per candidate, and bit-identical on rerun;
 5. the directed mode of the node-scan kernel against its plain version,
@@ -59,7 +62,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    the median of the rounds' paired ratios (the host's speed drifts within
    a run by more than the swap costs);
 9. each kernel's time beside its plain version's at the slices' shapes
-   (CUDA events, median of repeats), and its bound: the larger of its
+   (CUDA events, median of repeats), the node scan's at each cluster size
+   it reaches with the time per phase step (ms / 2n), and its bound: the
+   larger of its
    operations over the card's float32 rate (67 TFLOP/s, each sqrt, exp
    and log1p counted as one operation) and its bytes (each input read
    once, each output written once) over 3.35 TB/s.  No single PyTorch
@@ -145,7 +150,7 @@ def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True,
     to 0.2 (the other inputs are those of the untempered seed)."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
-        pack_directed, site_cluster_params)
+        pack_directed, pad_partners, site_cluster_params)
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.05, (T, n, n))
     if directed:
@@ -167,6 +172,8 @@ def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True,
     t['Y'] = torch.as_tensor(Y.astype(np.uint8), device=dev)
     if directed:
         t['Y'] = pack_directed(t['Y'])
+    # the kernel's adjacency, rows padded once, as the sweeps store it
+    t['Y_pad'] = pad_partners(t['Y'])
     z = torch.as_tensor(rng.randint(0, K, (C, T, n)), device=dev)
     t['mu_z'], t['sig_z'] = site_cluster_params(t['mu'], t['sig'], z)
     t['mixture'] = mixture
@@ -181,9 +188,10 @@ def scan_args(t):
     return (t['Y'], t['X'], t['b'], t['step'], t['eps'], t['log_u'])
 
 
-def run_scan(t, kernel):
-    """The kernel or its plain version on the inputs ``t``, with the prior
-    ``t['mixture']`` selects."""
+def run_scan(t, kernel, cluster=None):
+    """The kernel (on the padded adjacency, ``cluster`` blocks per chain,
+    None: the launch rule's) or its plain version on the inputs ``t``,
+    with the prior ``t['mixture']`` selects."""
     from dynetlsm_tpu_torch.ops.node_scan import (
         node_scan_cuda, node_scan_plain)
     radii = t.get('radii')
@@ -191,8 +199,28 @@ def run_scan(t, kernel):
         prior = dict(mu_z=t['mu_z'], sig_z=t['sig_z'], lmbda=t['lmbda'])
     else:
         prior = dict(mixture=False, tau_sq=TAU_SQ, sigma_sq=SIGMA_SQ)
-    fn = node_scan_cuda if kernel else node_scan_plain
-    return fn(*scan_args(t), radii=radii, temper=t.get('temper'), **prior)
+    if kernel:
+        return node_scan_cuda(t['Y_pad'], *scan_args(t)[1:], radii=radii,
+                              temper=t.get('temper'), cluster=cluster,
+                              **prior)
+    return node_scan_plain(*scan_args(t), radii=radii,
+                           temper=t.get('temper'), **prior)
+
+
+def scan_clusters(t):
+    """(the launch rule's cluster size, every size a forced ``cluster=``
+    reaches) at the shape and mode of ``t``."""
+    from dynetlsm_tpu_torch.ops.node_scan import cuda_layout
+    C, T, n, d = t['X'].shape
+    mode = (t['X'].device.index, 'radii' in t, t['mixture'], 'temper' in t)
+    reach = []
+    for b in (1, 2, 4):
+        try:
+            cuda_layout(C, T, n, d, *mode, cluster=b)
+        except ValueError:
+            continue
+        reach.append(b)
+    return cuda_layout(C, T, n, d, *mode)[1], reach
 
 
 def first_mismatch(t, acc_k, acc_p, X_k):
@@ -262,16 +290,23 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
                     seed, directed=directed, mixture=mixture,
                     tempered=tempered)
-    X_k, acc_k = run_scan(t, kernel=True)
     X_p, acc_p = run_scan(t, kernel=False)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(X_k).all()), 'node_scan: non-finite X')
-    if not torch.equal(acc_k, acc_p):
-        raise SmokeFailure('node_scan accept mismatch at %s (%d sites)'
-                           % (first_mismatch(t, acc_k, acc_p, X_k),
-                              int((acc_k != acc_p).sum())))
-    err = float((X_k - X_p).abs().max())
-    check(err <= 1e-5, 'node_scan: max |dX| = %g > 1e-5' % err)
+    rule, reach = scan_clusters(t)
+    for cluster in reach:
+        X_k, acc_k = run_scan(t, kernel=True, cluster=cluster)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(X_k).all()), 'node_scan: non-finite X')
+        if not torch.equal(acc_k, acc_p):
+            raise SmokeFailure(
+                'node_scan accept mismatch (cluster %d) at %s (%d sites)'
+                % (cluster, first_mismatch(t, acc_k, acc_p, X_k),
+                   int((acc_k != acc_p).sum())))
+        err = float((X_k - X_p).abs().max())
+        check(err == 0.0, 'node_scan (cluster %d): max |dX| = %g'
+              % (cluster, err))
+    X_k, acc_k = run_scan(t, kernel=True)
+    check(torch.equal(acc_k, acc_p) and torch.equal(X_k, X_p),
+          'node_scan: the launch rule (cluster %d) differs' % rule)
     rate = float(acc_k.mean())
     check(0.0 < rate < 1.0, 'node_scan: acceptance rate %g' % rate)
     if tempered:
@@ -282,8 +317,9 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
               'node_scan: cold chains differ from the untempered scan')
         check(not torch.equal(acc_u, acc_k),
               'node_scan: the temperatures changed no accept decision')
-    log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g'
-        % (scan_mode(directed, mixture, tempered), shape, rate, err))
+    log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g, '
+        'at clusters %s (rule %d)' % (scan_mode(directed, mixture, tempered),
+                                      shape, rate, err, reach, rule))
     return t, err
 
 
@@ -367,6 +403,42 @@ def check_dir(shape, n_cand, dev, seed):
 # ---------------------------------------------------------------------------
 # phase 8: the slices
 # ---------------------------------------------------------------------------
+
+def check_scan_layouts(lib, dev):
+    """The wrapper's shared-memory formula (ops/node_scan.py, which the
+    CPU tests check) against the kernel library's own count, which the
+    launch uses, at both shapes and every cluster size they reach; and the
+    rule's choice with the card's count of clusters it runs at once."""
+    from dynetlsm_tpu_torch.ops.node_scan import (
+        _sm_count, cuda_layout, partner_pad, smem_bytes)
+    sms = _sm_count(dev.index)
+    for shape in (NS, SAMPSON):
+        C, T, n = shape['C'], shape['T'], shape['n']
+        for directed in (False, True):
+            for cluster in (None, 1, 2, 4):
+                try:
+                    W, B = cuda_layout(C, T, n, 2, dev.index, directed, True,
+                                       False, cluster)
+                except ValueError:
+                    continue
+                want = smem_bytes(T, n, 2, directed, W, B)
+                got = lib.node_scan_smem_bytes(T, n, 2, partner_pad(n),
+                                               32 * W * B, int(directed))
+                check(got == want, 'node_scan layout: the library gives %d '
+                      'bytes of shared memory, the wrapper %d' % (got, want))
+        W, B = cuda_layout(C, T, n, 2, dev.index, True, True, False)
+        fits = {b: lib.node_scan_max_clusters(T, n, 2, partner_pad(n), W, b,
+                                              1, 1, 0)
+                for b in (2, 4) if 32 * W * b <= partner_pad(n)}
+        log('node_scan launch at T=%d, n=%d, %d chains on %d SMs: %d warps '
+            'a time, clusters of %d, %d threads, %d bytes of shared memory '
+            '(directed, mixture prior); the card runs %s clusters of %s '
+            'blocks at once' % (T, n, C, sms, W, B,
+                                lib.node_scan_threads(T, W),
+                                lib.node_scan_smem_bytes(
+                                    T, n, 2, partner_pad(n), 32 * W * B, 1),
+                                list(fits.values()), list(fits)))
+
 
 def launch_counters():
     from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_cuda
@@ -606,6 +678,7 @@ def main():
         for line in lib.build_log.splitlines():
             if 'registers' in line or 'smem' in line or 'Compiling' in line:
                 log('  ptxas: ' + line.strip())
+        check_scan_layouts(lib, dev)
 
         # (name, shape, directed, mixture, seed) of each node-scan check,
         # untempered and then tempered
@@ -669,20 +742,32 @@ def main():
             pair_loglik_cuda, pair_loglik_plain)
 
         def scan_times(t):
-            return (cuda_ms(lambda: run_scan(t, kernel=True), 10),
-                    cuda_ms(lambda: run_scan(t, kernel=False), 3))
+            """(ms at the launch rule's cluster size, plain ms, the row's
+            cluster fields): the kernel at every cluster size it reaches,
+            and the time per phase step (ms / 2n) in microseconds."""
+            rule, reach = scan_clusters(t)
+            by = {b: cuda_ms(lambda: run_scan(t, kernel=True, cluster=b),
+                             10) for b in reach}
+            steps = 2 * t['X'].shape[2]
+            return (by[rule], cuda_ms(lambda: run_scan(t, kernel=False), 3),
+                    {'cluster': rule,
+                     'ms_by_cluster': {str(b): v for b, v in by.items()},
+                     'us_per_step': {str(b): 1e3 * v / steps
+                                     for b, v in by.items()}})
 
         def pair_times(args):
             return (cuda_ms(lambda: pair_loglik_cuda(*args), 20),
-                    cuda_ms(lambda: pair_loglik_plain(*args), 5))
+                    cuda_ms(lambda: pair_loglik_plain(*args), 5),
+                    {'cluster': None})
 
         def dir_times(args):
             return (cuda_ms(lambda: dir_loglik_cuda(*args), 20),
-                    cuda_ms(lambda: dir_loglik_plain(*args), 5))
+                    cuda_ms(lambda: dir_loglik_plain(*args), 5),
+                    {'cluster': None})
 
         for n_cand in (1, 3):
             log('dir_loglik %s n_cand=%d: kernel %.4f ms, plain %.4f ms'
-                % (NS, n_cand, *dir_times(dir_ns[n_cand][0])))
+                % ((NS, n_cand) + dir_times(dir_ns[n_cand][0])[:2]))
 
         kernels = []
         scan_cu = 'dynetlsm_tpu_torch/csrc/node_scan.cu'
@@ -717,17 +802,23 @@ def main():
              dir_bound(dir_ns[2][0])),
         ]
         for (name, mode, source, replaces, shape, slice_at, err,
-             (ms, pms), (bound_ms, bound_by)) in rows:
+             (ms, pms, extra), (bound_ms, bound_by)) in rows:
             log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f ms '
                 '(%s)' % (name, mode, shape, ms, pms, bound_ms, bound_by))
-            kernels.append({
+            if 'ms_by_cluster' in extra:
+                log('  by cluster size: %s (rule %d)' % (', '.join(
+                    '%s: %.4f ms, %.3f us/step' % (b, v,
+                                                   extra['us_per_step'][b])
+                    for b, v in extra['ms_by_cluster'].items()),
+                    extra['cluster']))
+            kernels.append(dict({
                 'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces,
                 'launches': slices[slice_at][0][name],
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
                 'bound_ms': bound_ms, 'bound_by': bound_by,
                 'library_ms': None, 'mode': mode, 'slice': slice_at,
-                'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape})
+                'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
         ratios = np.divide(pt_ms['tempered'], pt_ms['untempered'])

@@ -35,12 +35,13 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
 
     Undirected: Y (T, n, n) uint8 0/1, intercept (C, 1).  Directed
     (``is_directed``): Y the packed ``Y + 2 Y^T`` uint8, intercept (C, 2)
-    = (b_in, b_out), radii (C, n).  X (C, T, n, d); step_size (C, T, n);
-    mu (C, K, d); sigma (C, K); lmbda (C,); z (C, T, n); tau_sq, sigma_sq
-    floats.  ``noise`` = (eps, log_u) injects the proposal stream.
-    ``temper`` (C,) scales each chain's log-likelihood delta (parallel
-    tempering; ``None``: untempered).  Returns (X_new (C, T, n, d),
-    accepted (C, T, n))."""
+    = (b_in, b_out), radii (C, n).  Y may have its rows padded
+    (``ops.node_scan.pad_partners``), as the sweeps store it.
+    X (C, T, n, d); step_size (C, T, n); mu (C, K, d); sigma (C, K);
+    lmbda (C,); z (C, T, n); tau_sq, sigma_sq floats.  ``noise`` =
+    (eps, log_u) injects the proposal stream.  ``temper`` (C,) scales
+    each chain's log-likelihood delta (parallel tempering; ``None``:
+    untempered).  Returns (X_new (C, T, n, d), accepted (C, T, n))."""
     if scheme != 'exact':
         raise NotImplementedError(
             "latent_update=%r is not ported yet; only 'exact'" % (scheme,))

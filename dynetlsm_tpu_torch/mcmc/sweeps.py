@@ -41,7 +41,7 @@ from ..math.distributions import (
 from ..math.procrustes import longitudinal_procrustes_rotation
 from ..ops.distances import pairwise_distances
 from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
-from ..ops.node_scan import pack_directed, site_cluster_params
+from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
 from .coefficients import (
     sample_intercept_undirected, sample_intercepts_directed, sample_radii)
 from .conjugate import (
@@ -110,8 +110,9 @@ def _check_supported(cfg):
 def _fixed_network(Y_fixed, intercept_prior, cfg, device):
     """Check the configuration and store the fixed 0/1 network Y (T, n, n)
     as uint8 on ``device`` (packed as ``Y + 2 Y^T`` for the directed
-    model, once here).  Returns (Y, the prior means as a (1, P) tensor,
-    the same as a list of floats)."""
+    model, once here).  Returns (Y, Y with its rows padded for the node
+    scan (``pad_partners``, once here), the prior means as a (1, P)
+    tensor, the same as a list of floats)."""
     _check_supported(cfg)
     device = resolve_device(device)
     Y_np = np.asarray(Y_fixed)
@@ -123,7 +124,7 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device):
         Y = pack_directed(Y)
     prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
                             device=device).reshape(1, -1)
-    return Y, prior, [float(m) for m in prior[0]]
+    return Y, pad_partners(Y), prior, [float(m) for m in prior[0]]
 
 
 def _sample_coefficients(cfg, gen, Y, X, state, prior_means):
@@ -298,15 +299,15 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     ``cfg.n_burn``; step-size tuning.  The returned ``sweep(state, gen)``
     carries its configuration as ``sweep.cfg`` and the stored network as
     ``sweep.Y``."""
-    Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
-                                           device)
+    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
+                                                   cfg, device)
 
     def sweep(state: LSMState, gen: torch.Generator) -> LSMState:
         it_next = state.it + 1
 
         # latent positions (random-walk prior)
         X, acc_new = sample_latent_positions(
-            gen, Y, state.X, state.intercept, state.step_X,
+            gen, Y_scan, state.X, state.intercept, state.step_X,
             tau_sq=cfg.tau_sq, sigma_sq=cfg.sigma_sq, radii=state.radii,
             is_directed=cfg.is_directed, mixture=False, temper=state.temper)
         acc_X = state.acc_X + acc_new
@@ -406,12 +407,13 @@ def _conjugate_blocks(cfg, gen, X, state, z, resp, nk):
     return mu, sigma, lmbda, mean_var, b_scale
 
 
-def _mixture_latent_and_coefficients(cfg, gen, Y, state, prior_means):
-    """The latent positions under the mixture prior, centering, then the
-    intercept(s) and radii.  Returns (X, acc_X, intercept, acc_int, radii,
-    acc_radii, net_ll)."""
+def _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan, state,
+                                     prior_means):
+    """The latent positions under the mixture prior (on the padded
+    ``Y_scan``), centering, then the intercept(s) and radii.  Returns (X,
+    acc_X, intercept, acc_int, radii, acc_radii, net_ll)."""
     X, acc_new = sample_latent_positions(
-        gen, Y, state.X, state.intercept, state.step_X, mu=state.mu,
+        gen, Y_scan, state.X, state.intercept, state.step_X, mu=state.mu,
         sigma=state.sigma, lmbda=state.lmbda, z=state.z, radii=state.radii,
         is_directed=cfg.is_directed, temper=state.temper)
     if cfg.center:
@@ -429,13 +431,13 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     initial and transition distributions, the conjugate cluster blocks and
     hyper-priors, the log joint and tuning.  ``sweep.cfg`` is its
     configuration and ``sweep.Y`` the stored network."""
-    Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
-                                           device)
+    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
+                                                   cfg, device)
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, state,
-                                                    prior_means)
+         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan,
+                                                    state, prior_means)
 
         # labels via blocked FFBS (lpcm.py:567-570)
         z, n_trans, nk, resp = sample_labels_block_lpcm(
@@ -481,16 +483,16 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     holds one prior mean, or (b_in, b_out)'s two when directed.  The
     returned ``sweep(state, gen)`` carries its configuration as
     ``sweep.cfg`` and the stored network as ``sweep.Y``."""
-    Y, prior, prior_means = _fixed_network(Y_fixed, intercept_prior, cfg,
-                                           device)
+    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
+                                                   cfg, device)
     K = cfg.n_components
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         C, T, n, _ = state.X.shape
         eye = torch.eye(K, dtype=state.X.dtype, device=state.X.device)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, state,
-                                                    prior_means)
+         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan,
+                                                    state, prior_means)
 
         # blocked label sampling (hdp_lpcm.py:877)
         z, n_trans, nk, resp = sample_labels_block(

@@ -32,7 +32,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    'node_scan_launch': [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
+    'node_scan_launch': [_P] * 13 + [_I] * 9 + [_F] * 2 + [_P],
+    'node_scan_smem_bytes': [_I] * 6,
+    'node_scan_threads': [_I] * 2,
+    'node_scan_max_clusters': [_I] * 9,
     'pair_loglik_launch': [_P] * 6 + [_I] * 4 + [_P],
     'pair_loglik_row_blocks': [_I],
     'dir_loglik_launch': [_P] * 7 + [_I] * 5 + [_P],

@@ -19,12 +19,18 @@ iff log_u < ratio.
 
 Both sum each site's partner terms as a pairwise tree over the partner
 axis padded to :func:`partner_pad` (level s adds element i + s into
-element i), so they compute bit-identical ratios.
+element i), so they compute bit-identical ratios.  The kernel splits that
+tree over registers, warps, blocks of a cluster and shuffles
+(:func:`_kernel_order_sum` spells its order out), and reads the adjacency
+with its rows padded to the partner axis (:func:`pad_partners`); the
+launch shape comes from :func:`scan_layout`.
 
 The directed model takes the adjacency packed as ``Y + 2 Y^T`` uint8
 (:func:`pack_directed`): row j of it holds both the out-edge bit Y[j, i]
 (``& 1``) and the in-edge bit Y[i, j] (``>> 1``) of every partner i.
 """
+import functools
+
 import torch
 
 from . import cuda_lib
@@ -33,6 +39,9 @@ from .likelihoods import softplus
 
 # shared memory a block may opt into on sm_90 (232,448 bytes)
 _MAX_SMEM_BYTES = 232448
+# csrc/node_scan.cu: threads of one block, and groups (named barriers)
+_MAX_THREADS = 768
+_MAX_GROUPS = 15
 
 
 def partner_pad(n):
@@ -50,6 +59,100 @@ def _tree_sum(a, P):
         h = a.shape[-1] // 2
         a = a[..., :h] + a[..., h:]
     return a[..., 0]
+
+
+def _bit_reversed(m):
+    """0 .. m-1 (m a power of two) in bit-reversed order."""
+    lg = m.bit_length() - 1
+    return [int(format(k, '0%db' % lg)[::-1], 2) if lg else 0
+            for k in range(m)]
+
+
+def _online_pairwise(seq):
+    """The pairwise tree of a power-of-two sequence built online, as
+    csrc/node_scan.cu's ``push_pairwise`` builds it: element k completes
+    the subtrees of its trailing one bits.  Fed in bit-reversed order it
+    is the tree that halves the sequence level by level."""
+    stack = {}
+    for k, v in enumerate(seq):
+        level = 0
+        while (k >> level) & 1:
+            v = stack[level] + v
+            level += 1
+        stack[level] = v
+    return v
+
+
+def _kernel_order_sum(a, P, warps, cluster):
+    """:func:`_tree_sum` over the last axis (zero-padded to P), in the
+    order csrc/node_scan.cu adds: R = 32 * warps * cluster lanes, lane r
+    holding partners r + R k; each lane's register levels, online over its
+    k in bit-reversed order; the exchange levels, lane l of one warp
+    halving the lane values l + 32 q; then the shuffle levels 16 .. 1,
+    lane i adding lane i + h."""
+    a = torch.nn.functional.pad(a, (0, P - a.shape[-1]))
+    R = 32 * warps * cluster
+    by_k = a.reshape(a.shape[:-1] + (P // R, R))
+    lanes = _online_pairwise([by_k[..., k, :]
+                              for k in _bit_reversed(P // R)])
+    v = lanes.reshape(lanes.shape[:-1] + (R // 32, 32))
+    while v.shape[-2] > 1:
+        h = v.shape[-2] // 2
+        v = v[..., :h, :] + v[..., h:, :]
+    v = v[..., 0, :]
+    for h in (16, 8, 4, 2, 1):
+        v = v[..., :h] + v[..., h:2 * h]
+    return v[..., 0]
+
+
+def pad_partners(Y):
+    """The adjacency (T, n, n) with its rows zero-padded to the partner
+    axis, (T, n, partner_pad(n)) contiguous: the node-scan kernel copies
+    whole 16-byte pieces of a row."""
+    n = Y.shape[-1]
+    return torch.nn.functional.pad(Y, (0, partner_pad(n) - n)).contiguous()
+
+
+def scan_layout(C, T, n, sm_count, cluster=None, max_clusters=None):
+    """The node-scan launch of C chains: (warps W per in-phase time,
+    cluster B blocks per chain).  A block holds ceil(T/2) groups of W
+    warps (at most 15, then looping over the times) and one warp for the
+    prior terms, at most 768 threads (``node_scan_threads`` in
+    csrc/node_scan.cu counts them).  W is the widest of 4, 2, 1 that fits
+    with 32 W B <= P lanes per time.  B, unless given, is 2 where
+    C * 2 <= sm_count (the card's SMs), 64 W <= P and, where
+    ``max_clusters(W, B)`` tells how many clusters the card runs at once,
+    all C of them run at once; else 1: few chains spread over the idle SMs
+    in one wave, many chains keep one block each.  Clusters of 4 are only
+    forced (``cluster=4``): even in one wave they beat clusters of 2 by a
+    few percent at most, and lost in the undirected modes (PERF.md).  A
+    given ``cluster`` that no W allows raises."""
+    P = partner_pad(n)
+    groups = min((T + 1) // 2, _MAX_GROUPS)
+
+    def widest(B):
+        for W in (4, 2, 1):
+            if 32 * W * groups + 32 <= _MAX_THREADS and 32 * W * B <= P:
+                return W
+        return None
+
+    if cluster is None:
+        W = widest(1)
+        B = next(b for b in (2, 1)
+                 if b == 1 or (C * b <= sm_count and 32 * W * b <= P
+                               and (max_clusters is None
+                                    or C <= max_clusters(W, b))))
+    else:
+        if cluster not in (1, 2, 4):
+            raise ValueError('node_scan: cluster must be 1, 2 or 4, got %r'
+                             % (cluster,))
+        B, W = cluster, widest(cluster)
+        if W is None:
+            raise ValueError(
+                'node_scan: a cluster of %d blocks needs 32 * %d = %d '
+                'partner lanes, more than the padded partner axis P = %d '
+                '(n = %d)' % (B, B, 32 * B, P, n))
+    return W, B
 
 
 def site_cluster_params(mu, sigma, z):
@@ -215,25 +318,82 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     return X, acc
 
 
-def smem_bytes(T, n, d, directed=False):
-    """Shared memory one chain's block takes: its (T, n, d) position field
-    plus the (ceil(T/2), P) partner-reduction buffer, and the directed
-    mode's u, v and radii rows (3 n), float32."""
-    return 4 * (T * n * d + ((T + 1) // 2) * partner_pad(n)
-                + (3 * n if directed else 0))
+def smem_bytes(T, n, d, directed=False, warps=1, cluster=1):
+    """Shared memory of one block of the node-scan kernel, without a
+    card (:func:`node_scan_cuda` asks the kernel library's
+    ``node_scan_smem_bytes``; ``chip_smoke.py`` holds the two equal): two
+    mbarriers (16 bytes), the staged adjacency rows of two nodes (2, T, P)
+    uint8, the (T, n, d) position field, the directed mode's u and v rows
+    (2 n), the exchange buffer (2, ceil(T/2), 32 * warps * cluster), the
+    staged per-node scalars of two nodes (2, 4 T + 3 T d), the prior terms
+    (ceil(T/2), 2) and the temperature, float32 but the rows."""
+    P = partner_pad(n)
+    H = (T + 1) // 2
+    R = 32 * warps * cluster
+    return 4 * (4 + T * P // 2 + T * n * d + (2 * n if directed else 0)
+                + 2 * H * R + 2 * (4 * T + 3 * T * d) + 2 * H + 1)
+
+
+def check_smem(T, n, d, directed=False, warps=1, cluster=1, smem=None):
+    """Raise unless one block's shared memory (``smem``, the kernel
+    library's count on the card; :func:`smem_bytes` by default) fits the
+    card's 232,448 bytes; return its size."""
+    if smem is None:
+        smem = smem_bytes(T, n, d, directed, warps, cluster)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(
+            'node_scan_cuda: one block needs %d bytes of shared memory at '
+            'T=%d, n=%d, d=%d, directed=%s, %d warps a time, clusters of %d '
+            '(position field, staged rows and scalars, exchange buffer); '
+            'the kernel holds at most %d.  Streaming larger fields is not '
+            'implemented.' % (smem, T, n, d, directed, warps, cluster,
+                              _MAX_SMEM_BYTES))
+    return smem
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index, T, n, d, warps, cluster, directed, mixture,
+                  tempered):
+    """Clusters of the launch the card at ``index`` runs at once."""
+    with torch.cuda.device(index):
+        count = cuda_lib.library().node_scan_max_clusters(
+            T, n, d, partner_pad(n), warps, cluster, int(directed),
+            int(mixture), int(tempered))
+    cuda_lib.check_launch('node_scan occupancy', -count if count < 0 else 0)
+    return count
+
+
+def cuda_layout(C, T, n, d, index, directed, mixture, tempered,
+                cluster=None):
+    """:func:`scan_layout` of the scan of C chains of (T, n, d) fields on
+    the card ``index``, with its count of clusters it runs at once."""
+    return scan_layout(
+        C, T, n, _sm_count(index), cluster,
+        lambda W, B: _max_clusters(index, T, n, d, W, B, bool(directed),
+                                   bool(mixture), bool(tempered)))
 
 
 def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                    sig_z=None, lmbda=None, radii=None, *, mixture=True,
-                   tau_sq=None, sigma_sq=None, temper=None):
+                   tau_sq=None, sigma_sq=None, temper=None, cluster=None):
     """Launch the CUDA node-scan kernel.  Undirected: Y (T, n, n) uint8
     0/1, intercept (C,).  Directed (``radii`` (C, n) given): Y packed
-    ``Y + 2 Y^T`` uint8, intercept (C, 2).  Mixture prior: mu_z, sig_z,
-    lmbda; random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
+    ``Y + 2 Y^T`` uint8, intercept (C, 2).  Y may come with its rows
+    already padded (:func:`pad_partners`, (T, n, P)); otherwise it is
+    padded here, once per call.  Mixture prior: mu_z, sig_z, lmbda;
+    random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
     ``temper`` (C,) scales each chain's log-likelihood delta (``None``:
-    untempered).  Every tensor float32 on the same CUDA device, contiguous,
-    shaped as in :func:`node_scan_plain`."""
+    untempered).  ``cluster`` (1, 2 or 4) forces the blocks per chain;
+    ``None`` takes :func:`scan_layout`'s rule.  Every tensor float32 on
+    the same CUDA device, contiguous, shaped as in
+    :func:`node_scan_plain`."""
     C, T, n, d = X.shape
+    P = partner_pad(n)
     dev = X.device
     f32 = torch.float32
     directed = radii is not None
@@ -251,21 +411,24 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     elif tau_sq is None or sigma_sq is None:
         raise ValueError('node_scan_cuda: the random-walk prior needs '
                          'tau_sq and sigma_sq')
+    if tuple(Y.shape) == (T, n, n) and n != P:
+        Y = pad_partners(Y)
     for name, t, shape, dtype in (
-            ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, n), torch.uint8),
+            ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, P), torch.uint8),
             ('intercept', intercept, (C, 2) if directed else (C,), f32),
             ('step_size', step_size, (C, T, n), f32),
             ('eps', eps, (C, 2, n, T, d), f32),
             ('log_u', log_u, (C, 2, n, T), f32)):
         cuda_lib.check_tensor('node_scan', name, t, shape, dtype, dev)
-    smem = smem_bytes(T, n, d, directed)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            'node_scan_cuda: one chain needs %d bytes of shared memory at '
-            'T=%d, n=%d, d=%d, directed=%s (position field, reduction '
-            'buffer and directed rows); the kernel holds at most %d.  '
-            'Streaming larger fields is not implemented.'
-            % (smem, T, n, d, directed, _MAX_SMEM_BYTES))
+    if Y.data_ptr() % 16:
+        raise ValueError('node_scan_cuda: Y must start on a 16-byte '
+                         'boundary (its rows are copied 16 bytes at a time)')
+    warps, cluster = cuda_layout(C, T, n, d, dev.index, directed, mixture,
+                                 temper is not None, cluster)
+    lib = cuda_lib.library()
+    check_smem(T, n, d, directed, warps, cluster,
+               smem=lib.node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster,
+                                             int(directed)))
     X_out = torch.empty_like(X)
     acc = torch.empty((C, T, n), dtype=f32, device=dev)
     if mixture:
@@ -273,13 +436,12 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                  1.0)
     else:
         prior = (None, None, None, float(tau_sq), float(sigma_sq))
-    lib = cuda_lib.library()
     rc = lib.node_scan_launch(
         X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
         log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
         radii.data_ptr() if directed else None, prior[2],
         temper.data_ptr() if temper is not None else None, X_out.data_ptr(),
-        acc.data_ptr(), C, T, n, d, partner_pad(n), int(directed),
+        acc.data_ptr(), C, T, n, d, P, warps, cluster, int(directed),
         int(mixture), prior[3], prior[4], cuda_lib.stream_handle(dev))
     node_scan_cuda.launches += 1
     cuda_lib.check_launch('node_scan', rc)
@@ -295,12 +457,13 @@ def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     """The exact node scan with the mixture prior (mu_z, sig_z, lmbda) or
     the random-walk prior (``mixture=False``: tau_sq, sigma_sq), directed
     when given ``radii``, tempered when given ``temper`` (C,): the CUDA
-    kernel for CUDA tensors, :func:`node_scan_plain` for CPU tensors."""
+    kernel for CUDA tensors, :func:`node_scan_plain` for CPU tensors.
+    Y (T, n, n), or with its rows padded (:func:`pad_partners`)."""
     if X.is_cuda:
         return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
                               sig_z, lmbda, radii=radii, mixture=mixture,
                               tau_sq=tau_sq, sigma_sq=sigma_sq, temper=temper)
-    return node_scan_plain(Y, X, intercept, step_size, eps, log_u,
-                           mu_z=mu_z, sig_z=sig_z, lmbda=lmbda,
+    return node_scan_plain(Y[..., :X.shape[2]], X, intercept, step_size,
+                           eps, log_u, mu_z=mu_z, sig_z=sig_z, lmbda=lmbda,
                            tau_sq=tau_sq, sigma_sq=sigma_sq, mixture=mixture,
                            temper=temper, radii=radii)

@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from dynetlsm_tpu.mcmc.latent import xla_exact_scan
 from dynetlsm_tpu.ops.pallas_scan import _node_scan_with_noise
 from dynetlsm_tpu_torch.ops.node_scan import (
-    node_scan, node_scan_cuda, node_scan_plain, pack_directed, partner_pad,
+    _kernel_order_sum, _tree_sum, check_smem, node_scan, node_scan_cuda,
+    node_scan_plain, pack_directed, pad_partners, partner_pad, scan_layout,
     site_cluster_params, smem_bytes)
 
 # (chains, T, n, mixture, tempered): the cases of tests/test_pallas_scan.py
@@ -223,15 +224,135 @@ def test_pack_directed_and_smem():
     assert P.dtype == torch.uint8
     np.testing.assert_array_equal((P & 1).numpy(), Y)
     np.testing.assert_array_equal((P >> 1).numpy(), Y.transpose(0, 2, 1))
-    # north star: 40 KB of positions, 10 KB of reduction buffer, 6 KB of
-    # directed rows
-    assert smem_bytes(10, 500, 2) == 4 * (10000 + 5 * 512)
-    assert smem_bytes(10, 500, 2, directed=True) == 4 * (11500 + 5 * 512)
+    # north star: two mbarriers (16 bytes), two nodes' staged rows
+    # (2 x 10 x 512 bytes), 40 KB of positions, the exchange buffer
+    # (2 x 5 x 32 W B), two nodes' staged scalars (2 x 100), the prior
+    # terms (10) and the temperature (1); directed, the u and v rows
+    assert smem_bytes(10, 500, 2) == 4 * (4 + 2560 + 10000 + 320 + 200 + 11)
+    assert smem_bytes(10, 500, 2, directed=True, warps=4, cluster=4) == \
+        4 * (4 + 2560 + 10000 + 1000 + 5120 + 200 + 11)
 
 
 def test_partner_pad():
     assert [partner_pad(n) for n in (1, 18, 32, 33, 500)] == \
         [32, 32, 32, 64, 512]
+
+
+def _lanes(P):
+    """Every (warps, cluster) the kernel allows at partner axis P."""
+    return [(W, B) for W in (1, 2, 4) for B in (1, 2, 4) if 32 * W * B <= P]
+
+
+@pytest.mark.parametrize('P', [32, 64, 128, 256, 512, 1024, 2048])
+def test_kernel_order_sum_matches_tree_sum(P):
+    """The kernel's split of the partner tree (register, exchange and
+    shuffle levels over 32 W B lanes) adds in ``_tree_sum``'s order, bit
+    for bit, on float32 terms of both signs spread over 1e-8 .. 1e8, where
+    a sequential sum gives other bits."""
+    rng = np.random.RandomState(P)
+    for n in (P, P - 3, P // 2 + 1):
+        a = torch.as_tensor((rng.choice([-1.0, 1.0], (8, n))
+                             * 10.0 ** rng.uniform(-8, 8, (8, n)))
+                            .astype(np.float32))
+        want = _tree_sum(a, P)
+        assert not torch.equal(torch.cumsum(a, -1)[:, -1], want)
+        for warps, cluster in _lanes(P):
+            got = _kernel_order_sum(a, P, warps, cluster)
+            assert torch.equal(got, want), (n, warps, cluster)
+    assert len(_lanes(P)) == {32: 1, 64: 3, 128: 6, 256: 8}.get(P, 9)
+
+
+def test_scan_layout_rule():
+    """Warps per time and blocks per chain: the north star's 32 chains
+    take clusters of 2 on a 132-SM card, Sampson's 512 chains one block
+    each; clusters of 4 only when forced; a forced cluster keeps the
+    widest group that fits."""
+    assert scan_layout(32, 10, 500, 132) == (4, 2)
+    assert scan_layout(512, 3, 18, 132) == (1, 1)
+    assert scan_layout(16, 10, 500, 132) == (4, 2)
+    assert scan_layout(66, 10, 500, 132) == (4, 2)
+    assert scan_layout(67, 10, 500, 132) == (4, 1)
+    assert [scan_layout(32, 10, 500, 132, cluster=b) for b in (1, 2, 4)] \
+        == [(4, 1), (4, 2), (4, 4)]
+    # the card's count of clusters it runs at once: no second wave
+    fits = {(4, 4): 30, (4, 2): 40}
+    assert scan_layout(16, 10, 500, 132,
+                       max_clusters=lambda W, B: fits[W, B]) == (4, 2)
+    assert scan_layout(41, 10, 500, 132,
+                       max_clusters=lambda W, B: fits[W, B]) == (4, 1)
+    # few partners: the lanes of a time never outnumber P
+    assert scan_layout(8, 10, 40, 132) == (2, 1)
+    assert scan_layout(8, 10, 40, 132, cluster=2) == (1, 2)
+    # more times: narrower groups, then groups that loop over times
+    assert scan_layout(32, 20, 500, 132) == (2, 2)
+    assert scan_layout(32, 61, 500, 132) == (1, 2)
+    assert scan_layout(32, 61, 500, 132, cluster=4) == (1, 4)
+    with pytest.raises(ValueError, match='cluster of 2'):
+        scan_layout(512, 3, 18, 132, cluster=2)
+    with pytest.raises(ValueError, match='1, 2 or 4'):
+        scan_layout(32, 10, 500, 132, cluster=3)
+
+
+def test_pad_partners():
+    """Rows zero-padded to P, contiguous; the dispatcher takes a padded
+    adjacency and scans as with the unpadded one."""
+    Y = torch.as_tensor(np.random.RandomState(3).binomial(1, 0.3, (3, 18, 18))
+                        .astype(np.uint8))
+    Yp = pad_partners(Y)
+    assert Yp.shape == (3, 18, 32) and Yp.is_contiguous()
+    assert torch.equal(Yp[..., :18], Y) and not Yp[..., 18:].any()
+    assert pad_partners(torch.zeros((2, 64, 64), dtype=torch.uint8)).shape \
+        == (2, 64, 64)
+    a = _inputs(17, 2, 4, 12)
+    t = {k: torch.as_tensor(v) for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    Y8 = t['Y'].to(torch.uint8)
+    rest = (t['X'], t['b'], t['step'], t['eps'], t['log_u'])
+    kw = dict(mu_z=mu_z, sig_z=sig_z, lmbda=t['lmbda'])
+    X_p, acc_p = node_scan(pad_partners(Y8), *rest, **kw)
+    X_u, acc_u = node_scan(Y8, *rest, **kw)
+    assert torch.equal(acc_p, acc_u) and torch.equal(X_p, X_u)
+
+
+def test_smem_limit():
+    """The north star fits at every cluster size; a field too large for
+    one block raises before any launch."""
+    for cluster in (1, 2, 4):
+        assert check_smem(10, 500, 2, True, 4, cluster) == smem_bytes(
+            10, 500, 2, True, 4, cluster) < 232448
+    with pytest.raises(ValueError, match='at most 232448'):
+        check_smem(10, 2800, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cluster', [1, 2, 4])
+@pytest.mark.parametrize('tempered', [False, True])
+@pytest.mark.parametrize('mixture', [False, True])
+@pytest.mark.parametrize('directed', [False, True])
+def test_node_scan_kernel_matches_plain_at_each_cluster(directed, mixture,
+                                                        tempered, cluster):
+    """Needs an NVIDIA card with nvcc: every instantiation of the kernel
+    at each forced cluster size against its plain version, identical
+    accepts and positions."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the node-scan kernel has no CPU '
+                    'mode')
+    a = (_directed_inputs(70, 4, 5, 200, (-0.3, 0.9)) if directed
+         else _inputs(71, 4, 5, 200))
+    t = {k: torch.as_tensor(v).cuda() for k, v in a.items()}
+    mu_z, sig_z = site_cluster_params(t['mu'], t['sig'], t['z'])
+    Y = pack_directed(t['Y']) if directed else t['Y'].to(torch.uint8)
+    args = (Y, t['X'], t['b'], t['step'], t['eps'], t['log_u'])
+    kw = (dict(mu_z=mu_z, sig_z=sig_z, lmbda=t['lmbda']) if mixture
+          else dict(mixture=False, tau_sq=2.0, sigma_sq=0.1))
+    radii = t['radii'] if directed else None
+    temper = t['temper'] if tempered else None
+    X_k, acc_k = node_scan_cuda(pad_partners(Y), *args[1:], radii=radii,
+                                temper=temper, cluster=cluster, **kw)
+    X_p, acc_p = node_scan_plain(*args, radii=radii, temper=temper, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    assert torch.equal(X_k, X_p)
 
 
 @pytest.mark.cuda
