@@ -17,15 +17,20 @@ Phases, each of which fails the run (exit code 1) when it fails:
    or a forced ``cluster=`` reaches there (1, 2 and 4 at the north star,
    1 at Sampson): identical accept indicators and positions (max |dX| =
    0);
-4. the pair log-likelihood kernel against its plain version at 32 chains,
-   T=10, n=500: rtol 1e-5 per candidate, and bit-identical on rerun;
+4. the pair log-likelihood kernel against its plain version at the north
+   star and Sampson shapes, with two intercepts and with one (the replica
+   swap's mode), and at a few awkward shapes (n not a multiple of the
+   tile, n = 2, T = 1, one chain): rtol 1e-5 per candidate, bit-identical
+   on rerun, and the error of each column and of the columns' difference
+   (what the MH step consumes) against a float64 dense evaluation;
 5. the directed mode of the node-scan kernel against its plain version,
    as in 3, on packed ``Y + 2 Y^T`` adjacencies with social radii, at the
    directed north star (T=10, n=500, 32 chains, K=25) and directed Sampson
    (T=3, n=18, 512 chains, K=10);
 6. the directed log-likelihood kernel against its plain version at the
-   north star with 1, 2 and 3 candidates, negative intercepts included:
-   rtol 1e-5 per candidate, and bit-identical on rerun;
+   north star and Sampson shapes and the awkward shapes of 4, with 1, 2
+   and 3 candidates, negative intercepts included: rtol 1e-5 per
+   candidate, bit-identical on rerun, and the float64 errors as in 4;
 7. the random-walk-prior (LSM) mode of the node-scan kernel against its
    plain version, as in 3 and 5, undirected and directed, at the north
    star and Sampson shapes (tau_sq 2.0, sigma_sq 0.1);
@@ -67,8 +72,17 @@ Phases, each of which fails the run (exit code 1) when it fails:
    larger of its
    operations over the card's float32 rate (67 TFLOP/s, each sqrt, exp
    and log1p counted as one operation) and its bytes (each input read
-   once, each output written once) over 3.35 TB/s.  No single PyTorch
-   call computes any of these functions, so ``library_ms`` is null.
+   once, each output written once) over 3.35 TB/s.  The log-likelihood
+   kernels' rows also carry ``issue_bound_ms``: the instructions of the
+   compiled inner loop per dyad (``LOGLIK_SASS``, counted from ``cuobjdump
+   -sass`` by ``scripts/loglik_sass.py``) times the dyads, over 132 SMs x
+   128 lanes x the SM clock ``nvidia-smi`` reports under load, or, if
+   larger, its MUFU instructions at a quarter of that rate; and
+   ``graph_ms``, the time per call of 20 calls captured in one CUDA graph
+   and replayed (the device's time without the host's gaps, and the proof
+   that a call can be captured: the replay's result equals the eager
+   call's bit for bit).  No single PyTorch call computes any of these
+   functions, so ``library_ms`` is null.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -93,6 +107,18 @@ N_TEMPS, BETA_MIN = 4, 0.2
 TAU_SQ, SIGMA_SQ = 2.0, 0.1
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+SMS, LANES = 132, 128
+# small shapes that end mid-tile or have a single dyad, time or chain
+AWKWARD = [dict(T=2, n=45, C=3), dict(T=3, n=2, C=4), dict(T=1, n=76, C=5),
+           dict(T=2, n=130, C=1)]
+# (instructions, MUFU instructions among them) per dyad of each kernel's
+# inner loop as compiled for d = 2 (CUDA 12.8, sm_90a, -fmad=false), by
+# kernel and candidate count (scripts/loglik_sass.py prints them from
+# cuobjdump -sass; a pass of the loop scores 4 dyads)
+LOGLIK_SASS = {
+    ('pair_loglik', 1): (82.25, 2), ('pair_loglik', 2): (133.25, 3),
+    ('dir_loglik', 1): (145.0, 3), ('dir_loglik', 2): (238.5, 5),
+    ('dir_loglik', 3): (336.25, 7)}
 
 
 class SmokeFailure(Exception):
@@ -133,6 +159,22 @@ def cuda_ms(fn, repeats, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, repeats, calls=20):
+    """(milliseconds per call of ``calls`` calls of fn captured in one CUDA
+    graph and replayed, the last call's result): the device's time without
+    the host's gaps between launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    ms = cuda_ms(graph.replay, repeats) / calls
+    torch.cuda.synchronize()
+    return ms, out
 
 
 # ---------------------------------------------------------------------------
@@ -340,23 +382,51 @@ def pair_inputs(C, T, n, dev, seed):
             torch.as_tensor(b, **f), torch.as_tensor(b + 0.05, **f))
 
 
-def check_pair(shape, dev, seed):
+def float64_errors(got, plain, args):
+    """(max |error| of any column, max |error| of column 1 minus column 0
+    or None with one column) of ``got`` against the plain version on the
+    same inputs in float64."""
+    exact = plain(*(a.double() if a is not None and a.is_floating_point()
+                    else a for a in args))
+    col = float((got.double() - exact).abs().max())
+    if got.shape[1] < 2:
+        return col, None
+    diff = float(((got[:, 1] - got[:, 0]).double()
+                  - (exact[:, 1] - exact[:, 0])).abs().max())
+    return col, diff
+
+
+def check_loglik(name, kernel, plain, args, shape, mode):
+    """One log-likelihood kernel on ``args`` against its plain version:
+    finite, bit-identical on rerun, rtol 1e-5 per candidate.  Returns
+    {'err', 'err64', 'diff_err64'}."""
     import torch
+    got = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    label = '%s %s %s' % (name, mode, shape)
+    check(got.shape == want.shape, '%s: shape %s' % (label, got.shape))
+    check(bool(torch.isfinite(got).all()), '%s: non-finite' % label)
+    check(torch.equal(got, again), '%s: rerun not bit-identical' % label)
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= 1e-5, '%s: max rel err %g > 1e-5' % (label, rel))
+    err = float((got - want).abs().max())
+    col, diff = float64_errors(got, plain, args)
+    log('%s: max rel err %g (abs %g), rerun bit-identical; against float64 '
+        'max abs err %g, of column 1 - column 0 %s'
+        % (label, rel, err, col, 'n/a' if diff is None else '%g' % diff))
+    return {'err': err, 'err64': col, 'diff_err64': diff}
+
+
+def check_pair(shape, dev, seed, n_cand=2):
     from dynetlsm_tpu_torch.ops.pair_loglik import (
         pair_loglik_cuda, pair_loglik_plain)
     args = pair_inputs(shape['C'], shape['T'], shape['n'], dev, seed)
-    got = pair_loglik_cuda(*args)
-    again = pair_loglik_cuda(*args)
-    want = pair_loglik_plain(*args)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), 'pair_loglik: non-finite')
-    check(torch.equal(got, again), 'pair_loglik: rerun not bit-identical')
-    rel = float(((got - want).abs() / want.abs()).max())
-    check(rel <= 1e-5, 'pair_loglik: max rel err %g > 1e-5' % rel)
-    err = float((got - want).abs().max())
-    log('pair_loglik %s: max rel err %g (abs %g), rerun bit-identical'
-        % (shape, rel, err))
-    return args, err
+    args = args[:2 + n_cand]
+    return args, check_loglik('pair_loglik', pair_loglik_cuda,
+                              pair_loglik_plain, args, shape,
+                              'n_cand=%d' % n_cand)
 
 
 # ---------------------------------------------------------------------------
@@ -381,23 +451,12 @@ def dir_inputs(C, T, n, n_cand, dev, seed):
 
 
 def check_dir(shape, n_cand, dev, seed):
-    import torch
     from dynetlsm_tpu_torch.ops.dir_loglik import (
         dir_loglik_cuda, dir_loglik_plain)
     args = dir_inputs(shape['C'], shape['T'], shape['n'], n_cand, dev, seed)
-    got = dir_loglik_cuda(*args)
-    again = dir_loglik_cuda(*args)
-    want = dir_loglik_plain(*args)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), 'dir_loglik: non-finite')
-    check(torch.equal(got, again), 'dir_loglik: rerun not bit-identical')
-    rel = float(((got - want).abs() / want.abs()).max())
-    check(rel <= 1e-5, 'dir_loglik n_cand=%d: max rel err %g > 1e-5'
-          % (n_cand, rel))
-    err = float((got - want).abs().max())
-    log('dir_loglik %s n_cand=%d: max rel err %g (abs %g), rerun '
-        'bit-identical' % (shape, n_cand, rel, err))
-    return args, err
+    return args, check_loglik('dir_loglik', dir_loglik_cuda,
+                              dir_loglik_plain, args, shape,
+                              'n_cand=%d' % n_cand)
 
 
 # ---------------------------------------------------------------------------
@@ -634,11 +693,11 @@ def pair_bound(args):
     """Per unordered dyad: a distance (7 with the clamp and sqrt), then per
     intercept eta, y * eta, softplus (6), their difference and the sum
     (10)."""
-    Y, X, b_cur, b_prop = args
+    Y, X = args[:2]
     C, T, n, _ = X.shape
+    n_cand = len(args) - 2
     dyads = C * T * n * (n - 1) // 2
-    return bound(dyads * (7 + 2 * 10),
-                 _bytes(Y, X, b_cur, b_prop) + 4 * C * 2)
+    return bound(dyads * (7 + n_cand * 10), _bytes(*args) + 4 * C * n_cand)
 
 
 def dir_bound(args):
@@ -651,6 +710,33 @@ def dir_bound(args):
     ops = (C * T * n * (n - 1) // 2 * (7 + 24 * n_cand)
            + 2 * C * n_cand * n)
     return bound(ops, _bytes(Yp, X, radii, b) + 4 * C * n_cand)
+
+
+def busy_sm_clock_hz(fn, launches=2000):
+    """The SM clock ``nvidia-smi`` reports while ``launches`` calls of fn
+    are in flight on the card, in Hz."""
+    import torch
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm',
+         '--format=csv,noheader,nounits'],
+        capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    check(out.returncode == 0, 'nvidia-smi failed: %s' % out.stderr.strip())
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def issue_bound_ms(name, args, n_cand, clock_hz):
+    """The least time the card needs to issue the compiled inner loop for
+    every dyad: ``LOGLIK_SASS`` instructions per dyad over SMS x LANES
+    lanes a clock, or, if larger, its MUFU instructions over a quarter of
+    the lanes."""
+    C, T, n, _ = args[1].shape
+    dyads = C * T * n * (n - 1) // 2
+    instr, mufu = LOGLIK_SASS[name, n_cand]
+    slots = max(instr / LANES, mufu / (LANES / 4))
+    return 1e3 * dyads * slots / (SMS * clock_hz)
 
 
 def main():
@@ -699,11 +785,23 @@ def main():
             scans[key, shape['n']] = check_node_scan(
                 shape, dev, seed=seed, directed=directed, mixture=mixture,
                 tempered=tempered)
-        pair_ns, err_pair_ns = check_pair(NS, dev, seed=3)
-        pair_sa, err_pair_sa = check_pair(SAMPSON, dev, seed=4)
-        dir_ns = {}
+        # (kernel, candidates, n) -> (inputs, errors)
+        logliks = {}
+        for n_cand in (2, 1):
+            logliks['pair_loglik', n_cand, NS['n']] = check_pair(
+                NS, dev, seed=3, n_cand=n_cand)
+            logliks['pair_loglik', n_cand, SAMPSON['n']] = check_pair(
+                SAMPSON, dev, seed=4, n_cand=n_cand)
         for n_cand in (1, 2, 3):
-            dir_ns[n_cand] = check_dir(NS, n_cand, dev, seed=6 + n_cand)
+            logliks['dir_loglik', n_cand, NS['n']] = check_dir(
+                NS, n_cand, dev, seed=6 + n_cand)
+            logliks['dir_loglik', n_cand, SAMPSON['n']] = check_dir(
+                SAMPSON, n_cand, dev, seed=9 + n_cand)
+        for k, shape in enumerate(AWKWARD):
+            for n_cand in (1, 2):
+                check_pair(shape, dev, seed=40 + k, n_cand=n_cand)
+            for n_cand in (1, 2, 3):
+                check_dir(shape, n_cand, dev, seed=50 + k)
 
         from dynetlsm_tpu_torch.datasets import (
             load_dynamic_monks, northstar_network)
@@ -755,19 +853,26 @@ def main():
                      'us_per_step': {str(b): 1e3 * v / steps
                                      for b, v in by.items()}})
 
-        def pair_times(args):
-            return (cuda_ms(lambda: pair_loglik_cuda(*args), 20),
-                    cuda_ms(lambda: pair_loglik_plain(*args), 5),
-                    {'cluster': None})
-
-        def dir_times(args):
-            return (cuda_ms(lambda: dir_loglik_cuda(*args), 20),
-                    cuda_ms(lambda: dir_loglik_plain(*args), 5),
-                    {'cluster': None})
-
-        for n_cand in (1, 3):
-            log('dir_loglik %s n_cand=%d: kernel %.4f ms, plain %.4f ms'
-                % ((NS, n_cand) + dir_times(dir_ns[n_cand][0])[:2]))
+        def loglik_times(name, n_cand, n):
+            """(ms, plain ms, the row's extra fields) of one log-likelihood
+            kernel at the checked inputs."""
+            kernel, plain = {
+                'pair_loglik': (pair_loglik_cuda, pair_loglik_plain),
+                'dir_loglik': (dir_loglik_cuda, dir_loglik_plain)}[name]
+            args, errs = logliks[name, n_cand, n]
+            clock = busy_sm_clock_hz(lambda: kernel(*args))
+            in_graph, replayed = graph_ms(lambda: kernel(*args), 20)
+            check(torch.equal(replayed, kernel(*args)),
+                  '%s n_cand=%d n=%d: the CUDA graph replay differs from '
+                  'the eager call' % (name, n_cand, n))
+            return (cuda_ms(lambda: kernel(*args), 20),
+                    cuda_ms(lambda: plain(*args), 5),
+                    {'cluster': None, 'graph_ms': in_graph,
+                     'issue_bound_ms': issue_bound_ms(name, args, n_cand,
+                                                      clock),
+                     'sm_clock_mhz': clock / 1e6,
+                     'err_vs_float64': errs['err64'],
+                     'diff_err_vs_float64': errs['diff_err64']})
 
         kernels = []
         scan_cu = 'dynetlsm_tpu_torch/csrc/node_scan.cu'
@@ -789,22 +894,37 @@ def main():
                          slice_name(model, shape, directed,
                                     N_TEMPS if tempered else None),
                          err, scan_times(t), scan_bound(t)))
-        rows += [
-            ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25', NS,
-             'hdp northstar', err_pair_ns, pair_times(pair_ns),
-             pair_bound(pair_ns)),
-            ('pair_loglik', 'undirected', pair_cu, loglik_py + ':25',
-             SAMPSON, 'hdp sampson', err_pair_sa, pair_times(pair_sa),
-             pair_bound(pair_sa)),
-            ('dir_loglik', 'directed, n_cand=2', dir_cu, loglik_py + ':219',
-             NS, 'hdp northstar directed',
-             max(e for _, e in dir_ns.values()), dir_times(dir_ns[2][0]),
-             dir_bound(dir_ns[2][0])),
-        ]
+        # (kernel, candidates, shape, a slice that launches it so)
+        loglik_rows = [
+            ('pair_loglik', 2, NS, 'hdp northstar'),
+            ('pair_loglik', 1, NS, 'hdp northstar tempered'),
+            ('pair_loglik', 2, SAMPSON, 'hdp sampson'),
+            ('pair_loglik', 1, SAMPSON, 'lpcm sampson tempered'),
+            ('dir_loglik', 1, NS, 'hdp northstar directed'),
+            ('dir_loglik', 2, NS, 'hdp northstar directed'),
+            ('dir_loglik', 3, NS, 'hdp northstar directed'),
+            ('dir_loglik', 1, SAMPSON, 'hdp sampson directed'),
+            ('dir_loglik', 2, SAMPSON, 'hdp sampson directed'),
+            ('dir_loglik', 3, SAMPSON, 'hdp sampson directed')]
+        for name, n_cand, shape, slice_at in loglik_rows:
+            args, errs = logliks[name, n_cand, shape['n']]
+            rows.append((
+                name, '%s, n_cand=%d' % ('undirected' if name == 'pair_loglik'
+                                         else 'directed', n_cand),
+                pair_cu if name == 'pair_loglik' else dir_cu,
+                loglik_py + (':25' if name == 'pair_loglik' else ':219'),
+                shape, slice_at, errs['err'],
+                loglik_times(name, n_cand, shape['n']),
+                (pair_bound if name == 'pair_loglik' else dir_bound)(args)))
         for (name, mode, source, replaces, shape, slice_at, err,
              (ms, pms, extra), (bound_ms, bound_by)) in rows:
             log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f ms '
                 '(%s)' % (name, mode, shape, ms, pms, bound_ms, bound_by))
+            if 'issue_bound_ms' in extra:
+                log('  %.4f ms a call in a CUDA graph of 20; issue bound '
+                    '%.6f ms at an SM clock of %.0f MHz'
+                    % (extra['graph_ms'], extra['issue_bound_ms'],
+                       extra['sm_clock_mhz']))
             if 'ms_by_cluster' in extra:
                 log('  by cluster size: %s (rule %d)' % (', '.join(
                     '%s: %.4f ms, %.3f us/step' % (b, v,

@@ -104,15 +104,14 @@ def _adapt_ladder(temper, acc_swap, n_temps, n_attempts, eta=0.6):
 
 def swap_loglik(cfg, Y, state):
     """The untempered network log-likelihood (C,) of every slot: the pair
-    kernel at b_cur = b_prop undirected (Y 0/1 uint8), one ``dir_loglik``
+    kernel at one intercept undirected (Y 0/1 uint8), one ``dir_loglik``
     candidate directed (Y packed ``Y + 2 Y^T``); their plain versions for
     CPU tensors."""
     X = state.X.contiguous()
     if cfg.is_directed:
         return dir_loglik(Y, X, state.radii[:, None].contiguous(),
                           state.intercept[:, None].contiguous())[:, 0]
-    b = state.intercept[:, 0].contiguous()
-    return pair_loglik(Y, X, b, b)[:, 0]
+    return pair_loglik(Y, X, state.intercept[:, 0].contiguous())[:, 0]
 
 
 def replica_exchange(cfg, Y, state, partner, log_u, do=None):

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) and the objects are linked into
 one shared library with a plain C interface, loaded through ``ctypes``.
 The build runs at first use, into ``build/torch_kernels/`` beside the
-package (listed in ``.gitignore``), under a name that hashes the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+package (listed in ``.gitignore``), under a name that hashes the sources,
+their ``*.cuh`` headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 ``-fmad=false`` keeps every multiply and add separately rounded, as
 PyTorch's elementwise operators round them: the node-scan kernel's accept
 decisions are compared bit for bit with its plain version.
@@ -36,10 +37,10 @@ _SIGNATURES = {
     'node_scan_smem_bytes': [_I] * 6,
     'node_scan_threads': [_I] * 2,
     'node_scan_max_clusters': [_I] * 9,
-    'pair_loglik_launch': [_P] * 6 + [_I] * 4 + [_P],
-    'pair_loglik_row_blocks': [_I],
-    'dir_loglik_launch': [_P] * 7 + [_I] * 5 + [_P],
-    'dir_loglik_row_blocks': [_I],
+    'pair_loglik_launch': [_P] * 7 + [_I] * 5 + [_P],
+    'pair_loglik_blocks_per_sm': [_I] * 2,
+    'dir_loglik_launch': [_P] * 7 + [_I] * 6 + [_P],
+    'dir_loglik_blocks_per_sm': [_I] * 2,
 }
 
 
@@ -57,6 +58,12 @@ def _nvcc():
 
 def sources():
     return sorted(CSRC.glob('*.cu'))
+
+
+def headers():
+    """The ``*.cuh`` the sources include: hashed with them, so an edited
+    header rebuilds the library."""
+    return sorted(CSRC.glob('*.cuh'))
 
 
 def _run_all(cmds):
@@ -103,7 +110,7 @@ def library():
     the build."""
     srcs = sources()
     digest = hashlib.sha256()
-    for p in srcs:
+    for p in srcs + headers():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())

@@ -11,8 +11,8 @@ edge i -> j.
 
 * :func:`dir_loglik_plain` builds the dense distances and evaluates the
   same formula over every ordered dyad.
-* :func:`dir_loglik_cuda` launches ``csrc/dir_loglik.cu``, which never
-  stores a distance.
+* :func:`dir_loglik_cuda` launches ``csrc/dir_loglik.cu`` once; it never
+  stores a distance, nor u or v.
 * :func:`dir_loglik` picks by device: the kernel for CUDA tensors, the
   plain version for CPU tensors.
 
@@ -20,7 +20,7 @@ Both accumulate in float64 and return float32 (C, n_cand).
 """
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, loglik_tiles
 from .distances import pairwise_distances
 from .likelihoods import _dyad_sum, softplus
 
@@ -46,9 +46,16 @@ def dir_loglik_plain(Y, X, radii_cands, b_cands):
 
 
 def dir_loglik_cuda(Y, X, radii_cands, b_cands):
-    """Launch the CUDA directed kernel.  Y (T, n, n) packed uint8; X
-    (C, T, n, d), radii_cands (C, n_cand, n) and b_cands (C, n_cand, 2)
-    float32, all contiguous on one CUDA device; 1 <= n_cand <= 3."""
+    """Launch the CUDA directed kernel, one launch.  Y (T, n, n) packed
+    uint8; X (C, T, n, d), radii_cands (C, n_cand, n) and b_cands
+    (C, n_cand, 2) float32, all contiguous on one CUDA device;
+    1 <= n_cand <= 3.
+
+    The kernel's scratch (a partial sum per block and a ticket counter per
+    chain, ``ops/loglik_tiles.py::workspace``) is held per device and
+    reused by every call, so calls on one device must be ordered on one
+    stream; the call neither synchronises nor resets anything from the
+    host, so it can be captured in a CUDA graph."""
     C, T, n, d = X.shape
     dev = X.device
     f32 = torch.float32
@@ -64,16 +71,12 @@ def dir_loglik_cuda(Y, X, radii_cands, b_cands):
             ('radii_cands', radii_cands, (C, n_cand, n), f32),
             ('b_cands', b_cands, (C, n_cand, 2), f32)):
         cuda_lib.check_tensor('dir_loglik', name, t, shape, dtype, dev)
-    lib = cuda_lib.library()
-    n_blocks = lib.dir_loglik_row_blocks(n)
-    uvB = torch.empty(C * n_cand * (2 * n + 1), dtype=f32, device=dev)
-    partials = torch.empty((C, T, n_blocks, n_cand), dtype=torch.float64,
-                           device=dev)
+    G, partials, tickets = loglik_tiles.launch_layout(X, 'dir', n_cand)
     out = torch.empty((C, n_cand), dtype=f32, device=dev)
-    rc = lib.dir_loglik_launch(
+    rc = cuda_lib.library().dir_loglik_launch(
         X.data_ptr(), Y.data_ptr(), radii_cands.data_ptr(),
-        b_cands.data_ptr(), uvB.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), C, n_cand, T, n, d, cuda_lib.stream_handle(dev))
+        b_cands.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), C, n_cand, T, n, d, G, cuda_lib.stream_handle(dev))
     dir_loglik_cuda.launches += 1
     cuda_lib.check_launch('dir_loglik', rc)
     return out

@@ -37,13 +37,6 @@ def undirected_loglik_full(Y, dist, intercept):
     return _dyad_sum(ll, n)
 
 
-def undirected_loglik_pair(Y, dist, b_cur, b_prop):
-    """The full undirected log-likelihood at two intercepts against the
-    same distances (the intercept MH step's two candidates)."""
-    return (undirected_loglik_full(Y, dist, b_cur),
-            undirected_loglik_full(Y, dist, b_prop))
-
-
 def directed_eta(dist, radii, intercept_in, intercept_out):
     """eta_tij = b_in (1 - d_tij / r_j) + b_out (1 - d_tij / r_i)
     (reference directed_likelihoods_fast.pyx:199-202).

@@ -57,7 +57,7 @@ def _torch_plain(X, Y, radii, bs):
                             torch.as_tensor(bs)).numpy()
 
 
-# n not a multiple of the Pallas tile (128) nor of the CUDA row block (8);
+# n not a multiple of the Pallas tile (128) nor of the CUDA tile (32);
 # the last case has more chains than one Pallas call takes (_MAX_C_DIR)
 @pytest.mark.parametrize('C,T,n,n_cand', [(3, 4, 150, 1), (3, 3, 141, 2),
                                           (3, 4, 137, 3),
@@ -91,24 +91,31 @@ def test_dir_loglik_cuda_rejects_cpu_tensors():
                         torch.as_tensor(bs))
 
 
+# (C, T, n): a tile and a half; n below a tile, odd; one dyad; one time;
+# one chain
+CARD_SHAPES = [(5, 3, 133), (4, 2, 45), (3, 2, 2), (6, 1, 76), (1, 3, 18)]
+
+
 @pytest.mark.cuda
 def test_dir_loglik_kernel_matches_plain_on_card():
     """Needs an NVIDIA card with nvcc: the CUDA kernel against its plain
-    version on the card for 1, 2 and 3 candidates, and bit-identical on
-    rerun (also checked at the north-star shape by chip_smoke.py)."""
+    version on the card for 1, 2 and 3 candidates, at shapes that end
+    mid-tile, and bit-identical on rerun (also checked at the north-star
+    and Sampson shapes by chip_smoke.py)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the directed kernel has no CPU '
                     'mode')
     dev = torch.device('cuda')
-    for n_cand in (1, 2, 3):
-        X, Y, radii, bs = _inputs(3 + n_cand, 5, 3, 133, n_cand)
-        args = (pack_directed(torch.as_tensor(Y, device=dev)),
-                torch.as_tensor(X, device=dev),
-                torch.as_tensor(radii, device=dev),
-                torch.as_tensor(bs, device=dev))
-        got = dir_loglik_cuda(*args)
-        again = dir_loglik_cuda(*args)
-        want = dir_loglik_plain(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(got, again)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    for C, T, n in CARD_SHAPES:
+        for n_cand in (1, 2, 3):
+            X, Y, radii, bs = _inputs(3 + n_cand, C, T, n, n_cand)
+            args = (pack_directed(torch.as_tensor(Y, device=dev)),
+                    torch.as_tensor(X, device=dev),
+                    torch.as_tensor(radii, device=dev),
+                    torch.as_tensor(bs, device=dev))
+            got = dir_loglik_cuda(*args)
+            again = dir_loglik_cuda(*args)
+            want = dir_loglik_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)

@@ -324,6 +324,22 @@ def test_smem_limit():
         check_smem(10, 2800, 2)
 
 
+@pytest.mark.parametrize('directed', [False, True])
+def test_smem_boundary_is_n_2048(directed):
+    """At T=10, d=2 the largest field one block holds is n = 2048, at the
+    narrowest launch and at the launch rule's (32 chains on 132 SMs); at
+    n = 2049 the partner axis pads to 4096 and every launch raises, with
+    the message a user of a larger network gets."""
+    layouts = [(1, 1), scan_layout(32, 10, 2048, 132)]
+    for warps, cluster in layouts:
+        assert check_smem(10, 2048, 2, directed, warps, cluster) <= 232448
+    for warps, cluster in layouts + [scan_layout(32, 10, 2049, 132)]:
+        with pytest.raises(ValueError, match='T=10, n=2049, d=2.*at most '
+                           '232448.*Streaming larger fields is not '
+                           'implemented'):
+            check_smem(10, 2049, 2, directed, warps, cluster)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('cluster', [1, 2, 4])
 @pytest.mark.parametrize('tempered', [False, True])

@@ -43,6 +43,7 @@ from dynetlsm_tpu_torch.mcmc.sweeps import (
     SweepConfig, _lsm_logp, _network_loglik, hdp_logp_at_state,
     make_hdp_sweep, make_lsm_sweep)
 from dynetlsm_tpu_torch.ops.distances import pairwise_distances
+from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik
 
 from tests.test_torch_lsm_sweep import _cfg as lsm_cfg
 from tests.test_torch_lsm_sweep import _problem as lsm_problem
@@ -308,8 +309,9 @@ def test_equal_temperatures_swap_every_pair(name):
 @pytest.mark.parametrize('name', MODELS)
 def test_swap_loglik_is_the_dense_network_loglik(name):
     """(d) The swap's log-likelihood from the kernels' plain versions (pair
-    kernel at b_cur = b_prop, one dir_loglik candidate) equals the dense
-    network log-likelihood, rtol 1e-5."""
+    kernel at one intercept, one dir_loglik candidate) equals the dense
+    network log-likelihood, rtol 1e-5; undirected it is, bit for bit, what
+    the two-candidate pair call gave at b_cur = b_prop."""
     Y, _, cfg_t, make_t, prior, _, d = swap_problem(name)
     Yt = _port_sweep(make_t, Y, prior, cfg_t).Y
     s = state_from_numpy(d, 'cpu')
@@ -318,6 +320,9 @@ def test_swap_loglik_is_the_dense_network_loglik(name):
                            s.intercept, s.radii)
     assert got.dtype == torch.float32 and got.shape == (len(d['logp']),)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
+    if not cfg_t.is_directed:
+        b = s.intercept[:, 0].contiguous()
+        assert torch.equal(got, pair_loglik(Yt, s.X, b, b)[:, 0])
 
 
 # ---------------------------------------------------------------------------
