@@ -66,6 +66,32 @@ Phases, each of which fails the run (exit code 1) when it fails:
    sweep, ten alternating rounds of 20 sweeps each in this process, and
    the median of the rounds' paired ratios (the host's speed drifts within
    a run by more than the swap costs);
+10. one network a chain (missing-dyad resampling keeps one per chain, read
+   through the kernels' chain stride): the node scan in all eight modes at
+   the north star, Sampson and an awkward shape (T=3, n=45, 8 chains) as
+   in 3, 5, 7 and 7b, and the pair kernel (1 and 2 intercepts) and the
+   directed kernel (1 to 3 candidates) at the north star, Sampson and the
+   awkward shapes of 4 (n = 45: the byte-wise load) as in 4 and 6; each
+   against its plain version on the same per-chain networks, and a
+   per-chain network whose chains all equal one shared network gives the
+   shared launch's bits;
+11. the missing-dyad slices: ``build_state_and_sweep`` on the north-star
+   network with 10% of its dyads coded -1 (seeded, both entries of a pair
+   when undirected): the HDP-LPCM undirected and directed, the LSM and the
+   tempered HDP-LPCM (8 ladders x 4 rungs), 2 + 20 steps as in 8.  The
+   observed dyads unchanged bit for bit in every chain, Y 0/1 with a zero
+   diagonal (symmetric when undirected), ``missing_sum`` zero off the
+   mask, every logp equal to the dense log joint of the state on its own
+   Y, and per step the node scan once and the pair kernel twice
+   undirected (the intercept step and the log joint on the new network;
+   three tempered, with the swap's) or the directed kernel four times;
+12. the Geweke joint-distribution checks of ``dynetlsm_tpu_torch/geweke.py``
+   through the kernels: the LSM, the directed LSM, the LPCM and the
+   HDP-LPCM at T=3, n=8, 1,024 chains of 600 sweeps from exact prior
+   draws with every dyad missing (every |z| < 5), the LSM's power check
+   (|z| of the smoothness moment against a perturbed prior > 8) and the
+   equal-temperature replica swap of the directed LSM (256 ladders of 4
+   rungs, block |z| < 4.5); the z-scores and the seconds are printed;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats), the node scan's at each cluster size
    it reaches with the time per phase step (ms / 2n), and its bound: the
@@ -82,7 +108,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and replayed (the device's time without the host's gaps, and the proof
    that a call can be captured: the replay's result equals the eager
    call's bit for bit).  No single PyTorch call computes any of these
-   functions, so ``library_ms`` is null.
+   functions, so ``library_ms`` is null.  The rows of 10's per-chain mode
+   (``mode`` ending in "per-chain Y") count the per-chain networks' bytes
+   in their bound and the missing-dyad slices' launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -111,6 +139,13 @@ SMS, LANES = 132, 128
 # small shapes that end mid-tile or have a single dyad, time or chain
 AWKWARD = [dict(T=2, n=45, C=3), dict(T=3, n=2, C=4), dict(T=1, n=76, C=5),
            dict(T=2, n=130, C=1)]
+# the node scan's awkward shape with one network a chain: rows of n % 4 != 0
+AWKWARD_SCAN = dict(T=3, n=45, C=8, K=3)
+# the share of dyads the missing-dyad slices code -1
+MISSING = 0.1
+# the Geweke phase: chains, sweeps; the swap's ladders
+GEWEKE_CHAINS, GEWEKE_SWEEPS, GEWEKE_LADDERS = 1024, 600, 256
+PER_CHAIN = 'per-chain Y'
 # (instructions, MUFU instructions among them) per dyad of each kernel's
 # inner loop as compiled for d = 2 (CUDA 12.8, sm_90a, -fmad=false), by
 # kernel and candidate count (scripts/loglik_sass.py prints them from
@@ -182,24 +217,30 @@ def graph_ms(fn, repeats, calls=20):
 # ---------------------------------------------------------------------------
 
 def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True,
-                tempered=False):
+                tempered=False, per_chain=False):
     """Numpy-seeded inputs of one scan.  Directed: a zero-diagonal directed
     Y packed as Y + 2 Y^T, intercepts (C, 2) with a negative b_in in every
     fourth chain, and radii of order 1 (so eta is of order 1 and the
     likelihood, not the prior, decides most sites).  ``mixture`` selects
     the prior the scan runs with (``t['mixture']``); ``tempered`` adds the
     per-chain inverse temperatures ``t['temper']``, 4-rung ladders from 1
-    to 0.2 (the other inputs are those of the untempered seed)."""
+    to 0.2 (the other inputs are those of the untempered seed);
+    ``per_chain`` draws one network a chain (C, T, n, n), of a density
+    from 0.02 to 0.1 by chain."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
         pack_directed, pad_partners, site_cluster_params)
     rng = np.random.RandomState(seed)
-    Y = rng.binomial(1, 0.05, (T, n, n))
+    if per_chain:
+        Y = rng.binomial(1, rng.uniform(0.02, 0.1, (C, 1, 1, 1)),
+                         (C, T, n, n)).astype(np.uint8)
+    else:
+        Y = rng.binomial(1, 0.05, (T, n, n))
     if directed:
-        Y[:, np.arange(n), np.arange(n)] = 0
+        Y[..., np.arange(n), np.arange(n)] = 0
     else:
         Y = np.triu(Y, 1)
-        Y = Y + Y.transpose(0, 2, 1)
+        Y = Y + np.swapaxes(Y, -1, -2)
     arrs = dict(
         X=rng.randn(C, T, n, d), step=np.full((C, T, n), 0.1),
         eps=rng.randn(C, 2, n, T, d), log_u=np.log(rng.rand(C, 2, n, T)),
@@ -285,6 +326,7 @@ def first_mismatch(t, acc_k, acc_p, X_k):
                                                               phase, j]
     mask = (torch.arange(X.shape[2], device=X.device) != j).float()
     b = t['b'][c:c + 1]
+    Y_row = t['Y'][c, :, j] if t['Y'].dim() == 4 else t['Y'][:, j]
     if 'radii' in t:
         r = t['radii'][c:c + 1]
         b_in, b_out = b[:, 0], b[:, 1]
@@ -292,10 +334,10 @@ def first_mismatch(t, acc_k, acc_p, X_k):
         p_in = b_out[:, None] / r + b_in[:, None] / r[:, j, None]
 
         def terms(x):
-            return _directed_partial_loglik_terms(t['Y'][:, j], X, x,
-                                                  b_in + b_out, p_out, p_in)
+            return _directed_partial_loglik_terms(Y_row, X, x, b_in + b_out,
+                                                  p_out, p_in)
     else:
-        Yf = t['Y'][:, j].to(torch.float32)
+        Yf = Y_row.to(torch.float32)
 
         def terms(x):
             return _partial_loglik_terms(Yf, X, x, b)
@@ -320,18 +362,29 @@ def first_mismatch(t, acc_k, acc_p, X_k):
     return dict(chain=c, node=j, phase=phase, t=t_, margin=margin)
 
 
-def scan_mode(directed, mixture, tempered=False):
-    return '%s, %s prior%s' % ('directed' if directed else 'undirected',
-                               'mixture' if mixture else 'random-walk',
-                               ', tempered' if tempered else '')
+def scan_mode(directed, mixture, tempered=False, per_chain=False):
+    return '%s, %s prior%s%s' % ('directed' if directed else 'undirected',
+                                 'mixture' if mixture else 'random-walk',
+                                 ', tempered' if tempered else '',
+                                 ', ' + PER_CHAIN if per_chain else '')
+
+
+def check_shared_bits(name, got, want):
+    """``got``, a launch on a per-chain network whose chains all equal one
+    shared network, against ``want``, the shared launch: the same bits."""
+    import torch
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          '%s: chains that all read the shared network differ from the '
+          'shared launch' % name)
 
 
 def check_node_scan(shape, dev, seed, directed=False, mixture=True,
-                    tempered=False):
+                    tempered=False, per_chain=False):
     import torch
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
                     seed, directed=directed, mixture=mixture,
-                    tempered=tempered)
+                    tempered=tempered, per_chain=per_chain)
     X_p, acc_p = run_scan(t, kernel=False)
     rule, reach = scan_clusters(t)
     for cluster in reach:
@@ -359,8 +412,15 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
               'node_scan: cold chains differ from the untempered scan')
         check(not torch.equal(acc_u, acc_k),
               'node_scan: the temperatures changed no accept decision')
+    if per_chain:
+        from dynetlsm_tpu_torch.ops.node_scan import pad_partners
+        Y = t['Y'][:1].expand(t['Y'].shape).contiguous()
+        check_shared_bits(
+            'node_scan', run_scan(dict(t, Y=Y, Y_pad=pad_partners(Y)), True),
+            run_scan(dict(t, Y=t['Y'][0], Y_pad=t['Y_pad'][0]), True))
     log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g, '
-        'at clusters %s (rule %d)' % (scan_mode(directed, mixture, tempered),
+        'at clusters %s (rule %d)' % (scan_mode(directed, mixture, tempered,
+                                                per_chain),
                                       shape, rate, err, reach, rule))
     return t, err
 
@@ -369,12 +429,25 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
 # phase 4: pair log-likelihood
 # ---------------------------------------------------------------------------
 
-def pair_inputs(C, T, n, dev, seed):
+def chain_networks(rng, C, T, n, directed):
+    """One 0/1 network a chain (C, T, n, n) uint8, of a density from 0.02
+    to 0.1 by chain; zero-diagonal, symmetric when undirected."""
+    Y = rng.binomial(1, rng.uniform(0.02, 0.1, (C, 1, 1, 1)), (C, T, n, n))
+    Y[..., np.arange(n), np.arange(n)] = 0
+    if not directed:
+        Y = np.triu(Y, 1)
+        Y = Y + np.swapaxes(Y, -1, -2)
+    return Y.astype(np.uint8)
+
+
+def pair_inputs(C, T, n, dev, seed, per_chain=False):
     import torch
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.05, (T, n, n))
     Y = np.triu(Y, 1)
     Y = (Y + Y.transpose(0, 2, 1)).astype(np.uint8)
+    if per_chain:
+        Y = chain_networks(rng, C, T, n, False)
     b = 1.0 + 0.1 * rng.randn(C)
     f = dict(dtype=torch.float32, device=dev)
     return (torch.as_tensor(Y, device=dev),
@@ -419,28 +492,43 @@ def check_loglik(name, kernel, plain, args, shape, mode):
     return {'err': err, 'err64': col, 'diff_err64': diff}
 
 
-def check_pair(shape, dev, seed, n_cand=2):
+def per_chain_shared_bits(name, kernel, args):
+    """The shared-launch check of a log-likelihood kernel on per-chain
+    ``args``: chain 0's network repeated per chain, and shared."""
+    Y, rest = args[0], tuple(args[1:])
+    check_shared_bits(name, (kernel(Y[:1].expand(Y.shape).contiguous(),
+                                    *rest),), (kernel(Y[0], *rest),))
+
+
+def check_pair(shape, dev, seed, n_cand=2, per_chain=False):
     from dynetlsm_tpu_torch.ops.pair_loglik import (
         pair_loglik_cuda, pair_loglik_plain)
-    args = pair_inputs(shape['C'], shape['T'], shape['n'], dev, seed)
+    args = pair_inputs(shape['C'], shape['T'], shape['n'], dev, seed,
+                       per_chain)
     args = args[:2 + n_cand]
-    return args, check_loglik('pair_loglik', pair_loglik_cuda,
-                              pair_loglik_plain, args, shape,
-                              'n_cand=%d' % n_cand)
+    errs = check_loglik('pair_loglik', pair_loglik_cuda, pair_loglik_plain,
+                        args, shape, 'n_cand=%d%s' % (
+                            n_cand, ', ' + PER_CHAIN if per_chain else ''))
+    if per_chain:
+        per_chain_shared_bits('pair_loglik', pair_loglik_cuda, args)
+    return args, errs
 
 
 # ---------------------------------------------------------------------------
 # phase 6: directed log-likelihood
 # ---------------------------------------------------------------------------
 
-def dir_inputs(C, T, n, n_cand, dev, seed):
-    """Packed directed Y, radii of order 1 and intercepts with a negative
-    b_in in every chain's first candidate."""
+def dir_inputs(C, T, n, n_cand, dev, seed, per_chain=False):
+    """Packed directed Y (one network a chain with ``per_chain``), radii of
+    order 1 and intercepts with a negative b_in in every chain's first
+    candidate."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import pack_directed
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.05, (T, n, n))
     Y[:, np.arange(n), np.arange(n)] = 0
+    if per_chain:
+        Y = chain_networks(rng, C, T, n, True)
     b = 0.3 + 0.5 * rng.randn(C, n_cand, 2)
     b[:, 0, 0] = -np.abs(b[:, 0, 0]) - 0.1
     f = dict(dtype=torch.float32, device=dev)
@@ -450,13 +538,17 @@ def dir_inputs(C, T, n, n_cand, dev, seed):
             torch.as_tensor(b, **f))
 
 
-def check_dir(shape, n_cand, dev, seed):
+def check_dir(shape, n_cand, dev, seed, per_chain=False):
     from dynetlsm_tpu_torch.ops.dir_loglik import (
         dir_loglik_cuda, dir_loglik_plain)
-    args = dir_inputs(shape['C'], shape['T'], shape['n'], n_cand, dev, seed)
-    return args, check_loglik('dir_loglik', dir_loglik_cuda,
-                              dir_loglik_plain, args, shape,
-                              'n_cand=%d' % n_cand)
+    args = dir_inputs(shape['C'], shape['T'], shape['n'], n_cand, dev, seed,
+                      per_chain)
+    errs = check_loglik('dir_loglik', dir_loglik_cuda, dir_loglik_plain,
+                        args, shape, 'n_cand=%d%s' % (
+                            n_cand, ', ' + PER_CHAIN if per_chain else ''))
+    if per_chain:
+        per_chain_shared_bits('dir_loglik', dir_loglik_cuda, args)
+    return args, errs
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +605,9 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     ``entry.build_state_and_sweep`` (with ``n_temps``, its parallel-
     tempering step), run WARM + TIMED sweeps through the runner with the
     launch counters set to 0 just before and read just after, and check
-    them.  Returns (launches, ms per timed sweep)."""
+    them.  Dyads of Y coded -1 are missing: the state carries each chain's
+    network and the checks of phase 11 apply.  Returns (launches, ms per
+    timed sweep)."""
     import torch
     from dynetlsm_tpu_torch.entry import build_state_and_sweep
     from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
@@ -527,17 +621,21 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
                                               model=model, n_temps=n_temps,
                                               beta_min=BETA_MIN)
     ladder = None if n_temps is None else state.temper.clone()
+    missing = state.Y is not None
+    check(missing == bool((Y == -1).any()), '%s: state.Y' % name)
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
                               chunk=TIMED)
     sweeps = WARM + TIMED
-    # a tempered step adds the swap's log-likelihood: one more pair or
-    # directed launch
-    swap = 0 if n_temps is None else 1
+    # a tempered step adds the swap's log-likelihood, the missing dyads
+    # the log joint's on the new network: one more pair or directed launch
+    # each
+    extra = (n_temps is not None) + missing
     expected = ({'node_scan': sweeps, 'pair_loglik': 0,
-                 'dir_loglik': (3 + swap) * sweeps} if directed else
-                {'node_scan': sweeps, 'pair_loglik': (1 + swap) * sweeps,
+                 'dir_loglik': (3 + extra) * sweeps} if directed else
+                {'node_scan': sweeps, 'pair_loglik': (1 + extra) * sweeps,
                  'dir_loglik': 0})
     counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
     state, warm = runner(state, gen, WARM)
@@ -547,6 +645,7 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     logps = torch.cat([warm['logp'][:WARM], traced['logp'][:TIMED]])
     check(bool(torch.isfinite(logps).all()), '%s: non-finite logp' % name)
     check(bool((state.it == sweeps).all()), '%s: it != %d'
@@ -560,6 +659,9 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
     s = state
     Yd = torch.as_tensor(Y, device=dev)
+    if missing:
+        Yd = s.Y
+        check_missing_state(name, Y, s, directed, sweeps)
     prior = np.zeros(2 if directed else 1, np.float32)
     if model == 'lsm':
         dense = _lsm_logp(sweep.cfg, Yd, s.X, s.intercept, s.radii,
@@ -604,18 +706,54 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
                      [round(float(v), 4) for v in s.intercept.mean(0)]))
     log('slice %s (T=%d, n=%d%s, %d chains): %.3f ms/sweep, %.1f '
         'sweeps/s x chains, X acceptance %.3f, logp mean %.2f, '
-        'dense-logp rel err %g (abs %g), launches %s%s'
+        'dense-logp rel err %g (abs %g), launches %s, peak device memory '
+        '%.3f GB%s'
         % (name, T, n, '' if model == 'lsm' else ', K=%d' % shape['K'], C,
            ms, C / (ms / 1e3), acc_rate, float(s.logp.mean()), rel,
-           float(gap.max()), launches, extra))
+           float(gap.max()), launches, peak_gb, extra))
     return launches, ms
 
 
-def slice_name(model, shape, directed, n_temps):
-    return '%s %s%s%s' % (model,
-                          'northstar' if shape['n'] == NS['n'] else 'sampson',
-                          ' directed' if directed else '',
-                          '' if n_temps is None else ' tempered')
+def check_missing_state(name, Y, s, directed, sweeps):
+    """The missing-dyad slice's final state against its coded network Y:
+    observed dyads unchanged in every chain, Y 0/1 with a zero diagonal
+    (symmetric when undirected), ``missing_sum`` zero off the mask and at
+    most the sweeps on it (``n_burn`` is 0: every sweep counts)."""
+    import torch
+    dev = s.Y.device
+    n = Y.shape[1]
+    coded = torch.as_tensor(Y, device=dev)
+    miss = coded == -1
+    miss[:, torch.arange(n), torch.arange(n)] = False
+    obs = ~miss
+    obs[:, torch.arange(n), torch.arange(n)] = False
+    check(torch.equal(s.Y[:, obs], coded[obs].to(torch.uint8).expand(
+        s.Y.shape[0], -1)), '%s: an observed dyad changed' % name)
+    check(bool((s.Y <= 1).all()), '%s: Y is not 0/1' % name)
+    check(not bool(s.Y[..., torch.arange(n), torch.arange(n)].any()),
+          '%s: a diagonal dyad is set' % name)
+    if not directed:
+        check(torch.equal(s.Y, s.Y.transpose(-1, -2)),
+              '%s: the undirected Y is not symmetric' % name)
+    check(not bool(s.missing_sum[:, ~miss].any()),
+          '%s: missing_sum off the mask' % name)
+    check(bool((s.missing_sum[:, miss] <= sweeps).all()),
+          '%s: missing_sum above the sweeps' % name)
+    drawn = s.Y[:, miss].float().mean()
+    check(0.0 < float(drawn) < 1.0, '%s: missing density %g'
+          % (name, float(drawn)))
+    log('slice %s: %d missing dyads a chain, observed dyads unchanged, '
+        'missing density %.4f (observed %.4f), mean missing_sum %.3f'
+        % (name, int(miss.sum()), float(drawn),
+           float(coded[obs].float().mean()),
+           float(s.missing_sum[:, miss].mean())))
+
+
+def slice_name(model, shape, directed, n_temps, missing=False):
+    return '%s %s%s%s%s' % (
+        model, 'northstar' if shape['n'] == NS['n'] else 'sampson',
+        ' directed' if directed else '',
+        '' if n_temps is None else ' tempered', ' missing' if missing else '')
 
 
 def alternate_tempered(Y, shape, dev, rounds=10):
@@ -648,6 +786,54 @@ def alternate_tempered(Y, shape, dev, rounds=10):
         check(bool(torch.isfinite(run[1].logp).all()),
               'alternating rounds: non-finite logp')
     return times
+
+
+# ---------------------------------------------------------------------------
+# phase 12: Geweke joint-distribution checks
+# ---------------------------------------------------------------------------
+
+def geweke_phase(dev):
+    """Every model's Geweke check (``dynetlsm_tpu_torch/geweke.py``) at
+    GEWEKE_CHAINS chains of GEWEKE_SWEEPS sweeps, the LSM's power check and
+    the equal-temperature swap, through the kernels, from the JAX tests'
+    seeds.  Returns {check: (max |z|, seconds)}."""
+    import torch
+    from dynetlsm_tpu_torch import geweke
+    out = {}
+    for model in geweke.MODELS:
+        t0 = time.perf_counter()
+        mc, sc = geweke.geweke_samples(model, GEWEKE_CHAINS, GEWEKE_SWEEPS,
+                                       geweke.SEEDS[model], dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        z = geweke.compare(mc, sc)
+        log('geweke %s: %d chains x %d sweeps in %.1f s, z %s'
+            % (model, GEWEKE_CHAINS, GEWEKE_SWEEPS, seconds,
+               np.round(z, 3).tolist()))
+        check(bool(np.all(np.abs(z) < geweke.LIMIT)),
+              'geweke %s: |z| >= %g: %s' % (model, geweke.LIMIT, z))
+        out[model] = (float(np.abs(z).max()), seconds)
+        if model == 'lsm':
+            power = geweke.lsm_power_z(sc)
+            log('geweke lsm power: z against the perturbed prior %s'
+                % np.round(power, 3).tolist())
+            check(abs(power[4]) > geweke.POWER_LIMIT,
+                  'geweke lsm: the perturbed prior was not detected (z %g)'
+                  % power[4])
+            out['lsm power'] = (float(abs(power[4])), 0.0)
+    t0 = time.perf_counter()
+    mc, sc = geweke.pt_swap_samples(GEWEKE_LADDERS, GEWEKE_SWEEPS,
+                                    geweke.SEEDS['swap'], dev)
+    seconds = time.perf_counter() - t0
+    z = geweke.pt_block_z(mc, sc)
+    log('geweke swap at equal temperatures: %d ladders x %d rungs x %d '
+        'steps in %.1f s, block z %s' % (GEWEKE_LADDERS, N_TEMPS,
+                                         GEWEKE_SWEEPS, seconds,
+                                         np.round(z, 3).tolist()))
+    check(bool(np.all(np.abs(z) < geweke.PT_LIMIT)),
+          'geweke swap: |z| >= %g: %s' % (geweke.PT_LIMIT, z))
+    out['swap'] = (float(np.abs(z).max()), seconds)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -803,6 +989,31 @@ def main():
             for n_cand in (1, 2, 3):
                 check_dir(shape, n_cand, dev, seed=50 + k)
 
+        # phase 10: one network a chain, every kernel and mode
+        for key, shape, directed, mixture, seed, tempered in scan_cases:
+            scans[key + ' ' + PER_CHAIN, shape['n']] = check_node_scan(
+                shape, dev, seed=seed + 60, directed=directed,
+                mixture=mixture, tempered=tempered, per_chain=True)
+            if shape is SAMPSON:
+                check_node_scan(dict(AWKWARD_SCAN), dev, seed=seed + 80,
+                                directed=directed, mixture=mixture,
+                                tempered=tempered, per_chain=True)
+        for shape, seed in ((NS, 3), (SAMPSON, 4)):
+            for n_cand in (1, 2):
+                logliks['pair_loglik', n_cand, shape['n'], PER_CHAIN] = (
+                    check_pair(shape, dev, seed=seed + 70, n_cand=n_cand,
+                               per_chain=True))
+            for n_cand in (1, 2, 3):
+                logliks['dir_loglik', n_cand, shape['n'], PER_CHAIN] = (
+                    check_dir(shape, n_cand, dev, seed=seed + 73 + n_cand,
+                              per_chain=True))
+        for k, shape in enumerate(AWKWARD):
+            for n_cand in (1, 2):
+                check_pair(shape, dev, seed=90 + k, n_cand=n_cand,
+                           per_chain=True)
+            for n_cand in (1, 2, 3):
+                check_dir(shape, n_cand, dev, seed=95 + k, per_chain=True)
+
         from dynetlsm_tpu_torch.datasets import (
             load_dynamic_monks, northstar_network)
         networks = {
@@ -834,6 +1045,21 @@ def main():
                 directed=directed, model=model, n_temps=n_temps)
         pt_ms = alternate_tempered(networks[NS['n'], False], NS, dev)
 
+        # phase 11: the missing-dyad slices
+        from dynetlsm_tpu_torch.datasets import with_missing_dyads
+        for model, directed, n_temps in (('hdp', False, None),
+                                         ('hdp', True, None),
+                                         ('lsm', False, None),
+                                         ('hdp', False, N_TEMPS)):
+            name = slice_name(model, NS, directed, n_temps, missing=True)
+            coded = with_missing_dyads(networks[NS['n'], directed], MISSING,
+                                       seed=5, directed=directed)
+            slices[name] = run_slice(name, coded, NS, dev, directed=directed,
+                                     model=model, n_temps=n_temps)
+
+        # phase 12: Geweke
+        geweke_out = geweke_phase(dev)
+
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
         from dynetlsm_tpu_torch.ops.pair_loglik import (
@@ -853,13 +1079,15 @@ def main():
                      'us_per_step': {str(b): 1e3 * v / steps
                                      for b, v in by.items()}})
 
-        def loglik_times(name, n_cand, n):
+        def loglik_times(key):
             """(ms, plain ms, the row's extra fields) of one log-likelihood
-            kernel at the checked inputs."""
+            kernel at the checked inputs of ``logliks[key]``, key (name,
+            n_cand, n[, PER_CHAIN])."""
+            name, n_cand, n = key[:3]
             kernel, plain = {
                 'pair_loglik': (pair_loglik_cuda, pair_loglik_plain),
                 'dir_loglik': (dir_loglik_cuda, dir_loglik_plain)}[name]
-            args, errs = logliks[name, n_cand, n]
+            args, errs = logliks[key]
             clock = busy_sm_clock_hz(lambda: kernel(*args))
             in_graph, replayed = graph_ms(lambda: kernel(*args), 20)
             check(torch.equal(replayed, kernel(*args)),
@@ -906,15 +1134,37 @@ def main():
             ('dir_loglik', 1, SAMPSON, 'hdp sampson directed'),
             ('dir_loglik', 2, SAMPSON, 'hdp sampson directed'),
             ('dir_loglik', 3, SAMPSON, 'hdp sampson directed')]
-        for name, n_cand, shape, slice_at in loglik_rows:
-            args, errs = logliks[name, n_cand, shape['n']]
+        # the per-chain mode of each kernel that a missing-dyad slice runs
+        for directed, mixture, tempered, model in (
+                (False, True, False, 'hdp'), (True, True, False, 'hdp'),
+                (False, False, False, 'lsm'), (False, True, True, 'hdp')):
+            key = '%s%s%s' % ('mix' if mixture else 'rw',
+                              ' dir' if directed else '',
+                              ' tempered' if tempered else '')
+            t, err = scans[key + ' ' + PER_CHAIN, NS['n']]
+            rows.append(('node_scan',
+                         scan_mode(directed, mixture, tempered, True),
+                         scan_cu, scan_at[NS['n']], NS,
+                         slice_name(model, NS, directed,
+                                    N_TEMPS if tempered else None, True),
+                         err, scan_times(t), scan_bound(t)))
+        loglik_rows += [
+            ('pair_loglik', 2, NS, 'hdp northstar missing', PER_CHAIN),
+            ('pair_loglik', 1, NS, 'hdp northstar missing', PER_CHAIN),
+            ('dir_loglik', 1, NS, 'hdp northstar directed missing',
+             PER_CHAIN),
+            ('dir_loglik', 2, NS, 'hdp northstar directed missing',
+             PER_CHAIN)]
+        for name, n_cand, shape, slice_at, *per_chain in loglik_rows:
+            key = (name, n_cand, shape['n']) + tuple(per_chain)
+            args, errs = logliks[key]
             rows.append((
-                name, '%s, n_cand=%d' % ('undirected' if name == 'pair_loglik'
-                                         else 'directed', n_cand),
+                name, '%s, n_cand=%d%s' % (
+                    'undirected' if name == 'pair_loglik' else 'directed',
+                    n_cand, ''.join(', ' + m for m in per_chain)),
                 pair_cu if name == 'pair_loglik' else dir_cu,
                 loglik_py + (':25' if name == 'pair_loglik' else ':219'),
-                shape, slice_at, errs['err'],
-                loglik_times(name, n_cand, shape['n']),
+                shape, slice_at, errs['err'], loglik_times(key),
                 (pair_bound if name == 'pair_loglik' else dir_bound)(args)))
         for (name, mode, source, replaces, shape, slice_at, err,
              (ms, pms, extra), (bound_ms, bound_by)) in rows:
@@ -941,6 +1191,9 @@ def main():
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
+        log('geweke max |z| and seconds: ' + ', '.join(
+            '%s %.3f (%.1f s)' % (k, z, sec)
+            for k, (z, sec) in geweke_out.items()))
         ratios = np.divide(pt_ms['tempered'], pt_ms['untempered'])
         log('hdp northstar ms/sweep in alternating rounds: untempered %s, '
             'tempered %s; medians %.3f and %.3f; tempered / untempered '

@@ -38,6 +38,10 @@
 // shuffle, the warps of a block once through shared memory, and the
 // chain's blocks by the last block to take a ticket, in index order.  No
 // floating-point atomics, so a rerun on the same input is bit-identical.
+//
+// The packed adjacency is one network for every chain, or one a chain
+// (missing-dyad resampling): chain c reads it at Yp + c * y_chain,
+// y_chain = T n n bytes or 0.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -129,7 +133,7 @@ __device__ __forceinline__ void dir_tile(const float* buf,
 template <int NC, int D>
 __global__ void __launch_bounds__(kThreads)
 dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
-                  const float* __restrict__ radii,
+                  long long y_chain, const float* __restrict__ radii,
                   const float* __restrict__ b, double* __restrict__ partials,
                   unsigned* __restrict__ tickets, float* __restrict__ out,
                   int T, int n, int d, int G, int words) {
@@ -137,6 +141,7 @@ dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
   const int blk = blockIdx.x;
   const int c = blockIdx.y;
   const float* x_c = X + (size_t)c * T * n * d;
+  const uint8_t* y_c = Yp + (size_t)c * y_chain;
   const float* radii_c = radii + (size_t)c * NC * n;
   const float* b_c = b + (size_t)c * NC * 2;
   const int per_buf = 2 * kTile * d + kUvFloats<NC>;
@@ -155,8 +160,8 @@ dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
         stage_uv<NC>(buf + 2 * kTile * d, radii_c, b_c, w.ti, w.tj, n);
       },
       [&](int which, const TileWalk& w) {
-        dir_tile<NC, D>(smem + which * per_buf, Yp + (size_t)w.t * n * n, w.ti,
-                     w.tj, n, d, words != 0, B, s);
+        dir_tile<NC, D>(smem + which * per_buf, y_c + (size_t)w.t * n * n,
+                        w.ti, w.tj, n, d, words != 0, B, s);
       });
   block_finish<NC>(s, partials, tickets, out, c, blk, G);
 }
@@ -168,25 +173,27 @@ dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
 namespace {
 
 template <int NC, int D>
-int launch_d(const float* X, const uint8_t* Yp, const float* radii,
-           const float* b, double* partials, unsigned* tickets, float* out,
-           int C, int T, int n, int d, int G, cudaStream_t s) {
+int launch_d(const float* X, const uint8_t* Yp, long long y_chain,
+             const float* radii, const float* b, double* partials,
+             unsigned* tickets, float* out, int C, int T, int n, int d, int G,
+             cudaStream_t s) {
   const size_t smem = loglik::smem_bytes(d, kUvFloats<NC>);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int words = n % 4 == 0 && (uintptr_t)Yp % 4 == 0;
+  const int words = loglik::word_rows(Yp, n, y_chain);
   dir_loglik_kernel<NC, D><<<dim3(G, C), kThreads, smem, s>>>(
-      X, Yp, radii, b, partials, tickets, out, T, n, d, G, words);
+      X, Yp, y_chain, radii, b, partials, tickets, out, T, n, d, G, words);
   return (int)cudaGetLastError();
 }
 
 template <int NC>
-int launch(const float* X, const uint8_t* Yp, const float* radii,
-           const float* b, double* partials, unsigned* tickets, float* out,
-           int C, int T, int n, int d, int G, cudaStream_t s) {
-  return d == 2 ? launch_d<NC, 2>(X, Yp, radii, b, partials, tickets, out, C,
-                                  T, n, d, G, s)
-                : launch_d<NC, 0>(X, Yp, radii, b, partials, tickets, out, C,
-                                  T, n, d, G, s);
+int launch(const float* X, const uint8_t* Yp, long long y_chain,
+           const float* radii, const float* b, double* partials,
+           unsigned* tickets, float* out, int C, int T, int n, int d, int G,
+           cudaStream_t s) {
+  return d == 2 ? launch_d<NC, 2>(X, Yp, y_chain, radii, b, partials, tickets,
+                                  out, C, T, n, d, G, s)
+                : launch_d<NC, 0>(X, Yp, y_chain, radii, b, partials, tickets,
+                                  out, C, T, n, d, G, s);
 }
 
 template <int NC>
@@ -221,7 +228,8 @@ extern "C" int dir_loglik_blocks_per_sm(int n_cand, int d) {
 
 // One launch on `stream`; returns the CUDA error code (0 on success), or
 // cudaErrorInvalidValue for n_cand outside 1..3 or a shape it does not
-// take.  X (C, T, n, d); Yp (T, n, n) packed Y + 2 Y^T; radii
+// take.  X (C, T, n, d); Yp (T, n, n) packed Y + 2 Y^T, or (C, T, n, n)
+// with y_chain = T n n (0: shared); radii
 // (C, n_cand, n); b (C, n_cand, 2) as (b_in, b_out); partials:
 // C * G * n_cand float64 of scratch; tickets: C uint32, zero before the
 // first launch (every launch leaves them zero); out (C, n_cand) float32.
@@ -230,24 +238,25 @@ extern "C" int dir_loglik_launch(const float* X, const uint8_t* Yp,
                                  const float* radii, const float* b,
                                  double* partials, unsigned* tickets,
                                  float* out, int C, int n_cand, int T, int n,
-                                 int d, int G, void* stream) {
+                                 int d, int G, long long y_chain,
+                                 void* stream) {
   const int nt = (n + kTile - 1) / kTile;
   const long long items = (long long)T * nt * (nt + 1) / 2;
   if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
-      items > INT32_MAX) {
+      items > INT32_MAX || (y_chain != 0 && y_chain != (long long)T * n * n)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_cand) {
     case 1:
-      return launch<1>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                       s);
+      return launch<1>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
+                       n, d, G, s);
     case 2:
-      return launch<2>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                       s);
+      return launch<2>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
+                       n, d, G, s);
     case 3:
-      return launch<3>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                       s);
+      return launch<3>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
+                       n, d, G, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -142,6 +142,13 @@ __device__ __forceinline__ uint32_t load_y4(const uint8_t* p, int left,
   return w;
 }
 
+// Whether the launch reads the adjacency as 32-bit words: every row of
+// every chain's network starts on a 4-byte boundary (y_chain: the chain
+// stride in bytes, 0 for one network shared by the chains).
+inline bool word_rows(const uint8_t* Y, int n, long long y_chain) {
+  return n % 4 == 0 && y_chain % 4 == 0 && (uintptr_t)Y % 4 == 0;
+}
+
 // Lane 0 gets the warp's sum, lanes added in a fixed tree (the shuffle
 // moves a double as its two 32-bit halves).
 __device__ __forceinline__ double warp_sum(double v) {

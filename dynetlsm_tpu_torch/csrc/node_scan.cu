@@ -101,6 +101,12 @@
 // with u = b_in / r and v = b_out / r divided once per launch into shared
 // memory (IEEE division, as PyTorch divides), so the plain version rounds
 // every term alike.
+//
+// Per-chain network (missing-dyad resampling, mcmc/sweeps.py): chain c
+// reads its adjacency at Y + c * y_chain, y_chain = T n P bytes when every
+// chain has its own (C, T, n, P) network, 0 when all share one (T, n, P).
+// Only the base of the row copies moves, so a shared launch is the launch
+// it was, and P >= 32 keeps each chain's rows on 16-byte boundaries.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -441,7 +447,8 @@ struct Stage {
 
 // b: (C,) intercepts, or (C, 2) = (b_in, b_out) when kDirected; radii:
 // (C, n) when kDirected, unused otherwise; Y: the 0/1 adjacency, or the
-// packed Y + 2 Y^T when kDirected, its rows padded to P bytes (T, n, P).
+// packed Y + 2 Y^T when kDirected, its rows padded to P bytes (T, n, P),
+// chain c's at Y + c * y_chain (0: one network for all chains).
 // mu_z, sig_z, lmbda: the mixture prior's per-site cluster means and
 // variances and per-chain lambda (kMixture); tau_sq, sigma_sq: the
 // random-walk prior's variances (!kMixture).  temper: (C,) per-chain
@@ -450,9 +457,10 @@ struct Stage {
 template <bool kDirected, bool kMixture, bool kTempered>
 __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
-    const float* __restrict__ step, const float* __restrict__ eps,
-    const float* __restrict__ log_u, const float* __restrict__ mu_z,
-    const float* __restrict__ sig_z, const float* __restrict__ b,
+    long long y_chain, const float* __restrict__ step,
+    const float* __restrict__ eps, const float* __restrict__ log_u,
+    const float* __restrict__ mu_z, const float* __restrict__ sig_z,
+    const float* __restrict__ b,
     const float* __restrict__ radii, const float* __restrict__ lmbda,
     const float* __restrict__ temper, float* __restrict__ X_out,
     float* __restrict__ acc, int T, int n, int d, int P, int W, int B,
@@ -487,6 +495,7 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   const int r = 32 * W * rank + 32 * w + lane;  // this lane's residue
 
   const float* X_c = X_in + (size_t)c * field;
+  const uint8_t* Y_c = Y + (size_t)c * y_chain;
   for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
 
   const float bc = kDirected ? 0.0f : b[c];
@@ -526,7 +535,7 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     if (k < T * row_chunks) {
       const int t = k / row_chunks;
       const int off = 16 * (k - t * row_chunks);
-      cp = {reinterpret_cast<const char*>(Y + (size_t)t * n * P + off), P,
+      cp = {reinterpret_cast<const char*>(Y_c + (size_t)t * n * P + off), P,
             ys_at + t * P + off, ys_half, 16};
       return cp;
     }
@@ -773,9 +782,10 @@ extern "C" int node_scan_threads(int T, int warps) {
 namespace {
 
 using NodeScanKernel = void (*)(
-    const float*, const uint8_t*, const float*, const float*, const float*,
+    const float*, const uint8_t*, long long, const float*, const float*,
     const float*, const float*, const float*, const float*, const float*,
-    const float*, float*, float*, int, int, int, int, int, int, float, float);
+    const float*, const float*, float*, float*, int, int, int, int, int, int,
+    float, float);
 
 template <bool kDirected, bool kMixture>
 NodeScanKernel pick_tempered(bool tempered) {
@@ -874,8 +884,10 @@ extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
 }
 
 // Launch on `stream`; returns the CUDA error code (0 on success).
-// Y: (T, n, P) uint8, rows padded to P bytes, 16-byte aligned; P: the
-// partner axis padded to a power of two >= 32.  directed != 0 selects the
+// Y: (T, n, P) uint8, rows padded to P bytes, 16-byte aligned, or one
+// such network a chain, (C, T, n, P), chain c's at Y + c * y_chain
+// (y_chain = T n P; 0 for the shared network); P: the partner axis padded
+// to a power of two >= 32.  directed != 0 selects the
 // social-radii likelihood (b (C, 2), radii (C, n), Y packed Y + 2 Y^T);
 // otherwise b is (C,) and radii may be null.  mixture != 0 selects the
 // mixture prior (mu_z, sig_z, lmbda); otherwise the random-walk prior with
@@ -890,7 +902,9 @@ extern "C" int node_scan_launch(
     const float* b, const float* radii, const float* lmbda,
     const float* temper, float* X_out, float* acc, int C, int T, int n,
     int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq, void* stream) {
+    float tau_sq, float sigma_sq, long long y_chain, void* stream) {
+  if (y_chain != 0 && y_chain != (long long)T * n * P)
+    return (int)cudaErrorInvalidValue;
   NodeScanKernel kernel;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -898,9 +912,9 @@ extern "C" int node_scan_launch(
                               mixture, temper != nullptr, stream, &kernel,
                               &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, kernel, X, Y, step, eps, log_u, mu_z, sig_z,
-                           b, radii, lmbda, temper, X_out, acc, T, n, d, P,
-                           warps, cluster, tau_sq, sigma_sq);
+  err = cudaLaunchKernelEx(&cfg, kernel, X, Y, y_chain, step, eps, log_u,
+                           mu_z, sig_z, b, radii, lmbda, temper, X_out, acc,
+                           T, n, d, P, warps, cluster, tau_sq, sigma_sq);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

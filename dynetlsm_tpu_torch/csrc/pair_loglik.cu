@@ -34,6 +34,10 @@
 // chain's blocks by the last block to take a ticket, in index order.  No
 // floating-point atomics, so a rerun on the same input gives a
 // bit-identical result.
+//
+// The adjacency is one network for every chain, or one a chain (missing-
+// dyad resampling): chain c reads it at Y + c * y_chain, y_chain = T n n
+// bytes or 0.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,7 +85,7 @@ __device__ __forceinline__ void pair_tile(const float* buf,
 template <int NB, int D>
 __global__ void __launch_bounds__(kThreads)
 pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
-                   const float* __restrict__ b_cur,
+                   long long y_chain, const float* __restrict__ b_cur,
                    const float* __restrict__ b_prop,
                    double* __restrict__ partials,
                    unsigned* __restrict__ tickets, float* __restrict__ out,
@@ -90,6 +94,7 @@ pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
   const int blk = blockIdx.x;
   const int c = blockIdx.y;
   const float* x_c = X + (size_t)c * T * n * d;
+  const uint8_t* y_c = Y + (size_t)c * y_chain;
   const int per_buf = 2 * kTile * d;
   float b[NB];
   double s[NB];
@@ -104,8 +109,8 @@ pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
                         w.ti, w.tj, n, d);
       },
       [&](int which, const TileWalk& w) {
-        pair_tile<NB, D>(smem + which * per_buf, Y + (size_t)w.t * n * n, w.ti,
-                      w.tj, n, d, words != 0, b, s);
+        pair_tile<NB, D>(smem + which * per_buf, y_c + (size_t)w.t * n * n,
+                         w.ti, w.tj, n, d, words != 0, b, s);
       });
   block_finish<NB>(s, partials, tickets, out, c, blk, G);
 }
@@ -117,13 +122,15 @@ pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
 namespace {
 
 template <int NB, int D>
-int launch(const float* X, const uint8_t* Y, const float* b_cur,
-           const float* b_prop, double* partials, unsigned* tickets,
-           float* out, int C, int T, int n, int d, int G, cudaStream_t s) {
-  const int words = n % 4 == 0 && (uintptr_t)Y % 4 == 0;
+int launch(const float* X, const uint8_t* Y, long long y_chain,
+           const float* b_cur, const float* b_prop, double* partials,
+           unsigned* tickets, float* out, int C, int T, int n, int d, int G,
+           cudaStream_t s) {
+  const int words = loglik::word_rows(Y, n, y_chain);
   pair_loglik_kernel<NB, D><<<dim3(G, C), kThreads,
                               loglik::smem_bytes(d, 0), s>>>(
-      X, Y, b_cur, b_prop, partials, tickets, out, T, n, d, G, words);
+      X, Y, y_chain, b_cur, b_prop, partials, tickets, out, T, n, d, G,
+      words);
   return (int)cudaGetLastError();
 }
 
@@ -150,7 +157,8 @@ extern "C" int pair_loglik_blocks_per_sm(int n_cand, int d) {
 
 // One launch on `stream`; returns the CUDA error code (0 on success), or
 // cudaErrorInvalidValue for a shape it does not take.  X (C, T, n, d);
-// Y (T, n, n) uint8; b_cur (C,); b_prop (C,) or null for one intercept;
+// Y (T, n, n) uint8, or (C, T, n, n) with y_chain = T n n (0: shared);
+// b_cur (C,); b_prop (C,) or null for one intercept;
 // partials: C * G * n_cand float64 of scratch; tickets: C uint32, zero
 // before the first launch (every launch leaves them zero); out
 // (C, n_cand) float32, candidate 0 = b_cur, 1 = b_prop.  G blocks a chain,
@@ -159,22 +167,23 @@ extern "C" int pair_loglik_launch(const float* X, const uint8_t* Y,
                                   const float* b_cur, const float* b_prop,
                                   double* partials, unsigned* tickets,
                                   float* out, int C, int T, int n, int d,
-                                  int G, void* stream) {
+                                  int G, long long y_chain, void* stream) {
   const int nt = (n + kTile - 1) / kTile;
   const long long items = (long long)T * nt * (nt + 1) / 2;
   if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
-      items > INT32_MAX || loglik::smem_bytes(d, 0) > 48 * 1024) {
+      items > INT32_MAX || loglik::smem_bytes(d, 0) > 48 * 1024 ||
+      (y_chain != 0 && y_chain != (long long)T * n * n)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (b_prop == nullptr) {
-    return d == 2 ? launch<1, 2>(X, Y, b_cur, b_cur, partials, tickets, out,
-                                 C, T, n, d, G, s)
-                  : launch<1, 0>(X, Y, b_cur, b_cur, partials, tickets, out,
-                                 C, T, n, d, G, s);
+    return d == 2 ? launch<1, 2>(X, Y, y_chain, b_cur, b_cur, partials,
+                                 tickets, out, C, T, n, d, G, s)
+                  : launch<1, 0>(X, Y, y_chain, b_cur, b_cur, partials,
+                                 tickets, out, C, T, n, d, G, s);
   }
-  return d == 2 ? launch<2, 2>(X, Y, b_cur, b_prop, partials, tickets, out, C,
-                               T, n, d, G, s)
-                : launch<2, 0>(X, Y, b_cur, b_prop, partials, tickets, out, C,
-                               T, n, d, G, s);
+  return d == 2 ? launch<2, 2>(X, Y, y_chain, b_cur, b_prop, partials,
+                               tickets, out, C, T, n, d, G, s)
+                : launch<2, 0>(X, Y, y_chain, b_cur, b_prop, partials,
+                               tickets, out, C, T, n, d, G, s);
 }

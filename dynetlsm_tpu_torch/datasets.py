@@ -6,6 +6,8 @@
   would load jax, and its loader needs scikit-learn.
 * :func:`northstar_network` is the synthetic community network at the
   north-star scale (T=10, n=500), a copy of ``bench.py``'s generator.
+* :func:`with_missing_dyads` codes a seeded random share of a network's
+  dyads as missing (-1).
 """
 import os
 
@@ -43,4 +45,21 @@ def northstar_network(T=10, n=500, n_groups=8, seed=3, directed=False):
         else:
             upper = np.triu(draw, 1)
             Y[t] = upper + upper.T
+    return Y
+
+
+def with_missing_dyads(Y, fraction=0.1, seed=0, directed=False):
+    """A float64 copy of the network Y (T, n, n) with a ``fraction`` of its
+    off-diagonal dyads, chosen at random from ``seed``, coded -1: each
+    ordered dyad on its own when directed, each unordered pair (both
+    entries) when undirected."""
+    Y = np.array(Y, dtype=np.float64)
+    T, n, _ = Y.shape
+    miss = np.random.RandomState(seed).uniform(size=Y.shape) < fraction
+    if directed:
+        miss &= ~np.eye(n, dtype=bool)
+    else:
+        miss = np.triu(miss, 1)
+        miss |= np.swapaxes(miss, 1, 2)
+    Y[miss] = -1.0
     return Y

@@ -9,7 +9,9 @@
   ``quality_init=False`` path of ``bench.py``; GMDS and k-means
   initialisation belong to the estimator, not ported yet); with
   ``n_temps``, the parallel-tempering step over ladders of that many
-  rungs (``bench.py``'s ``tempered`` row).
+  rungs (``bench.py``'s ``tempered`` row).  A network with missing dyads
+  (coded -1 or NaN) is filled once by the imputer and its missing dyads
+  are resampled every sweep, as the JAX estimators do.
 
 Both run on the card unless the caller passes ``device='cpu'``; without a
 CUDA device they raise (``config.resolve_device``).
@@ -18,11 +20,13 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .imputer import SimpleNetworkImputer
 from .math.init import initialize_radii
 from .mcmc.driver import replicate_state
 from .mcmc.sweeps import (
     SweepConfig, _lsm_logp, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
 from .mcmc.tempering import make_pt_step, temper_ladder
+from .models.base import validate_network
 from .ops.distances import pairwise_distances
 
 # the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
@@ -89,12 +93,39 @@ def _initial_lsm_logp(cfg, Y, s0, prior, device):
                            prior)[0])
 
 
+def _fill_missing(Y, is_directed):
+    """(the network Y (T, n, n) with its missing dyads filled, the
+    missing-dyad mask), or (Y, None) when no dyad is missing: Y validated
+    (``models.base``), its -1 or NaN dyads filled by the imputer's
+    ``'random'`` strategy as the JAX estimators fill them
+    (models/lsm.py:182-183, the same draws), the observed dyads kept (the
+    fill mirrors the upper triangle, which on a directed network would
+    overwrite the observed lower triangle) and the diagonal 0."""
+    Y_valid, _, miss, sample_missing = validate_network(Y, is_directed)
+    if not sample_missing:
+        return Y, None
+    fill = SimpleNetworkImputer(strategy='random',
+                                missing_value=-1).fit_transform(Y_valid)
+    Y = np.where(miss, fill, Y_valid)
+    Y[:, np.arange(Y.shape[1]), np.arange(Y.shape[1])] = 0.0
+    if not np.isin(Y, (0.0, 1.0)).all():
+        raise ValueError('Y must hold 0/1 dyads, with missing ones coded '
+                         '-1 or NaN')
+    return Y, miss
+
+
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                           device='cuda', is_directed=False, model='hdp',
                           n_temps=None, beta_min=0.2):
     """A replicated chain state, the sweep and its generator for the dense
     network Y (T, n, n), undirected or directed, on ``device`` (the card
     by default).  Returns (state, sweep, gen).
+
+    Dyads coded -1 or NaN are missing: they are filled once (the JAX
+    estimators' random imputation, observed dyads kept), every chain
+    starts from that network in ``state.Y`` with a zero
+    ``state.missing_sum``, and the sweep (``cfg.sample_missing``)
+    resamples them every sweep.
 
     With ``n_temps``, the ``n_chains`` slots form ``n_chains // n_temps``
     ladders of ``n_temps`` rungs from 1 down to ``beta_min``
@@ -126,20 +157,24 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
         raise ValueError('n_chains=%d is not a whole number of %d-rung '
                          'ladders' % (n_chains, n_temps))
     device = resolve_device(device)
+    Y, miss = _fill_missing(Y, is_directed)
+    missing = dict(sample_missing=miss is not None)
     rng = np.random.RandomState(seed)
     T, n, _ = Y.shape
     d = 2
     n_int = 2 if is_directed else 1
     prior = np.zeros(n_int, np.float32)
     s0 = _single_state(T, n, rng.randn(T, n, d), n_int)
+    if miss is not None:
+        s0['Y'] = Y
     if is_directed:
         s0.update(radii=initialize_radii(Y), step_radii=175000.0,
                   acc_radii=0.0)
 
     if model == 'lsm':
         cfg = SweepConfig(is_directed=is_directed, tune=0, n_burn=0,
-                          tau_sq=2.0, sigma_sq=0.1)
-        sweep = make_lsm_sweep(Y, prior, cfg, device=device)
+                          tau_sq=2.0, sigma_sq=0.1, **missing)
+        sweep = make_lsm_sweep(Y, prior, cfg, device=device, miss_mask=miss)
         logp0 = _initial_lsm_logp(cfg, Y, s0, prior, device)
         s0.update(logp=logp0, logp_map=logp0, X_map=s0['X'],
                   intercept_map=s0['intercept'], logp_ref=logp0,
@@ -150,7 +185,7 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
         s0.update(_mixture_fields(mu0, np.ones(K), z0))
         cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
                           n_components=K, table_cap=table_cap,
-                          tune_radii=is_directed, **_HYPER)
+                          tune_radii=is_directed, **_HYPER, **missing)
         if model == 'hdp':
             weights0 = np.zeros((T, K, K))
             weights0[0, 0] = np.bincount(z0[0], minlength=K) / n
@@ -159,11 +194,13 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                 for k in range(K):
                     weights0[t, k] = rng.dirichlet(beta0 + 4.0 * np.eye(K)[k])
             s0.update(_hdp_fields(weights0, beta0))
-            sweep = make_hdp_sweep(Y, prior, cfg, device=device)
+            sweep = make_hdp_sweep(Y, prior, cfg, device=device,
+                                   miss_mask=miss)
         else:
             s0.update(init_weights=np.bincount(z0[0], minlength=K) / n,
                       trans_weights=np.full((K, K), 1.0 / K))
-            sweep = make_lpcm_sweep(Y, prior, cfg, device=device)
+            sweep = make_lpcm_sweep(Y, prior, cfg, device=device,
+                                    miss_mask=miss)
     state = replicate_state(s0, n_chains, device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     if n_temps is not None:

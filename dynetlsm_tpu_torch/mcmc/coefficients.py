@@ -9,6 +9,8 @@ Each sampler returns the network log-likelihood at the accepted state, so
 the next step and the sweep's log joint reuse it.  Under parallel tempering
 each takes ``temper`` (C,), which scales the log-likelihood difference in
 its ratio and nothing else (the returned log-likelihoods stay untempered).
+The network is one for every chain, or each chain's own (C, T, n, n) when
+missing dyads are resampled; the kernels read either.
 """
 import torch
 
@@ -16,6 +18,19 @@ from ..math.distributions import normal
 from ..ops.dir_loglik import dir_loglik
 from ..ops.pair_loglik import pair_loglik
 from .metropolis import dirichlet_metropolis_step, random_walk_accept
+
+
+def network_loglik(cfg, Y, X, intercept, radii=None):
+    """The untempered network log-likelihood (C,) of every chain at its
+    current state, with one kernel launch: the pair kernel at one
+    intercept undirected (Y 0/1 uint8), one ``dir_loglik`` candidate
+    directed (Y packed ``Y + 2 Y^T``; radii (C, n)); their plain versions
+    for CPU tensors.  Y (T, n, n) or (C, T, n, n)."""
+    X = X.contiguous()
+    if cfg.is_directed:
+        return dir_loglik(Y, X, radii[:, None].contiguous(),
+                          intercept[:, None].contiguous())[:, 0]
+    return pair_loglik(Y, X, intercept[:, 0].contiguous())[:, 0]
 
 
 def sample_intercept_undirected(gen, Y, X, intercept, step_size,
@@ -49,7 +64,8 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
     one two-candidate kernel call, then b_out against the accepted b_in,
     whose log-likelihood is its current value.
 
-    Yp (T, n, n) packed Y + 2 Y^T; X (C, T, n, d); intercept, step_size
+    Yp (T, n, n) or (C, T, n, n) packed Y + 2 Y^T; X (C, T, n, d);
+    intercept, step_size
     (C, 2); radii (C, n); prior_mean a pair of floats.  Returns (new (C, 2),
     accepted (C, 2) float, loglik at the accepted state (C,))."""
     C = X.shape[0]

@@ -19,10 +19,13 @@ def replicate_state(state0, n_chains, device):
     :class:`~.states.MixtureState` (no chain axis; the fields given pick
     the class, :func:`~.states.state_class`), across a new leading chain
     axis of length ``n_chains`` on ``device``; ``None`` fields stay
-    ``None``."""
+    ``None``.  Every chain gets its own copy of the network ``Y`` (missing
+    dyads resampled), and a zero ``missing_sum`` unless one is given."""
     batched = {k: np.broadcast_to(np.asarray(v), (n_chains,)
                                   + np.shape(v)).copy()
                for k, v in state0.items() if v is not None}
+    if 'Y' in batched and 'missing_sum' not in batched:
+        batched['missing_sum'] = np.zeros(batched['Y'].shape, np.float32)
     return state_from_numpy(batched, device)
 
 

@@ -1,5 +1,5 @@
 """Sampler states (counterparts of ``LSMState`` and ``MixtureState`` in
-``dynetlsm_tpu/mcmc/states.py``), for a fixed network with no
+``dynetlsm_tpu/mcmc/states.py``), for a dense network with no
 case-control, untempered or under parallel tempering.
 
 Every tensor carries the chain axis as its leading dimension; the JAX
@@ -16,6 +16,13 @@ has no field here: a ``torch.Generator`` is passed to each sweep.
 The directed social-radii model adds ``radii``, ``step_radii`` and
 ``acc_radii`` and carries two intercepts (b_in, b_out); an undirected state
 has one intercept and ``None`` in the radii fields.
+
+Missing-dyad resampling (``SweepConfig.sample_missing``) adds ``Y``, each
+chain's network with its missing dyads at their current draws (uint8 0/1,
+the observed dyads the same in every chain), and ``missing_sum``, each
+missing dyad's sum of draws after burn-in (float32, zero off the missing
+mask); both are ``None`` when no dyad is missing, and the sweeps then read
+the network they were built with.
 
 Parallel tempering (``mcmc/tempering.py``) adds ``temper``, each slot's
 inverse temperature of the network likelihood, and ``acc_swap``, the
@@ -60,6 +67,9 @@ class LSMState(_State):
     step_radii: Optional[torch.Tensor] = None  # (C,)
     acc_radii: Optional[torch.Tensor] = None   # (C,)
     radii_map: Optional[torch.Tensor] = None   # (C, n)
+    # missing-dyad resampling only
+    Y: Optional[torch.Tensor] = None           # (C, T, n, n) uint8 0/1
+    missing_sum: Optional[torch.Tensor] = None  # (C, T, n, n) float32
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
@@ -95,6 +105,9 @@ class MixtureState(_State):
     radii: Optional[torch.Tensor] = None       # (C, n)
     step_radii: Optional[torch.Tensor] = None  # (C,)
     acc_radii: Optional[torch.Tensor] = None   # (C,)
+    # missing-dyad resampling only
+    Y: Optional[torch.Tensor] = None           # (C, T, n, n) uint8 0/1
+    missing_sum: Optional[torch.Tensor] = None  # (C, T, n, n) float32
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
@@ -114,14 +127,15 @@ def state_from_numpy(arrays, device):
     :func:`state_class`) from a dict of chain-batched NumPy arrays keyed by
     field name (extra keys, such as the JAX state's ``key``, are ignored; a
     missing or ``None`` optional field stays ``None``).  Integer fields are
-    cast to int64, float fields to float32."""
+    cast to int64, the network ``Y`` to uint8, float fields to float32."""
     cls = state_class(arrays)
     kwargs = {}
     for f in dataclasses.fields(cls):
         if arrays.get(f.name) is None:
             continue
         a = np.asarray(arrays[f.name])
-        dtype = ITYPE if f.name in _INT_FIELDS else DTYPE
+        dtype = (ITYPE if f.name in _INT_FIELDS else
+                 torch.uint8 if f.name == 'Y' else DTYPE)
         kwargs[f.name] = torch.tensor(a, device=device).to(dtype)
     return cls(**kwargs)
 
@@ -129,7 +143,7 @@ def state_from_numpy(arrays, device):
 def state_to_numpy(state, int_dtype=np.int32):
     """Dict of NumPy arrays keyed by field name, ``None`` fields left out;
     integer fields are cast to ``int_dtype`` (int32, the JAX package's
-    label dtype, by default)."""
+    label dtype, by default); the network ``Y`` stays uint8."""
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)

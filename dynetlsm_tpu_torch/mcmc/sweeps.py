@@ -1,6 +1,6 @@
 """Full Gibbs sweeps (counterpart of ``dynetlsm_tpu/mcmc/sweeps.py``) on a
-dense undirected or directed (social-radii) network with fixed Y and the
-exact latent update:
+dense undirected or directed (social-radii) network, fixed or with missing
+dyads resampled, and the exact latent update:
 
 * LSM (:func:`make_lsm_sweep`, reference lsm.py:474-572): random-walk
   prior on the positions, Procrustes alignment after burn-in, MAP
@@ -22,6 +22,20 @@ the accepted state.  The factories store Y on ``device``, the card unless
 the caller asks for the CPU (``config.resolve_device``), and expose it as
 ``sweep.Y`` beside ``sweep.cfg``.
 
+With ``cfg.sample_missing`` the network is part of the state: ``state.Y``
+(C, T, n, n) holds each chain's network, and the sweep's last block before
+the log joint Gibbs-resamples its missing dyads (``miss_mask``) from their
+Bernoulli conditionals (:func:`resample_missing`, step 7 of the JAX
+sweeps), adds them to ``state.missing_sum`` after burn-in and scores the
+new network with one more kernel launch for the log joint.  The resample
+works on the list of missing dyads (:func:`missing_dyads`, made once by
+the factory), not on dense (C, T, n, n) tensors.  The kernels read each
+chain's network through their chain stride, in the form the sweep derives
+from ``state.Y`` at its start (packed when directed, with padded rows for
+the node scan), so the form always belongs to the slot's own network,
+also after a replica swap; ``sweep.Y`` is then ``None`` and
+``sweep.miss_mask`` the mask.
+
 A state with ``temper`` (C,) runs the tempered sweep of parallel tempering
 (``mcmc/tempering.py``): the latent update, the intercept step(s) and the
 radii step scale their log-likelihood differences by each chain's inverse
@@ -30,20 +44,22 @@ concentrations) do not see Y and are unchanged, and ``logp`` stays the
 untempered log joint.
 """
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..config import SMALL_EPS, resolve_device
+from ..config import DTYPE, SMALL_EPS, resolve_device
 from ..math.distributions import (
-    dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf)
+    dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf, uniform)
 from ..math.procrustes import longitudinal_procrustes_rotation
-from ..ops.distances import pairwise_distances
+from ..models.base import validate_network
+from ..ops.distances import _sum_sq_last, pairwise_distances
 from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
 from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
 from .coefficients import (
-    sample_intercept_undirected, sample_intercepts_directed, sample_radii)
+    network_loglik, sample_intercept_undirected, sample_intercepts_directed,
+    sample_radii)
 from .conjugate import (
     sample_cluster_means, sample_cluster_variances, sample_lambda,
     sample_mean_variance_hyper, sample_sigma_scale_hyper)
@@ -95,9 +111,6 @@ class SweepConfig:
 
 
 def _check_supported(cfg):
-    if cfg.sample_missing:
-        raise NotImplementedError('missing-dyad resampling is not ported '
-                                  'yet')
     if cfg.n_control is not None:
         raise NotImplementedError('the case-control likelihood is not '
                                   'ported yet')
@@ -107,24 +120,142 @@ def _check_supported(cfg):
             % (cfg.latent_update,))
 
 
-def _fixed_network(Y_fixed, intercept_prior, cfg, device):
-    """Check the configuration and store the fixed 0/1 network Y (T, n, n)
-    as uint8 on ``device`` (packed as ``Y + 2 Y^T`` for the directed
-    model, once here).  Returns (Y, Y with its rows padded for the node
-    scan (``pad_partners``, once here), the prior means as a (1, P)
-    tensor, the same as a list of floats)."""
+def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None):
+    """Check the configuration and store the network on ``device``.
+    Returns (Y, Y with its rows padded for the node scan, the
+    :class:`MissingDyads`, the prior means as a (1, P) tensor, the same as
+    a list of floats).
+
+    Without ``cfg.sample_missing``: Y the fixed 0/1 network (T, n, n) as
+    uint8 (packed as ``Y + 2 Y^T`` for the directed model) and its padded
+    rows (``pad_partners``), both made once here; no missing dyads.  With
+    it: no stored network (the sweep reads ``state.Y``) and the
+    :func:`missing_dyads` of ``miss_mask`` (T, n, n) bool, or, when it is
+    ``None``, of the -1 or NaN dyads of ``Y_fixed``
+    (``models.base.validate_network``)."""
     _check_supported(cfg)
     device = resolve_device(device)
+    prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
+                            device=device).reshape(1, -1)
+    prior_means = [float(m) for m in prior[0]]
+    if cfg.sample_missing:
+        if miss_mask is None:
+            if Y_fixed is None:
+                raise ValueError('sample_missing needs miss_mask or a '
+                                 '-1-coded Y_fixed')
+            miss_mask = validate_network(Y_fixed, cfg.is_directed)[2]
+        miss = torch.as_tensor(np.asarray(miss_mask, dtype=bool),
+                               device=device)
+        return (None, None, missing_dyads(miss, cfg.is_directed), prior,
+                prior_means)
     Y_np = np.asarray(Y_fixed)
     if not np.isin(Y_np, (0, 1)).all():
-        raise ValueError('Y_fixed must be a 0/1 adjacency (missing dyads '
-                         'are not ported yet)')
+        raise ValueError('Y_fixed must be a 0/1 adjacency; a network with '
+                         'missing (-1 or NaN) dyads needs '
+                         'cfg.sample_missing')
     Y = torch.as_tensor(Y_np.astype(np.uint8), device=device)
     if cfg.is_directed:
         Y = pack_directed(Y)
-    prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
-                            device=device).reshape(1, -1)
-    return Y, pad_partners(Y), prior, [float(m) for m in prior[0]]
+    return Y, pad_partners(Y), None, prior, prior_means
+
+
+def kernel_network(cfg, Y):
+    """The form of a 0/1 network Y (..., T, n, n) uint8 that the kernels
+    read: packed as ``Y + 2 Y^T`` when directed, Y itself otherwise."""
+    return pack_directed(Y) if cfg.is_directed else Y
+
+
+def _sweep_network(cfg, Y, Y_scan, state):
+    """(the network the coefficient kernels read, the node scan's padded
+    rows): the stored ones, or with missing dyads each chain's own, derived
+    from ``state.Y`` (C, T, n, n) once here."""
+    if not cfg.sample_missing:
+        return Y, Y_scan
+    if state.Y is None:
+        raise ValueError('a sweep with sample_missing needs the per-chain '
+                         'network state.Y')
+    Yk = kernel_network(cfg, state.Y)
+    return Yk, pad_partners(Yk)
+
+
+class MissingDyads(NamedTuple):
+    """The missing dyads of a network: ``mask`` (T, n, n) bool, symmetric
+    when undirected, and the dyads a resample draws, (t, i, j) int64
+    index tensors (M,): every masked dyad when directed, the masked upper
+    triangle (i < j) when undirected, whose draws are mirrored to (j, i)."""
+    mask: torch.Tensor
+    t: torch.Tensor
+    i: torch.Tensor
+    j: torch.Tensor
+
+
+def missing_dyads(miss_mask, is_directed):
+    """:class:`MissingDyads` of a (T, n, n) bool mask (its diagonal is
+    never drawn)."""
+    mask = miss_mask.clone()
+    n = mask.shape[-1]
+    mask[:, torch.arange(n), torch.arange(n)] = False
+    drawn = mask if is_directed else torch.triu(mask, diagonal=1)
+    t, i, j = torch.nonzero(drawn, as_tuple=True)
+    return MissingDyads(mask, t, i, j)
+
+
+def resample_missing(cfg, gen, Y, X, intercept, radii, dyads, temper=None,
+                     u=None):
+    """Gibbs-resample each chain's missing dyads from their Bernoulli
+    conditionals (JAX ``_resample_missing``, reference lsm.py:526-545,
+    hdp_lpcm.py:1026-1049).
+
+    Y (C, T, n, n) uint8 0/1; X (C, T, n, d); intercept (C, 1), or (C, 2)
+    and radii (C, n) when directed; ``dyads`` the :func:`missing_dyads`.
+    A dyad (t, i, j) is drawn as ``u < p``, p = expit(eta) with JAX's eta
+    (undirected b - d_ij; directed b_in (1 - d_ij / r_j) + b_out (1 - d_ij
+    / r_i)), from the uniforms ``u`` (C, T, n, n) of every dyad, or (C, M)
+    of the drawn ones from ``gen`` when not given; undirected, the draw of
+    the upper-triangle dyad is mirrored.  Under parallel tempering
+    (``temper`` (C,)) the conditional of the tempered likelihood
+    p^beta / (p^beta + (1 - p)^beta) is expit(beta * eta).  Only the
+    missing dyads change; the cost is that of the M drawn dyads, with no
+    dense (C, T, n, n) intermediate.  Returns the new Y."""
+    t, i, j = dyads.t, dyads.i, dyads.j
+    dist = torch.sqrt(torch.clamp_min(
+        _sum_sq_last(X[:, t, i] - X[:, t, j]), 0.0))          # (C, M)
+    if cfg.is_directed:
+        b_in, b_out = intercept[:, 0, None], intercept[:, 1, None]
+        eta = (b_in * (1.0 - dist / radii[:, j])
+               + b_out * (1.0 - dist / radii[:, i]))
+    else:
+        eta = intercept[:, 0, None] - dist
+    if temper is not None:
+        eta = temper[:, None] * eta
+    u = (uniform(gen, dist.shape, Y.device) if u is None
+         else u[:, t, i, j])
+    draw = (u < torch.sigmoid(eta)).to(Y.dtype)
+    Y = Y.clone()
+    Y[:, t, i, j] = draw
+    if not cfg.is_directed:
+        Y[:, t, j, i] = draw
+    return Y
+
+
+def _missing_dyad_step(cfg, gen, state, dyads, X, intercept, radii,
+                       it_next):
+    """Step 7 of the JAX sweeps: resample the missing ``dyads``
+    (:func:`resample_missing`), add them to ``missing_sum`` once a chain's
+    sweep count passes ``cfg.n_burn``, and score the new network (one pair
+    launch at one intercept, or one directed candidate): the coefficient
+    steps' log-likelihood belongs to the old network.  Returns (Y,
+    missing_sum, the network log-likelihood)."""
+    Y = resample_missing(cfg, gen, state.Y, X, intercept, radii, dyads,
+                         temper=state.temper)
+    t, i, j = dyads.t, dyads.i, dyads.j
+    add = Y[:, t, i, j].to(DTYPE) * (it_next > cfg.n_burn).to(DTYPE)[:, None]
+    missing_sum = state.missing_sum.clone()
+    missing_sum[:, t, i, j] += add
+    if not cfg.is_directed:
+        missing_sum[:, t, j, i] += add
+    return Y, missing_sum, network_loglik(cfg, kernel_network(cfg, Y), X,
+                                          intercept, radii)
 
 
 def _sample_coefficients(cfg, gen, Y, X, state, prior_means):
@@ -200,7 +331,7 @@ def _count_chain_loglik(n_trans, nk, w0, w_trans):
 
 
 def _network_loglik(cfg, Y, dist, intercept, radii):
-    """Dense network log-likelihood; Y (T, n, n) 0/1."""
+    """Dense network log-likelihood; Y (T, n, n) or (C, T, n, n) 0/1."""
     if cfg.is_directed:
         return directed_loglik_full(Y, dist, radii, intercept[:, 0],
                                     intercept[:, 1])
@@ -254,8 +385,8 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                       mean_var, b_scale, radii=None):
     """Full HDP-LPCM log joint at an arbitrary chain-batched state, with
     the network term from dense distances (reference hdp_lpcm.py:798-809).
-    Y (T, n, n) 0/1; intercept_prior (1,), or (2,) and radii (C, n) for
-    the directed model."""
+    Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
+    or (2,) and radii (C, n) for the directed model."""
     K = cfg.n_components
     n_trans, nk, _ = _label_statistics(z, K)
     prior = torch.as_tensor(intercept_prior, dtype=X.dtype, device=X.device)
@@ -287,27 +418,31 @@ def _chain_mask(mask, like):
 
 
 def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda'):
+                   device='cuda', miss_mask=None):
     """Build the dynamic LSM sweep (reference lsm.py:474-572) over the
-    fixed 0/1 network ``Y_fixed`` (T, n, n), on ``device``.
+    fixed 0/1 network ``Y_fixed`` (T, n, n), or with
+    ``cfg.sample_missing`` over each chain's ``state.Y`` with the dyads of
+    ``miss_mask`` resampled (see :func:`_fixed_network`), on ``device``.
     ``intercept_prior`` holds one prior mean, or (b_in, b_out)'s two when
     directed.  In order: the latent positions under the random-walk prior
     (``cfg.tau_sq``, ``cfg.sigma_sq``); the Procrustes rotation toward
     ``X_ref`` once a chain's sweep count passes ``cfg.n_burn``; centering;
-    the intercept(s) and, directed, the radii; the log joint; MAP tracking
+    the intercept(s) and, directed, the radii; the missing dyads; the log
+    joint; MAP tracking
     (reset at the end of tuning) and ``X_ref`` tracking up to
     ``cfg.n_burn``; step-size tuning.  The returned ``sweep(state, gen)``
     carries its configuration as ``sweep.cfg`` and the stored network as
     ``sweep.Y``."""
-    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
-                                                   cfg, device)
+    Y, Y_scan, miss, prior, prior_means = _fixed_network(
+        Y_fixed, intercept_prior, cfg, device, miss_mask)
 
     def sweep(state: LSMState, gen: torch.Generator) -> LSMState:
         it_next = state.it + 1
+        Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
 
         # latent positions (random-walk prior)
         X, acc_new = sample_latent_positions(
-            gen, Y_scan, state.X, state.intercept, state.step_X,
+            gen, Yk_scan, state.X, state.intercept, state.step_X,
             tau_sq=cfg.tau_sq, sigma_sq=cfg.sigma_sq, radii=state.radii,
             is_directed=cfg.is_directed, mixture=False, temper=state.temper)
         acc_X = state.acc_X + acc_new
@@ -320,10 +455,14 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             X = X - torch.mean(X, dim=(1, 2), keepdim=True)
 
         intercept, acc_int, radii, acc_radii, net_ll = _sample_coefficients(
-            cfg, gen, Y, X, state, prior_means)
+            cfg, gen, Yk, X, state, prior_means)
+        Y_new, missing_sum = state.Y, state.missing_sum
+        if miss is not None:
+            Y_new, missing_sum, net_ll = _missing_dyad_step(
+                cfg, gen, state, miss, X, intercept, radii, it_next)
 
         # log joint and MAP tracking (lsm.py:547-566)
-        logp = _lsm_logp(cfg, Y, X, intercept, radii, None, prior,
+        logp = _lsm_logp(cfg, None, X, intercept, radii, None, prior,
                          net_ll=net_ll)
         better = logp > state.logp_map
         if cfg.tune > 0:
@@ -348,10 +487,12 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             step_X=step_X, acc_X=acc_X, step_int=step_int, acc_int=acc_int,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp,
             logp_map=logp_map, X_map=X_map, intercept_map=intercept_map,
-            radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref)
+            radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref, Y=Y_new,
+            missing_sum=missing_sum)
 
     sweep.cfg = cfg
     sweep.Y = Y
+    sweep.miss_mask = None if miss is None else miss.mask
     return sweep
 
 
@@ -375,8 +516,8 @@ def lpcm_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                        radii=None):
     """Full LPCM log joint at an arbitrary chain-batched state, with the
     network term from dense distances (reference lpcm.py:770-856).
-    Y (T, n, n) 0/1; intercept_prior (1,), or (2,) and radii (C, n) for
-    the directed model."""
+    Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
+    or (2,) and radii (C, n) for the directed model."""
     n_trans, nk, _ = _label_statistics(z, cfg.n_components)
     prior = torch.as_tensor(intercept_prior, dtype=X.dtype, device=X.device)
     logp = _lpcm_weights_logp(cfg, init_weights, trans_weights)
@@ -423,20 +564,24 @@ def _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan, state,
 
 
 def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                    device='cuda'):
+                    device='cuda', miss_mask=None):
     """Build the finite-K LPCM sweep (reference lpcm.py:514-701) over the
-    fixed 0/1 network ``Y_fixed`` (T, n, n), on ``device``: latent
+    fixed 0/1 network ``Y_fixed`` (T, n, n), or with ``cfg.sample_missing``
+    over each chain's ``state.Y`` (see :func:`make_lsm_sweep`), on
+    ``device``: latent
     positions (mixture prior) and centering, intercept(s) and radii,
     blocked FFBS labels with one transition matrix, Dirichlet draws of the
     initial and transition distributions, the conjugate cluster blocks and
-    hyper-priors, the log joint and tuning.  ``sweep.cfg`` is its
-    configuration and ``sweep.Y`` the stored network."""
-    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
-                                                   cfg, device)
+    hyper-priors, the missing dyads, the log joint and tuning.
+    ``sweep.cfg`` is its configuration and ``sweep.Y`` the stored
+    network."""
+    Y, Y_scan, miss, prior, prior_means = _fixed_network(
+        Y_fixed, intercept_prior, cfg, device, miss_mask)
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
+        Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan,
+         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Yk, Yk_scan,
                                                     state, prior_means)
 
         # labels via blocked FFBS (lpcm.py:567-570)
@@ -451,13 +596,17 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
 
         mu, sigma, lmbda, mean_var, b_scale = _conjugate_blocks(
             cfg, gen, X, state, z, resp, nk)
+        Y_new, missing_sum = state.Y, state.missing_sum
+        if miss is not None:
+            Y_new, missing_sum, net_ll = _missing_dyad_step(
+                cfg, gen, state, miss, X, intercept, radii, state.it + 1)
 
         # log joint (lpcm.py:770-856)
         logp = _lpcm_weights_logp(cfg, init_weights, trans_weights)
         logp = logp + _lpcm_count_loglik(n_trans, nk, init_weights,
                                          trans_weights)
         logp = logp + _mixture_common_logp(
-            cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var,
+            cfg, None, X, intercept, None, z, mu, sigma, lmbda, mean_var,
             b_scale, prior, net_ll=net_ll, radii=radii)
 
         step_X, acc_X, step_int, acc_int, step_radii, acc_radii = (
@@ -468,30 +617,34 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             trans_weights=trans_weights, mean_var=mean_var, b_scale=b_scale,
             step_X=step_X, acc_X=acc_X, step_int=step_int, acc_int=acc_int,
             radii=radii, step_radii=step_radii, acc_radii=acc_radii,
-            logp=logp)
+            logp=logp, Y=Y_new, missing_sum=missing_sum)
 
     sweep.cfg = cfg
     sweep.Y = Y
+    sweep.miss_mask = None if miss is None else miss.mask
     return sweep
 
 
 def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda'):
+                   device='cuda', miss_mask=None):
     """Build the sticky HDP-LPCM sweep over the fixed 0/1 network
     ``Y_fixed`` (T, n, n), stored as uint8 on ``device`` (packed as
-    ``Y + 2 Y^T`` for the directed model, once here).  ``intercept_prior``
-    holds one prior mean, or (b_in, b_out)'s two when directed.  The
-    returned ``sweep(state, gen)`` carries its configuration as
-    ``sweep.cfg`` and the stored network as ``sweep.Y``."""
-    Y, Y_scan, prior, prior_means = _fixed_network(Y_fixed, intercept_prior,
-                                                   cfg, device)
+    ``Y + 2 Y^T`` for the directed model, once here), or with
+    ``cfg.sample_missing`` over each chain's ``state.Y`` (see
+    :func:`make_lsm_sweep`).  ``intercept_prior`` holds one prior mean, or
+    (b_in, b_out)'s two when directed.  The returned ``sweep(state, gen)``
+    carries its configuration as ``sweep.cfg`` and the stored network as
+    ``sweep.Y``."""
+    Y, Y_scan, miss, prior, prior_means = _fixed_network(
+        Y_fixed, intercept_prior, cfg, device, miss_mask)
     K = cfg.n_components
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         C, T, n, _ = state.X.shape
         eye = torch.eye(K, dtype=state.X.dtype, device=state.X.device)
+        Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan,
+         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Yk, Yk_scan,
                                                     state, prior_means)
 
         # blocked label sampling (hdp_lpcm.py:877)
@@ -540,13 +693,17 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         else:
             gamma, alpha_init = state.gamma, state.alpha_init
             alpha, kappa = state.alpha, state.kappa
+        Y_new, missing_sum = state.Y, state.missing_sum
+        if miss is not None:
+            Y_new, missing_sum, net_ll = _missing_dyad_step(
+                cfg, gen, state, miss, X, intercept, radii, state.it + 1)
 
         # log joint (hdp_lpcm.py:1188-1280)
         logp = _hdp_weights_logp(beta, w0, weights, gamma, alpha_init,
                                  alpha, kappa)
         logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
         logp = logp + _mixture_common_logp(
-            cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var,
+            cfg, None, X, intercept, None, z, mu, sigma, lmbda, mean_var,
             b_scale, prior, net_ll=net_ll, radii=radii)
 
         step_X, acc_X, step_int, acc_int, step_radii, acc_radii = (
@@ -557,8 +714,10 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             gamma=gamma, alpha_init=alpha_init, alpha=alpha, kappa=kappa,
             mean_var=mean_var, b_scale=b_scale, step_X=step_X, acc_X=acc_X,
             step_int=step_int, acc_int=acc_int, radii=radii,
-            step_radii=step_radii, acc_radii=acc_radii, logp=logp)
+            step_radii=step_radii, acc_radii=acc_radii, logp=logp, Y=Y_new,
+            missing_sum=missing_sum)
 
     sweep.cfg = cfg
     sweep.Y = Y
+    sweep.miss_mask = None if miss is None else miss.mask
     return sweep

@@ -10,10 +10,11 @@ do not see Y.  After every ``swap_every`` sweeps, adjacent-temperature slots
 of each ladder propose to exchange configurations (pairs (0, 1), (2, 3), ..
 and (1, 2), .. on alternating rounds), accepted with probability
 exp((beta_i - beta_j) (ll_j - ll_i)), ll the untempered network
-log-likelihood.  Only the model configuration (``_SWAP_FIELDS``) moves; the
-slot's step sizes, counters, ``it``, ``temper``, ``acc_swap`` and the LSM's
-MAP and Procrustes reference stay.  Posterior samples are read from the cold
-(beta = 1) slots, the first of each block of ``n_temps``.
+log-likelihood.  Only the model configuration (``_SWAP_FIELDS``, with the
+network ``Y`` when missing dyads are resampled) moves; the slot's step
+sizes, counters, ``it``, ``temper``, ``acc_swap``, ``missing_sum`` and the
+LSM's MAP and Procrustes reference stay.  Posterior samples are read from
+the cold (beta = 1) slots, the first of each block of ``n_temps``.
 
 On the card the swap's log-likelihood comes from the port's kernels (the
 pair kernel undirected, one ``dir_loglik`` candidate directed), never from
@@ -26,13 +27,13 @@ import torch
 
 from ..config import DTYPE
 from ..math.distributions import uniform
-from ..ops.dir_loglik import dir_loglik
-from ..ops.pair_loglik import pair_loglik
+from .coefficients import network_loglik
 from .driver import replicate_state
+from .sweeps import kernel_network
 
 # the state fields a replica swap exchanges: the model configuration
 _SWAP_FIELDS = frozenset({
-    'X', 'intercept', 'radii', 'logp',
+    'X', 'intercept', 'radii', 'Y', 'logp',
     'z', 'mu', 'sigma', 'lmbda', 'weights', 'beta', 'gamma', 'alpha_init',
     'alpha', 'kappa', 'init_weights', 'trans_weights', 'mean_var', 'b_scale',
 })
@@ -103,15 +104,13 @@ def _adapt_ladder(temper, acc_swap, n_temps, n_attempts, eta=0.6):
 
 
 def swap_loglik(cfg, Y, state):
-    """The untempered network log-likelihood (C,) of every slot: the pair
-    kernel at one intercept undirected (Y 0/1 uint8), one ``dir_loglik``
-    candidate directed (Y packed ``Y + 2 Y^T``); their plain versions for
-    CPU tensors."""
-    X = state.X.contiguous()
-    if cfg.is_directed:
-        return dir_loglik(Y, X, state.radii[:, None].contiguous(),
-                          state.intercept[:, None].contiguous())[:, 0]
-    return pair_loglik(Y, X, state.intercept[:, 0].contiguous())[:, 0]
+    """The untempered network log-likelihood (C,) of every slot, one kernel
+    launch (``coefficients.network_loglik``): on the stored network Y (0/1
+    uint8 undirected, packed ``Y + 2 Y^T`` directed), or with
+    ``cfg.sample_missing`` on each slot's own ``state.Y``."""
+    if cfg.sample_missing:
+        Y = kernel_network(cfg, state.Y)
+    return network_loglik(cfg, Y, state.X, state.intercept, state.radii)
 
 
 def replica_exchange(cfg, Y, state, partner, log_u, do=None):
@@ -147,13 +146,14 @@ def make_pt_step(sweep_fn, cfg, Y, n_temps, swap_every=1, adapt_until=0,
     ``temper`` (and ``acc_swap``): the sweep, then, every ``swap_every``
     sweeps, one round of :func:`replica_exchange` with partner phase
     ``(it0 // swap_every) % 2``, ``it0`` the sweep index before the sweep.
-    ``Y`` is the sweep's stored network (``sweep.Y``).  ``log_u`` (C,)
-    injects the swap's log-uniforms (drawn from ``gen`` otherwise).  With
-    ``adapt_until > 0`` the ladder adapts every ``adapt_interval`` sweeps
-    while ``it0 < adapt_until``.  Every condition is a mask on the device,
-    so the step never waits on the host.  ``pt_step(state, gen)`` plugs
-    into ``driver.make_scan_runner``; it carries ``cfg``, ``Y`` and
-    ``n_temps``."""
+    ``Y`` is the sweep's stored network (``sweep.Y``; ``None`` with
+    ``cfg.sample_missing``, which scores each slot's ``state.Y``).
+    ``log_u`` (C,) injects the swap's log-uniforms (drawn from ``gen``
+    otherwise).  With ``adapt_until > 0`` the ladder adapts every
+    ``adapt_interval`` sweeps while ``it0 < adapt_until``.  Every
+    condition is a mask on the device, so the step never waits on the
+    host.  ``pt_step(state, gen)`` plugs into ``driver.make_scan_runner``;
+    it carries ``cfg``, ``Y`` and ``n_temps``."""
     if cfg.n_control is not None:
         raise ValueError('parallel tempering with the case-control '
                          'likelihood is not supported')

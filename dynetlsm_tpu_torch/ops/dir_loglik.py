@@ -16,7 +16,9 @@ edge i -> j.
 * :func:`dir_loglik` picks by device: the kernel for CUDA tensors, the
   plain version for CPU tensors.
 
-Both accumulate in float64 and return float32 (C, n_cand).
+Both accumulate in float64 and return float32 (C, n_cand).  Y is one
+packed network (T, n, n) for every chain, or one a chain (C, T, n, n), as
+the sweeps that resample missing dyads keep it.
 """
 import torch
 
@@ -28,7 +30,7 @@ MAX_CANDIDATES = 3
 
 
 def dir_loglik_plain(Y, X, radii_cands, b_cands):
-    """Y (T, n, n) packed uint8; X (C, T, n, d); radii_cands
+    """Y (T, n, n) or (C, T, n, n) packed uint8; X (C, T, n, d); radii_cands
     (C, n_cand, n); b_cands (C, n_cand, 2) as (b_in, b_out).
     Returns (C, n_cand)."""
     n = X.shape[2]
@@ -47,7 +49,8 @@ def dir_loglik_plain(Y, X, radii_cands, b_cands):
 
 def dir_loglik_cuda(Y, X, radii_cands, b_cands):
     """Launch the CUDA directed kernel, one launch.  Y (T, n, n) packed
-    uint8; X (C, T, n, d), radii_cands (C, n_cand, n) and b_cands
+    uint8, or one network a chain (C, T, n, n) (the launch's chain stride
+    T n n, else 0); X (C, T, n, d), radii_cands (C, n_cand, n) and b_cands
     (C, n_cand, 2) float32, all contiguous on one CUDA device;
     1 <= n_cand <= 3.
 
@@ -66,8 +69,10 @@ def dir_loglik_cuda(Y, X, radii_cands, b_cands):
         raise ValueError('dir_loglik_cuda: takes 1 to %d candidates, got '
                          'b_cands of shape %s'
                          % (MAX_CANDIDATES, tuple(b_cands.shape)))
+    per_chain = Y.dim() == 4
     for name, t, shape, dtype in (
-            ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, n), torch.uint8),
+            ('X', X, (C, T, n, d), f32),
+            ('Y', Y, ((C,) if per_chain else ()) + (T, n, n), torch.uint8),
             ('radii_cands', radii_cands, (C, n_cand, n), f32),
             ('b_cands', b_cands, (C, n_cand, 2), f32)):
         cuda_lib.check_tensor('dir_loglik', name, t, shape, dtype, dev)
@@ -76,7 +81,8 @@ def dir_loglik_cuda(Y, X, radii_cands, b_cands):
     rc = cuda_lib.library().dir_loglik_launch(
         X.data_ptr(), Y.data_ptr(), radii_cands.data_ptr(),
         b_cands.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), C, n_cand, T, n, d, G, cuda_lib.stream_handle(dev))
+        out.data_ptr(), C, n_cand, T, n, d, G,
+        T * n * n if per_chain else 0, cuda_lib.stream_handle(dev))
     dir_loglik_cuda.launches += 1
     cuda_lib.check_launch('dir_loglik', rc)
     return out

@@ -29,7 +29,8 @@ def _dyad_sum(ll, n, scale=0.5):
 def undirected_loglik_full(Y, dist, intercept):
     """sum_{t, i<j} Y_tij * eta - softplus(eta), eta = intercept - dist.
 
-    Y (T, n, n); dist (..., T, n, n); intercept (...,).  Returns (...,)."""
+    Y (T, n, n), or one network a chain (..., T, n, n); dist
+    (..., T, n, n); intercept (...,).  Returns (...,)."""
     n = Y.shape[-1]
     eta = torch.as_tensor(intercept, dtype=dist.dtype,
                           device=dist.device)[..., None, None, None] - dist
@@ -51,11 +52,23 @@ def directed_eta(dist, radii, intercept_in, intercept_out):
     return b_in * d_in + b_out * d_out
 
 
+def directed_network_probas(dist, radii, intercept_in, intercept_out):
+    """Directed connection probabilities expit(directed_eta) with a zeroed
+    diagonal (reference directed_likelihoods_fast.pyx:273-294).
+
+    dist (..., T, n, n); radii (..., n).  Returns (..., T, n, n)."""
+    n = dist.shape[-1]
+    probas = torch.sigmoid(directed_eta(dist, radii, intercept_in,
+                                        intercept_out))
+    return probas * _offdiag_mask(n, probas.dtype, probas.device)
+
+
 def directed_loglik_full(Y, dist, radii, intercept_in, intercept_out):
     """sum_{t, i != j} Y_tij * eta - softplus(eta), eta = directed_eta.
 
-    Y (T, n, n) 0/1 (edge i -> j at Y[t, i, j]); dist (..., T, n, n);
-    radii (..., n).  Returns (...,)."""
+    Y (T, n, n) 0/1 (edge i -> j at Y[t, i, j]), or one network a chain
+    (..., T, n, n); dist (..., T, n, n); radii (..., n).  Returns
+    (...,)."""
     n = Y.shape[-1]
     eta = directed_eta(dist, radii, intercept_in, intercept_out)
     ll = Y.to(dist.dtype) * eta - softplus(eta)

@@ -28,6 +28,11 @@ launch shape comes from :func:`scan_layout`.
 The directed model takes the adjacency packed as ``Y + 2 Y^T`` uint8
 (:func:`pack_directed`): row j of it holds both the out-edge bit Y[j, i]
 (``& 1``) and the in-edge bit Y[i, j] (``>> 1``) of every partner i.
+
+The adjacency is one network (T, n, n) that every chain reads, or one
+network a chain (C, T, n, n), as the sweeps that resample missing dyads
+keep it; the kernel then reads chain c's at a chain stride of T n P
+bytes.
 """
 import functools
 
@@ -106,9 +111,10 @@ def _kernel_order_sum(a, P, warps, cluster):
 
 
 def pad_partners(Y):
-    """The adjacency (T, n, n) with its rows zero-padded to the partner
-    axis, (T, n, partner_pad(n)) contiguous: the node-scan kernel copies
-    whole 16-byte pieces of a row."""
+    """The adjacency (T, n, n), or (C, T, n, n), with its rows
+    zero-padded to the partner axis, (..., T, n, partner_pad(n))
+    contiguous: the node-scan kernel copies whole 16-byte pieces of a
+    row."""
     n = Y.shape[-1]
     return torch.nn.functional.pad(Y, (0, partner_pad(n) - n)).contiguous()
 
@@ -164,8 +170,8 @@ def site_cluster_params(mu, sigma, z):
 
 
 def pack_directed(Y):
-    """The packed directed adjacency ``Y + 2 Y^T`` (T, n, n) uint8 of a 0/1
-    adjacency Y (T, n, n)."""
+    """The packed directed adjacency ``Y + 2 Y^T`` uint8 of a 0/1
+    adjacency Y (..., T, n, n)."""
     Y = torch.as_tensor(Y).to(torch.uint8)
     return Y + 2 * Y.transpose(-1, -2)
 
@@ -256,7 +262,8 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
 
     Undirected: Y (T, n, n) 0/1, intercept (C,).  Directed (``radii``
     (C, n) given): Y the packed ``Y + 2 Y^T`` (T, n, n) uint8, intercept
-    (C, 2) = (b_in, b_out).  X (C, T, n, d); step_size (C, T, n);
+    (C, 2) = (b_in, b_out).  Y may also be one network a chain,
+    (C, T, n, n).  X (C, T, n, d); step_size (C, T, n);
     eps (C, 2, n, T, d); log_u (C, 2, n, T).  Mixture prior: mu_z
     (C, T, n, d), sig_z (C, T, n), lmbda (C,); random-walk prior: scalar
     tau_sq, sigma_sq.  temper (C,) scales the log-likelihood delta.
@@ -282,7 +289,7 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     acc = torch.zeros((C, T, n), dtype=X.dtype, device=X.device)
     for j in range(n):
         if directed:
-            Y_row = Yp[:, j, :]
+            Y_row = Yp[..., j, :]
             r_node = radii[:, j, None]
             p_out = u_row + b_out[:, None] / r_node
             p_in = v_row + b_in[:, None] / r_node
@@ -291,7 +298,7 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
                 return _directed_partial_loglik_terms(Y_row, X, x, both,
                                                       p_out, p_in)
         else:
-            Y_row = Yf[:, j, :]
+            Y_row = Yf[..., j, :]
 
             def terms(x):
                 return _partial_loglik_terms(Y_row, X, x, b)
@@ -383,9 +390,11 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                    tau_sq=None, sigma_sq=None, temper=None, cluster=None):
     """Launch the CUDA node-scan kernel.  Undirected: Y (T, n, n) uint8
     0/1, intercept (C,).  Directed (``radii`` (C, n) given): Y packed
-    ``Y + 2 Y^T`` uint8, intercept (C, 2).  Y may come with its rows
-    already padded (:func:`pad_partners`, (T, n, P)); otherwise it is
-    padded here, once per call.  Mixture prior: mu_z, sig_z, lmbda;
+    ``Y + 2 Y^T`` uint8, intercept (C, 2).  Y is one network for every
+    chain or one a chain, (C, T, n, n) (the launch's chain stride T n P,
+    else 0).  Y may come with its rows already padded (:func:`pad_partners`,
+    (T, n, P) or (C, T, n, P)); otherwise it is padded here, once per
+    call.  Mixture prior: mu_z, sig_z, lmbda;
     random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
     ``temper`` (C,) scales each chain's log-likelihood delta (``None``:
     untempered).  ``cluster`` (1, 2 or 4) forces the blocks per chain;
@@ -411,10 +420,12 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     elif tau_sq is None or sigma_sq is None:
         raise ValueError('node_scan_cuda: the random-walk prior needs '
                          'tau_sq and sigma_sq')
-    if tuple(Y.shape) == (T, n, n) and n != P:
+    per_chain = Y.dim() == 4
+    y_shape = ((C,) if per_chain else ()) + (T, n, P)
+    if Y.shape[-1] == n and n != P:
         Y = pad_partners(Y)
     for name, t, shape, dtype in (
-            ('X', X, (C, T, n, d), f32), ('Y', Y, (T, n, P), torch.uint8),
+            ('X', X, (C, T, n, d), f32), ('Y', Y, y_shape, torch.uint8),
             ('intercept', intercept, (C, 2) if directed else (C,), f32),
             ('step_size', step_size, (C, T, n), f32),
             ('eps', eps, (C, 2, n, T, d), f32),
@@ -442,7 +453,8 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
         radii.data_ptr() if directed else None, prior[2],
         temper.data_ptr() if temper is not None else None, X_out.data_ptr(),
         acc.data_ptr(), C, T, n, d, P, warps, cluster, int(directed),
-        int(mixture), prior[3], prior[4], cuda_lib.stream_handle(dev))
+        int(mixture), prior[3], prior[4], T * n * P if per_chain else 0,
+        cuda_lib.stream_handle(dev))
     node_scan_cuda.launches += 1
     cuda_lib.check_launch('node_scan', rc)
     return X_out, acc
@@ -458,7 +470,8 @@ def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     the random-walk prior (``mixture=False``: tau_sq, sigma_sq), directed
     when given ``radii``, tempered when given ``temper`` (C,): the CUDA
     kernel for CUDA tensors, :func:`node_scan_plain` for CPU tensors.
-    Y (T, n, n), or with its rows padded (:func:`pad_partners`)."""
+    Y (T, n, n) or one network a chain (C, T, n, n), either with its rows
+    padded (:func:`pad_partners`) or not."""
     if X.is_cuda:
         return node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z,
                               sig_z, lmbda, radii=radii, mixture=mixture,

@@ -14,7 +14,9 @@ b_cur alone (the replica swap's).
   plain version for CPU tensors.
 
 Both accumulate in float64 and return float32 (C, 2), candidate 0 b_cur
-and candidate 1 b_prop, or (C, 1) when ``b_prop`` is None.
+and candidate 1 b_prop, or (C, 1) when ``b_prop`` is None.  Y is one
+network (T, n, n) for every chain, or one a chain (C, T, n, n), as the
+sweeps that resample missing dyads keep it.
 """
 import torch
 
@@ -24,8 +26,8 @@ from .likelihoods import undirected_loglik_full
 
 
 def pair_loglik_plain(Y, X, b_cur, b_prop=None):
-    """Y (T, n, n); X (C, T, n, d); b_cur, b_prop (C,).  Returns (C, 2), or
-    (C, 1) without ``b_prop``."""
+    """Y (T, n, n) or (C, T, n, n); X (C, T, n, d); b_cur, b_prop (C,).
+    Returns (C, 2), or (C, 1) without ``b_prop``."""
     dist = pairwise_distances(X)
     cands = (b_cur,) if b_prop is None else (b_cur, b_prop)
     return torch.stack([undirected_loglik_full(Y, dist, b) for b in cands],
@@ -33,8 +35,9 @@ def pair_loglik_plain(Y, X, b_cur, b_prop=None):
 
 
 def pair_loglik_cuda(Y, X, b_cur, b_prop=None):
-    """Launch the CUDA pair kernel, one launch.  Y (T, n, n) uint8; X
-    (C, T, n, d), b_cur and b_prop (C,) float32 (``b_prop`` None: one
+    """Launch the CUDA pair kernel, one launch.  Y (T, n, n) uint8, or
+    one network a chain (C, T, n, n) (the launch's chain stride T n n, else
+    0); X (C, T, n, d), b_cur and b_prop (C,) float32 (``b_prop`` None: one
     intercept), all contiguous on one CUDA device.
 
     The kernel's scratch (a partial sum per block and a ticket counter per
@@ -47,9 +50,10 @@ def pair_loglik_cuda(Y, X, b_cur, b_prop=None):
     if dev.type != 'cuda':
         raise ValueError('pair_loglik_cuda: X must be a CUDA tensor')
     n_cand = 1 if b_prop is None else 2
+    per_chain = Y.dim() == 4
     for name, t, shape, dtype in (
             ('X', X, (C, T, n, d), torch.float32),
-            ('Y', Y, (T, n, n), torch.uint8),
+            ('Y', Y, ((C,) if per_chain else ()) + (T, n, n), torch.uint8),
             ('b_cur', b_cur, (C,), torch.float32),
             ('b_prop', b_prop, (C,), torch.float32))[:2 + n_cand]:
         cuda_lib.check_tensor('pair_loglik', name, t, shape, dtype, dev)
@@ -59,7 +63,7 @@ def pair_loglik_cuda(Y, X, b_cur, b_prop=None):
         X.data_ptr(), Y.data_ptr(), b_cur.data_ptr(),
         None if b_prop is None else b_prop.data_ptr(), partials.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), C, T, n, d, G,
-        cuda_lib.stream_handle(dev))
+        T * n * n if per_chain else 0, cuda_lib.stream_handle(dev))
     pair_loglik_cuda.launches += 1
     cuda_lib.check_launch('pair_loglik', rc)
     return out

@@ -4,16 +4,20 @@
 
 For the HDP-LPCM slices that ``chip_smoke.py`` drives (the north star and
 Sampson, undirected and directed), its LSM and LPCM slices at the north
-star (undirected and directed) and its tempered HDP-LPCM north star (8
-ladders x 4 rungs, ``n_temps=4``), all built by
-``entry.build_state_and_sweep``, it prints one JSON line per slice with:
+star (undirected and directed), its tempered HDP-LPCM north star (8
+ladders x 4 rungs, ``n_temps=4``) and its missing-dyad slices (the north
+star with 10% of the dyads coded -1: the HDP-LPCM undirected and directed
+and the LSM), all built by ``entry.build_state_and_sweep``, it prints one
+JSON line per slice with:
 
 * ``sweep_ms``: ms per sweep with no instrumentation;
 * ``sweep_synced_ms`` and ``blocks_ms``: ms per sweep when every block
   function the sweep calls from ``mcmc.sweeps`` is wrapped with a device
   synchronisation and a host clock (``other`` is the rest of the sweep);
   a tempered step also times its replica exchange (``replica_exchange``,
-  the swap's log-likelihood launch included) as one block;
+  the swap's log-likelihood launch included) as one block, and a sweep
+  with missing dyads their resample and the log-likelihood on the new
+  network (``_missing_dyad_step``) as one block;
 * ``kernels_ms``: device time per sweep of the largest kernels, from the
   ``torch.profiler`` trace of the same number of sweeps, and
   ``device_busy``: the union of all kernel intervals over the span from
@@ -45,8 +49,9 @@ BLOCKS = (
     'sample_cluster_means', 'sample_cluster_variances', 'sample_lambda',
     'sample_mean_variance_hyper', 'sample_sigma_scale_hyper',
     'sample_concentration_param', 'sample_alpha_kappa_rho',
-    '_hdp_weights_logp', '_lpcm_weights_logp', '_count_chain_loglik',
-    '_mixture_common_logp', '_lsm_logp', '_finish_tuning')
+    '_missing_dyad_step', '_hdp_weights_logp', '_lpcm_weights_logp',
+    '_count_chain_loglik', '_mixture_common_logp', '_lsm_logp',
+    '_finish_tuning')
 # the swap of a parallel-tempering step, called through mcmc.tempering's
 # namespace after the sweep returns
 SWAP_BLOCKS = ('replica_exchange',)
@@ -156,10 +161,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print('profile_blocks: no CUDA device')
         return 1
-    from .datasets import load_dynamic_monks, northstar_network
+    from .datasets import (
+        load_dynamic_monks, northstar_network, with_missing_dyads)
     from .entry import build_state_and_sweep
     dev = torch.device('cuda', 0)
     ns, ns_dir = northstar_network(), northstar_network(directed=True)
+    ns_miss = with_missing_dyads(ns, 0.1, seed=5)
+    ns_dir_miss = with_missing_dyads(ns_dir, 0.1, seed=5, directed=True)
     # (name, Y, K, chains, directed, model, n_temps)
     slices = [('northstar', ns, 25, 32, False, 'hdp', None),
               ('northstar tempered', ns, 25, 32, False, 'hdp', 4),
@@ -170,7 +178,12 @@ def main(argv=None):
               ('lsm northstar', ns, None, 32, False, 'lsm', None),
               ('lsm northstar directed', ns_dir, None, 32, True, 'lsm', None),
               ('lpcm northstar', ns, 8, 32, False, 'lpcm', None),
-              ('lpcm northstar directed', ns_dir, 8, 32, True, 'lpcm', None)]
+              ('lpcm northstar directed', ns_dir, 8, 32, True, 'lpcm', None),
+              ('northstar missing', ns_miss, 25, 32, False, 'hdp', None),
+              ('northstar directed missing', ns_dir_miss, 25, 32, True,
+               'hdp', None),
+              ('lsm northstar missing', ns_miss, None, 32, False, 'lsm',
+               None)]
     runs = []
     for name, Y, K, C, directed, model, n_temps in slices:
         state, sweep, gen = build_state_and_sweep(

@@ -9,9 +9,11 @@ barrier and the warp shuffles emulated, blocks one after another), and this
 test builds it with g++ around the kernels' source as it stands.  So the
 tile walk, the split of a chain's work list over its blocks, the staging,
 the masks of the diagonal and the ragged edge, both adjacency loads (32-bit
-words where n is a multiple of 4, bytes elsewhere) and the two reductions
-are held here to the card's standard: rtol 1e-5 against the plain version
-per candidate (a float64 sum in another order, rounded once to float32).
+words where n is a multiple of 4, bytes elsewhere), one network shared by
+the chains or one a chain (the chain stride of missing-dyad resampling)
+and the two reductions are held here to the card's standard: rtol 1e-5
+against the plain version per candidate (a float64 sum in another order,
+rounded once to float32).
 The last block of a chain to finish adds the chain's partial sums; running
 the blocks in the opposite order makes another block the last, and the
 result must not change by a bit (the last test holds the final sum alone
@@ -72,20 +74,27 @@ def host_lib(tmp_path_factory):
                     str(out / HOST.name)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pair_loglik_host.argtypes = [p] * 7 + [i] * 6
-    lib.dir_loglik_host.argtypes = [p] * 7 + [i] * 7
+    q = ctypes.c_longlong
+    lib.pair_loglik_host.argtypes = [p] * 7 + [i] * 5 + [q, i]
+    lib.dir_loglik_host.argtypes = [p] * 7 + [i] * 6 + [q, i]
     lib.block_finish_host.argtypes = [p] * 4 + [i] * 3
     return lib
 
 
-def _inputs(seed, C, T, n, d, n_cand, directed):
+def _inputs(seed, C, T, n, d, n_cand, directed, per_chain=False):
+    """One seed's arguments; ``per_chain``: a network (C, T, n, n) of one
+    density a chain."""
     rng = np.random.RandomState(seed)
-    Y = rng.binomial(1, 0.2, (T, n, n))
+    if per_chain:
+        Y = rng.binomial(1, rng.uniform(0.05, 0.4, (C, 1, 1, 1)),
+                         (C, T, n, n))
+    else:
+        Y = rng.binomial(1, 0.2, (T, n, n))
     if directed:
-        Y[:, np.arange(n), np.arange(n)] = 0
+        Y[..., np.arange(n), np.arange(n)] = 0
     else:
         Y = np.triu(Y, 1)
-        Y = Y + Y.transpose(0, 2, 1)
+        Y = Y + np.swapaxes(Y, -1, -2)
     Y = torch.as_tensor(Y.astype(np.uint8))
 
     def f32(a):
@@ -117,28 +126,29 @@ def _host(lib, directed, args, G, reverse):
                           dtype=torch.float64)
     tickets = torch.zeros(C, dtype=torch.int32)
     out = torch.full((C, n_cand), float('nan'))
+    y_chain = T * n * n if args[0].dim() == 4 else 0
     if directed:
         Yp, _, radii, b = args
         rc = lib.dir_loglik_host(
             X.data_ptr(), Yp.data_ptr(), radii.data_ptr(), b.data_ptr(),
             partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), C,
-            n_cand, T, n, d, G, int(reverse))
+            n_cand, T, n, d, G, y_chain, int(reverse))
     else:
         rc = lib.pair_loglik_host(
             X.data_ptr(), args[0].data_ptr(), args[2].data_ptr(),
             args[3].data_ptr() if n_cand == 2 else None,
             partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), C, T, n,
-            d, G, int(reverse))
+            d, G, y_chain, int(reverse))
     assert rc == 0
     assert not tickets.any()
     return out
 
 
-def _check(lib, directed, n_cand):
+def _check(lib, directed, n_cand, per_chain=False):
     plain = dir_loglik_plain if directed else pair_loglik_plain
     for k, (C, T, n, d) in enumerate(SHAPES):
-        args = _inputs(70 + 10 * k + n_cand + 5 * directed, C, T, n, d,
-                       n_cand, directed)
+        args = _inputs(70 + 10 * k + n_cand + 5 * directed + 3 * per_chain,
+                       C, T, n, d, n_cand, directed, per_chain)
         want = plain(*args)
         assert want.shape == (C, n_cand)
         for G in _block_counts(T, n):
@@ -156,6 +166,24 @@ def test_host_pair_kernel_matches_plain(host_lib, n_cand):
 @pytest.mark.parametrize('n_cand', [1, 2, 3])
 def test_host_dir_kernel_matches_plain(host_lib, n_cand):
     _check(host_lib, True, n_cand)
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_host_kernels_per_chain_network(host_lib, directed):
+    """One network a chain (the chain stride T n n; 32-bit words at n = 64
+    and 76, bytes at n = 45, 37, 18 and 2): rtol 1e-5 against the plain
+    version and bit-stable in both block orders, at the most candidates;
+    a per-chain network whose chains all equal the shared one gives the
+    shared launch's bits."""
+    n_cand = 3 if directed else 2
+    _check(host_lib, directed, n_cand, per_chain=True)
+    for k, (C, T, n, d) in enumerate(SHAPES):
+        args = _inputs(60 + k, C, T, n, d, n_cand, directed)
+        same = (args[0].expand(C, -1, -1, -1).contiguous(),) + args[1:]
+        G = _block_counts(T, n)[-1]
+        assert torch.equal(_host(lib=host_lib, directed=directed, args=same,
+                                 G=G, reverse=False),
+                           _host(host_lib, directed, args, G, False)), n
 
 
 def _index_order_sum(values):

@@ -11,7 +11,9 @@ its split of the partner tree over lanes, warps and the blocks of a
 cluster, its staging of node inputs and its barriers are held here to
 the same standard as on the card: identical accepts and positions to
 :func:`node_scan_plain`, in all eight instantiations and at every
-(warps, cluster) the launch takes, on inputs the card check does not use.
+(warps, cluster) the launch takes, on inputs the card check does not use,
+with one network shared by the chains or one network a chain (the chain
+stride of missing-dyad resampling).
 The libraries' exp and log1p may differ from PyTorch's by an ulp, which
 could flip a decision at a near-tie; none of these inputs has one.
 """
@@ -69,18 +71,25 @@ def host_lib(tmp_path_factory):
                     str(out / HOST.name)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.node_scan_host.argtypes = [p] * 13 + [i] * 9 + [f] * 2
+    lib.node_scan_host.argtypes = ([p] * 13 + [i] * 9 + [f] * 2
+                                   + [ctypes.c_longlong])
     return lib
 
 
-def _inputs(seed, C, T, n, directed, d=2, K=3):
+def _inputs(seed, C, T, n, directed, d=2, K=3, per_chain=False):
+    """One seed's inputs; ``per_chain``: a network (C, T, n, n) of one
+    density a chain."""
     rng = np.random.RandomState(seed)
-    Y = rng.binomial(1, 0.2, (T, n, n))
+    if per_chain:
+        Y = rng.binomial(1, rng.uniform(0.05, 0.4, (C, 1, 1, 1)),
+                         (C, T, n, n))
+    else:
+        Y = rng.binomial(1, 0.2, (T, n, n))
     if directed:
-        Y[:, np.arange(n), np.arange(n)] = 0
+        Y[..., np.arange(n), np.arange(n)] = 0
     else:
         Y = np.triu(Y, 1)
-        Y = Y + Y.transpose(0, 2, 1)
+        Y = Y + np.swapaxes(Y, -1, -2)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32))
@@ -107,6 +116,7 @@ def _inputs(seed, C, T, n, directed, d=2, K=3):
 def _host_scan(lib, t, mixture, tempered, warps, cluster):
     C, T, n, d = t['X'].shape
     Yp = pad_partners(t['Y'])
+    y_chain = T * n * partner_pad(n) if Yp.dim() == 4 else 0
     X_out = torch.full_like(t['X'], float('nan'))
     acc = torch.full((C, T, n), float('nan'))
 
@@ -120,7 +130,7 @@ def _host_scan(lib, t, mixture, tempered, warps, cluster):
         ptr(t.get('radii')), ptr(t['lmbda']) if mixture else None,
         ptr(t['temper']) if tempered else None, ptr(X_out), ptr(acc), C, T,
         n, d, partner_pad(n), warps, cluster, int('radii' in t),
-        int(mixture), 2.0, 0.1)
+        int(mixture), 2.0, 0.1, y_chain)
     return X_out, acc
 
 
@@ -144,3 +154,40 @@ def test_host_kernel_matches_plain(host_lib, directed, mixture, tempered):
                                     cluster)
             assert torch.equal(acc_h, acc_p), (T, n, warps, cluster)
             assert torch.equal(X_h, X_p), (T, n, warps, cluster)
+
+
+def _prior(t, mixture):
+    return (dict(mu_z=t['mu_z'], sig_z=t['sig_z'], lmbda=t['lmbda'])
+            if mixture else dict(mixture=False, tau_sq=2.0, sigma_sq=0.1))
+
+
+@pytest.mark.parametrize('mixture', [False, True])
+@pytest.mark.parametrize('directed', [False, True])
+def test_host_kernel_per_chain_network(host_lib, directed, mixture):
+    """One network a chain (the chain stride T n P): identical accepts and
+    positions to the plain version, which broadcasts each chain's network
+    over its own chain; and a per-chain network whose chains all equal the
+    shared one gives the shared launch's bits."""
+    # a cluster of two blocks, untempered; one block, tempered
+    for k, (T, n, C, layouts) in enumerate([(5, 40, 4, [(1, 2)]),
+                                            (3, 18, 4, [(1, 1)])]):
+        tempered = k == 1
+        t = _inputs(90 + 8 * k + 4 * directed + 2 * mixture, C, T, n,
+                    directed, per_chain=True)
+        assert t['Y'].dim() == 4 and not torch.equal(t['Y'][0], t['Y'][1])
+        X_p, acc_p = node_scan_plain(
+            t['Y'], t['X'], t['b'], t['step'], t['eps'], t['log_u'],
+            radii=t.get('radii'), temper=t['temper'] if tempered else None,
+            **_prior(t, mixture))
+        assert 0.0 < float(acc_p.mean()) < 1.0
+        for warps, cluster in layouts:
+            X_h, acc_h = _host_scan(host_lib, t, mixture, tempered, warps,
+                                    cluster)
+            assert torch.equal(acc_h, acc_p), (T, n, warps, cluster)
+            assert torch.equal(X_h, X_p), (T, n, warps, cluster)
+        shared = _inputs(91 + 8 * k, C, T, n, directed)
+        same = dict(shared, Y=shared['Y'].expand(C, -1, -1, -1).contiguous())
+        warps, cluster = layouts[-1]
+        want = _host_scan(host_lib, shared, mixture, tempered, warps, cluster)
+        got = _host_scan(host_lib, same, mixture, tempered, warps, cluster)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

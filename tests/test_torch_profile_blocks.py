@@ -52,6 +52,25 @@ def test_profile_slice_times_every_block(directed, model, n_temps):
     assert int(state.it[0]) == 5
 
 
+@pytest.mark.parametrize('directed, model', [(False, 'hdp'), (True, 'lsm')])
+def test_profile_slice_times_the_missing_dyads(directed, model):
+    """With dyads coded -1 the resample and the log-likelihood on the new
+    network are one block, ``_missing_dyad_step``; without, there is none."""
+    Y = _tiny_network(directed)
+    Y[0, 1, 2] = Y[0, 2, 1] = -1.0
+    state, sweep, gen = build_state_and_sweep(
+        Y, 4, K=3, device='cpu', is_directed=directed, model=model)
+    out, _ = profile_blocks.profile_slice(sweep, state, gen, sweeps=2,
+                                          warm=1)
+    assert out['blocks_ms']['_missing_dyad_step'] > 0
+    state, sweep, gen = build_state_and_sweep(
+        _tiny_network(directed), 4, K=3, device='cpu', is_directed=directed,
+        model=model)
+    out, _ = profile_blocks.profile_slice(sweep, state, gen, sweeps=2,
+                                          warm=1)
+    assert '_missing_dyad_step' not in out['blocks_ms']
+
+
 def test_union_of_kernel_intervals():
     assert profile_blocks._union_us([]) == 0
     assert profile_blocks._union_us([(5, 9), (0, 2), (1, 3), (8, 10)]) == 8

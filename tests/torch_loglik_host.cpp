@@ -137,14 +137,14 @@ extern "C" int pair_loglik_host(const float* X, const uint8_t* Y,
                                 const float* b_cur, const float* b_prop,
                                 double* partials, unsigned* tickets,
                                 float* out, int C, int T, int n, int d, int G,
-                                int reverse) {
-  const int words = n % 4 == 0 && (uintptr_t)Y % 4 == 0;
+                                long long y_chain, int reverse) {
+  const int words = loglik::word_rows(Y, n, y_chain);
   const size_t smem = loglik::smem_bytes(d, 0);
   // as the launch picks them: compiled for d = 2, or for any d
   auto run = [&](auto kernel, const float* b_second) {
     run_grid(C, G, smem, reverse, [&] {
-      kernel(X, Y, b_cur, b_second, partials, tickets, out, T, n, d, G,
-             words);
+      kernel(X, Y, y_chain, b_cur, b_second, partials, tickets, out, T, n, d,
+             G, words);
     });
   };
   if (b_prop == nullptr) {
@@ -160,18 +160,19 @@ extern "C" int pair_loglik_host(const float* X, const uint8_t* Y,
 namespace {
 
 template <int NC>
-void dir_host(const float* X, const uint8_t* Yp, const float* radii,
-              const float* b, double* partials, unsigned* tickets, float* out,
-              int C, int T, int n, int d, int G, int reverse) {
-  const int words = n % 4 == 0 && (uintptr_t)Yp % 4 == 0;
+void dir_host(const float* X, const uint8_t* Yp, long long y_chain,
+              const float* radii, const float* b, double* partials,
+              unsigned* tickets, float* out, int C, int T, int n, int d,
+              int G, int reverse) {
+  const int words = loglik::word_rows(Yp, n, y_chain);
   // as the launch picks them: compiled for d = 2, or for any d
   run_grid(C, G, loglik::smem_bytes(d, kUvFloats<NC>), reverse, [&] {
     if (d == 2) {
-      dir_loglik_kernel<NC, 2>(X, Yp, radii, b, partials, tickets, out, T, n,
-                               d, G, words);
+      dir_loglik_kernel<NC, 2>(X, Yp, y_chain, radii, b, partials, tickets,
+                               out, T, n, d, G, words);
     } else {
-      dir_loglik_kernel<NC, 0>(X, Yp, radii, b, partials, tickets, out, T, n,
-                               d, G, words);
+      dir_loglik_kernel<NC, 0>(X, Yp, y_chain, radii, b, partials, tickets,
+                               out, T, n, d, G, words);
     }
   });
 }
@@ -183,19 +184,19 @@ extern "C" int dir_loglik_host(const float* X, const uint8_t* Yp,
                                const float* radii, const float* b,
                                double* partials, unsigned* tickets,
                                float* out, int C, int n_cand, int T, int n,
-                               int d, int G, int reverse) {
+                               int d, int G, long long y_chain, int reverse) {
   switch (n_cand) {
     case 1:
-      dir_host<1>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                  reverse);
+      dir_host<1>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
+                  d, G, reverse);
       return 0;
     case 2:
-      dir_host<2>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                  reverse);
+      dir_host<2>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
+                  d, G, reverse);
       return 0;
     case 3:
-      dir_host<3>(X, Yp, radii, b, partials, tickets, out, C, T, n, d, G,
-                  reverse);
+      dir_host<3>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
+                  d, G, reverse);
       return 0;
     default:
       return 1;

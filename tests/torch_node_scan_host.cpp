@@ -164,11 +164,11 @@ inline cluster_group this_cluster() { return {}; }
 
 namespace {
 
-using Kernel = void (*)(const float*, const uint8_t*, const float*,
+using Kernel = void (*)(const float*, const uint8_t*, long long,
                         const float*, const float*, const float*,
                         const float*, const float*, const float*,
-                        const float*, const float*, float*, float*, int, int,
-                        int, int, int, int, float, float);
+                        const float*, const float*, const float*, float*,
+                        float*, int, int, int, int, int, int, float, float);
 
 template <bool kDirected, bool kMixture>
 Kernel pick(bool tempered) {
@@ -186,7 +186,7 @@ extern "C" int node_scan_host(
     const float* b, const float* radii, const float* lmbda,
     const float* temper, float* X_out, float* acc, int C, int T, int n,
     int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq) {
+    float tau_sq, float sigma_sq, long long y_chain) {
   const int threads = node_scan_threads(T, warps);
   const int smem =
       node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster, directed);
@@ -223,8 +223,9 @@ extern "C" int node_scan_host(
           this_block = cl.blocks[rank];
           this_cluster_ = &cl;
           this_rank = rank;
-          kernel(X, Y, step, eps, log_u, mu_z, sig_z, b, radii, lmbda, temper,
-                 X_out, acc, T, n, d, P, warps, cluster, tau_sq, sigma_sq);
+          kernel(X, Y, y_chain, step, eps, log_u, mu_z, sig_z, b, radii,
+                 lmbda, temper, X_out, acc, T, n, d, P, warps, cluster,
+                 tau_sq, sigma_sq);
         });
     for (auto& t : pool) t.join();
   }
