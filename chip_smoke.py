@@ -20,7 +20,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
 4. the pair log-likelihood kernel against its plain version at the north
    star and Sampson shapes, with two intercepts and with one (the replica
    swap's mode), and at a few awkward shapes (n not a multiple of the
-   tile, n = 2, T = 1, one chain): rtol 1e-5 per candidate, bit-identical
+   tile, n = 2, T = 1, one chain) and at the nested LSM's (one chain at
+   T=10, n=500: the most partials a chain's final reduce adds): rtol 1e-5
+   per candidate, bit-identical
    on rerun, and the error of each column and of the columns' difference
    (what the MH step consumes) against a float64 dense evaluation;
 5. the directed mode of the node-scan kernel against its plain version,
@@ -28,12 +30,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
    directed north star (T=10, n=500, 32 chains, K=25) and directed Sampson
    (T=3, n=18, 512 chains, K=10);
 6. the directed log-likelihood kernel against its plain version at the
-   north star and Sampson shapes and the awkward shapes of 4, with 1, 2
+   north star and Sampson shapes and the awkward and nested shapes of 4,
+   with 1, 2
    and 3 candidates, negative intercepts included: rtol 1e-5 per
    candidate, bit-identical on rerun, and the float64 errors as in 4;
 7. the random-walk-prior (LSM) mode of the node-scan kernel against its
    plain version, as in 3 and 5, undirected and directed, at the north
-   star and Sampson shapes (tau_sq 2.0, sigma_sq 0.1);
+   star and Sampson shapes and the nested LSM's one chain (tau_sq 2.0,
+   sigma_sq 0.1);
 7b. the tempered lane of the node-scan kernel (per-chain inverse
    temperatures ``geomspace(1, 0.2, 4)`` tiled over the chains) against
    its plain version, as in 3, 5 and 7, in all four modes (undirected and
@@ -69,9 +73,10 @@ Phases, each of which fails the run (exit code 1) when it fails:
 10. one network a chain (missing-dyad resampling keeps one per chain, read
    through the kernels' chain stride): the node scan in all eight modes at
    the north star, Sampson and an awkward shape (T=3, n=45, 8 chains) as
-   in 3, 5, 7 and 7b, and the pair kernel (1 and 2 intercepts) and the
-   directed kernel (1 to 3 candidates) at the north star, Sampson and the
-   awkward shapes of 4 (n = 45: the byte-wise load) as in 4 and 6; each
+   in 3, 5, 7 and 7b and in both random-walk modes at the nested shape,
+   and the pair kernel (1 and 2 intercepts) and the directed kernel (1 to
+   3 candidates) at the north star, Sampson and the awkward and nested
+   shapes of 4 (n = 45: the byte-wise load) as in 4 and 6; each
    against its plain version on the same per-chain networks, and a
    per-chain network whose chains all equal one shared network gives the
    shared launch's bits;
@@ -92,6 +97,23 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (|z| of the smoothness moment against a perturbed prior > 8) and the
    equal-temperature replica swap of the directed LSM (256 ladders of 4
    rungs, block |z| < 4.5); the z-scores and the seconds are printed;
+13. the public estimators' ``fit`` on the card, through the kernels: the
+   sticky HDP-LPCM at bench.py's north-star row (``northstar_network()``,
+   T=10, n=500, K=25, 32 chains, 100 + 50 + 50 samples after its nested
+   LSM's fixed 500 + 250 + 250) with the wall time of each stage,
+   sweeps/s x chains of sampling, ESS(logp) over sampling's seconds, the
+   logp R-hat, the mode of ``counts_`` and ``auc_`` (every logp finite,
+   ``auc_`` within 0.02 of the AUC of the probabilities the network was
+   drawn from, 0.736, the final state's logp at its dense log joint as in
+   8); the JAX suite's four fast posterior-equivalence tests (Sampson LSM,
+   HDP-LPCM and directed LSM at 4 chains, the LPCM on the simulated
+   community network) against its reference numbers
+   (``dynetlsm_tpu_torch/equivalence.py``, with their source lines); and a tempered (4 rungs) and a missing-dyad (10%)
+   HDP-LPCM fit at Sampson size with ``thin=2``: cold slots only,
+   ``(n_total - 1) // 2 + 1`` samples a chain, observed dyads unchanged and
+   ``missings_`` in [0, 1].  Each fit runs with the launch counters set to
+   0 just before and read just after, and every count must equal its
+   sweeps' (the kernels line's ``fit_launches`` sums them);
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats), the node scan's at each cluster size
    it reaches with the time per phase step (ms / 2n), and its bound: the
@@ -141,6 +163,10 @@ AWKWARD = [dict(T=2, n=45, C=3), dict(T=3, n=2, C=4), dict(T=1, n=76, C=5),
            dict(T=2, n=130, C=1)]
 # the node scan's awkward shape with one network a chain: rows of n % 4 != 0
 AWKWARD_SCAN = dict(T=3, n=45, C=8, K=3)
+# the nested LSM that initialises a mixture fit at the north star: one
+# chain (models/mixture_base.py::init_from_lsm), so the log-likelihood
+# kernels' final reduce adds the most partials a chain (ops/loglik_tiles.py)
+NESTED = dict(T=10, n=500, C=1, K=1)
 # the share of dyads the missing-dyad slices code -1
 MISSING = 0.1
 # the Geweke phase: chains, sweeps; the swap's ladders
@@ -837,6 +863,210 @@ def geweke_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the estimators
+# ---------------------------------------------------------------------------
+
+# the north-star fit: bench.py's north-star row through the public API
+NS_FIT = dict(n_components=25, n_chains=32, n_iter=100, tune=50, burn=50,
+              random_state=0)
+# how far the north-star fit's auc_ may fall below the AUC of the edge
+# probabilities the network was drawn from (0.7363): the limit, 0.716,
+# sits between the sound fit's 0.7465 and the 0.497-0.499 of scrambled
+# positions or node order (scripts/fit_checks.py on an H100 at 700 W).  A
+# sampler that never moved (0.759), a start without the nested LSM's
+# sweeps (0.738) and an intercept held at 0 (0.767) read as high as a
+# sound fit: auc_ cannot see them, the equivalence and Geweke checks do
+NS_AUC_SLACK = 0.02
+# the nested LSM of a mixture fit: 500 + 250 + 250 samples, one sweep each
+# after the initial one (models/mixture_base.py::init_from_lsm)
+NESTED_SWEEPS = 999
+# the tempered, missing-dyad and thinned fits at Sampson size
+SMALL_FIT = dict(n_components=10, n_chains=4, n_iter=100, tune=50, burn=50,
+                 thin=2, random_state=3)
+
+
+def counted_fit(name, est, Y, dev, nested=True, missing=False,
+                tempered=False):
+    """Fit ``est`` on Y with every launch counter set to 0 just before and
+    read just after, and check the counts: per sweep the node scan once
+    and the pair kernel once (three directed-kernel launches when
+    directed), one more with missing dyads and one more a tempered step
+    (the swap), over the nested LSM's sweeps (untempered) and the fit's.
+    Returns (launches, wall seconds, peak device memory GB)."""
+    import torch
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    est.fit(Y)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    thin = getattr(est, 'thin', None) or 1
+    n_total = est.n_iter + est.tune + est.burn
+    main = (n_total - 1) // thin * thin
+    nested = NESTED_SWEEPS if nested else 0
+    per = 3 if est.is_directed else 1
+    loglik = 'dir_loglik' if est.is_directed else 'pair_loglik'
+    expected = {'node_scan': nested + main, 'pair_loglik': 0,
+                'dir_loglik': 0}
+    expected[loglik] = ((per + missing) * nested
+                        + (per + missing + tempered) * main)
+    check(launches == expected, '%s fit: launches %s, expected %s'
+          % (name, launches, expected))
+    return launches, seconds, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def check_logp_gap(name, gap, rel, within):
+    check(within, '%s: final logp vs dense log joint: max gap %g (relative '
+          '%g)' % (name, gap, rel))
+
+
+def final_logp_gap(m, dev):
+    """(max |logp - dense log joint|, max relative, whether every chain
+    is within rtol 1e-5 plus atol 1e-3 as the slices check it) over the
+    chains of a mixture fit's final state, the log joint recomputed densely
+    on the card from that state."""
+    import torch
+    from dynetlsm_tpu_torch.mcmc.sweeps import hdp_logp_at_state
+    fs = m._final_state
+
+    def t(name):
+        v = torch.as_tensor(getattr(fs, name), device=dev)
+        return v.long() if name == 'z' else v.float()
+    Y = fs.Y if getattr(fs, 'Y', None) is not None else m.Y_fit_
+    dense = hdp_logp_at_state(
+        m._cfg, torch.as_tensor(np.asarray(Y, np.float32), device=dev),
+        m.intercept_prior_.astype(np.float32),
+        *(t(f) for f in ('X', 'intercept', 'z', 'mu', 'sigma', 'lmbda',
+                         'weights', 'beta', 'gamma', 'alpha_init', 'alpha',
+                         'kappa', 'mean_var', 'b_scale')),
+        radii=t('radii') if m.is_directed else None)
+    logp = t('logp')
+    gap = (dense - logp).abs()
+    return (float(gap.max()), float((gap / logp.abs()).max()),
+            bool((gap <= 1e-5 * logp.abs() + 1e-3).all()))
+
+
+def estimator_phase(dev):
+    """Phase 13: the public estimators' ``fit`` on the card.  Returns the
+    kernels' launches summed over the phase's fits."""
+    import torch
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, equivalence
+    from dynetlsm_tpu_torch.datasets import (
+        load_dynamic_monks, northstar_network, northstar_probas,
+        with_missing_dyads)
+    from dynetlsm_tpu_torch.metrics import network_auc
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # the north-star fit, bench.py's north-star row through the public API
+    m = DynamicNetworkHDPLPCM(device=dev, **NS_FIT)
+    launches, seconds, peak = counted_fit('hdp northstar', m,
+                                          northstar_network(), dev)
+    add(launches)
+    oracle = network_auc(m.Y_fit_, np.broadcast_to(
+        northstar_probas(n=m.Y_fit_.shape[1]), m.Y_fit_.shape))
+    gap, rel, within = final_logp_gap(m, dev)
+    sampling = m.stage_seconds_['sampling']
+    sweeps = m.logps_.shape[1] - 1
+    vals, freqs = np.unique(m.counts_, return_counts=True)
+    T, n = m.Y_fit_.shape[:2]
+    C = m.n_chains
+    log('estimator hdp northstar (T=%d, n=%d, K=%d, %d chains, %d + %d '
+        'sweeps): %.1f s, stages %s'
+        % (T, n, m.n_components, C, NESTED_SWEEPS, sweeps, seconds,
+           ', '.join('%s %.3f s' % kv for kv in m.stage_seconds_.items())))
+    log('estimator hdp northstar: sampling %.1f sweeps/s x chains, '
+        'ESS(logp) %.1f over %d post-burn samples x %d chains, %.2f '
+        'ESS(logp)/s of sampling, logp R-hat %.4f, counts_ mode %d %s, '
+        'auc_ %.4f (the generating probabilities\' %.4f), final logp vs '
+        'dense rel err %g (abs %g), launches %s, peak device memory %.3f GB'
+        % (sweeps * C / sampling, m.logp_effective_n_,
+           sweeps + 1 - m.n_burn_, C, m.logp_effective_n_ / sampling,
+           m.logp_rhat_, vals[np.argmax(freqs)], dict(zip(
+               vals.tolist(), freqs.tolist())), m.auc_, oracle, rel, gap,
+           launches, peak))
+    check(bool(np.isfinite(m.logps_).all()), 'northstar fit: non-finite '
+          'logps_')
+    # the fit must rank the dyads about as well as the probabilities the
+    # network was drawn from (0.1 within a community, 0.01 across): their
+    # own AUC on this draw is only 0.736, so a fixed 0.75 would be a coin
+    # flip for a correct fit
+    check(m.auc_ > oracle - NS_AUC_SLACK, 'northstar fit: auc %g, the '
+          'generating probabilities\' %g' % (m.auc_, oracle))
+    check_logp_gap('northstar fit', gap, rel, within)
+
+    # posterior equivalence with the JAX suite's reference numbers
+    for name in ('lsm', 'hdp', 'lsm directed', 'lpcm'):
+        est, Y, z_true = equivalence.make_fit(name, dev, fast=True)
+        launches, seconds, _ = counted_fit(
+            'equivalence ' + name, est, Y, dev,
+            nested=name in ('hdp', 'lpcm'))
+        add(launches)
+        ok, stats, ref = equivalence.posterior_stats(name, est, True,
+                                                     z_true)
+        check(ok, 'equivalence %s (fast budget): %s against the reference '
+              '%s' % (name, stats, ref))
+        log('estimator equivalence %s: %.1f s, %s, launches %s'
+            % (name, seconds, ', '.join('%s %.4f' % kv
+                                        for kv in stats.items()), launches))
+
+    # tempered, missing-dyad and thinned fits at Sampson size
+    Y = load_dynamic_monks()
+    coded = with_missing_dyads(Y, MISSING, seed=6)
+    for name, net, extra in (('tempered', Y, dict(n_temps=N_TEMPS,
+                                                  beta_min=BETA_MIN)),
+                             ('missing', coded, {})):
+        m = DynamicNetworkHDPLPCM(device=dev, **SMALL_FIT, **extra)
+        launches, seconds, _ = counted_fit(
+            'sampson ' + name, m, net, dev, missing=name == 'missing',
+            tempered=name == 'tempered')
+        add(launches)
+        C, thin = SMALL_FIT['n_chains'], SMALL_FIT['thin']
+        n_total = SMALL_FIT['n_iter'] + SMALL_FIT['tune'] + SMALL_FIT['burn']
+        samples = (n_total - 1) // thin + 1
+        check(m.Xs_.shape == (C, samples, 3, 18, 2)
+              and m.logps_.shape == (C, samples),
+              'sampson %s fit: trace shapes %s %s' % (
+                  name, m.Xs_.shape, m.logps_.shape))
+        check(bool(np.isfinite(m.logps_).all()), 'sampson %s fit: '
+              'non-finite logps_' % name)
+        check(m._final_state.X.shape[0] == C, 'sampson %s fit: final state '
+              'of %d slots' % (name, m._final_state.X.shape[0]))
+        extra_log = ''
+        if name == 'tempered':
+            check(m.temper_ladder_.shape == (C * N_TEMPS,),
+                  'tempered fit: ladder shape %s' % (m.temper_ladder_.shape,))
+            extra_log = ', ladder %s' % np.round(
+                m.temper_ladder_[:N_TEMPS], 4).tolist()
+        else:
+            observed = coded != -1
+            check(bool(np.array_equal(m.Y_fit_[observed], Y[observed])),
+                  'missing fit: an observed dyad changed')
+            miss = m.missings_[~observed & ~np.eye(18, dtype=bool)[None]]
+            check(bool(np.isfinite(m.missings_).all()
+                       and (m.missings_ >= 0).all()
+                       and (m.missings_ <= 1).all()
+                       and not m.missings_[observed].any()),
+                  'missing fit: missings_ outside [0, 1] or set off the '
+                  'mask')
+            extra_log = ', mean missings_ %.4f' % float(miss.mean())
+        check_logp_gap('sampson %s fit' % name, *final_logp_gap(m, dev))
+        log('estimator sampson %s (thin %d, %d chains): %.1f s, logp mean '
+            '%.2f, auc_ %.4f, launches %s%s'
+            % (name, thin, C, seconds, float(m.logps_[:, -1].mean()),
+               m.auc_, launches, extra_log))
+    for k, v in total.items():
+        check(v > 0, 'estimators: %s was never launched' % k)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 9: bounds
 # ---------------------------------------------------------------------------
 
@@ -971,6 +1201,10 @@ def main():
             scans[key, shape['n']] = check_node_scan(
                 shape, dev, seed=seed, directed=directed, mixture=mixture,
                 tempered=tempered)
+        # the nested LSM's scan: one chain, random-walk prior
+        for directed in (False, True):
+            check_node_scan(NESTED, dev, seed=30 + directed,
+                            directed=directed, mixture=False)
         # (kernel, candidates, n) -> (inputs, errors)
         logliks = {}
         for n_cand in (2, 1):
@@ -983,7 +1217,7 @@ def main():
                 NS, n_cand, dev, seed=6 + n_cand)
             logliks['dir_loglik', n_cand, SAMPSON['n']] = check_dir(
                 SAMPSON, n_cand, dev, seed=9 + n_cand)
-        for k, shape in enumerate(AWKWARD):
+        for k, shape in enumerate(AWKWARD + [NESTED]):
             for n_cand in (1, 2):
                 check_pair(shape, dev, seed=40 + k, n_cand=n_cand)
             for n_cand in (1, 2, 3):
@@ -998,6 +1232,9 @@ def main():
                 check_node_scan(dict(AWKWARD_SCAN), dev, seed=seed + 80,
                                 directed=directed, mixture=mixture,
                                 tempered=tempered, per_chain=True)
+        for directed in (False, True):
+            check_node_scan(NESTED, dev, seed=32 + directed,
+                            directed=directed, mixture=False, per_chain=True)
         for shape, seed in ((NS, 3), (SAMPSON, 4)):
             for n_cand in (1, 2):
                 logliks['pair_loglik', n_cand, shape['n'], PER_CHAIN] = (
@@ -1007,7 +1244,7 @@ def main():
                 logliks['dir_loglik', n_cand, shape['n'], PER_CHAIN] = (
                     check_dir(shape, n_cand, dev, seed=seed + 73 + n_cand,
                               per_chain=True))
-        for k, shape in enumerate(AWKWARD):
+        for k, shape in enumerate(AWKWARD + [NESTED]):
             for n_cand in (1, 2):
                 check_pair(shape, dev, seed=90 + k, n_cand=n_cand,
                            per_chain=True)
@@ -1059,6 +1296,9 @@ def main():
 
         # phase 12: Geweke
         geweke_out = geweke_phase(dev)
+
+        # phase 13: the estimators
+        fit_launches = estimator_phase(dev)
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -1187,7 +1427,8 @@ def main():
                 'launches': slices[slice_at][0][name],
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
                 'bound_ms': bound_ms, 'bound_by': bound_by,
-                'library_ms': None, 'mode': mode, 'slice': slice_at,
+                'library_ms': None, 'fit_launches': fit_launches[name],
+                'mode': mode, 'slice': slice_at,
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))

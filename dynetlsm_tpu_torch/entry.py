@@ -5,9 +5,9 @@
   its arguments.
 * :func:`build_state_and_sweep` — a replicated chain state and the sweep
   of the sticky HDP-LPCM, the finite LPCM or the dynamic LSM for a dense
-  undirected or directed network, with random initialisation (the
-  ``quality_init=False`` path of ``bench.py``; GMDS and k-means
-  initialisation belong to the estimator, not ported yet); with
+  undirected or directed network, from random positions, means and
+  labels or, with ``quality_init=True``, from GMDS positions and
+  longitudinal k-means (the two paths of ``bench.py``); with
   ``n_temps``, the parallel-tempering step over ladders of that many
   rungs (``bench.py``'s ``tempered`` row).  A network with missing dyads
   (coded -1 or NaN) is filled once by the imputer and its missing dyads
@@ -20,13 +20,13 @@ import numpy as np
 import torch
 
 from .config import resolve_device
-from .imputer import SimpleNetworkImputer
-from .math.init import initialize_radii
+from .math.init import (
+    generalized_mds, initialize_radii, longitudinal_kmeans)
 from .mcmc.driver import replicate_state
 from .mcmc.sweeps import (
     SweepConfig, _lsm_logp, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
 from .mcmc.tempering import make_pt_step, temper_ladder
-from .models.base import validate_network
+from .models.base import impute_missing, validate_network
 from .ops.distances import pairwise_distances
 
 # the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
@@ -96,27 +96,18 @@ def _initial_lsm_logp(cfg, Y, s0, prior, device):
 def _fill_missing(Y, is_directed):
     """(the network Y (T, n, n) with its missing dyads filled, the
     missing-dyad mask), or (Y, None) when no dyad is missing: Y validated
-    (``models.base``), its -1 or NaN dyads filled by the imputer's
-    ``'random'`` strategy as the JAX estimators fill them
-    (models/lsm.py:182-183, the same draws), the observed dyads kept (the
-    fill mirrors the upper triangle, which on a directed network would
-    overwrite the observed lower triangle) and the diagonal 0."""
+    and its -1 or NaN dyads filled (``models.base.impute_missing``: the
+    imputer's ``'random'`` draws, the observed dyads kept, the diagonal
+    0)."""
     Y_valid, _, miss, sample_missing = validate_network(Y, is_directed)
     if not sample_missing:
         return Y, None
-    fill = SimpleNetworkImputer(strategy='random',
-                                missing_value=-1).fit_transform(Y_valid)
-    Y = np.where(miss, fill, Y_valid)
-    Y[:, np.arange(Y.shape[1]), np.arange(Y.shape[1])] = 0.0
-    if not np.isin(Y, (0.0, 1.0)).all():
-        raise ValueError('Y must hold 0/1 dyads, with missing ones coded '
-                         '-1 or NaN')
-    return Y, miss
+    return impute_missing(Y_valid, miss), miss
 
 
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                           device='cuda', is_directed=False, model='hdp',
-                          n_temps=None, beta_min=0.2):
+                          n_temps=None, beta_min=0.2, quality_init=False):
     """A replicated chain state, the sweep and its generator for the dense
     network Y (T, n, n), undirected or directed, on ``device`` (the card
     by default).  Returns (state, sweep, gen).
@@ -146,10 +137,14 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
       its logp, MAP and Procrustes reference start at the log joint of the
       initial positions.
 
-    Every model starts from N(0, 1) positions and intercept(s) 1.0;
-    directed, from radii of the degrees (``initialize_radii``) with step
-    175000, tuned in the mixture models (``tune_radii``) and not in the
-    LSM (lsm.py:222)."""
+    Every model starts from intercept(s) 1.0 and from N(0, 1) positions,
+    N(0, 1) means, unit variances and uniform labels, or, with
+    ``quality_init``, from the GMDS positions of Y centred and the
+    longitudinal k-means' means, variances and labels, drawn from the
+    seed's RandomState in ``bench.build_state_and_sweep``'s order (what
+    the benchmark's Sampson cells start from); directed, from radii of the
+    degrees (``initialize_radii``) with step 175000, tuned in the mixture
+    models (``tune_radii``) and not in the LSM (lsm.py:222)."""
     if model not in ('hdp', 'lpcm', 'lsm'):
         raise ValueError("model must be 'hdp', 'lpcm' or 'lsm', got %r"
                          % (model,))
@@ -164,7 +159,13 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
     d = 2
     n_int = 2 if is_directed else 1
     prior = np.zeros(n_int, np.float32)
-    s0 = _single_state(T, n, rng.randn(T, n, d), n_int)
+    if quality_init:
+        X0 = generalized_mds(Y, n_features=d, is_directed=is_directed,
+                             random_state=rng)
+        X0 -= X0.mean(axis=(0, 1))
+    else:
+        X0 = rng.randn(T, n, d)
+    s0 = _single_state(T, n, X0, n_int)
     if miss is not None:
         s0['Y'] = Y
     if is_directed:
@@ -180,9 +181,13 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                   intercept_map=s0['intercept'], logp_ref=logp0,
                   X_ref=s0['X'], radii_map=s0.get('radii'))
     else:
-        mu0 = rng.randn(K, d)
-        z0 = rng.randint(0, K, size=(T, n))
-        s0.update(_mixture_fields(mu0, np.ones(K), z0))
+        if quality_init:
+            mu0, sigma0, z0 = longitudinal_kmeans(X0, n_clusters=K,
+                                                  random_state=rng)
+        else:
+            mu0, sigma0 = rng.randn(K, d), np.ones(K)
+            z0 = rng.randint(0, K, size=(T, n))
+        s0.update(_mixture_fields(mu0, sigma0, z0))
         cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
                           n_components=K, table_cap=table_cap,
                           tune_radii=is_directed, **_HYPER, **missing)

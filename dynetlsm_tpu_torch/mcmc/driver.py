@@ -4,8 +4,9 @@
 
 Chains are the leading axis of every state tensor, so one sweep call
 advances all of them.  The runner is a Python loop over sweeps that writes
-each sweep's traced values into a preallocated ``chunk``-long buffer on
-the device; ``collect_traces`` copies each chunk to the host.
+the traced values into a buffer on the device, one row every ``thin``
+sweeps, at most ``chunk`` rows a call; ``collect_traces`` copies each
+chunk to the host.
 """
 import numpy as np
 import torch
@@ -29,34 +30,39 @@ def replicate_state(state0, n_chains, device):
     return state_from_numpy(batched, device)
 
 
-def make_scan_runner(sweep_fn, trace_fn, chunk=512):
+def make_scan_runner(sweep_fn, trace_fn, chunk=512, thin=1):
     """A runner ``run(state, gen, n_samples) -> (state, buffers)`` that
-    advances ``n_samples`` <= ``chunk`` sweeps and records
-    ``trace_fn(state)`` (a dict of tensors) after each into buffers of
-    length ``chunk`` (rows past ``n_samples`` are left unwritten)."""
+    records ``n_samples`` <= ``chunk`` samples, each after ``thin`` more
+    sweeps (thinning on the device: the sweeps between two samples are
+    never recorded), writing ``trace_fn(state)`` (a dict of tensors) into
+    buffers of ``n_samples`` rows on the device.  Nothing in it waits on
+    the device."""
 
     def run(state, gen, n_samples):
         if n_samples > chunk:
             raise ValueError('n_samples=%d exceeds the runner chunk %d'
                              % (n_samples, chunk))
         sample0 = trace_fn(state)
-        buf = {k: torch.empty((chunk,) + tuple(v.shape), dtype=v.dtype,
-                              device=v.device)
+        buf = {k: torch.empty((n_samples,) + tuple(v.shape),
+                              dtype=v.dtype, device=v.device)
                for k, v in sample0.items()}
         for i in range(n_samples):
-            state = sweep_fn(state, gen)
+            for _ in range(thin):
+                state = sweep_fn(state, gen)
             for k, v in trace_fn(state).items():
                 buf[k][i].copy_(v)
         return state, buf
 
     run.chunk = chunk
+    run.thin = thin
     return run
 
 
-def collect_traces(runner, state, gen, n_samples, chunk=512):
-    """Run ``n_samples`` recorded sweeps in chunks, copying each chunk's
-    traces to host memory.  Returns (final_state, traces) with traces a
-    dict of NumPy arrays, sample axis first."""
+def collect_traces(runner, state, gen, n_samples, chunk=512, progress=None):
+    """Record ``n_samples`` samples in chunks, copying each chunk's traces
+    to host memory (the copy is the only wait on the device) and calling
+    ``progress(done, n_samples)`` after each.  Returns (final_state,
+    traces) with traces a dict of NumPy arrays, sample axis first."""
     if getattr(runner, 'chunk', chunk) != chunk:
         raise ValueError('collect_traces chunk=%d does not match the '
                          "runner's trace buffer (%d)"
@@ -66,10 +72,12 @@ def collect_traces(runner, state, gen, n_samples, chunk=512):
     while done < n_samples:
         step_n = min(chunk, n_samples - done)
         state, ys = runner(state, gen, step_n)
-        chunks.append({k: v[:step_n].cpu().numpy() for k, v in ys.items()})
+        chunks.append({k: v.cpu().numpy() for k, v in ys.items()})
         done += step_n
+        if progress is not None:
+            progress(done, n_samples)
     if not chunks:
         _, ys = runner(state, gen, 0)
-        return state, {k: v[:0].cpu().numpy() for k, v in ys.items()}
+        return state, {k: v.cpu().numpy() for k, v in ys.items()}
     return state, {k: np.concatenate([c[k] for c in chunks], axis=0)
                    for k in chunks[0]}

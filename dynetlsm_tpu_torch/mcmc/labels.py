@@ -94,3 +94,33 @@ def sample_labels_block_lpcm(gen, X, mu, sigma, lmbda, init_weights,
     z = _forward_sample(gen, pm, init_weights, w)
     n_trans, nk, resp = _label_statistics(z, K)
     return z, n_trans, nk, resp
+
+
+def latent_marginal_loglikelihood(X, init_w, trans_w, mu, sigma, lmbda):
+    """Forward-algorithm marginal log-likelihood of the latent positions
+    under the mixture HMM, summed over nodes (reference
+    model_selection/approx_bic.py:56-76), for one sample: X (T, n, d),
+    init_w (K,), trans_w (T, K, K) (entry 0 unused), mu (K, d), sigma
+    (K,), lmbda a float.  float32 matmuls (TF32 is off, ``config.py``).
+    Returns a 0-d tensor."""
+    X = torch.as_tensor(X, dtype=torch.float32)
+    dev = X.device
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    init_w, trans_w, mu, sigma = (f32(init_w), f32(trans_w), f32(mu),
+                                  f32(sigma))
+    lik = emission_likelihoods_kn(X[None], mu[None], sigma[None],
+                                  f32(lmbda).reshape(1),
+                                  normalize=False)[0].transpose(1, 2)
+    fwd = init_w[None, :] * lik[0]                      # (n, K)
+    c = torch.clamp_min(torch.sum(fwd, dim=-1), SMALL_EPS)
+    loglik = torch.sum(torch.log(c))
+    fwd = fwd / c[:, None]
+    for t in range(1, X.shape[0]):
+        f = lik[t] * torch.matmul(fwd, trans_w[t])
+        c = torch.clamp_min(torch.sum(f, dim=-1), SMALL_EPS)
+        loglik = loglik + torch.sum(torch.log(c))
+        fwd = f / c[:, None]
+    return loglik

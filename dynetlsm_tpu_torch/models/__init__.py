@@ -1,2 +1,2 @@
-"""Estimator-side helpers of the port (counterpart of
-``dynetlsm_tpu/models``); so far the network validation alone."""
+"""The public estimators of the port (counterpart of
+``dynetlsm_tpu/models``) and their shared machinery."""

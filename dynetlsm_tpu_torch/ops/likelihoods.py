@@ -73,3 +73,13 @@ def directed_loglik_full(Y, dist, radii, intercept_in, intercept_out):
     eta = directed_eta(dist, radii, intercept_in, intercept_out)
     ll = Y.to(dist.dtype) * eta - softplus(eta)
     return _dyad_sum(ll, n, scale=1.0)
+
+
+def undirected_network_probas(dist, intercept):
+    """expit(intercept - dist) with a zeroed diagonal (reference
+    lsm.py:290-308).  dist (..., T, n, n); intercept (...,)."""
+    n = dist.shape[-1]
+    b = torch.as_tensor(intercept, dtype=dist.dtype,
+                        device=dist.device)[..., None, None, None]
+    probas = torch.sigmoid(b - dist)
+    return probas * _offdiag_mask(n, probas.dtype, probas.device)

@@ -1,0 +1,246 @@
+"""Real fits of the port's three estimators on the CPU at small budgets:
+shapes and finiteness of the fitted attributes, each estimator's ``logp``
+at the fit's final state against that state's logp, tempered fits keeping
+their cold slots only, thinning and missing dyads, and the keywords and
+networks the port refuses before any initialisation work.
+
+A mixture model's nested LSM initialisation is fixed at 500 + 250 + 250
+sweeps; all but one test here cut it through ``init_from_lsm``'s own
+``lsm_kwargs``, which the estimators leave at None."""
+import numpy as np
+import pytest
+import torch
+
+from dynetlsm_tpu_torch import (
+    DynamicNetworkHDPLPCM, DynamicNetworkLPCM, DynamicNetworkLSM)
+from dynetlsm_tpu_torch.datasets import load_dynamic_monks, with_missing_dyads
+from dynetlsm_tpu_torch.mcmc.sweeps import (
+    hdp_logp_at_state, lpcm_logp_at_state)
+from dynetlsm_tpu_torch.models import lsm as lsm_mod, mixture_base
+
+CLASSES = [DynamicNetworkLSM, DynamicNetworkLPCM, DynamicNetworkHDPLPCM]
+BUDGET = dict(n_iter=30, tune=20, burn=20, random_state=11, device='cpu')
+
+
+@pytest.fixture
+def short_nested_lsm(monkeypatch):
+    """The mixture models' nested LSM cut to 20 + 10 + 10 sweeps."""
+    init = mixture_base.init_from_lsm
+
+    def short(*args, **kw):
+        kw['lsm_kwargs'] = dict(n_iter=20, tune=10, burn=10)
+        return init(*args, **kw)
+    monkeypatch.setattr(mixture_base, 'init_from_lsm', short)
+
+
+def _dense_args(fs, fields):
+    """The final state's fields as CPU tensors, labels as int64."""
+    return [torch.as_tensor(getattr(fs, f)).to(
+        torch.int64 if f == 'z' else torch.float32) for f in fields]
+
+
+def _first_chain(model):
+    return {k: (None if v is None else v[0])
+            for k, v in vars(model._final_state).items()}
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_lsm_fit(directed):
+    Y = load_dynamic_monks(is_directed=directed)
+    T, n, _ = Y.shape
+    m = DynamicNetworkLSM(is_directed=directed, n_chains=2, **BUDGET).fit(Y)
+    assert m.Xs_.shape == (2, 70, T, n, 2)
+    assert m.intercepts_.shape == (2, 70, 2 if directed else 1)
+    assert m.logps_.shape == (2, 70) and np.isfinite(m.logps_).all()
+    assert m.X_.shape == (T, n, 2) and np.isfinite(m.X_).all()
+    assert m.probas_.shape == Y.shape and 0.5 < m.auc_ <= 1.0
+    assert m.distances_.shape == Y.shape
+    assert np.isfinite(m.logp_rhat_) and m.logp_effective_n_ > 0
+    if directed:
+        assert m.radiis_.shape == (2, 70, n)
+        np.testing.assert_allclose(m.radii_.sum(), 1.0, rtol=1e-5)
+    assert set(m.stage_seconds_) == {'gmds', 'intercept mle', 'sampling',
+                                     'post-processing'}
+    # the estimator's log joint at the final state is that state's logp
+    s = _first_chain(m)
+    lp = m.logp(m.Y_fit_, s['X'], s['intercept'], radii=s.get('radii'))
+    np.testing.assert_allclose(lp, s['logp'], rtol=1e-4)
+    # the MAP attributes are the best chain's tracked maximum
+    assert m.logp_ == pytest.approx(m._final_state.logp_map.max())
+
+
+def test_hdp_fit_end_to_end():
+    """One fit through the whole path, nested LSM at its fixed budget."""
+    Y = load_dynamic_monks()
+    T, n, _ = Y.shape
+    m = DynamicNetworkHDPLPCM(n_components=5, n_chains=2, **BUDGET).fit(Y)
+    K = 5
+    assert m.Xs_.shape == (2, 70, T, n, 2)
+    assert m.zs_.shape == (2, 70, T, n) and m.zs_.max() < K
+    assert m.weights_.shape == (2, 70, T, K, K)
+    assert m.betas_.shape == (2, 70, K)
+    for name in ('logps_', 'lambdas_', 'gammas_', 'alphas_', 'kappas_',
+                 'alpha_inits_'):
+        assert getattr(m, name).shape == (2, 70), name
+        assert np.isfinite(getattr(m, name)).all(), name
+    assert m.z_.shape == (T, n) and m.X_.shape == (T, n, 2)
+    k = m.mu_.shape[0]
+    assert m.trans_weights_.shape == (T, k, k) and m.z_.max() < k
+    assert m.counts_.shape == (2 * 30,) and m.counts_.min() >= 1
+    assert m.bic_.shape[1] == 4 and len(m.models_) == m.bic_.shape[0]
+    assert m.cooccurrence_probas_.shape == (T, n, n)
+    assert len(m.posterior_group_counts_) == T
+    assert np.isfinite(m.logp_geweke_[0]) and np.isfinite(m.logp_rhat_)
+    assert m.X_mean_.shape == (T, n, 2) and 0.5 < m.auc_ <= 1.0
+    assert {'nested lsm fit', 'kmeans', 'sampling', 'model selection',
+            'alignment', 'post-processing'} <= set(m.stage_seconds_)
+    # the estimator's log joint at the final state is that state's logp
+    s = _first_chain(m)
+    lp = m.logp(s['X'], s['intercept'], s['mu'], s['sigma'], s['z'],
+                s['weights'], s['beta'], s['lmbda'])
+    np.testing.assert_allclose(lp, s['logp'], rtol=1e-4)
+    fs = m._final_state
+    dense = hdp_logp_at_state(
+        m._cfg, torch.as_tensor(m.Y_fit_, dtype=torch.float32),
+        m.intercept_prior_.astype(np.float32),
+        *_dense_args(fs, (
+            'X', 'intercept', 'z', 'mu', 'sigma', 'lmbda', 'weights', 'beta',
+            'gamma', 'alpha_init', 'alpha', 'kappa', 'mean_var', 'b_scale')))
+    np.testing.assert_allclose(dense.numpy(), fs.logp, rtol=1e-4)
+    # forecasts from the selected model
+    assert m.forecast_probas_map_.shape == (n, n)
+    assert m.forecast_probas_plugin_.shape == (n, n)
+    assert m.forecast_probas(n_samples=3).shape == (n, n)
+    for name in ('forecast_probas_marginalized_', 'forecast_probas_pp_'):
+        with pytest.raises(NotImplementedError, match='item 7'):
+            getattr(m, name)
+    m.set_best_model('map')
+    assert m.best_k_ == np.argmax(np.bincount(m.counts_))
+    m.delete_traces()
+    assert not hasattr(m, 'Xs_') and not hasattr(m, 'zs_')
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_lpcm_fit(short_nested_lsm, directed):
+    Y = load_dynamic_monks(is_directed=directed)
+    T, n, _ = Y.shape
+    m = DynamicNetworkLPCM(n_components=3, is_directed=directed,
+                           **BUDGET).fit(Y)
+    assert m.Xs_.shape == (70, T, n, 2) and m.zs_.shape == (70, T, n)
+    assert m.init_weights_.shape == (70, 3)
+    assert m.trans_weights_.shape == (70, 3, 3)
+    assert np.isfinite(m.logps_).all() and 0.5 < m.auc_ <= 1.0
+    assert m.trans_weight_.shape == (3, 3)
+    s = _first_chain(m)
+    lp = m.logp(s['X'], s['intercept'], s['mu'], s['sigma'], s['z'],
+                s['init_weights'], s['trans_weights'], s['lmbda'],
+                radii=s.get('radii'))
+    np.testing.assert_allclose(lp, s['logp'], rtol=1e-4)
+    fs = m._final_state
+    dense = lpcm_logp_at_state(
+        m._cfg, torch.as_tensor(m.Y_fit_, dtype=torch.float32),
+        m.intercept_prior_.astype(np.float32),
+        *_dense_args(fs, (
+            'X', 'intercept', 'z', 'mu', 'sigma', 'lmbda', 'init_weights',
+            'trans_weights', 'mean_var', 'b_scale')),
+        radii=(torch.as_tensor(fs.radii) if directed else None))
+    np.testing.assert_allclose(dense.numpy(), fs.logp, rtol=1e-4)
+    if not directed:
+        assert m.forecast_probas_map_.shape == (n, n)
+        assert m.forecast_probas_plugin_.shape == (n, n)
+    with pytest.raises(NotImplementedError, match='item 7'):
+        m.forecast_probas_marginalized_
+
+
+def test_tempered_fits_keep_cold_slots(short_nested_lsm):
+    Y = load_dynamic_monks()
+    m = DynamicNetworkLSM(n_chains=2, n_temps=3, beta_min=0.2,
+                          tune_interval=20, **BUDGET).fit(Y)
+    assert m.Xs_.shape[0] == 2 and m.logps_.shape == (2, 70)
+    assert np.isfinite(m.logps_).all() and m.auc_ > 0.5
+    assert m._final_state.X.shape[0] == 2
+    ladder = m.temper_ladder_.reshape(2, 3)
+    np.testing.assert_allclose(ladder[:, 0], 1.0)
+    np.testing.assert_allclose(ladder[:, -1], 0.2, rtol=1e-5)
+    assert np.all(np.diff(ladder, axis=1) < 0)
+
+    h = DynamicNetworkHDPLPCM(n_components=4, n_temps=2, beta_min=0.3,
+                              **BUDGET).fit(Y)
+    assert h.Xs_.shape == (70,) + Y.shape[:2] + (2,)
+    assert h._final_state.X.shape[0] == 1 and h.temper_ladder_.shape == (2,)
+    assert np.isfinite(h.logps_).all()
+
+
+@pytest.mark.parametrize('cls', [DynamicNetworkLPCM, DynamicNetworkHDPLPCM])
+def test_thinned_fit(short_nested_lsm, cls):
+    Y = load_dynamic_monks()
+    m = cls(n_components=3, thin=2, n_chains=2, **BUDGET).fit(Y)
+    n_total = 70
+    assert m.Xs_.shape[:2] == (2, (n_total - 1) // 2 + 1)
+    assert m.n_burn_ == 20 and np.isfinite(m.logps_).all()
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+def test_missing_dyads_fit(short_nested_lsm, cls):
+    Y = load_dynamic_monks()
+    coded = with_missing_dyads(Y, 0.1, seed=2)
+    kw = {} if cls is DynamicNetworkLSM else dict(n_components=3)
+    m = cls(**kw, **BUDGET).fit(coded)
+    observed = coded != -1
+    np.testing.assert_array_equal(m.Y_fit_[observed], Y[observed])
+    assert np.isin(m.Y_fit_, (0.0, 1.0)).all()
+    assert m.missings_.shape == Y.shape
+    assert np.all((m.missings_ >= 0) & (m.missings_ <= 1))
+    assert not m.missings_[observed].any()
+    assert np.isfinite(m.logps_).all()
+
+
+UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2),
+               ('checkpoint_dir', 'ckpt'), ('n_control', 5),
+               ('latent_update', 'mala')]
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+@pytest.mark.parametrize('name, value', UNSUPPORTED)
+def test_unsupported_keywords_raise(cls, name, value):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 item'):
+        cls(**{name: value}, device='cpu').fit(load_dynamic_monks())
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+def test_fit_runs_on_the_card_by_default(cls):
+    assert cls().device == 'cuda'
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(n_iter=2, tune=0, burn=0).fit(load_dynamic_monks())
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+def test_too_large_network_raises_before_initialisation(monkeypatch, cls):
+    """n = 2049 at T = 10 does not fit the node-scan kernel's shared
+    memory: the fit raises its message before GMDS or the nested LSM."""
+    def no_init(*args, **kw):
+        raise AssertionError('initialisation ran')
+    monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
+    monkeypatch.setattr(mixture_base, 'init_from_lsm', no_init)
+    Y = np.zeros((10, 2049, 2049), np.uint8)
+    with pytest.raises(ValueError, match='node_scan_cuda: one block needs'):
+        cls(device='cpu').fit(Y)
+
+
+def test_import_needs_no_jax_sklearn_or_build():
+    """Importing the estimators imports neither jax nor scikit-learn (the
+    card's machine has neither) and builds no CUDA kernel."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['sklearn'] = None; "
+            "import dynetlsm_tpu_torch as p; "
+            "from dynetlsm_tpu_torch.ops import cuda_lib; "
+            "p.DynamicNetworkHDPLPCM(device='cpu'); "
+            "assert cuda_lib.library.cache_info().misses == 0; "
+            "assert 'dynetlsm_tpu' not in sys.modules; print('ok')")
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.stdout.strip() == 'ok', out.stderr
