@@ -93,7 +93,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
 12. the Geweke joint-distribution checks of ``dynetlsm_tpu_torch/geweke.py``
    through the kernels: the LSM, the directed LSM, the LPCM and the
    HDP-LPCM at T=3, n=8, 1,024 chains of 600 sweeps from exact prior
-   draws with every dyad missing (every |z| < 5), the LSM's power check
+   draws with every dyad missing (every |z| < 5), the case-control LSM at
+   its full-control limit (torch code, no kernel), the LSM's power check
    (|z| of the smoothness moment against a perturbed prior > 8) and the
    equal-temperature replica swap of the directed LSM (256 ladders of 4
    rungs, block |z| < 4.5); the z-scores and the seconds are printed;
@@ -111,9 +112,32 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (``dynetlsm_tpu_torch/equivalence.py``, with their source lines); and a tempered (4 rungs) and a missing-dyad (10%)
    HDP-LPCM fit at Sampson size with ``thin=2``: cold slots only,
    ``(n_total - 1) // 2 + 1`` samples a chain, observed dyads unchanged and
-   ``missings_`` in [0, 1].  Each fit runs with the launch counters set to
+   ``missings_`` in [0, 1]; and a case-control fit (directed Sampson,
+   ``n_control=10``, its nested LSM case-control too), whose seconds are
+   printed.  Each fit runs with the launch counters set to
    0 just before and read just after, and every count must equal its
-   sweeps' (the kernels line's ``fit_launches`` sums them);
+   sweeps' (none under case-control; the kernels line's ``fit_launches``
+   sums them);
+14. the case-control slices, bench.py's ``cc_*`` rows through
+   ``build_state_and_sweep(..., n_control=m)`` (the HDP-LPCM at K=25 from
+   a random start, 2 + 20 sweeps as in 8): directed and undirected at the
+   north star (n=500, m=145, 64 chains), directed at n=2048 (m=145, 128
+   chains; past the dense node scan's limit) and directed at n=20,000
+   (m=64, 8 chains) from ``datasets.northstar_edge_lists`` with no dense
+   network anywhere (the generator's and the colouring's seconds are
+   printed).  Every logp finite and equal to its state's case-control log
+   joint recomputed from scratch (rtol 1e-5 plus atol 1e-3), no launch of
+   the node-scan, pair or directed kernel, and the n = 20,000 slice's own
+   peak device memory below 2 GB; each prints its ms/sweep, sweeps/s x
+   chains, the chromatic scan's ms (``sample_latent_positions`` timed with
+   a synchronisation around it), kernel launches per sweep and the device's
+   busy share (``torch.profiler``) and its peak memory.  At both n = 500
+   shapes the chromatic scan on the card, on 4 chains with seeded noise
+   and the slice's controls, class by class from the card's positions,
+   against the same torch code on the CPU: identical accepts except where
+   the CPU's |log_u - ratio| is below 1e-4 (counted and printed), and the
+   positions of every other site within 1e-5; the case-control Geweke
+   check runs in 12;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats), the node scan's at each cluster size
    it reaches with the time per phase step (ms / 2n), and its bound: the
@@ -169,6 +193,18 @@ AWKWARD_SCAN = dict(T=3, n=45, C=8, K=3)
 NESTED = dict(T=10, n=500, C=1, K=1)
 # the share of dyads the missing-dyad slices code -1
 MISSING = 0.1
+# phase 14: bench.py's case-control rows (name, directed, n, controls a
+# node, chains), their K, the n = 20,000 slice's peak memory limit, and the
+# chains, accept margin and position tolerance of the CPU comparison
+CC_SLICES = [('cc_directed_northstar', True, 500, 145, 64),
+             ('cc_undirected_northstar', False, 500, 145, 64),
+             ('cc_directed_n2048', True, 2048, 145, 128),
+             ('cc_directed_n20000', True, 20000, 64, 8)]
+CC_K = 25
+CC_PEAK_GB = 2.0
+CC_SCAN_CHAINS, CC_MARGIN, CC_DX = 4, 1e-4, 1e-5
+# the case-control fit of phase 13: directed Sampson, controls a node
+CC_FIT_CONTROLS = 10
 # the Geweke phase: chains, sweeps; the swap's ladders
 GEWEKE_CHAINS, GEWEKE_SWEEPS, GEWEKE_LADDERS = 1024, 600, 256
 PER_CHAIN = 'per-chain Y'
@@ -886,13 +922,14 @@ SMALL_FIT = dict(n_components=10, n_chains=4, n_iter=100, tune=50, burn=50,
 
 
 def counted_fit(name, est, Y, dev, nested=True, missing=False,
-                tempered=False):
+                tempered=False, cc=False):
     """Fit ``est`` on Y with every launch counter set to 0 just before and
     read just after, and check the counts: per sweep the node scan once
     and the pair kernel once (three directed-kernel launches when
     directed), one more with missing dyads and one more a tempered step
-    (the swap), over the nested LSM's sweeps (untempered) and the fit's.
-    Returns (launches, wall seconds, peak device memory GB)."""
+    (the swap), over the nested LSM's sweeps (untempered) and the fit's;
+    none at all under case-control (``cc``).  Returns (launches, wall
+    seconds, peak device memory GB)."""
     import torch
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -913,6 +950,8 @@ def counted_fit(name, est, Y, dev, nested=True, missing=False,
                 'dir_loglik': 0}
     expected[loglik] = ((per + missing) * nested
                         + (per + missing + tempered) * main)
+    if cc:
+        expected = dict.fromkeys(expected, 0)
     check(launches == expected, '%s fit: launches %s, expected %s'
           % (name, launches, expected))
     return launches, seconds, torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1061,9 +1100,216 @@ def estimator_phase(dev):
             '%.2f, auc_ %.4f, launches %s%s'
             % (name, thin, C, seconds, float(m.logps_[:, -1].mean()),
                m.auc_, launches, extra_log))
+    # a case-control fit: directed Sampson, its nested LSM case-control too
+    m = DynamicNetworkHDPLPCM(device=dev, is_directed=True,
+                              n_control=CC_FIT_CONTROLS, **SMALL_FIT)
+    launches, seconds, _ = counted_fit(
+        'sampson cc', m, load_dynamic_monks(is_directed=True), dev, cc=True)
+    add(launches)
+    check(bool(np.isfinite(m.logps_).all()), 'sampson cc fit: non-finite '
+          'logps_')
+    log('estimator sampson directed case-control (n_control=%d, %d chains, '
+        '%d + %d sweeps): %.1f s, stages %s, logp mean %.2f, auc_ %.4f, '
+        'launches %s'
+        % (CC_FIT_CONTROLS, m.n_chains, NESTED_SWEEPS, m.logps_.shape[1] - 1,
+           seconds, ', '.join('%s %.3f s' % kv
+                              for kv in m.stage_seconds_.items()),
+           float(m.logps_[:, -1].mean()), m.auc_, launches))
     for k, v in total.items():
         check(v > 0, 'estimators: %s was never launched' % k)
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the case-control slices
+# ---------------------------------------------------------------------------
+
+def cc_log_joint(sweep, s):
+    """The HDP-LPCM log joint of the chain-batched state ``s`` under the
+    case-control estimator, recomputed from scratch: the structures from
+    the sweep's fixed edge lists and the state's controls, masks
+    included."""
+    from dynetlsm_tpu_torch.mcmc.sweeps import build_cc_dict, hdp_logp_at_state
+    cfg = sweep.cfg
+    cc = build_cc_dict(cfg, None, sweep.cc_static, s.ctrl_in, s.ctrl_out)
+    prior = np.zeros(s.intercept.shape[1], np.float32)
+    return hdp_logp_at_state(
+        cfg, None, prior, s.X, s.intercept, s.z, s.mu, s.sigma, s.lmbda,
+        s.weights, s.beta, s.gamma, s.alpha_init, s.alpha, s.kappa,
+        s.mean_var, s.b_scale, radii=s.radii, cc=cc)
+
+
+def check_colored_scan(name, s, sweep, dev, seed):
+    """The chromatic scan on the card against the same code on the CPU, on
+    CC_SCAN_CHAINS chains of the state ``s`` with the slice's controls and
+    seeded noise, one colour class at a time from the card's positions, so
+    that every class starts from one state on both devices.  Returns (the
+    accepts that differ, the largest CPU margin among them, max |dX| over
+    the sites whose accepts agree, accept rate)."""
+    import torch
+    from dynetlsm_tpu_torch.mcmc.latent import cc_colored_scan
+    from dynetlsm_tpu_torch.mcmc.sweeps import build_cc_dict
+    cfg = sweep.cfg
+    cc = build_cc_dict(cfg, None, sweep.cc_static, s.ctrl_in, s.ctrl_out)
+    cpu = torch.device('cpu')
+    C = CC_SCAN_CHAINS
+    _, T, n, d = s.X.shape
+    rng = np.random.RandomState(seed)
+    eps = torch.as_tensor(rng.randn(C, 2, n, T, d), dtype=torch.float32)
+    log_u = torch.as_tensor(np.log(rng.uniform(size=(C, 2, n, T))),
+                            dtype=torch.float32)
+    fixed = dict(intercept=s.intercept[:C], step_size=s.step_X[:C],
+                 eps=eps, log_u=log_u, mu=s.mu[:C], sigma=s.sigma[:C],
+                 lmbda=s.lmbda[:C], z=s.z[:C],
+                 radii=s.radii[:C] if cfg.is_directed else None)
+
+    def on(device):
+        def move(v):
+            return v.to(device) if torch.is_tensor(v) else v
+        return ({k: move(v) for k, v in cc.items()},
+                {k: move(v) for k, v in fixed.items()})
+
+    sides = [(dev, on(dev)), (cpu, on(cpu))]
+    groups = cc['color_groups'].cpu()
+    X = s.X[:C].clone()
+    flips, worst_margin, max_dx, accepted = 0, 0.0, 0.0, 0.0
+    for c in range(groups.shape[0]):
+        k = cc['group_sizes'][c]
+        out = []
+        for device, (cc_d, kw) in sides:
+            one = dict(cc_d, color_groups=cc_d['color_groups'][c:c + 1],
+                       group_sizes=(k,))
+            margins = torch.zeros((C, T, n), device=device)
+            X_new, acc = cc_colored_scan(
+                X.to(device), kw['intercept'], kw['step_size'], kw['eps'],
+                kw['log_u'], radii=kw['radii'], mu=kw['mu'],
+                sigma=kw['sigma'], lmbda=kw['lmbda'], z=kw['z'], cc=one,
+                is_directed=cfg.is_directed, mixture=True, margins=margins)
+            out.append((X_new.cpu(), acc.cpu(), margins.cpu()))
+        nodes = groups[c, :k]
+        (Xg, ag, _), (Xc, ac, mc) = out
+        ag, ac, mc = ag[..., nodes], ac[..., nodes], mc[..., nodes]
+        differ = ag != ac
+        if bool(differ.any()):
+            flips += int(differ.sum())
+            worst_margin = max(worst_margin, float(mc[differ].max()))
+        same = ~differ
+        dx = (Xg[:, :, nodes] - Xc[:, :, nodes]).abs().amax(-1)
+        max_dx = max(max_dx, float(dx[same].max()) if bool(same.any())
+                     else 0.0)
+        accepted += float(ag.sum())
+        X = Xg.to(dev)
+    check(worst_margin < CC_MARGIN, '%s: the chromatic scan on the card '
+          'and on the CPU accept differently at a margin of %g'
+          % (name, worst_margin))
+    check(max_dx <= CC_DX, '%s: the chromatic scan on the card and on the '
+          'CPU give positions %g apart' % (name, max_dx))
+    return flips, worst_margin, max_dx, accepted / (C * T * n)
+
+
+def run_cc_slice(name, directed, n, m, C, dev):
+    """One case-control slice (see phase 14).  Returns its numbers."""
+    import torch
+    from dynetlsm_tpu_torch import profile_blocks
+    from dynetlsm_tpu_torch.datasets import (
+        northstar_edge_lists, northstar_network)
+    from dynetlsm_tpu_torch.entry import build_state_and_sweep
+    from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
+    t0 = time.perf_counter()
+    if n > 2048:
+        lists, shape = northstar_edge_lists(n=n, directed=directed)
+        Y, kw = None, dict(edge_lists=lists, shape=shape)
+    else:
+        Y = northstar_network(n=n, directed=directed)
+        kw, shape = {}, Y.shape[:2]
+    T, n_net = shape
+    net_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, sweep, gen = build_state_and_sweep(
+        Y, C, K=CC_K, device=dev, is_directed=directed, n_control=m, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    groups = sweep.cc_static['color_groups']
+    runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
+                              chunk=TIMED)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state, warm = runner(state, gen, WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, traced = runner(state, gen, TIMED)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TIMED
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    sweeps = WARM + TIMED
+    check(all(v == 0 for v in launches.values()),
+          '%s: dense kernels launched %s' % (name, launches))
+    logps = torch.cat([warm['logp'][:WARM], traced['logp'][:TIMED]])
+    check(bool(torch.isfinite(logps).all()), '%s: non-finite logp' % name)
+    check(bool((state.it == sweeps).all()), '%s: it != %d' % (name, sweeps))
+    check(tuple(state.X.shape) == (C, T, n_net, 2), '%s: X shape' % name)
+    want = cc_log_joint(sweep, state)
+    gap = (want - state.logp).abs()
+    rel = float((gap / state.logp.abs()).max())
+    check(bool((gap <= 1e-5 * state.logp.abs() + 1e-3).all()),
+          '%s: sweep logp vs the case-control log joint rel err %g'
+          % (name, rel))
+    acc_rate = float(state.acc_X.mean()) / sweeps
+    check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
+    if n > 2048:
+        check(peak_gb < CC_PEAK_GB, '%s: peak device memory %.3f GB'
+              % (name, peak_gb))
+    t0 = time.perf_counter()
+    blocks, state = profile_blocks.profile_slice(sweep, state, gen,
+                                                 sweeps=2, warm=0)
+    t1 = time.perf_counter()
+    device = profile_blocks.device_times(sweep, state, gen, 1)
+    profile_s = (t1 - t0, time.perf_counter() - t1)
+    scan_ms = blocks['blocks_ms']['sample_latent_positions']
+    out = dict(name=name, n=n_net, m=m, chains=C, ms=ms,
+               sweeps_per_s_x_chains=C / (ms / 1e3), scan_ms=scan_ms,
+               cc_structures_ms=blocks['blocks_ms']['_cc_structures'],
+               launches_per_sweep=device['launches_per_sweep'],
+               device_busy=device['device_busy'], peak_gb=peak_gb,
+               colors=int(groups.shape[0]), class_size=int(groups.shape[1]),
+               build_s=build_s, network_s=net_s)
+    t0 = time.perf_counter()
+    log('slice %s (T=%d, n=%d, m=%d, K=%d, %d chains; %d colour classes of '
+        'up to %d nodes): network %.1f s, build (lists, colouring, state) '
+        '%.1f s; %.3f ms/sweep, %.1f sweeps/s x chains, chromatic scan '
+        '%.3f ms/sweep, control refresh and masks %.3f ms/sweep, %.0f '
+        'kernel launches/sweep, device busy %.3f, X acceptance %.3f, logp '
+        'mean %.2f, case-control log joint rel err %g (abs %g), dense '
+        'launches %s, peak device memory %.3f GB; blocks ms %s'
+        % (name, T, n_net, m, CC_K, C, out['colors'], out['class_size'],
+           net_s,
+           build_s, ms, out['sweeps_per_s_x_chains'], scan_ms,
+           out['cc_structures_ms'], out['launches_per_sweep'],
+           device['device_busy'], acc_rate, float(state.logp.mean()), rel,
+           float(gap.max()), launches, peak_gb,
+           {k: round(v, 3) for k, v in blocks['blocks_ms'].items()}))
+    if n == NS['n']:
+        flips, margin, dx, rate = check_colored_scan(name, state, sweep, dev,
+                                                     seed=n + directed)
+        out.update(cpu_flips=flips, cpu_dx=dx)
+        log('slice %s: chromatic scan on the card against the CPU, %d '
+            'chains, class by class: %d accepts differ (largest CPU margin '
+            '%g), max |dX| %g at the others, accept rate %.3f'
+            % (name, CC_SCAN_CHAINS, flips, margin, dx, rate))
+    log('slice %s: seconds spent on the block timing %.1f, the profiler '
+        'trace %.1f, the CPU comparison %.1f'
+        % ((name,) + profile_s + (time.perf_counter() - t0,)))
+    return out
+
+
+def cc_phase(dev):
+    """Phase 14: every case-control slice.  Returns their numbers."""
+    return [run_cc_slice(*row, dev=dev) for row in CC_SLICES]
 
 
 # ---------------------------------------------------------------------------
@@ -1167,6 +1413,10 @@ def main():
             'measures the port on an NVIDIA GPU only')
         return 1
     dev = torch.device('cuda', 0)
+    start = time.perf_counter()
+
+    def phase_done(what):
+        log('%s done at %.1f s' % (what, time.perf_counter() - start))
     try:
         log(card_line())
         log('torch %s, CUDA %s, python %s' % (
@@ -1222,6 +1472,8 @@ def main():
                 check_pair(shape, dev, seed=40 + k, n_cand=n_cand)
             for n_cand in (1, 2, 3):
                 check_dir(shape, n_cand, dev, seed=50 + k)
+
+        phase_done('phases 1-7b')
 
         # phase 10: one network a chain, every kernel and mode
         for key, shape, directed, mixture, seed, tempered in scan_cases:
@@ -1282,6 +1534,8 @@ def main():
                 directed=directed, model=model, n_temps=n_temps)
         pt_ms = alternate_tempered(networks[NS['n'], False], NS, dev)
 
+        phase_done('phases 8-10')
+
         # phase 11: the missing-dyad slices
         from dynetlsm_tpu_torch.datasets import with_missing_dyads
         for model, directed, n_temps in (('hdp', False, None),
@@ -1294,11 +1548,19 @@ def main():
             slices[name] = run_slice(name, coded, NS, dev, directed=directed,
                                      model=model, n_temps=n_temps)
 
+        phase_done('phase 11')
+
         # phase 12: Geweke
         geweke_out = geweke_phase(dev)
+        phase_done('phase 12')
 
         # phase 13: the estimators
         fit_launches = estimator_phase(dev)
+        phase_done('phase 13')
+
+        # phase 14: the case-control slices
+        cc_out = cc_phase(dev)
+        phase_done('phase 14')
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -1432,6 +1694,10 @@ def main():
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
+        log('case-control slices: ' + ', '.join(
+            '%s %.3f ms/sweep (scan %.3f ms, %.0f launches, %.3f GB)'
+            % (o['name'], o['ms'], o['scan_ms'], o['launches_per_sweep'],
+               o['peak_gb']) for o in cc_out))
         log('geweke max |z| and seconds: ' + ', '.join(
             '%s %.3f (%.1f s)' % (k, z, sec)
             for k, (z, sec) in geweke_out.items()))
@@ -1442,6 +1708,7 @@ def main():
             % (pt_ms['untempered'], pt_ms['tempered'],
                np.median(pt_ms['untempered']), np.median(pt_ms['tempered']),
                [round(float(r), 4) for r in ratios], np.median(ratios)))
+        phase_done('phase 9')
     except SmokeFailure as e:
         log('chip_smoke FAILED: %s' % e)
         return 1

@@ -24,6 +24,16 @@ cluster variance, whose InvGamma(2, 1/2) prior has no variance, gives
 heavy-tailed z-scores (4.1 on an NVIDIA H100 at 1,024 chains x 600
 sweeps, the chains' draws short of the tail), and its logarithm has every
 moment.
+
+The case-control LSM (``'lsm cc'``, JAX
+``test_lsm_case_control_joint_distribution``) runs the LSM's check with
+the case-control likelihood at its full-control limit: every other node a
+control (masked per time to the current non-edges), where the estimator
+equals the exact likelihood, so the kernel is exact for the true joint.
+Every dyad is missing, so the sweep rebuilds each chain's edge lists
+every sweep, and its conflict graph is complete (one node a colour
+class).  ``it`` starts at 1 and the redraw cadence is never reached, so
+the enumerated controls stay.
 """
 import numpy as np
 import scipy.special
@@ -35,6 +45,8 @@ from .mcmc.states import state_from_numpy
 from .mcmc.sweeps import (
     SweepConfig, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
 from .mcmc.tempering import make_pt_step
+from .models.base import case_control_static
+from .ops.case_control import build_edge_lists, max_degree_bound
 from .ops.distances import pairwise_distances
 
 T, N_NODES, D = 3, 8, 2
@@ -56,9 +68,11 @@ B_IN, B_OUT = 0.5, 0.3
 D_BVAR = 0.25
 D_TAU_SQ, D_SIGMA_SQ = 0.01, 0.0025
 
-MODELS = ('lsm', 'directed', 'lpcm', 'hdp')
+CC = 'lsm cc'
+MODELS = ('lsm', 'directed', 'lpcm', 'hdp', CC)
 # the JAX tests' seeds, of each model and of the equal-temperature swap
-SEEDS = {'lsm': 7, 'directed': 23, 'lpcm': 13, 'hdp': 17, 'swap': 23}
+SEEDS = {'lsm': 7, 'directed': 23, 'lpcm': 13, 'hdp': 17, CC: 7,
+         'swap': 23}
 LIMIT = 5.0          # every |z| below it
 PT_LIMIT = 4.5       # the equal-temperature swap's block z-scores
 POWER_LIMIT = 8.0    # the perturbed prior's smoothness z above it
@@ -176,7 +190,8 @@ def hdp_prior_draws(rng, M):
 
 
 PRIOR_DRAWS = {'lsm': lsm_prior_draws, 'directed': directed_prior_draws,
-               'lpcm': lpcm_prior_draws, 'hdp': hdp_prior_draws}
+               'lpcm': lpcm_prior_draws, 'hdp': hdp_prior_draws,
+               CC: lsm_prior_draws}
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +217,7 @@ def _mixture_extra(lmbda, sigma, mu, log):
 def iid_stats(model, draws):
     """(M, S) statistics of the marginal-conditional draws."""
     d = draws
+    model = 'lsm' if model == CC else model
     if model == 'directed':
         s = _base_stats(d['b_in'], d['X'], d['Y'], _distances(d['X']),
                         _OFFD)
@@ -220,6 +236,7 @@ def iid_stats(model, draws):
 def chain_stats(model, state):
     """(C, S) float64 statistics of a chain-batched port state, on its
     device."""
+    model = 'lsm' if model == CC else model
     f = torch.float64
     X = state.X.to(f)
     Y = state.Y.to(f)
@@ -247,10 +264,13 @@ def chain_stats(model, state):
 def sweep_config(model):
     """The JAX tests' ``SweepConfig`` of each model, with every dyad
     missing."""
-    if model == 'lsm':
+    if model in ('lsm', CC):
+        cc = (dict(n_control=N_NODES - 1, n_resample_control=NEVER_BURN)
+              if model == CC else {})
         return SweepConfig(sample_missing=True, tune=0, n_burn=NEVER_BURN,
                            tau_sq=TAU_SQ, sigma_sq=SIGMA_SQ,
-                           intercept_variance_prior=B_VAR, center=False)
+                           intercept_variance_prior=B_VAR, center=False,
+                           **cc)
     if model == 'directed':
         return SweepConfig(is_directed=True, sample_missing=True, tune=0,
                            n_burn=NEVER_BURN, tau_sq=D_TAU_SQ,
@@ -272,8 +292,24 @@ def make_sweep(model, device):
     prior = np.array([B_IN, B_OUT] if model == 'directed' else [B_MEAN],
                      np.float32)
     make = {'lsm': make_lsm_sweep, 'directed': make_lsm_sweep,
-            'lpcm': make_lpcm_sweep, 'hdp': make_hdp_sweep}[model]
-    return make(None, prior, cfg, device=device, miss_mask=_MISS)
+            'lpcm': make_lpcm_sweep, 'hdp': make_hdp_sweep,
+            CC: make_lsm_sweep}[model]
+    cc_static = None
+    if model == CC:
+        empty = np.zeros(_MISS.shape)
+        cc_static, _ = case_control_static(
+            cfg, build_edge_lists(empty), N_NODES, device, color_seed=0,
+            ctrl_seed=0, miss_mask=_MISS,
+            max_deg=max_degree_bound(empty, _MISS))
+    return make(None, prior, cfg, device=device, miss_mask=_MISS,
+                cc_static=cc_static)
+
+
+def all_others(n):
+    """(n, n - 1) controls enumerating every other node: with the per-time
+    masks every non-edge is a valid control (the full-control limit)."""
+    base = np.arange(n)[None, :].repeat(n, axis=0)
+    return base[base != np.arange(n)[:, None]].reshape(n, n - 1)
 
 
 def initial_state(model, rng, n_chains, device):
@@ -291,12 +327,14 @@ def initial_state(model, rng, n_chains, device):
     else:
         a.update(intercept=d['beta'][:, None], step_X=0.8, step_int=0.4,
                  acc_int=np.zeros((C, 1)))
-    if model in ('lsm', 'directed'):
+    if model in ('lsm', 'directed', CC):
         a.update(logp_map=-1e30, X_map=d['X'], intercept_map=a['intercept'],
                  logp_ref=-1e30, X_ref=d['X'], radii_map=a.get('radii'))
     else:
         a.update(z=d['z'], mu=d['mu'], sigma=d['sigma'], lmbda=d['lmbda'],
                  mean_var=MEAN_VAR, b_scale=B_SIGMA)
+    if model == CC:
+        a.update(it=np.ones(C, np.int64), ctrl_out=all_others(N_NODES))
     if model == 'lpcm':
         a.update(init_weights=d['init_w'], trans_weights=d['trans_w'])
     if model == 'hdp':

@@ -11,7 +11,7 @@ chunk to the host.
 import numpy as np
 import torch
 
-from .states import state_from_numpy
+from .states import SHARED_FIELDS, state_from_numpy
 
 
 def replicate_state(state0, n_chains, device):
@@ -21,9 +21,11 @@ def replicate_state(state0, n_chains, device):
     the class, :func:`~.states.state_class`), across a new leading chain
     axis of length ``n_chains`` on ``device``; ``None`` fields stay
     ``None``.  Every chain gets its own copy of the network ``Y`` (missing
-    dyads resampled), and a zero ``missing_sum`` unless one is given."""
-    batched = {k: np.broadcast_to(np.asarray(v), (n_chains,)
-                                  + np.shape(v)).copy()
+    dyads resampled), and a zero ``missing_sum`` unless one is given; the
+    case-control controls (``states.SHARED_FIELDS``) stay one for all."""
+    batched = {k: (np.asarray(v) if k in SHARED_FIELDS else
+                   np.broadcast_to(np.asarray(v), (n_chains,)
+                                   + np.shape(v)).copy())
                for k, v in state0.items() if v is not None}
     if 'Y' in batched and 'missing_sum' not in batched:
         batched['missing_sum'] = np.zeros(batched['Y'].shape, np.float32)

@@ -1,9 +1,9 @@
 """Sampler states (counterparts of ``LSMState`` and ``MixtureState`` in
-``dynetlsm_tpu/mcmc/states.py``), for a dense network with no
-case-control, untempered or under parallel tempering.
+``dynetlsm_tpu/mcmc/states.py``), for a dense network or the case-control
+likelihood, untempered or under parallel tempering.
 
-Every tensor carries the chain axis as its leading dimension; the JAX
-package vmaps a single-chain state instead.  The PRNG key of the JAX state
+Every tensor but the case-control controls carries the chain axis as its
+leading dimension; the JAX package vmaps a single-chain state instead.  The PRNG key of the JAX state
 has no field here: a ``torch.Generator`` is passed to each sweep.
 
 * :class:`LSMState`: the dynamic LSM (random-walk prior), with its MAP and
@@ -23,6 +23,12 @@ the observed dyads the same in every chain), and ``missing_sum``, each
 missing dyad's sum of draws after burn-in (float32, zero off the missing
 mask); both are ``None`` when no dyad is missing, and the sweeps then read
 the network they were built with.
+
+The case-control likelihood (``SweepConfig.n_control``) adds ``ctrl_in``
+and ``ctrl_out``, the control nodes of every node (n, n_control) int64,
+-1 where a draw is void: one draw shared by every chain, so these two
+fields carry no chain axis (``SHARED_FIELDS``); ``ctrl_in`` is ``None``
+when undirected.
 
 Parallel tempering (``mcmc/tempering.py``) adds ``temper``, each slot's
 inverse temperature of the network likelihood, and ``acc_swap``, the
@@ -73,6 +79,9 @@ class LSMState(_State):
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
+    # case-control only: one draw shared by the chains
+    ctrl_in: Optional[torch.Tensor] = None     # (n, m) int64, directed
+    ctrl_out: Optional[torch.Tensor] = None    # (n, m) int64
 
 
 @dataclasses.dataclass
@@ -111,9 +120,14 @@ class MixtureState(_State):
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
+    # case-control only: one draw shared by the chains
+    ctrl_in: Optional[torch.Tensor] = None     # (n, m) int64, directed
+    ctrl_out: Optional[torch.Tensor] = None    # (n, m) int64
 
 
-_INT_FIELDS = ('it', 'z')
+_INT_FIELDS = ('it', 'z', 'ctrl_in', 'ctrl_out')
+# the fields with no chain axis
+SHARED_FIELDS = ('ctrl_in', 'ctrl_out')
 
 
 def state_class(arrays):

@@ -20,7 +20,8 @@ three launches per sweep), so no sweep builds a (C, T, n, n) distance
 tensor; the log joint reuses the last coefficient step's log-likelihood at
 the accepted state.  The factories store Y on ``device``, the card unless
 the caller asks for the CPU (``config.resolve_device``), and expose it as
-``sweep.Y`` beside ``sweep.cfg``.
+``sweep.Y`` beside ``sweep.cfg`` (and the case-control structures as
+``sweep.cc_static``).
 
 With ``cfg.sample_missing`` the network is part of the state: ``state.Y``
 (C, T, n, n) holds each chain's network, and the sweep's last block before
@@ -35,6 +36,25 @@ from ``state.Y`` at its start (packed when directed, with padded rows for
 the node scan), so the form always belongs to the slot's own network,
 also after a replica swap; ``sweep.Y`` is then ``None`` and
 ``sweep.miss_mask`` the mask.
+
+With ``cfg.n_control`` the network likelihood is the case-control
+estimator (``ops/case_control.py``) and no block reads a dense network:
+the factories take ``cc_static`` (``models/base.py::build_case_control``:
+the edge lists, the colour classes and the control seed) and store no
+(T, n, n) tensor unless missing dyads are resampled.  Each sweep first
+refreshes the control draw every ``cfg.n_resample_control`` sweeps (one
+draw for all chains, from a generator seeded by the control seed and the
+sweep count, so it is reproducible and never touches ``gen``;
+:func:`_refresh_controls`) and builds the structures of
+:func:`build_cc_dict` (with missing dyads, each chain's edge lists from
+``state.Y``); the latent update is the chromatic scan
+(``mcmc/latent.py::cc_colored_scan``), the coefficient steps score their
+candidates with the case-control estimator, and the log joint reuses the
+last one's value.  The missing-dyad step resamples as on a dense network
+and scores the new network with the case-control estimator on edge lists
+rebuilt from it.  The state carries the draw in ``ctrl_in`` and
+``ctrl_out`` (n, m), shared by the chains.  No launch of the node-scan,
+pair or directed kernel happens in such a sweep.
 
 A state with ``temper`` (C,) runs the tempered sweep of parallel tempering
 (``mcmc/tempering.py``): the latent update, the intercept step(s) and the
@@ -54,6 +74,9 @@ from ..math.distributions import (
     dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf, uniform)
 from ..math.procrustes import longitudinal_procrustes_rotation
 from ..models.base import validate_network
+from ..ops.case_control import (
+    cc_network_loglik, control_masks, edge_lists_device,
+    sample_controls_colored)
 from ..ops.distances import _sum_sq_last, pairwise_distances
 from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
 from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
@@ -103,7 +126,9 @@ class SweepConfig:
     alpha_kappa_shape: float = 5.0
     alpha_kappa_rate: float = 0.1
     dirichlet_prior: float = 1.0  # LPCM Dirichlet concentration
+    # case-control: control nodes per node and the redraw cadence
     n_control: Optional[int] = None
+    n_resample_control: int = 100
     latent_update: str = 'exact'
     table_cap: int = 64
     sample_concentrations: bool = True
@@ -111,16 +136,14 @@ class SweepConfig:
 
 
 def _check_supported(cfg):
-    if cfg.n_control is not None:
-        raise NotImplementedError('the case-control likelihood is not '
-                                  'ported yet')
     if cfg.latent_update != 'exact':
         raise NotImplementedError(
             "latent_update=%r is not ported yet; only 'exact'"
             % (cfg.latent_update,))
 
 
-def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None):
+def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
+                   cc_static=None):
     """Check the configuration and store the network on ``device``.
     Returns (Y, Y with its rows padded for the node scan, the
     :class:`MissingDyads`, the prior means as a (1, P) tensor, the same as
@@ -132,8 +155,12 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None):
     it: no stored network (the sweep reads ``state.Y``) and the
     :func:`missing_dyads` of ``miss_mask`` (T, n, n) bool, or, when it is
     ``None``, of the -1 or NaN dyads of ``Y_fixed``
-    (``models.base.validate_network``)."""
+    (``models.base.validate_network``).  Under the case-control likelihood
+    (``cc_static``) no network is stored: ``Y_fixed`` may be ``None``."""
     _check_supported(cfg)
+    if (cfg.n_control is None) != (cc_static is None):
+        raise ValueError('cfg.n_control and cc_static '
+                         '(models.base.build_case_control) go together')
     device = resolve_device(device)
     prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
                             device=device).reshape(1, -1)
@@ -148,6 +175,8 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None):
                                device=device)
         return (None, None, missing_dyads(miss, cfg.is_directed), prior,
                 prior_means)
+    if cc_static is not None:
+        return None, None, None, prior, prior_means
     Y_np = np.asarray(Y_fixed)
     if not np.isin(Y_np, (0, 1)).all():
         raise ValueError('Y_fixed must be a 0/1 adjacency; a network with '
@@ -168,8 +197,9 @@ def kernel_network(cfg, Y):
 def _sweep_network(cfg, Y, Y_scan, state):
     """(the network the coefficient kernels read, the node scan's padded
     rows): the stored ones, or with missing dyads each chain's own, derived
-    from ``state.Y`` (C, T, n, n) once here."""
-    if not cfg.sample_missing:
+    from ``state.Y`` (C, T, n, n) once here; neither under the case-control
+    likelihood, whose blocks read the edge lists."""
+    if not cfg.sample_missing or cfg.n_control is not None:
         return Y, Y_scan
     if state.Y is None:
         raise ValueError('a sweep with sample_missing needs the per-chain '
@@ -238,14 +268,72 @@ def resample_missing(cfg, gen, Y, X, intercept, radii, dyads, temper=None,
     return Y
 
 
+def control_generator(ctrl_seed, it, device):
+    """The generator of the control draw of sweep ``it``: seeded by the
+    fit's control seed and ``it``, so every chain gets the same draw and a
+    rerun the same sequence."""
+    return torch.Generator(device=device).manual_seed(
+        int(ctrl_seed) * 2**32 + int(it))
+
+
+def draw_controls(cfg, cc_static, it):
+    """(ctrl_in or None, ctrl_out) (n, m) of sweep ``it``
+    (``ops.case_control.sample_controls_colored``); the fit's initial draw
+    is that of ``it`` = 0, which the first sweep redraws identically."""
+    colors = cc_static['colors']
+    return sample_controls_colored(
+        control_generator(cc_static['ctrl_seed'], it, colors.device),
+        colors, colors.shape[0], cfg.n_control, directed=cfg.is_directed)
+
+
+def _refresh_controls(cfg, state, cc_static):
+    """The controls of this sweep: redrawn when the sweep count ``it`` is a
+    multiple of ``cfg.n_resample_control`` (reference
+    CaseControlSampler.resample, case_control_likelihood.py:27-33), else
+    the state's.  The cadence is read from chain 0's count on the host
+    (one synchronisation a sweep): the draw is one for all chains."""
+    it = int(state.it[0])
+    if it % cfg.n_resample_control:
+        return state.ctrl_in, state.ctrl_out
+    return draw_controls(cfg, cc_static, it)
+
+
+def build_cc_dict(cfg, Y, cc_static, ctrl_in, ctrl_out):
+    """The case-control structures every block reads: the edge lists
+    (``cc_static``'s, or with ``cfg.sample_missing`` rebuilt from the
+    network Y ((C,) T, n, n), each chain's own), the controls with their
+    validity masks, and the colour classes.  The sweeps' and the initial
+    logp's single source (JAX ``build_cc_dict``)."""
+    if cfg.sample_missing:
+        lists = edge_lists_device(Y, cc_static['max_deg'])
+    else:
+        lists = {k: cc_static[k]
+                 for k in ('in_edges', 'out_edges', 'degrees')}
+    civ, cov = control_masks(ctrl_in, ctrl_out, lists, cfg.is_directed)
+    return dict(lists, ctrl_in=ctrl_in, ctrl_out=ctrl_out,
+                ctrl_in_valid=civ, ctrl_out_valid=cov,
+                color_groups=cc_static['color_groups'],
+                group_sizes=cc_static['group_sizes'])
+
+
+def _cc_structures(cfg, state, cc_static):
+    """(the structures of :func:`build_cc_dict` for this sweep, ctrl_in,
+    ctrl_out)."""
+    ctrl_in, ctrl_out = _refresh_controls(cfg, state, cc_static)
+    return (build_cc_dict(cfg, state.Y, cc_static, ctrl_in, ctrl_out),
+            ctrl_in, ctrl_out)
+
+
 def _missing_dyad_step(cfg, gen, state, dyads, X, intercept, radii,
-                       it_next):
+                       it_next, cc_static=None, ctrl=None):
     """Step 7 of the JAX sweeps: resample the missing ``dyads``
     (:func:`resample_missing`), add them to ``missing_sum`` once a chain's
     sweep count passes ``cfg.n_burn``, and score the new network (one pair
-    launch at one intercept, or one directed candidate): the coefficient
-    steps' log-likelihood belongs to the old network.  Returns (Y,
-    missing_sum, the network log-likelihood)."""
+    launch at one intercept, or one directed candidate; under case-control,
+    ``cc_static`` and the sweep's controls ``ctrl``, the estimator on the
+    new network's edge lists): the coefficient steps' log-likelihood
+    belongs to the old network.  Returns (Y, missing_sum, the network
+    log-likelihood)."""
     Y = resample_missing(cfg, gen, state.Y, X, intercept, radii, dyads,
                          temper=state.temper)
     t, i, j = dyads.t, dyads.i, dyads.j
@@ -254,27 +342,33 @@ def _missing_dyad_step(cfg, gen, state, dyads, X, intercept, radii,
     missing_sum[:, t, i, j] += add
     if not cfg.is_directed:
         missing_sum[:, t, j, i] += add
+    if cc_static is not None:
+        cc = build_cc_dict(cfg, Y, cc_static, *ctrl)
+        return Y, missing_sum, cc_network_loglik(X, intercept, radii, cc,
+                                                 cfg.is_directed)
     return Y, missing_sum, network_loglik(cfg, kernel_network(cfg, Y), X,
                                           intercept, radii)
 
 
-def _sample_coefficients(cfg, gen, Y, X, state, prior_means):
-    """The intercept step, then the radii step when directed.  Returns
-    (intercept, acc_int, radii, acc_radii, the network log-likelihood at
-    the accepted state)."""
+def _sample_coefficients(cfg, gen, Y, X, state, prior_means, cc=None):
+    """The intercept step, then the radii step when directed (under the
+    case-control structures ``cc`` when given).  Returns (intercept,
+    acc_int, radii, acc_radii, the network log-likelihood at the accepted
+    state)."""
     radii, acc_radii = state.radii, state.acc_radii
     if cfg.is_directed:
         intercept, acc_i, net_ll = sample_intercepts_directed(
             gen, Y, X, state.intercept, state.radii, state.step_int,
-            prior_means, cfg.intercept_variance_prior, temper=state.temper)
+            prior_means, cfg.intercept_variance_prior, temper=state.temper,
+            cc=cc)
         radii, acc_r, net_ll = sample_radii(
             gen, Y, X, intercept, state.radii, state.step_radii,
-            loglik_cur=net_ll, temper=state.temper)
+            loglik_cur=net_ll, temper=state.temper, cc=cc)
         acc_radii = state.acc_radii + acc_r
     else:
         intercept, acc_i, net_ll = sample_intercept_undirected(
             gen, Y, X, state.intercept, state.step_int, prior_means[0],
-            cfg.intercept_variance_prior, temper=state.temper)
+            cfg.intercept_variance_prior, temper=state.temper, cc=cc)
     return intercept, state.acc_int + acc_i, radii, acc_radii, net_ll
 
 
@@ -285,13 +379,14 @@ def _intercept_logprior(cfg, intercept, intercept_prior):
 
 
 def _lsm_logp(cfg, Y, X, intercept, radii, dist, intercept_prior,
-              net_ll=None):
+              net_ll=None, cc=None):
     """LSM log joint per chain (reference lsm.py:576-625): the network
     log-likelihood (``net_ll`` if given, else from the dense distances
-    ``dist`` and the 0/1 Y), the random-walk prior of the positions and
-    the intercepts' Gaussian prior.  intercept_prior (1, P) or (P,)."""
+    ``dist`` and the 0/1 Y, or the case-control estimator of ``cc``), the
+    random-walk prior of the positions and the intercepts' Gaussian prior.
+    intercept_prior (1, P) or (P,)."""
     ll = (net_ll if net_ll is not None
-          else _network_loglik(cfg, Y, dist, intercept, radii))
+          else _network_loglik(cfg, Y, dist, intercept, radii, X, cc))
     ll = ll - 0.5 * torch.sum(X[:, 0] * X[:, 0], dim=(1, 2)) / cfg.tau_sq
     if X.shape[1] > 1:
         diff = X[:, 1:] - X[:, :-1]
@@ -330,8 +425,11 @@ def _count_chain_loglik(n_trans, nk, w0, w_trans):
     return ll
 
 
-def _network_loglik(cfg, Y, dist, intercept, radii):
-    """Dense network log-likelihood; Y (T, n, n) or (C, T, n, n) 0/1."""
+def _network_loglik(cfg, Y, dist, intercept, radii, X=None, cc=None):
+    """Dense network log-likelihood; Y (T, n, n) or (C, T, n, n) 0/1.
+    With ``cc``, the case-control estimator at the positions X."""
+    if cc is not None:
+        return cc_network_loglik(X, intercept, radii, cc, cfg.is_directed)
     if cfg.is_directed:
         return directed_loglik_full(Y, dist, radii, intercept[:, 0],
                                     intercept[:, 1])
@@ -340,13 +438,14 @@ def _network_loglik(cfg, Y, dist, intercept, radii):
 
 def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
                          mean_var, b_scale, intercept_prior, net_ll=None,
-                         radii=None):
+                         radii=None, cc=None):
     """Network + latent + cluster-parameter + hyper-prior terms of the log
     joint (reference hdp_lpcm.py:1213-1278), with the radii's Dirichlet(1)
     prior when directed.  ``net_ll`` reuses an already-computed network
-    log-likelihood at the current state."""
+    log-likelihood at the current state; ``cc`` switches the network term
+    to the case-control estimator."""
     ll = (net_ll if net_ll is not None
-          else _network_loglik(cfg, Y, dist, intercept, radii))
+          else _network_loglik(cfg, Y, dist, intercept, radii, X, cc))
     ll = ll + _intercept_logprior(cfg, intercept, intercept_prior)
     ll = ll + _latent_mixture_loglik(X, z, mu, sigma, lmbda)
     ll = ll - 0.5 * torch.sum(mu * mu, dim=(1, 2)) / mean_var
@@ -382,9 +481,10 @@ def _hdp_weights_logp(beta, w0, weights, gamma, alpha_init, alpha, kappa):
 
 def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                       lmbda, weights, beta, gamma, alpha_init, alpha, kappa,
-                      mean_var, b_scale, radii=None):
+                      mean_var, b_scale, radii=None, cc=None):
     """Full HDP-LPCM log joint at an arbitrary chain-batched state, with
-    the network term from dense distances (reference hdp_lpcm.py:798-809).
+    the network term from dense distances (reference hdp_lpcm.py:798-809),
+    or from the case-control structures ``cc`` (Y unread).
     Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
     or (2,) and radii (C, n) for the directed model."""
     K = cfg.n_components
@@ -395,8 +495,13 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                              kappa)
     logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
     return logp + _mixture_common_logp(
-        cfg, Y, X, intercept, pairwise_distances(X), z, mu, sigma, lmbda,
-        mean_var, b_scale, prior, radii=radii)
+        cfg, Y, X, intercept, _dense_distances(X, cc), z, mu, sigma, lmbda,
+        mean_var, b_scale, prior, radii=radii, cc=cc)
+
+
+def _dense_distances(X, cc):
+    """Pairwise distances of X, or None under case-control."""
+    return None if cc is not None else pairwise_distances(X)
 
 
 def _finish_tuning(cfg, state, acc_X, acc_int, acc_radii):
@@ -418,7 +523,7 @@ def _chain_mask(mask, like):
 
 
 def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda', miss_mask=None):
+                   device='cuda', miss_mask=None, cc_static=None):
     """Build the dynamic LSM sweep (reference lsm.py:474-572) over the
     fixed 0/1 network ``Y_fixed`` (T, n, n), or with
     ``cfg.sample_missing`` over each chain's ``state.Y`` with the dyads of
@@ -430,21 +535,26 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     the intercept(s) and, directed, the radii; the missing dyads; the log
     joint; MAP tracking
     (reset at the end of tuning) and ``X_ref`` tracking up to
-    ``cfg.n_burn``; step-size tuning.  The returned ``sweep(state, gen)``
+    ``cfg.n_burn``; step-size tuning.  With ``cfg.n_control`` and
+    ``cc_static`` the case-control likelihood (see the module's text).  The returned ``sweep(state, gen)``
     carries its configuration as ``sweep.cfg`` and the stored network as
     ``sweep.Y``."""
     Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask)
+        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
 
     def sweep(state: LSMState, gen: torch.Generator) -> LSMState:
         it_next = state.it + 1
+        cc, ctrl_in, ctrl_out = (
+            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
 
         # latent positions (random-walk prior)
         X, acc_new = sample_latent_positions(
             gen, Yk_scan, state.X, state.intercept, state.step_X,
             tau_sq=cfg.tau_sq, sigma_sq=cfg.sigma_sq, radii=state.radii,
-            is_directed=cfg.is_directed, mixture=False, temper=state.temper)
+            is_directed=cfg.is_directed, mixture=False, temper=state.temper,
+            cc=cc)
         acc_X = state.acc_X + acc_new
 
         # Procrustes toward the burn-phase reference (lsm.py:495-498),
@@ -455,11 +565,12 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             X = X - torch.mean(X, dim=(1, 2), keepdim=True)
 
         intercept, acc_int, radii, acc_radii, net_ll = _sample_coefficients(
-            cfg, gen, Yk, X, state, prior_means)
+            cfg, gen, Yk, X, state, prior_means, cc)
         Y_new, missing_sum = state.Y, state.missing_sum
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
-                cfg, gen, state, miss, X, intercept, radii, it_next)
+                cfg, gen, state, miss, X, intercept, radii, it_next,
+                cc_static, (ctrl_in, ctrl_out))
 
         # log joint and MAP tracking (lsm.py:547-566)
         logp = _lsm_logp(cfg, None, X, intercept, radii, None, prior,
@@ -488,11 +599,12 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp,
             logp_map=logp_map, X_map=X_map, intercept_map=intercept_map,
             radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref, Y=Y_new,
-            missing_sum=missing_sum)
+            missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
     sweep.cfg = cfg
     sweep.Y = Y
     sweep.miss_mask = None if miss is None else miss.mask
+    sweep.cc_static = cc_static
     return sweep
 
 
@@ -513,9 +625,10 @@ def _lpcm_count_loglik(n_trans, nk, init_weights, trans_weights):
 
 def lpcm_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                        lmbda, init_weights, trans_weights, mean_var, b_scale,
-                       radii=None):
+                       radii=None, cc=None):
     """Full LPCM log joint at an arbitrary chain-batched state, with the
-    network term from dense distances (reference lpcm.py:770-856).
+    network term from dense distances (reference lpcm.py:770-856), or from
+    the case-control structures ``cc`` (Y unread).
     Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
     or (2,) and radii (C, n) for the directed model."""
     n_trans, nk, _ = _label_statistics(z, cfg.n_components)
@@ -524,8 +637,8 @@ def lpcm_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
     logp = logp + _lpcm_count_loglik(n_trans, nk, init_weights,
                                      trans_weights)
     return logp + _mixture_common_logp(
-        cfg, Y, X, intercept, pairwise_distances(X), z, mu, sigma, lmbda,
-        mean_var, b_scale, prior, radii=radii)
+        cfg, Y, X, intercept, _dense_distances(X, cc), z, mu, sigma, lmbda,
+        mean_var, b_scale, prior, radii=radii, cc=cc)
 
 
 def _conjugate_blocks(cfg, gen, X, state, z, resp, nk):
@@ -549,22 +662,23 @@ def _conjugate_blocks(cfg, gen, X, state, z, resp, nk):
 
 
 def _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan, state,
-                                     prior_means):
+                                     prior_means, cc=None):
     """The latent positions under the mixture prior (on the padded
-    ``Y_scan``), centering, then the intercept(s) and radii.  Returns (X,
-    acc_X, intercept, acc_int, radii, acc_radii, net_ll)."""
+    ``Y_scan``, or the case-control structures ``cc``), centering, then the
+    intercept(s) and radii.  Returns (X, acc_X, intercept, acc_int, radii,
+    acc_radii, net_ll)."""
     X, acc_new = sample_latent_positions(
         gen, Y_scan, state.X, state.intercept, state.step_X, mu=state.mu,
         sigma=state.sigma, lmbda=state.lmbda, z=state.z, radii=state.radii,
-        is_directed=cfg.is_directed, temper=state.temper)
+        is_directed=cfg.is_directed, temper=state.temper, cc=cc)
     if cfg.center:
         X = X - torch.mean(X, dim=(1, 2), keepdim=True)
     return (X, state.acc_X + acc_new) + _sample_coefficients(
-        cfg, gen, Y, X, state, prior_means)
+        cfg, gen, Y, X, state, prior_means, cc)
 
 
 def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                    device='cuda', miss_mask=None):
+                    device='cuda', miss_mask=None, cc_static=None):
     """Build the finite-K LPCM sweep (reference lpcm.py:514-701) over the
     fixed 0/1 network ``Y_fixed`` (T, n, n), or with ``cfg.sample_missing``
     over each chain's ``state.Y`` (see :func:`make_lsm_sweep`), on
@@ -574,15 +688,19 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     initial and transition distributions, the conjugate cluster blocks and
     hyper-priors, the missing dyads, the log joint and tuning.
     ``sweep.cfg`` is its configuration and ``sweep.Y`` the stored
-    network."""
+    network.  ``cc_static``: the case-control likelihood, as in
+    :func:`make_lsm_sweep`."""
     Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask)
+        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
+        cc, ctrl_in, ctrl_out = (
+            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Yk, Yk_scan,
-                                                    state, prior_means)
+         net_ll) = _mixture_latent_and_coefficients(
+             cfg, gen, Yk, Yk_scan, state, prior_means, cc)
 
         # labels via blocked FFBS (lpcm.py:567-570)
         z, n_trans, nk, resp = sample_labels_block_lpcm(
@@ -599,7 +717,8 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         Y_new, missing_sum = state.Y, state.missing_sum
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
-                cfg, gen, state, miss, X, intercept, radii, state.it + 1)
+                cfg, gen, state, miss, X, intercept, radii, state.it + 1,
+                cc_static, (ctrl_in, ctrl_out))
 
         # log joint (lpcm.py:770-856)
         logp = _lpcm_weights_logp(cfg, init_weights, trans_weights)
@@ -617,16 +736,18 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             trans_weights=trans_weights, mean_var=mean_var, b_scale=b_scale,
             step_X=step_X, acc_X=acc_X, step_int=step_int, acc_int=acc_int,
             radii=radii, step_radii=step_radii, acc_radii=acc_radii,
-            logp=logp, Y=Y_new, missing_sum=missing_sum)
+            logp=logp, Y=Y_new, missing_sum=missing_sum, ctrl_in=ctrl_in,
+            ctrl_out=ctrl_out)
 
     sweep.cfg = cfg
     sweep.Y = Y
     sweep.miss_mask = None if miss is None else miss.mask
+    sweep.cc_static = cc_static
     return sweep
 
 
 def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda', miss_mask=None):
+                   device='cuda', miss_mask=None, cc_static=None):
     """Build the sticky HDP-LPCM sweep over the fixed 0/1 network
     ``Y_fixed`` (T, n, n), stored as uint8 on ``device`` (packed as
     ``Y + 2 Y^T`` for the directed model, once here), or with
@@ -634,18 +755,22 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     :func:`make_lsm_sweep`).  ``intercept_prior`` holds one prior mean, or
     (b_in, b_out)'s two when directed.  The returned ``sweep(state, gen)``
     carries its configuration as ``sweep.cfg`` and the stored network as
-    ``sweep.Y``."""
+    ``sweep.Y``.  ``cc_static``: the case-control likelihood, as in
+    :func:`make_lsm_sweep`."""
     Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask)
+        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
     K = cfg.n_components
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         C, T, n, _ = state.X.shape
         eye = torch.eye(K, dtype=state.X.dtype, device=state.X.device)
+        cc, ctrl_in, ctrl_out = (
+            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
-         net_ll) = _mixture_latent_and_coefficients(cfg, gen, Yk, Yk_scan,
-                                                    state, prior_means)
+         net_ll) = _mixture_latent_and_coefficients(
+             cfg, gen, Yk, Yk_scan, state, prior_means, cc)
 
         # blocked label sampling (hdp_lpcm.py:877)
         z, n_trans, nk, resp = sample_labels_block(
@@ -696,7 +821,8 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         Y_new, missing_sum = state.Y, state.missing_sum
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
-                cfg, gen, state, miss, X, intercept, radii, state.it + 1)
+                cfg, gen, state, miss, X, intercept, radii, state.it + 1,
+                cc_static, (ctrl_in, ctrl_out))
 
         # log joint (hdp_lpcm.py:1188-1280)
         logp = _hdp_weights_logp(beta, w0, weights, gamma, alpha_init,
@@ -715,9 +841,10 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             mean_var=mean_var, b_scale=b_scale, step_X=step_X, acc_X=acc_X,
             step_int=step_int, acc_int=acc_int, radii=radii,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp, Y=Y_new,
-            missing_sum=missing_sum)
+            missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
     sweep.cfg = cfg
     sweep.Y = Y
     sweep.miss_mask = None if miss is None else miss.mask
+    sweep.cc_static = cc_static
     return sweep

@@ -156,7 +156,8 @@ def make_pt_step(sweep_fn, cfg, Y, n_temps, swap_every=1, adapt_until=0,
     it carries ``cfg``, ``Y`` and ``n_temps``."""
     if cfg.n_control is not None:
         raise ValueError('parallel tempering with the case-control '
-                         'likelihood is not supported')
+                         'likelihood is not supported (the tempered '
+                         'estimator would need its own control sets)')
     partners = {}   # (C, device) -> the two phases' partners, made once
     # each pair is a phase head once per two swap rounds
     n_attempts = adapt_interval / (2.0 * swap_every)

@@ -1,8 +1,8 @@
 """Shared estimator machinery of the three model classes (counterpart of
 ``dynetlsm_tpu/models/base.py``), in NumPy and torch: network validation
 and the missing dyads' initial fill, the keywords the port does not
-support yet, tempering set-up, trace layout, iteration counts, progress
-reports and per-stage wall times.
+support yet, the case-control structures, tempering set-up, trace layout,
+iteration counts, progress reports and per-stage wall times.
 """
 import contextlib
 import sys
@@ -71,7 +71,6 @@ def impute_missing(Y, miss_mask):
 _UNSUPPORTED = (('devices', None, '§1 item 9 (multi-device)'),
                 ('node_devices', 1, '§1 item 9 (multi-device)'),
                 ('checkpoint_dir', None, '§1 item 7 (checkpoints)'),
-                ('n_control', None, '§1 item 6 (case-control)'),
                 ('latent_update', 'exact',
                  '§1 item 5 (other latent update schemes)'))
 
@@ -85,6 +84,93 @@ def check_supported(estimator):
             raise NotImplementedError(
                 '%s=%r is not ported yet (ROADMAP.md %s); the port takes '
                 'only %s=%r' % (name, value, item, name, default))
+
+
+def resolve_n_control(n_control, n_nodes):
+    """Integer control-set size from an int or a node fraction (reference
+    case_control_likelihood.py:40-43); None stays None."""
+    if n_control is None:
+        return None
+    if isinstance(n_control, (int, np.integer)):
+        return int(n_control)
+    return int(n_control * n_nodes)
+
+
+def case_control_static(cfg, lists, n, device, color_seed, ctrl_seed,
+                        miss_mask=None, max_deg=None):
+    """The fixed case-control structures of a sweep (``cc_static`` of
+    ``mcmc/sweeps.py``) and the initial control draw, from the host edge
+    lists ``lists`` (``ops.case_control.build_edge_lists``'s layout) of an
+    n-node network:
+
+    * the lists on ``device`` (int64), or with ``cfg.sample_missing`` only
+      the degree bound ``max_deg`` (the sweep rebuilds each chain's lists);
+    * the colour classes of the conflict graph, missing dyads counted as
+      conflicts (``color_conflict_graph(..., seed=color_seed)``):
+      ``colors``, ``color_groups`` and the classes' sizes ``group_sizes``;
+    * ``ctrl_seed``, the seed of every control draw.
+
+    Returns (cc_static, (ctrl_in or None, ctrl_out)), the draw of sweep 0
+    (``mcmc.sweeps.draw_controls``), which the first sweep redraws
+    identically."""
+    from ..mcmc.sweeps import draw_controls
+    from ..ops.case_control import color_conflict_graph
+    if cfg.sample_missing:
+        cc_static = {'max_deg': int(max_deg)}
+    else:
+        cc_static = {k: torch.as_tensor(np.asarray(lists[k]),
+                                        device=device).long()
+                     for k in ('in_edges', 'out_edges', 'degrees')}
+    colors, groups = color_conflict_graph(lists, n, miss_mask=miss_mask,
+                                          seed=color_seed)
+    cc_static.update(
+        colors=torch.as_tensor(colors, device=device).long(),
+        color_groups=torch.as_tensor(groups, device=device).long(),
+        group_sizes=tuple(int(v) for v in (groups >= 0).sum(axis=1)),
+        ctrl_seed=int(ctrl_seed))
+    return cc_static, draw_controls(cfg, cc_static, 0)
+
+
+def build_case_control(cfg, Y_host, rng, device, miss_mask=None):
+    """The case-control structures of an estimator's fit when
+    ``cfg.n_control`` is set (JAX ``build_case_control``, with the same two
+    draws from the fit's RandomState: the colouring's seed, then the
+    control seed, so the colour classes equal the JAX fit's).  Y_host (T,
+    n, n) the filled 0/1 network; ``miss_mask`` its missing dyads.
+    Returns (cc_static, initial controls), or (None, None)."""
+    if cfg.n_control is None:
+        return None, None
+    from ..ops.case_control import build_edge_lists, max_degree_bound
+    lists = build_edge_lists(Y_host)
+    max_deg = (max_degree_bound(Y_host, miss_mask) if cfg.sample_missing
+               else None)
+    color_seed = rng.randint(0, 2 ** 31 - 1)
+    ctrl_seed = rng.randint(0, 2 ** 31 - 1)
+    return case_control_static(cfg, lists, Y_host.shape[1], device,
+                               color_seed, ctrl_seed, miss_mask=miss_mask,
+                               max_deg=max_deg)
+
+
+def init_cc_dict(cfg, Y_dev, cc_static, ctrl0):
+    """The case-control structures of the initial sample's logp, built as
+    the sweeps build theirs (``mcmc.sweeps.build_cc_dict``), so the stored
+    ``logps_`` use one estimator throughout (the reference's logp switches
+    to the approximation too, lsm.py:581-591).  Y_dev the filled network
+    on the device (read only with missing dyads); None without
+    case-control."""
+    if cc_static is None:
+        return None
+    from ..mcmc.sweeps import build_cc_dict
+    return build_cc_dict(cfg, Y_dev, cc_static, *ctrl0)
+
+
+def controls_of(ctrl0):
+    """The initial controls as the fields of a single-chain start
+    (NumPy, ``ctrl_in`` None when undirected), or {} without them."""
+    if ctrl0 is None:
+        return {}
+    return {name: None if v is None else v.cpu().numpy()
+            for name, v in zip(('ctrl_in', 'ctrl_out'), ctrl0)}
 
 
 def fit_rng(random_state):

@@ -172,21 +172,24 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
             alpha_init_rate=float(self.alpha_init_rate),
             alpha_kappa_shape=float(self.alpha_kappa_shape),
             alpha_kappa_rate=float(self.alpha_kappa_rate),
-            tune_radii=True)
+            tune_radii=True, n_control=self.n_control_,
+            n_resample_control=int(self.n_resample_control))
         self._cfg = cfg
-        sweep = make_hdp_sweep(None if cfg.sample_missing else self.Y_fit_,
-                               prior32, cfg, device=self.device_,
-                               miss_mask=miss_mask)
+        cc_static, ctrl0, cc0 = self._case_control(cfg, rng, miss_mask)
+        stored = None if cfg.sample_missing or cc_static else self.Y_fit_
+        sweep = make_hdp_sweep(stored, prior32, cfg, device=self.device_,
+                               miss_mask=miss_mask, cc_static=cc_static)
 
         s0 = self._initial_state(
             X0, intercept0, radii0, z0, mu0, sigma0,
-            self.Y_fit_ if cfg.sample_missing else None)
+            self.Y_fit_ if cfg.sample_missing else None, ctrl0)
         s0.update(weights=weights0, beta=beta0, gamma=float(self.gamma),
                   alpha_init=float(self.alpha_init),
                   alpha=float(self.alpha), kappa=float(self.kappa))
         # true log joint of the initial sample (reference
-        # hdp_lpcm.py:798-809), dense, on the device
-        logp0 = float(self._logp_at(s0, self.Y_fit_, self.device_))
+        # hdp_lpcm.py:798-809), on the device: dense, or the case-control
+        # estimator
+        logp0 = float(self._logp_at(s0, self.Y_fit_, self.device_, cc0))
         s0['logp'] = logp0
 
         def trace_fn(s):
@@ -272,21 +275,22 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
 
     # ------------------------------------------------------------- helpers
 
-    def _logp_at(self, s, Y, device):
+    def _logp_at(self, s, Y, device, cc=None):
         """The dense log joint (hdp_logp_at_state) of one state given as
-        a dict of arrays (no chain axis), on ``device``."""
+        a dict of arrays (no chain axis), on ``device``; with the
+        case-control structures ``cc``, their estimator (Y unread)."""
         def t(name, dtype=torch.float32):
             return torch.as_tensor(np.asarray(s[name]), dtype=dtype,
                                    device=device)[None]
         radii = t('radii') if s.get('radii') is not None else None
         return hdp_logp_at_state(
-            self._cfg, torch.as_tensor(np.asarray(Y, np.float32),
-                                       device=device),
+            self._cfg, None if cc is not None else torch.as_tensor(
+                np.asarray(Y, np.float32), device=device),
             self.intercept_prior_.astype(np.float32), t('X'),
             t('intercept').reshape(1, -1), t('z', torch.int64), t('mu'),
             t('sigma'), t('lmbda'), t('weights'), t('beta'), t('gamma'),
             t('alpha_init'), t('alpha'), t('kappa'), t('mean_var'),
-            t('b_scale'), radii=radii)[0]
+            t('b_scale'), radii=radii, cc=cc)[0]
 
     @staticmethod
     def _renormalize_flat(flat, sample_id):

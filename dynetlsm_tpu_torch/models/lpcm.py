@@ -140,19 +140,21 @@ class DynamicNetworkLPCM(MixtureModelMixin):
             lambda_variance_prior=float(self.lambda_variance_prior),
             a0=self.a0_, b0=self.b0_, c0=self.c0_, d0=self.d0_,
             dirichlet_prior=float(self.dirichlet_prior_),
-            tune_radii=True)
+            tune_radii=True, n_control=self.n_control_,
+            n_resample_control=int(self.n_resample_control))
         self._cfg = cfg
-        sweep = make_lpcm_sweep(None if cfg.sample_missing else self.Y_fit_,
-                                prior32, cfg, device=self.device_,
-                                miss_mask=miss_mask)
+        cc_static, ctrl0, cc0 = self._case_control(cfg, rng, miss_mask)
+        stored = None if cfg.sample_missing or cc_static else self.Y_fit_
+        sweep = make_lpcm_sweep(stored, prior32, cfg, device=self.device_,
+                                miss_mask=miss_mask, cc_static=cc_static)
 
         s0 = self._initial_state(
             X0, intercept0, radii0, z0, mu0, sigma0,
-            self.Y_fit_ if cfg.sample_missing else None)
+            self.Y_fit_ if cfg.sample_missing else None, ctrl0)
         s0.update(init_weights=init_weights0, trans_weights=trans_weights0)
         # true log joint of the initial sample (reference lpcm.py:489),
-        # dense, on the device
-        logp0 = float(self._logp_at(s0, self.Y_fit_, self.device_))
+        # on the device: dense, or the case-control estimator
+        logp0 = float(self._logp_at(s0, self.Y_fit_, self.device_, cc0))
         s0['logp'] = logp0
 
         def trace_fn(s):
@@ -219,20 +221,21 @@ class DynamicNetworkLPCM(MixtureModelMixin):
         self.stage_seconds_ = self._timer.seconds
         return self
 
-    def _logp_at(self, s, Y, device):
+    def _logp_at(self, s, Y, device, cc=None):
         """The dense log joint (lpcm_logp_at_state) of one state given as
-        a dict of arrays (no chain axis), on ``device``."""
+        a dict of arrays (no chain axis), on ``device``; with the
+        case-control structures ``cc``, their estimator (Y unread)."""
         def t(name, dtype=torch.float32):
             return torch.as_tensor(np.asarray(s[name]), dtype=dtype,
                                    device=device)[None]
         radii = t('radii') if s.get('radii') is not None else None
         return lpcm_logp_at_state(
-            self._cfg, torch.as_tensor(np.asarray(Y, np.float32),
-                                       device=device),
+            self._cfg, None if cc is not None else torch.as_tensor(
+                np.asarray(Y, np.float32), device=device),
             self.intercept_prior_.astype(np.float32), t('X'),
             t('intercept').reshape(1, -1), t('z', torch.int64), t('mu'),
             t('sigma'), t('lmbda'), t('init_weights'), t('trans_weights'),
-            t('mean_var'), t('b_scale'), radii=radii)[0]
+            t('mean_var'), t('b_scale'), radii=radii, cc=cc)[0]
 
     def logp(self, X, intercept, mu, sigma, z, init_weights, trans_weights,
              lmbda, radii=None):

@@ -7,7 +7,10 @@ The public API is the JAX estimator's: the same constructor keywords,
 card by default; ``'cpu'`` runs every kernel's plain version) and
 ``stage_seconds_``, the wall time of each stage of the fit.  With
 ``n_chains == 1`` trace attributes match the reference layout (``Xs_[i]``
-is sample i); with more chains they gain a leading chain axis.
+is sample i); with more chains they gain a leading chain axis.  With
+``n_control`` the sampler runs the case-control likelihood (the chromatic
+scan, no dense network on the device), and the node-scan kernel's limit
+on n no longer applies.
 """
 import numpy as np
 import torch
@@ -26,7 +29,8 @@ from ..ops.likelihoods import (
     directed_network_probas, undirected_network_probas)
 from ..ops.node_scan import check_smem
 from .base import (
-    StageTimer, check_supported, fit_rng, impute_missing, sample_chains,
+    StageTimer, build_case_control, check_supported, controls_of, fit_rng,
+    impute_missing, init_cc_dict, resolve_n_control, sample_chains,
     validate_network, with_init)
 
 __all__ = ['DynamicNetworkLSM']
@@ -168,10 +172,13 @@ class DynamicNetworkLSM:
             Y, self.is_directed, copy=self.copy)
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
+        n_control = resolve_n_control(self.n_control, n)
         # the node-scan kernel's limit, checked on every device before any
         # initialisation work: the card's first sweep would raise it only
-        # after GMDS and the intercept MLE
-        check_smem(T, n, self.n_features, self.is_directed)
+        # after GMDS and the intercept MLE.  The case-control sweep runs no
+        # node scan.
+        if n_control is None:
+            check_smem(T, n, self.n_features, self.is_directed)
         self.Y_fit_ = impute_missing(Y, miss_mask) if sample_missing else Y
         timer = StageTimer(device)
 
@@ -213,12 +220,17 @@ class DynamicNetworkLSM:
             tau_sq=float(tau_sq),
             sigma_sq=float(self.sigma_sq),
             intercept_variance_prior=float(self.intercept_variance_prior),
-            tune_radii=False)
+            tune_radii=False, n_control=n_control,
+            n_resample_control=int(self.n_resample_control))
         self._cfg = cfg
         prior32 = intercept_prior.astype(np.float32)
-        sweep = make_lsm_sweep(None if sample_missing else self.Y_fit_,
-                               prior32, cfg, device=device,
-                               miss_mask=miss_mask if sample_missing else None)
+        cc_static, ctrl0 = build_case_control(cfg, self.Y_fit_, rng, device,
+                                              miss_mask=miss_mask)
+        sweep = make_lsm_sweep(
+            None if sample_missing or cc_static else self.Y_fit_, prior32,
+            cfg, device=device,
+            miss_mask=miss_mask if sample_missing else None,
+            cc_static=cc_static)
 
         # ---- initial state (the JAX state's fields, lsm.py:259-277)
         s0 = {'it': 0, 'X': X, 'intercept': intercept, 'radii': radii,
@@ -231,7 +243,12 @@ class DynamicNetworkLSM:
             s0.update(step_radii=float(self.step_size_radii), acc_radii=0.0)
         if sample_missing:
             s0['Y'] = self.Y_fit_
-        logp0 = _initial_lsm_logp(cfg, self.Y_fit_, s0, prior32, device)
+        s0.update(controls_of(ctrl0))
+        cc0 = init_cc_dict(cfg, torch.as_tensor(
+            self.Y_fit_, dtype=torch.uint8, device=device)
+            if sample_missing else None, cc_static, ctrl0)
+        logp0 = _initial_lsm_logp(cfg, self.Y_fit_, s0, prior32, device,
+                                  cc=cc0)
         s0.update(logp=logp0, logp_map=logp0, X_map=X, intercept_map=intercept,
                   radii_map=radii, logp_ref=logp0, X_ref=X)
 

@@ -25,7 +25,9 @@ from ..math.procrustes import longitudinal_procrustes_rotation
 from ..metrics import network_auc
 from ..ops.node_scan import check_smem
 from ..ops.distances import pairwise_distances
-from .base import StageTimer, check_supported, fit_rng, validate_network
+from .base import (
+    StageTimer, build_case_control, check_supported, controls_of, fit_rng,
+    init_cc_dict, resolve_n_control, validate_network)
 from .lsm import DynamicNetworkLSM, _f32, network_probas
 
 
@@ -135,8 +137,11 @@ class MixtureModelMixin:
             Y, self.is_directed, copy=self.copy)
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
-        # the node-scan kernel's limit, before the nested LSM fit
-        check_smem(T, n, self.n_features, self.is_directed)
+        self.n_control_ = resolve_n_control(self.n_control, n)
+        # the node-scan kernel's limit, before the nested LSM fit (the
+        # case-control sweep runs no node scan)
+        if self.n_control_ is None:
+            check_smem(T, n, self.n_features, self.is_directed)
 
         # ---- nested LSM init + kmeans (reference hdp_lpcm.py:48-141)
         with self._timer('nested lsm fit'):
@@ -170,8 +175,20 @@ class MixtureModelMixin:
         resolve_hyperpriors(self, n)
         return self.intercept_prior_.astype(np.float32)
 
+    def _case_control(self, cfg, rng, miss_mask):
+        """(cc_static, initial controls, the initial logp's structures) of
+        the fit when ``cfg.n_control`` is set (``base.build_case_control``,
+        drawing from ``rng`` where the JAX estimators do), else Nones."""
+        cc_static, ctrl0 = build_case_control(cfg, self.Y_fit_, rng,
+                                              self.device_,
+                                              miss_mask=miss_mask)
+        Y = (torch.as_tensor(self.Y_fit_, dtype=torch.uint8,
+                             device=self.device_)
+             if cfg.sample_missing and cc_static else None)
+        return cc_static, ctrl0, init_cc_dict(cfg, Y, cc_static, ctrl0)
+
     def _initial_state(self, X0, intercept0, radii0, z0, mu0, sigma0,
-                       Y_missing):
+                       Y_missing, ctrl0=None):
         """The single-chain start shared by both mixture models
         (hdp_lpcm.py:277-308); the caller adds its weights and logp."""
         T, n = z0.shape
@@ -188,6 +205,7 @@ class MixtureModelMixin:
             s0.update(step_radii=float(self.step_size_radii), acc_radii=0.0)
         if Y_missing is not None:
             s0['Y'] = Y_missing
+        s0.update(controls_of(ctrl0))
         return s0
 
     def _store_missings(self, cfg, n_total):

@@ -196,8 +196,7 @@ def test_missing_dyads_fit(short_nested_lsm, cls):
 
 
 UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2),
-               ('checkpoint_dir', 'ckpt'), ('n_control', 5),
-               ('latent_update', 'mala')]
+               ('checkpoint_dir', 'ckpt'), ('latent_update', 'mala')]
 
 
 @pytest.mark.parametrize('cls', CLASSES)
@@ -227,6 +226,86 @@ def test_too_large_network_raises_before_initialisation(monkeypatch, cls):
     Y = np.zeros((10, 2049, 2049), np.uint8)
     with pytest.raises(ValueError, match='node_scan_cuda: one block needs'):
         cls(device='cpu').fit(Y)
+
+
+@pytest.mark.parametrize('kind', ['undirected', 'directed', 'missing'])
+@pytest.mark.parametrize('cls', CLASSES)
+def test_n_control_fits(monkeypatch, short_nested_lsm, cls, kind):
+    """Case-control fits (JAX tests/test_case_control.py:236, :250, :290):
+    finite traces, missing dyads resampled, and the initial sample's logp
+    from the case-control estimator of the fit's own structures."""
+    from dynetlsm_tpu_torch.entry import _initial_lsm_logp
+    from dynetlsm_tpu_torch.models import base
+    seen = {}
+
+    def spy(fn, name):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            seen.setdefault(name, []).append((args, kw, out))
+            return out
+        return wrapped
+    for mod in (lsm_mod, mixture_base):
+        monkeypatch.setattr(mod, 'init_cc_dict',
+                            spy(base.init_cc_dict, 'cc0'))
+    monkeypatch.setattr(lsm_mod, '_initial_lsm_logp',
+                        spy(_initial_lsm_logp, 'lsm logp0'))
+    directed = kind == 'directed'
+    Y = load_dynamic_monks(is_directed=directed)
+    if kind == 'missing':
+        Y = with_missing_dyads(Y, 0.1, seed=2)
+    kw = {} if cls is DynamicNetworkLSM else dict(n_components=3)
+    m = cls(**kw, **BUDGET, is_directed=directed, n_control=8,
+            n_resample_control=10).fit(Y)
+    assert np.isfinite(m.logps_).all() and m.logps_.shape == (70,)
+    assert m.X_.shape == (3, 18, 2) and np.isfinite(m.X_).all()
+    assert 0.5 < m.auc_ <= 1.0
+    # the fit's own structures (the last call: a mixture's nested LSM
+    # makes one too, when directed)
+    cc0 = seen['cc0'][-1][2]
+    assert cc0 is not None and cc0['ctrl_out'].shape == (18, 8)
+    if cls is DynamicNetworkLSM:
+        args, kw_, logp0 = seen['lsm logp0'][-1]
+        assert kw_['cc'] is cc0 and m.logps_[0] == np.float32(logp0)
+    else:
+        s0 = _first_sample(m)
+        np.testing.assert_allclose(
+            m.logps_[0], float(m._logp_at(s0, m.Y_fit_, 'cpu', cc0)),
+            rtol=1e-5)
+        assert m.logps_[0] != float(m._logp_at(s0, m.Y_fit_, 'cpu'))
+    if kind == 'missing':
+        assert m.missings_.shape == Y.shape
+        assert np.all((m.missings_ >= 0) & (m.missings_ <= 1))
+
+
+def _first_sample(m):
+    """A mixture fit's initial sample as ``_logp_at`` takes it (the
+    traces' sample 0; the alignment's rotation leaves the log joint)."""
+    s = {'X': m.Xs_[0], 'intercept': m.intercepts_[0], 'z': m.zs_[0],
+         'mu': m.mus_[0], 'sigma': m.sigmas_[0], 'lmbda': m.lambdas_[0],
+         'mean_var': m.mean_variance_prior_, 'b_scale': m.b_,
+         'radii': m.radiis_[0] if m.is_directed else None}
+    if hasattr(m, 'weights_'):
+        s.update(weights=m.weights_[0], beta=m.betas_[0],
+                 gamma=m.gamma, alpha_init=m.alpha_init, alpha=m.alpha,
+                 kappa=m.kappa)
+    else:
+        s.update(init_weights=m.init_weights_[0],
+                 trans_weights=m.trans_weights_[0])
+    return s
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+def test_n_control_passes_the_smem_check(monkeypatch, cls):
+    """With n_control the node-scan kernel's limit does not apply: at n =
+    2049 the fit reaches initialisation (the monkeypatched initialisers
+    raise) instead of the node_scan_cuda refusal."""
+    def no_init(*args, **kw):
+        raise AssertionError('initialisation ran')
+    monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
+    monkeypatch.setattr(mixture_base, 'init_from_lsm', no_init)
+    Y = np.zeros((10, 2049, 2049), np.uint8)
+    with pytest.raises(AssertionError, match='initialisation ran'):
+        cls(device='cpu', n_control=64).fit(Y)
 
 
 def test_import_needs_no_jax_sklearn_or_build():

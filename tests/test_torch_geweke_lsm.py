@@ -69,3 +69,17 @@ def test_pt_swap_preserves_distribution():
                                     'cpu')
     z = geweke.pt_block_z(mc, sc)
     assert np.all(np.abs(z) < geweke.PT_LIMIT), 'block z-scores %s' % z
+
+
+def test_lsm_case_control_joint_distribution():
+    """The LSM with the case-control likelihood at its full-control limit
+    (every other node a control, masked per time to the current
+    non-edges: the estimator equals the exact likelihood), every dyad
+    missing, so each sweep rebuilds every chain's edge lists: the
+    chromatic scan, the padded lists, the validity masks and the
+    case-control coefficient and log-joint terms inside the joint check
+    (the JAX package's test_lsm_case_control_joint_distribution)."""
+    mc, sc = geweke.geweke_samples(geweke.CC, N_CHAINS, N_SWEEPS,
+                                   geweke.SEEDS[geweke.CC], 'cpu')
+    z = geweke.compare(mc, sc)
+    assert np.all(np.abs(z) < geweke.LIMIT), 'Geweke z-scores %s' % z

@@ -74,3 +74,21 @@ def test_profile_slice_times_the_missing_dyads(directed, model):
 def test_union_of_kernel_intervals():
     assert profile_blocks._union_us([]) == 0
     assert profile_blocks._union_us([(5, 9), (0, 2), (1, 3), (8, 10)]) == 8
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_profile_slice_times_the_case_control_blocks(directed):
+    """Under case-control the control refresh, lists and masks are one
+    block, ``_cc_structures``, beside the chromatic scan and the
+    coefficient blocks; a dense slice has no such block."""
+    Y = _tiny_network(directed, n=14)
+    for n_control in (None, 4):
+        state, sweep, gen = build_state_and_sweep(
+            Y, 3, K=3, device='cpu', is_directed=directed,
+            n_control=n_control)
+        out, state = profile_blocks.profile_slice(sweep, state, gen,
+                                                  sweeps=2, warm=1)
+        blocks = out['blocks_ms']
+        assert ('_cc_structures' in blocks) == (n_control is not None)
+        assert blocks['sample_latent_positions'] > 0
+        assert int(state.it[0]) == 5
