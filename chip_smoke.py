@@ -94,7 +94,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    through the kernels: the LSM, the directed LSM, the LPCM and the
    HDP-LPCM at T=3, n=8, 1,024 chains of 600 sweeps from exact prior
    draws with every dyad missing (every |z| < 5), the case-control LSM at
-   its full-control limit (torch code, no kernel), the LSM's power check
+   its full-control limit (torch code, no kernel), the LSM with the joint
+   MALA latent update (torch code, no node scan), the LSM's power check
    (|z| of the smoothness moment against a perturbed prior > 8) and the
    equal-temperature replica swap of the directed LSM (256 ladders of 4
    rungs, block |z| < 4.5); the z-scores and the seconds are printed;
@@ -138,8 +139,36 @@ Phases, each of which fails the run (exit code 1) when it fails:
    the CPU's |log_u - ratio| is below 1e-4 (counted and printed), and the
    positions of every other site within 1e-5; the case-control Geweke
    check runs in 12;
+15. past the resident node scan's shared memory, and the other latent
+   updates: the split-field mode forced at clusters of 2, 4 and 8 against
+   the resident launch in all eight instantiations at the north star
+   (identical accepts, max |dX| = 0); the split-field mode (the launch
+   rule's, and forced at 2, 4, 8) against the plain version at T=10,
+   n=2,560 (P = 4,096), 2 chains, undirected and directed, mixture and
+   random-walk prior, shared and per-chain network, as in 3; the slices
+   past n = 2048 (HDP-LPCM K=25 at n = 8,192, 16 chains, undirected and
+   directed; the LSM at n = 4,096, 32 chains, and n = 16,384, 4 chains;
+   bench.py's north-star model at constant expected degree) as in 8, the
+   split-field scan launched once a sweep, each with its scan's device
+   time from one profiled sweep, the time per phase step, the cluster
+   size, the bound, the device's busy share and peak memory; the scan
+   launch of that profiled sweep, captured, timed at clusters of 2, 4 and
+   8 and, at n = 8,192 undirected and directed and n = 16,384, rerun on
+   two of its chains at the rule's cluster and at 2, 4, 8 against the
+   plain version (identical accepts, max |dX| = 0, the rule's launch
+   equal to the sweep's own on those chains); a DynamicNetworkLSM fit at
+   T=10, n=2,100 (20 sweeps), which the estimators refused before, with
+   its stage seconds; and the 'parallel'
+   and 'mala' latent updates through ``build_state_and_sweep(...,
+   latent_update=)`` at the north star (HDP-LPCM with each, the LSM with
+   'mala', the directed HDP-LPCM with 'parallel', a tempered HDP-LPCM with
+   'mala': no node scan launched, the logp at its dense log joint), the
+   directed case-control row with 'parallel' (as in 14), and a Sampson
+   HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43); the MALA LSM's
+   Geweke check runs in 12;
 9. each kernel's time beside its plain version's at the slices' shapes
-   (CUDA events, median of repeats), the node scan's at each cluster size
+   (CUDA events, median of repeats; the node scan's plain version, seconds
+   a call, is timed once, in its check), the node scan's at each cluster size
    it reaches with the time per phase step (ms / 2n), and its bound: the
    larger of its
    operations over the card's float32 rate (67 TFLOP/s, each sqrt, exp
@@ -156,7 +185,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    call's bit for bit).  No single PyTorch call computes any of these
    functions, so ``library_ms`` is null.  The rows of 10's per-chain mode
    (``mode`` ending in "per-chain Y") count the per-chain networks' bytes
-   in their bound and the missing-dyad slices' launches.
+   in their bound and the missing-dyad slices' launches.  The split-field
+   rows (``node_scan_split``, the wrapper's ``split_launches``) time the
+   kernel and its plain version at 15's comparison shape (n = 2,560) and
+   carry the slice's scan time, time per phase step, cluster size, bound,
+   its launch's time at each cluster size and its plain version's time
+   on two chains (``slice_*``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -193,6 +227,34 @@ AWKWARD_SCAN = dict(T=3, n=45, C=8, K=3)
 NESTED = dict(T=10, n=500, C=1, K=1)
 # the share of dyads the missing-dyad slices code -1
 MISSING = 0.1
+# phase 15: the split-field node scan against its plain version (P =
+# 4,096), the slices past the resident mode's n = 2048 (name, model,
+# directed, n, chains, whether the slice's own launch is held against the
+# plain version; bench.py's north-star model at constant expected degree,
+# ``datasets.northstar_edge_lists``), the chains of that launch the plain
+# version reruns and the cluster sizes it is timed (and checked) at, the
+# refused-before fit, and the slices of the other latent updates at the
+# north star (model, directed, latent_update, n_temps) and the
+# case-control row they run
+SPLIT_PLAIN = dict(T=10, n=2560, C=2, K=5)
+LARGE_SLICES = [('hdp n8192', 'hdp', False, 8192, 16, True),
+                ('hdp n8192 directed', 'hdp', True, 8192, 16, True),
+                ('lsm n4096', 'lsm', False, 4096, 32, False),
+                ('lsm n16384', 'lsm', False, 16384, 4, True)]
+SPLIT_CHAINS = (0, -1)
+SPLIT_CLUSTERS_TIMED = (2, 4, 8)
+# the refused-before fit: T = 10 waves of n = 2,100 nodes, past the
+# resident mode's n = 2048 (the estimators refused it before the
+# split-field mode); its GMDS runs on the host, SMACOF's O(n^2) steps and
+# an eigendecomposition a wave, which grow by 2-3x at n = 3,000
+LARGE_FIT = dict(T=10, n=2100, n_chains=2, n_iter=10, tune=5, burn=5)
+SCHEME_SLICES = [('hdp', False, 'parallel', None),
+                 ('hdp', False, 'mala', None), ('lsm', False, 'mala', None),
+                 ('hdp', True, 'parallel', None),
+                 ('hdp', False, 'mala', N_TEMPS)]
+SCHEME_CC = ('cc_directed_northstar', True, 500, 145, 64)
+MALA_FIT = dict(n_iter=150, tune=150, burn=150, n_components=6,
+                random_state=3, latent_update='mala')
 # phase 14: bench.py's case-control rows (name, directed, n, controls a
 # node, chains), their K, the n = 20,000 slice's peak memory limit, and the
 # chains, accept margin and position tolerance of the CPU comparison
@@ -297,7 +359,7 @@ def scan_inputs(C, T, n, K, dev, seed, d=2, directed=False, mixture=True,
         Y = rng.binomial(1, rng.uniform(0.02, 0.1, (C, 1, 1, 1)),
                          (C, T, n, n)).astype(np.uint8)
     else:
-        Y = rng.binomial(1, 0.05, (T, n, n))
+        Y = rng.binomial(1, 0.05, (T, n, n)).astype(np.uint8)
     if directed:
         Y[..., np.arange(n), np.arange(n)] = 0
     else:
@@ -333,10 +395,11 @@ def scan_args(t):
     return (t['Y'], t['X'], t['b'], t['step'], t['eps'], t['log_u'])
 
 
-def run_scan(t, kernel, cluster=None):
-    """The kernel (on the padded adjacency, ``cluster`` blocks per chain,
-    None: the launch rule's) or its plain version on the inputs ``t``,
-    with the prior ``t['mixture']`` selects."""
+def run_scan(t, kernel, cluster=None, mode=None):
+    """The kernel (on the padded adjacency, ``cluster`` blocks per chain
+    in ``mode`` ('resident' or 'split'), None: the launch rule's) or its
+    plain version on the inputs ``t``, with the prior ``t['mixture']``
+    selects."""
     from dynetlsm_tpu_torch.ops.node_scan import (
         node_scan_cuda, node_scan_plain)
     radii = t.get('radii')
@@ -347,25 +410,32 @@ def run_scan(t, kernel, cluster=None):
     if kernel:
         return node_scan_cuda(t['Y_pad'], *scan_args(t)[1:], radii=radii,
                               temper=t.get('temper'), cluster=cluster,
-                              **prior)
+                              mode=mode, **prior)
     return node_scan_plain(*scan_args(t), radii=radii,
                            temper=t.get('temper'), **prior)
 
 
 def scan_clusters(t):
-    """(the launch rule's cluster size, every size a forced ``cluster=``
-    reaches) at the shape and mode of ``t``."""
-    from dynetlsm_tpu_torch.ops.node_scan import cuda_layout
+    """(the launch rule's (cluster size, mode), every (size, mode) a forced
+    ``cluster=`` reaches) at the shape and mode of ``t``: the resident
+    clusters of 1, 2, 4 whose block fits and, where the rule takes the
+    split-field mode, its clusters of 2, 4, 8."""
+    from dynetlsm_tpu_torch.ops.node_scan import (
+        SPLIT_CLUSTERS, _MAX_SMEM_BYTES, cuda_layout, smem_bytes)
     C, T, n, d = t['X'].shape
     mode = (t['X'].device.index, 'radii' in t, t['mixture'], 'temper' in t)
     reach = []
     for b in (1, 2, 4):
         try:
-            cuda_layout(C, T, n, d, *mode, cluster=b)
+            W, B, _ = cuda_layout(C, T, n, d, *mode, cluster=b)
         except ValueError:
             continue
-        reach.append(b)
-    return cuda_layout(C, T, n, d, *mode)[1], reach
+        if smem_bytes(T, n, d, 'radii' in t, W, B) <= _MAX_SMEM_BYTES:
+            reach.append((b, 'resident'))
+    _, rule, split = cuda_layout(C, T, n, d, *mode)
+    if split:
+        reach += [(b, 'split') for b in SPLIT_CLUSTERS]
+    return (rule, 'split' if split else 'resident'), reach
 
 
 def first_mismatch(t, acc_k, acc_p, X_k):
@@ -447,23 +517,30 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
     t = scan_inputs(shape['C'], shape['T'], shape['n'], shape['K'], dev,
                     seed, directed=directed, mixture=mixture,
                     tempered=tempered, per_chain=per_chain)
+    # the plain version's one run, timed for phase 9's rows
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     X_p, acc_p = run_scan(t, kernel=False)
+    end.record()
+    end.synchronize()
+    t['plain_ms'] = start.elapsed_time(end)
     rule, reach = scan_clusters(t)
-    for cluster in reach:
-        X_k, acc_k = run_scan(t, kernel=True, cluster=cluster)
+    for cluster, mode in reach:
+        X_k, acc_k = run_scan(t, kernel=True, cluster=cluster, mode=mode)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(X_k).all()), 'node_scan: non-finite X')
         if not torch.equal(acc_k, acc_p):
             raise SmokeFailure(
-                'node_scan accept mismatch (cluster %d) at %s (%d sites)'
-                % (cluster, first_mismatch(t, acc_k, acc_p, X_k),
+                'node_scan accept mismatch (%s cluster %d) at %s (%d sites)'
+                % (mode, cluster, first_mismatch(t, acc_k, acc_p, X_k),
                    int((acc_k != acc_p).sum())))
         err = float((X_k - X_p).abs().max())
-        check(err == 0.0, 'node_scan (cluster %d): max |dX| = %g'
-              % (cluster, err))
+        check(err == 0.0, 'node_scan (%s cluster %d): max |dX| = %g'
+              % (mode, cluster, err))
     X_k, acc_k = run_scan(t, kernel=True)
     check(torch.equal(acc_k, acc_p) and torch.equal(X_k, X_p),
-          'node_scan: the launch rule (cluster %d) differs' % rule)
+          'node_scan: the launch rule (%s cluster %d) differs' % rule[::-1])
     rate = float(acc_k.mean())
     check(0.0 < rate < 1.0, 'node_scan: acceptance rate %g' % rate)
     if tempered:
@@ -481,7 +558,7 @@ def check_node_scan(shape, dev, seed, directed=False, mixture=True,
             'node_scan', run_scan(dict(t, Y=Y, Y_pad=pad_partners(Y)), True),
             run_scan(dict(t, Y=t['Y'][0], Y_pad=t['Y_pad'][0]), True))
     log('node_scan (%s) %s: accepts identical (rate %.4f), max |dX| %g, '
-        'at clusters %s (rule %d)' % (scan_mode(directed, mixture, tempered,
+        'at clusters %s (rule %s)' % (scan_mode(directed, mixture, tempered,
                                                 per_chain),
                                       shape, rate, err, reach, rule))
     return t, err
@@ -628,20 +705,24 @@ def check_scan_layouts(lib, dev):
     for shape in (NS, SAMPSON):
         C, T, n = shape['C'], shape['T'], shape['n']
         for directed in (False, True):
-            for cluster in (None, 1, 2, 4):
+            for cluster, mode in ((None, None), (1, None), (2, None),
+                                  (4, None), (2, 'split'), (4, 'split'),
+                                  (8, 'split')):
                 try:
-                    W, B = cuda_layout(C, T, n, 2, dev.index, directed, True,
-                                       False, cluster)
+                    W, B, split = cuda_layout(C, T, n, 2, dev.index,
+                                              directed, True, False, cluster,
+                                              mode)
                 except ValueError:
                     continue
-                want = smem_bytes(T, n, 2, directed, W, B)
+                want = smem_bytes(T, n, 2, directed, W, B, split)
                 got = lib.node_scan_smem_bytes(T, n, 2, partner_pad(n),
-                                               32 * W * B, int(directed))
+                                               32 * W * B, int(directed), B,
+                                               int(split))
                 check(got == want, 'node_scan layout: the library gives %d '
                       'bytes of shared memory, the wrapper %d' % (got, want))
-        W, B = cuda_layout(C, T, n, 2, dev.index, True, True, False)
+        W, B, _ = cuda_layout(C, T, n, 2, dev.index, True, True, False)
         fits = {b: lib.node_scan_max_clusters(T, n, 2, partner_pad(n), W, b,
-                                              1, 1, 0)
+                                              1, 1, 0, 0)
                 for b in (2, 4) if 32 * W * b <= partner_pad(n)}
         log('node_scan launch at T=%d, n=%d, %d chains on %d SMs: %d warps '
             'a time, clusters of %d, %d threads, %d bytes of shared memory '
@@ -649,39 +730,62 @@ def check_scan_layouts(lib, dev):
             'blocks at once' % (T, n, C, sms, W, B,
                                 lib.node_scan_threads(T, W),
                                 lib.node_scan_smem_bytes(
-                                    T, n, 2, partner_pad(n), 32 * W * B, 1),
+                                    T, n, 2, partner_pad(n), 32 * W * B, 1,
+                                    B, 0),
                                 list(fits.values()), list(fits)))
 
 
+class SplitCounter:
+    """The node-scan wrapper's count of split-field launches
+    (``node_scan_cuda.split_launches``) as a ``launches`` attribute."""
+
+    @property
+    def launches(self):
+        from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
+        return node_scan_cuda.split_launches
+
+    @launches.setter
+    def launches(self, value):
+        from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
+        node_scan_cuda.split_launches = value
+
+
 def launch_counters():
+    """Each kernel's launch counter: the node scan's resident and
+    split-field modes apart."""
     from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_cuda
     from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
     from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_cuda
-    return {'node_scan': node_scan_cuda, 'pair_loglik': pair_loglik_cuda,
-            'dir_loglik': dir_loglik_cuda}
+    return {'node_scan': node_scan_cuda, 'node_scan_split': SplitCounter(),
+            'pair_loglik': pair_loglik_cuda, 'dir_loglik': dir_loglik_cuda}
 
 
 def run_slice(name, Y, shape, dev, directed=False, model='hdp',
-              n_temps=None):
+              n_temps=None, latent_update='exact', report=None):
     """Build ``model`` ('hdp', 'lpcm' or 'lsm') on Y with
     ``entry.build_state_and_sweep`` (with ``n_temps``, its parallel-
-    tempering step), run WARM + TIMED sweeps through the runner with the
-    launch counters set to 0 just before and read just after, and check
-    them.  Dyads of Y coded -1 are missing: the state carries each chain's
-    network and the checks of phase 11 apply.  Returns (launches, ms per
-    timed sweep)."""
+    tempering step; ``latent_update`` its scheme), run WARM + TIMED sweeps
+    through the runner with the launch counters set to 0 just before and
+    read just after, and check them.  Dyads of Y coded -1 are missing: the
+    state carries each chain's network and the checks of phase 11 apply.
+    The exact scheme launches the node scan once a sweep, in the mode its
+    launch rule takes; 'parallel' and 'mala' launch none.  ``report``, a
+    dict, receives the final state, sweep and generator.  Returns
+    (launches, ms per timed sweep)."""
     import torch
     from dynetlsm_tpu_torch.entry import build_state_and_sweep
     from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
     from dynetlsm_tpu_torch.mcmc.sweeps import (
         _lsm_logp, hdp_logp_at_state, lpcm_logp_at_state)
-    from dynetlsm_tpu_torch.ops.distances import pairwise_distances
     C = shape['C']
+    t_build = time.perf_counter()
     state, sweep, gen = build_state_and_sweep(Y, C, K=shape['K'],
                                               device=dev,
                                               is_directed=directed,
                                               model=model, n_temps=n_temps,
-                                              beta_min=BETA_MIN)
+                                              beta_min=BETA_MIN,
+                                              latent_update=latent_update)
+    build_s = time.perf_counter() - t_build
     ladder = None if n_temps is None else state.temper.clone()
     missing = state.Y is not None
     check(missing == bool((Y == -1).any()), '%s: state.Y' % name)
@@ -692,10 +796,17 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     # the log joint's on the new network: one more pair or directed launch
     # each
     extra = (n_temps is not None) + missing
-    expected = ({'node_scan': sweeps, 'pair_loglik': 0,
-                 'dir_loglik': (3 + extra) * sweeps} if directed else
-                {'node_scan': sweeps, 'pair_loglik': (1 + extra) * sweeps,
-                 'dir_loglik': 0})
+    expected = ({'pair_loglik': 0, 'dir_loglik': (3 + extra) * sweeps}
+                if directed else
+                {'pair_loglik': (1 + extra) * sweeps, 'dir_loglik': 0})
+    split = False
+    if latent_update == 'exact':
+        from dynetlsm_tpu_torch.ops.node_scan import cuda_layout
+        split = cuda_layout(C, shape['T'], shape['n'], 2, dev.index,
+                            directed, model != 'lsm', n_temps is not None)[2]
+    expected['node_scan'] = (sweeps if latent_update == 'exact'
+                             and not split else 0)
+    expected['node_scan_split'] = sweeps if split else 0
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -718,16 +829,19 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     T, n = Y.shape[:2]
     check(tuple(state.X.shape) == (C, T, n, 2), '%s: X shape' % name)
     acc_rate = float(state.acc_X.mean()) / sweeps
-    check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
+    # MALA accepts a chain's whole field, at first at every step
+    check(0.0 < acc_rate < 1.0 or (latent_update == 'mala'
+                                   and acc_rate == 1.0),
+          '%s: X acceptance %g' % (name, acc_rate))
     s = state
+    t_check = time.perf_counter()
     Yd = torch.as_tensor(Y, device=dev)
     if missing:
         Yd = s.Y
         check_missing_state(name, Y, s, directed, sweeps)
     prior = np.zeros(2 if directed else 1, np.float32)
     if model == 'lsm':
-        dense = _lsm_logp(sweep.cfg, Yd, s.X, s.intercept, s.radii,
-                          pairwise_distances(s.X),
+        dense = _lsm_logp(sweep.cfg, Yd, s.X, s.intercept, s.radii, None,
                           torch.as_tensor(prior, device=dev))
     elif model == 'lpcm':
         dense = lpcm_logp_at_state(
@@ -745,6 +859,9 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
           '%s: sweep logp vs dense log joint rel err %g' % (name, rel))
     ms = 1e3 * elapsed / TIMED
     extra = ''
+    if T * n * n > 1 << 26:
+        extra += ', build %.1f s, log-joint check %.1f s' % (
+            build_s, time.perf_counter() - t_check)
     if n_temps is not None:
         check(torch.equal(s.temper, ladder), '%s: the ladder moved' % name)
         # each pair (i, i + 1) is attempted every other sweep
@@ -773,6 +890,8 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
         % (name, T, n, '' if model == 'lsm' else ', K=%d' % shape['K'], C,
            ms, C / (ms / 1e3), acc_rate, float(s.logp.mean()), rel,
            float(gap.max()), launches, peak_gb, extra))
+    if report is not None:
+        report.update(state=s, sweep=sweep, gen=gen, peak_gb=peak_gb)
     return launches, ms
 
 
@@ -922,14 +1041,16 @@ SMALL_FIT = dict(n_components=10, n_chains=4, n_iter=100, tune=50, burn=50,
 
 
 def counted_fit(name, est, Y, dev, nested=True, missing=False,
-                tempered=False, cc=False):
+                tempered=False, cc=False, split=False):
     """Fit ``est`` on Y with every launch counter set to 0 just before and
     read just after, and check the counts: per sweep the node scan once
-    and the pair kernel once (three directed-kernel launches when
-    directed), one more with missing dyads and one more a tempered step
-    (the swap), over the nested LSM's sweeps (untempered) and the fit's;
-    none at all under case-control (``cc``).  Returns (launches, wall
-    seconds, peak device memory GB)."""
+    (in its split-field mode with ``split``; the fit's own sweeps none
+    under ``latent_update`` 'parallel' or 'mala', the nested LSM's
+    exact ones still) and the pair kernel once (three directed-kernel
+    launches when directed), one more with missing dyads and one more a
+    tempered step (the swap), over the nested LSM's sweeps (untempered)
+    and the fit's; none at all under case-control (``cc``).  Returns
+    (launches, wall seconds, peak device memory GB)."""
     import torch
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -946,7 +1067,9 @@ def counted_fit(name, est, Y, dev, nested=True, missing=False,
     nested = NESTED_SWEEPS if nested else 0
     per = 3 if est.is_directed else 1
     loglik = 'dir_loglik' if est.is_directed else 'pair_loglik'
-    expected = {'node_scan': nested + main, 'pair_loglik': 0,
+    scans = nested + (main if est.latent_update == 'exact' else 0)
+    expected = {'node_scan': 0 if split else scans,
+                'node_scan_split': scans if split else 0, 'pair_loglik': 0,
                 'dir_loglik': 0}
     expected[loglik] = ((per + missing) * nested
                         + (per + missing + tempered) * main)
@@ -1116,7 +1239,9 @@ def estimator_phase(dev):
                               for kv in m.stage_seconds_.items()),
            float(m.logps_[:, -1].mean()), m.auc_, launches))
     for k, v in total.items():
-        check(v > 0, 'estimators: %s was never launched' % k)
+        # the split-field scan's fit (LARGE_FIT) is phase 15's
+        check(v > 0 or k == 'node_scan_split',
+              'estimators: %s was never launched' % k)
     return total
 
 
@@ -1207,8 +1332,9 @@ def check_colored_scan(name, s, sweep, dev, seed):
     return flips, worst_margin, max_dx, accepted / (C * T * n)
 
 
-def run_cc_slice(name, directed, n, m, C, dev):
-    """One case-control slice (see phase 14).  Returns its numbers."""
+def run_cc_slice(name, directed, n, m, C, dev, latent_update='exact'):
+    """One case-control slice (see phase 14; with ``latent_update``, that
+    scheme, phase 15).  Returns its numbers."""
     import torch
     from dynetlsm_tpu_torch import profile_blocks
     from dynetlsm_tpu_torch.datasets import (
@@ -1229,7 +1355,8 @@ def run_cc_slice(name, directed, n, m, C, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state, sweep, gen = build_state_and_sweep(
-        Y, C, K=CC_K, device=dev, is_directed=directed, n_control=m, **kw)
+        Y, C, K=CC_K, device=dev, is_directed=directed, n_control=m,
+        latent_update=latent_update, **kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     groups = sweep.cc_static['color_groups']
@@ -1293,7 +1420,7 @@ def run_cc_slice(name, directed, n, m, C, dev):
            device['device_busy'], acc_rate, float(state.logp.mean()), rel,
            float(gap.max()), launches, peak_gb,
            {k: round(v, 3) for k, v in blocks['blocks_ms'].items()}))
-    if n == NS['n']:
+    if n == NS['n'] and latent_update == 'exact':
         flips, margin, dx, rate = check_colored_scan(name, state, sweep, dev,
                                                      seed=n + directed)
         out.update(cpu_flips=flips, cpu_dx=dx)
@@ -1310,6 +1437,229 @@ def run_cc_slice(name, directed, n, m, C, dev):
 def cc_phase(dev):
     """Phase 14: every case-control slice.  Returns their numbers."""
     return [run_cc_slice(*row, dev=dev) for row in CC_SLICES]
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the node scan past shared memory, and the other latent updates
+# ---------------------------------------------------------------------------
+
+def check_split_vs_resident(scans):
+    """The split-field mode forced at clusters of 2, 4 and 8 against the
+    resident mode's launch on the same inputs, in all eight instantiations
+    at the north star: identical accepts, max |dX| = 0."""
+    import torch
+    for (key, n), (t, _) in scans.items():
+        if n != NS['n'] or PER_CHAIN in key:
+            continue
+        X_r, acc_r = run_scan(t, kernel=True)
+        for b in (2, 4, 8):
+            X_s, acc_s = run_scan(t, kernel=True, cluster=b, mode='split')
+            torch.cuda.synchronize()
+            check(torch.equal(acc_s, acc_r),
+                  'node_scan split (%s, cluster %d): %d accepts differ from '
+                  'the resident mode' % (key, b, int((acc_s != acc_r).sum())))
+            err = float((X_s - X_r).abs().max())
+            check(err == 0.0, 'node_scan split (%s, cluster %d): max |dX| '
+                  '%g against the resident mode' % (key, b, err))
+        log('node_scan split-field (%s) at the north star, clusters of 2, '
+            '4, 8: accepts identical to the resident mode, max |dX| 0'
+            % key)
+
+
+def large_network(n, directed, T=10):
+    """bench.py's north-star community model at n nodes and constant
+    expected degree, dense uint8 (T, n, n) (``datasets.
+    northstar_edge_lists``, ``network_of_edge_lists``)."""
+    from dynetlsm_tpu_torch.datasets import (
+        network_of_edge_lists, northstar_edge_lists)
+    return network_of_edge_lists(*northstar_edge_lists(T=T, n=n,
+                                                       directed=directed))
+
+
+def capture_scan(fn):
+    """(fn(), the node-scan calls the sweeps made in it: a list of (args,
+    keywords, (X_out, accepted)), copies of all but the network)."""
+    import torch
+    from dynetlsm_tpu_torch.mcmc import latent
+    scan, calls = latent.node_scan, []
+
+    def copy(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def recorded(Y, *args, **kw):
+        out = scan(Y, *args, **kw)
+        calls.append(((Y,) + tuple(copy(v) for v in args),
+                      {k: copy(v) for k, v in kw.items()},
+                      tuple(copy(v) for v in out)))
+        return out
+    latent.node_scan = recorded
+    try:
+        return fn(), calls
+    finally:
+        latent.node_scan = scan
+
+
+def check_split_at_slice(name, call, plain):
+    """The slice's own split-field launch (``call``, captured from its
+    sweep) at the launch rule's cluster and at forced clusters of 2, 4
+    and 8, each timed on all the slice's chains (CUDA events).  With
+    ``plain``, on SPLIT_CHAINS of its chains (chains are independent)
+    against the plain version, timed once: identical accepts, max |dX| 0
+    at every cluster size, and the rule's launch on those chains equal,
+    bit for bit, to their rows of the sweep's launch.  Returns (the
+    plain version's ms or None, {cluster: ms})."""
+    import torch
+    from dynetlsm_tpu_torch.ops.node_scan import (
+        node_scan_cuda, node_scan_plain)
+    (Y, X, b, step, eps, log_u), kw, (X_main, acc_main) = call
+    C, T, n, d = X.shape
+    kw = {k: v for k, v in kw.items() if v is not None}
+    by = {B: cuda_ms(lambda: node_scan_cuda(Y, X, b, step, eps, log_u,
+                                            cluster=B, mode='split', **kw),
+                     2) for B in SPLIT_CLUSTERS_TIMED}
+    if not plain:
+        return None, by
+    idx = torch.tensor(sorted({c % C for c in SPLIT_CHAINS}),
+                       device=X.device)
+
+    def cut(v):
+        return (v[idx].contiguous() if torch.is_tensor(v) and v.dim()
+                and v.shape[0] == C else v)
+    sub = [cut(v) for v in (X, b, step, eps, log_u)]
+    sub_kw = {k: cut(v) for k, v in kw.items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    X_p, acc_p = node_scan_plain(Y[..., :n], *sub, **sub_kw)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    for B, mode in ((None, None),) + tuple(
+            (B, 'split') for B in SPLIT_CLUSTERS_TIMED):
+        X_k, acc_k = node_scan_cuda(Y, *sub, cluster=B, mode=mode,
+                                    **sub_kw)
+        torch.cuda.synchronize()
+        what = '%s: split-field scan (cluster %s) on chains %s' % (
+            name, 'of the rule' if B is None else B, idx.tolist())
+        check(torch.equal(acc_k, acc_p), '%s: %d accepts differ from the '
+              'plain version' % (what, int((acc_k != acc_p).sum())))
+        err = float((X_k - X_p).abs().max())
+        check(err == 0.0, '%s: max |dX| %g against the plain version'
+              % (what, err))
+        if B is None:
+            check(torch.equal(X_k, X_main[idx])
+                  and torch.equal(acc_k, acc_main[idx]),
+                  '%s: differs from those chains of the sweep\'s launch'
+                  % what)
+    log('%s: the sweep\'s split-field launch on chains %s (T=%d, n=%d, '
+        'P=%d): accepts identical to the plain version and max |dX| 0 at '
+        'the rule\'s cluster and at clusters of %s, equal to the sweep\'s '
+        'own launch; plain %.1f ms' % (name, idx.tolist(), T, n,
+                                       Y.shape[-1], list(by), plain_ms))
+    return plain_ms, by
+
+
+def run_large_slice(name, model, directed, n, C, plain, dev):
+    """One slice past the resident mode (2 + 20 sweeps, the checks of
+    phase 8: the split-field scan launched once a sweep), then one
+    profiled sweep, whose last scan's inputs :func:`check_split_at_slice`
+    reruns (against the plain version where ``plain``): the scan's time,
+    its time per phase step, its cluster size and bound, the device's busy
+    share.  Returns (launches, ms/sweep, its numbers)."""
+    from dynetlsm_tpu_torch import profile_blocks
+    from dynetlsm_tpu_torch.ops.node_scan import cuda_layout
+    t0 = time.perf_counter()
+    Y = large_network(n, directed)
+    net_s = time.perf_counter() - t0
+    shape = dict(T=Y.shape[0], n=n, K=25, C=C)
+    report = {}
+    launches, ms = run_slice(name, Y, shape, dev, directed=directed,
+                             model=model, report=report)
+    del Y
+    # the scan's time: the latent block of one sweep with a
+    # synchronisation around it (the device runs it alone, back to back)
+    (blocks, state), calls = capture_scan(
+        lambda: profile_blocks.profile_slice(
+            report['sweep'], report['state'], report['gen'], sweeps=1,
+            warm=0))
+    check(len(calls) > 0, '%s: no node-scan call in the profiled sweeps'
+          % name)
+    scan_ms = blocks['blocks_ms']['sample_latent_positions']
+    device = profile_blocks.device_times(report['sweep'], state,
+                                         report['gen'], 1)
+    W, B, split = cuda_layout(C, shape['T'], n, 2, dev.index, directed,
+                              model != 'lsm', False)
+    check(split, '%s: the launch rule took the resident mode' % name)
+    plain_ms, by = check_split_at_slice(name, calls[-1], plain)
+    bound_ms, bound_by = scan_bound_of(C, shape['T'], n, 2, directed,
+                                       model != 'lsm', False, False)
+    out = dict(name=name, n=n, chains=C, ms=ms, scan_ms=scan_ms,
+               us_per_step=1e3 * scan_ms / (2 * n), warps=W, cluster=B,
+               ms_by_cluster=by, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               device_busy=device['device_busy'],
+               peak_gb=report['peak_gb'], network_s=net_s)
+    log('slice %s: split-field scan %.3f ms (one sweep, synchronised), '
+        '%.3f us a phase step, %d warps a time, clusters of %d, the launch '
+        'at clusters of %s: %s ms (CUDA events), bound %.4f ms (%s), %.3f '
+        'ms/sweep, device busy %s, peak device memory %.3f GB, network '
+        '%.1f s; largest kernels (ms/sweep, profiled) %s'
+        % (name, scan_ms, out['us_per_step'], W, B, list(by),
+           [round(v, 3) for v in by.values()], bound_ms, bound_by, ms,
+           device['device_busy'], report['peak_gb'], net_s,
+           [(k[:60], round(v, 3)) for k, v in device['kernels_ms'][:3]]))
+    return launches, ms, out
+
+
+def large_fit(dev):
+    """A DynamicNetworkLSM fit past the resident node scan's shared memory
+    (LARGE_FIT, which the estimators refused before the split-field mode),
+    on the card with a short budget: launches counted (the split-field
+    scan once a sweep), finite logps, the stage seconds printed.  Returns
+    its launches."""
+    from dynetlsm_tpu_torch import DynamicNetworkLSM
+    from dynetlsm_tpu_torch.datasets import northstar_network
+    kw = dict(LARGE_FIT)
+    Y = northstar_network(T=kw.pop('T'), n=kw.pop('n'))
+    m = DynamicNetworkLSM(device=dev, random_state=4, **kw)
+    name = 'lsm T%d n%d' % Y.shape[:2]
+    launches, seconds, peak = counted_fit(name, m, Y, dev, nested=False,
+                                          split=True)
+    check(bool(np.isfinite(m.logps_).all()), '%s fit: non-finite logp'
+          % name)
+    check(m.X_.shape == (Y.shape[0], Y.shape[1], 2), '%s fit: X_' % name)
+    log('fit %s (%d chains, %d sweeps): %.1f s, launches %s, '
+        'peak device memory %.3f GB, logp %.2f, stage seconds %s'
+        % (name, m.n_chains, m.n_iter + m.tune + m.burn, seconds,
+           launches, peak, m.logp_,
+           {k: round(v, 2) for k, v in m.stage_seconds_.items()}))
+    return launches
+
+
+def scheme_phase(dev, networks, slices):
+    """The 'parallel' and 'mala' latent updates at the north star through
+    ``build_state_and_sweep(..., latent_update=)`` (phase 8's checks: no
+    node scan launched, the coefficient kernels as before, the logp at the
+    dense log joint), the case-control row with 'parallel', and a Sampson
+    HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43; its nested LSM's
+    exact scans counted).  Returns the fit's launches."""
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM
+    from dynetlsm_tpu_torch.datasets import load_dynamic_monks
+    for model, directed, scheme, n_temps in SCHEME_SLICES:
+        name = '%s %s' % (slice_name(model, NS, directed, n_temps), scheme)
+        slices[name] = run_slice(name, networks[NS['n'], directed], NS, dev,
+                                 directed=directed, model=model,
+                                 n_temps=n_temps, latent_update=scheme)
+    out = run_cc_slice(SCHEME_CC[0] + ' parallel', *SCHEME_CC[1:], dev=dev,
+                       latent_update='parallel')
+    m = DynamicNetworkHDPLPCM(device=dev, **MALA_FIT)
+    Y = load_dynamic_monks()
+    launches, seconds, _ = counted_fit('hdp sampson mala', m, Y, dev)
+    check(bool(np.isfinite(m.logps_).all()), 'mala fit: non-finite logp')
+    check(m.auc_ > 0.6, 'mala fit: auc_ %.4f' % m.auc_)
+    log('fit hdp sampson mala: %.1f s, auc_ %.4f, launches %s'
+        % (seconds, m.auc_, launches))
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1330,24 +1680,33 @@ def bound(ops, nbytes):
 
 
 def scan_bound(t):
+    """:func:`scan_bound_of` the inputs ``t``."""
+    C, T, n, d = t['X'].shape
+    return scan_bound_of(C, T, n, d, 'radii' in t, t['mixture'],
+                         'temper' in t, t['Y'].dim() == 4)
+
+
+def scan_bound_of(C, T, n, d, directed, mixture, tempered, per_chain):
     """Per site and partner: two squared distances (10), two sqrt, two
     etas and two softplus (6 each: max, abs, negate, exp, log1p, add),
     two y * eta - softplus, their difference and the sum: 32; directed,
     four etas and four softplus: 58.  Per site, the prior and the accept:
     61 (mixture) or 37 (random walk), and one more when tempered (the
-    temperature times the delta).  Bytes: every input once (the tempered
-    lane's (C,) temperatures included), X and the accept indicators written
-    once."""
-    C, T, n, d = t['X'].shape
-    per_pair = 58 if 'radii' in t else 32
-    per_site = 61 if t['mixture'] else 37
-    ops = C * T * n * ((n - 1) * per_pair + per_site)
-    prior = ((t['mu_z'], t['sig_z'], t['lmbda']) if t['mixture'] else ())
-    nbytes = _bytes(t['X'], t['Y'], t['step'], t['eps'], t['log_u'], t['b'],
-                    t.get('radii'), t.get('temper'), *prior) \
-        + 4 * C * T * n * (d + 1)
-    if 'temper' in t:
-        ops += C * T * n      # the temperature times each site's delta
+    temperature times the delta).  Bytes: every input once (X, the (T, n,
+    n) uint8 network, or C of them, step, eps, log_u, the intercepts, the
+    radii, the tempered lane's temperatures, the mixture's per-site means,
+    variances and lambda), X and the accept indicators written once."""
+    per_pair = 58 if directed else 32
+    per_site = 61 if mixture else 37
+    sites = C * T * n
+    ops = sites * ((n - 1) * per_pair + per_site) + (sites if tempered
+                                                     else 0)
+    floats = (sites * d + sites + 2 * sites * d + 2 * sites
+              + C * (2 if directed else 1) + (C * n if directed else 0)
+              + (C if tempered else 0)
+              + (sites * d + sites + C if mixture else 0))
+    nbytes = (4 * floats + T * n * n * (C if per_chain else 1)
+              + 4 * sites * (d + 1))
     return bound(ops, nbytes)
 
 
@@ -1562,6 +1921,29 @@ def main():
         cc_out = cc_phase(dev)
         phase_done('phase 14')
 
+        # phase 15: the split-field node scan and the other latent updates
+        check_split_vs_resident(scans)
+        split_checks = {}
+        for k, (directed, mixture, per_chain) in enumerate(
+                (d, m, p) for d in (False, True) for m in (True, False)
+                for p in (False, True)):
+            split_checks[directed, mixture, per_chain] = check_node_scan(
+                SPLIT_PLAIN, dev, seed=200 + k, directed=directed,
+                mixture=mixture, per_chain=per_chain)
+        large = {}
+        for row in LARGE_SLICES:
+            launches, ms, large[row[0]] = run_large_slice(*row, dev=dev)
+            slices[row[0]] = (launches, ms)
+        more_fits = [large_fit(dev)]
+        launches, cc_parallel = scheme_phase(dev, networks, slices)
+        more_fits.append(launches)
+        for launches in more_fits:
+            for k, v in launches.items():
+                fit_launches[k] = fit_launches.get(k, 0) + v
+        check(fit_launches['node_scan_split'] > 0,
+              'estimators: node_scan_split was never launched')
+        phase_done('phase 15')
+
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
         from dynetlsm_tpu_torch.ops.pair_loglik import (
@@ -1571,11 +1953,14 @@ def main():
             """(ms at the launch rule's cluster size, plain ms, the row's
             cluster fields): the kernel at every cluster size it reaches,
             and the time per phase step (ms / 2n) in microseconds."""
-            rule, reach = scan_clusters(t)
-            by = {b: cuda_ms(lambda: run_scan(t, kernel=True, cluster=b),
-                             10) for b in reach}
+            (rule, _), reach = scan_clusters(t)
+            by = {b: cuda_ms(lambda: run_scan(t, kernel=True, cluster=b,
+                                              mode=m), 10)
+                  for b, m in reach}
             steps = 2 * t['X'].shape[2]
-            return (by[rule], cuda_ms(lambda: run_scan(t, kernel=False), 3),
+            # the plain version's run of the check: a yardstick, seconds
+            # a call
+            return (by[rule], t['plain_ms'],
                     {'cluster': rule,
                      'ms_by_cluster': {str(b): v for b, v in by.items()},
                      'us_per_step': {str(b): 1e3 * v / steps
@@ -1657,6 +2042,36 @@ def main():
              PER_CHAIN),
             ('dir_loglik', 2, NS, 'hdp northstar directed missing',
              PER_CHAIN)]
+        # the split-field mode at the plain comparison's shape, in each
+        # mode a slice past n = 2048 runs, with that slice's scan: its
+        # launch's time at each cluster size and, where the slice held it
+        # against the plain version, the plain version's on two chains
+        for directed, mixture, slice_at in ((False, True, 'hdp n8192'),
+                                            (True, True,
+                                             'hdp n8192 directed'),
+                                            (False, False, 'lsm n4096'),
+                                            (False, False, 'lsm n16384')):
+            t, err = split_checks[directed, mixture, False]
+            big = large[slice_at]
+            split_ms = cuda_ms(lambda: run_scan(t, kernel=True), 5)
+            rows.append((
+                'node_scan_split', 'split-field, ' + scan_mode(
+                    directed, mixture), scan_cu, scan_py + ':157',
+                SPLIT_PLAIN, slice_at, err,
+                (split_ms, t['plain_ms'],
+                 {'cluster': scan_clusters(t)[0][0],
+                  'us_per_step': 1e3 * split_ms / (2 * SPLIT_PLAIN['n']),
+                  'slice_shape': 'T=10 n=%d chains=%d' % (big['n'],
+                                                          big['chains']),
+                  'slice_scan_ms': big['scan_ms'],
+                  'slice_us_per_step': big['us_per_step'],
+                  'slice_cluster': big['cluster'],
+                  'slice_ms_by_cluster': {str(b): v for b, v in
+                                          big['ms_by_cluster'].items()},
+                  'slice_plain_ms_2_chains': big['plain_ms'],
+                  'slice_bound_ms': big['bound_ms'],
+                  'slice_bound_by': big['bound_by']}),
+                scan_bound(t)))
         for name, n_cand, shape, slice_at, *per_chain in loglik_rows:
             key = (name, n_cand, shape['n']) + tuple(per_chain)
             args, errs = logliks[key]
@@ -1694,6 +2109,17 @@ def main():
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
+        log('slices past n = 2048: ' + ', '.join(
+            '%s %.3f ms/sweep (split-field scan %.3f ms, %.3f us/step, '
+            'clusters of %d, the launch at clusters of 2 / 4 / 8: %s ms, '
+            'bound %.4f ms, busy %s, %.3f GB)'
+            % (o['name'], o['ms'], o['scan_ms'], o['us_per_step'],
+               o['cluster'], ' / '.join('%.3f' % v for v in
+                                        o['ms_by_cluster'].values()),
+               o['bound_ms'], o['device_busy'], o['peak_gb'])
+            for o in large.values()))
+        log('case-control parallel: %.3f ms/sweep (scan %.3f ms)'
+            % (cc_parallel['ms'], cc_parallel['scan_ms']))
         log('case-control slices: ' + ', '.join(
             '%s %.3f ms/sweep (scan %.3f ms, %.0f launches, %.3f GB)'
             % (o['name'], o['ms'], o['scan_ms'], o['launches_per_sweep'],

@@ -75,6 +75,27 @@
 //    the step in between, which this block sends after reading the half,
 //    so a half is never overwritten while it is read.  The wrapper takes
 //    B > 1 only where the card runs all the chains' clusters at once.
+// 4. Split-field mode (template kSplit), for fields past shared memory
+//    (n > 2048 at T = 10, d = 2: the (T, n, d) field and two staged rows
+//    of P bytes a time outgrow a block's 227 KB).  No block holds the
+//    field: the chain's positions live in X_out (copied from X_in at the
+//    start; 655 KB a chain at n = 8,192, so L2 holds a few dozen chains),
+//    and a block reads and writes only the positions of its own partner
+//    residues i = r (mod R), r in [32 W rank, 32 W (rank + 1)).  Every
+//    block reaches the same accept decisions, so the owner of node j's
+//    residue writes X_out[t, j] after each accept and no block ever reads
+//    another's writes: the block barrier of the field update orders them,
+//    and no barrier spans the cluster.  The node's own positions (T, d),
+//    which its two phases read and move, are staged from X_in with its
+//    other inputs (a node is at its input values until its step) and
+//    updated in shared memory by every block.  A block stages only its
+//    share of the two adjacency rows (2 T P / B bytes, 32 W-byte pieces at
+//    a stride of R) and, directed, its share of the u and v rows; the
+//    node's own b_out / r_j and b_in / r_j are divided from its staged
+//    radius.  The field is read with ordinary loads (no read-only cache
+//    path: the kernel writes it), and a padded partner (i >= n) reads no
+//    position.  The sums, the tree and the decisions are the resident
+//    mode's, so both give the same bits.
 //
 // Random-walk prior (kMixture false): with the node's own neighbours
 // prev = x[t-1] and nxt = x[t+1],
@@ -124,6 +145,8 @@ constexpr int kChunk = 4;
 constexpr int kChunkLevels = 9;
 // exchange values a reducing lane reads: R / 32 <= 16 (R <= 512)
 constexpr int kMaxExchange = 16;
+// blocks of a cluster: at most 8, the portable cluster size
+constexpr int kMaxCluster = 8;
 
 // ---- inline PTX ----------------------------------------------------------
 
@@ -301,18 +324,18 @@ __device__ __forceinline__ float exchange_levels(const float* xb, int R,
 
 // The likelihood delta of partner i (llp - llc, the node's own slot
 // masked), given the squared distances to the proposal and the current
-// position.
+// position; li indexes the partner's u and v values.
 template <bool kDirected>
 __device__ __forceinline__ float partner_delta(
-    float d2p, float d2c, uint8_t yb, int i, int j, float bc, float both,
-    const float* __restrict__ u_s, const float* __restrict__ v_s,
+    float d2p, float d2c, uint8_t yb, int i, int li, int j, float bc,
+    float both, const float* __restrict__ u_s, const float* __restrict__ v_s,
     float bo_rj, float bi_rj) {
   float llp, llc;
   if (kDirected) {
     const float y = (float)(yb & 1);    // edge j -> i
     const float yt = (float)(yb >> 1);  // edge i -> j
-    const float p_out = u_s[i] + bo_rj;
-    const float p_in = v_s[i] + bi_rj;
+    const float p_out = u_s[li] + bo_rj;
+    const float p_in = v_s[li] + bi_rj;
     const float dist_p = sqrtf(fmaxf(d2p, 0.0f));
     const float dist_c = sqrtf(fmaxf(d2c, 0.0f));
     const float eo_p = both - dist_p * p_out;
@@ -333,19 +356,30 @@ __device__ __forceinline__ float partner_delta(
   return (llp - llc) * (i == j ? 0.0f : 1.0f);
 }
 
-// The likelihood delta of partner i at time t, the node at xc (current)
-// and xp (proposal).  D = 2 keeps the node's coordinates in registers;
-// D = 0 reads them for any d (then xc, xp are unused).
-template <bool kDirected, int D>
+// The likelihood delta of partner i at time t: its position in the
+// field x_t (shared memory, or X_out in the split-field mode: no
+// __restrict__, so never the read-only cache path), its adjacency byte
+// y_row[li], the node at xn (its position at t), xc (current) and xp
+// (proposal).  D = 2 keeps the node's coordinates in registers; D = 0
+// reads them for any d (then xc, xp are unused).  In the split-field mode
+// a padded partner (i >= n, zeroed by the caller) reads no position.
+template <bool kDirected, bool kSplit, int D>
 __device__ __forceinline__ float partner_term(
-    const float* __restrict__ x_t, const uint8_t* __restrict__ y_row,
-    const float* __restrict__ e, float s, const float* xc, const float* xp,
-    int i, int j, int d, float bc, float both, const float* __restrict__ u_s,
+    const float* x_t, const uint8_t* __restrict__ y_row,
+    const float* __restrict__ xn, const float* __restrict__ e, float s,
+    const float* xc, const float* xp, int i, int li, int j, int n, int d,
+    float bc, float both, const float* __restrict__ u_s,
     const float* __restrict__ v_s, float bo_rj, float bi_rj) {
   float d2p = 0.0f;
   float d2c = 0.0f;
   if constexpr (D == 2) {
-    const float2 xi = reinterpret_cast<const float2*>(x_t)[i];
+    float2 xi;
+    if constexpr (kSplit) {
+      xi = i < n ? reinterpret_cast<const float2*>(x_t)[i]
+                 : float2{xc[0], xc[1]};
+    } else {
+      xi = reinterpret_cast<const float2*>(x_t)[i];
+    }
     const float dp0 = xi.x - xp[0], dc0 = xi.x - xc[0];
     const float dp1 = xi.y - xp[1], dc1 = xi.y - xc[1];
     d2p = dp0 * dp0;
@@ -354,28 +388,33 @@ __device__ __forceinline__ float partner_term(
     d2c = d2c + dc1 * dc1;
   } else {
     for (int q = 0; q < d; ++q) {
-      const float xcq = x_t[j * d + q];
+      const float xcq = xn[q];
       const float xpq = xcq + s * e[q];
-      const float dp = x_t[i * d + q] - xpq;
-      const float dc = x_t[i * d + q] - xcq;
+      const float xiq = (kSplit && i >= n) ? xcq : x_t[i * d + q];
+      const float dp = xiq - xpq;
+      const float dc = xiq - xcq;
       d2p = (q == 0) ? dp * dp : d2p + dp * dp;
       d2c = (q == 0) ? dc * dc : d2c + dc * dc;
     }
   }
-  return partner_delta<kDirected>(d2p, d2c, y_row[i], i, j, bc, both, u_s,
-                                  v_s, bo_rj, bi_rj);
+  return partner_delta<kDirected>(d2p, d2c, y_row[li], i, li, j, bc, both,
+                                  u_s, v_s, bo_rj, bi_rj);
 }
 
 // The register levels of one lane: the pairwise sum of its partners
-// i = r + R * k (k < P / R; the padding i >= n contributes 0) at time t.
+// i = r + R * k (k < P / R; the padding i >= n contributes 0) at time t,
+// whose adjacency bytes (and directed u, v values) sit at rl + Rl * k of
+// the block's staged share (resident: rl = r, Rl = R, the whole row).
 // Its partners go in bit-reversed k order, kCh at once (independent
-// terms, evaluated side by side; a padded slot evaluates a real partner
-// and is zeroed), each chunk's adjacent-pairs tree pushed as one subtree.
-template <bool kDirected, int D, int kCh>
+// terms, evaluated side by side; a padded slot evaluates a real partner,
+// or in the split-field mode the node itself, and is zeroed), each
+// chunk's adjacent-pairs tree pushed as one subtree.
+template <bool kDirected, bool kSplit, int D, int kCh>
 __device__ __forceinline__ float lane_chunks(
-    const float* __restrict__ x_t, const uint8_t* __restrict__ y_row,
-    const float* __restrict__ e, float s, const float* xc, const float* xp,
-    int j, int n, int d, int r, int R, int nv, float bc, float both,
+    const float* x_t, const uint8_t* __restrict__ y_row,
+    const float* __restrict__ xn, const float* __restrict__ e, float s,
+    const float* xc, const float* xp, int j, int n, int d, int r, int R,
+    int rl, int Rl, int nv, float bc, float both,
     const float* __restrict__ u_s, const float* __restrict__ v_s,
     float bo_rj, float bi_rj) {
   const int lg = __ffs(nv) - 1;
@@ -385,10 +424,12 @@ __device__ __forceinline__ float lane_chunks(
     float tm[kCh];
 #pragma unroll
     for (int u = 0; u < kCh; ++u) {
-      const int i = r + R * bit_reverse(kk + u, lg);
-      const float term = partner_term<kDirected, D>(
-          x_t, y_row, e, s, xc, xp, i < n ? i : j, j, d, bc, both, u_s, v_s,
-          bo_rj, bi_rj);
+      const int k = bit_reverse(kk + u, lg);
+      const int i = r + R * k;
+      const int ie = kSplit ? i : (i < n ? i : j);
+      const float term = partner_term<kDirected, kSplit, D>(
+          x_t, y_row, xn, e, s, xc, xp, ie, kSplit ? rl + Rl * k : ie, j, n,
+          d, bc, both, u_s, v_s, bo_rj, bi_rj);
       tm[u] = i < n ? term : 0.0f;
     }
 #pragma unroll
@@ -401,32 +442,33 @@ __device__ __forceinline__ float lane_chunks(
   return v;
 }
 
-template <bool kDirected, int D>
+template <bool kDirected, bool kSplit, int D>
 __device__ __forceinline__ float lane_levels(
-    const float* __restrict__ x_t, const uint8_t* __restrict__ y_row,
-    const float* __restrict__ e, float s, int j, int n, int d, int r, int R,
-    int P, float bc, float both, const float* __restrict__ u_s,
-    const float* __restrict__ v_s, float bo_rj, float bi_rj) {
+    const float* x_t, const uint8_t* __restrict__ y_row,
+    const float* __restrict__ xn, const float* __restrict__ e, float s, int j,
+    int n, int d, int r, int R, int rl, int Rl, int P, float bc, float both,
+    const float* __restrict__ u_s, const float* __restrict__ v_s, float bo_rj,
+    float bi_rj) {
   const int nv = P / R;
   float xc[2] = {0.0f, 0.0f}, xp[2] = {0.0f, 0.0f};
   if constexpr (D == 2) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      xc[q] = x_t[j * 2 + q];
+      xc[q] = xn[q];
       xp[q] = xc[q] + s * e[q];
     }
   }
   if (nv >= kChunk)
-    return lane_chunks<kDirected, D, kChunk>(x_t, y_row, e, s, xc, xp, j, n,
-                                             d, r, R, nv, bc, both, u_s, v_s,
-                                             bo_rj, bi_rj);
+    return lane_chunks<kDirected, kSplit, D, kChunk>(
+        x_t, y_row, xn, e, s, xc, xp, j, n, d, r, R, rl, Rl, nv, bc, both,
+        u_s, v_s, bo_rj, bi_rj);
   if (nv == 2)
-    return lane_chunks<kDirected, D, 2>(x_t, y_row, e, s, xc, xp, j, n, d,
-                                        r, R, nv, bc, both, u_s, v_s, bo_rj,
-                                        bi_rj);
-  return lane_chunks<kDirected, D, 1>(x_t, y_row, e, s, xc, xp, j, n, d, r,
-                                      R, nv, bc, both, u_s, v_s, bo_rj,
-                                      bi_rj);
+    return lane_chunks<kDirected, kSplit, D, 2>(
+        x_t, y_row, xn, e, s, xc, xp, j, n, d, r, R, rl, Rl, nv, bc, both,
+        u_s, v_s, bo_rj, bi_rj);
+  return lane_chunks<kDirected, kSplit, D, 1>(
+      x_t, y_row, xn, e, s, xc, xp, j, n, d, r, R, rl, Rl, nv, bc, both, u_s,
+      v_s, bo_rj, bi_rj);
 }
 
 // One 4- or 16-byte copy of a node's inputs into shared memory: node jn
@@ -437,12 +479,15 @@ struct Copy {
   int stride, dst, half, bytes;
 };
 
-// Per-buffer layout of the staged per-node scalars (floats).
+// Per-buffer layout of the staged per-node scalars (floats); the
+// split-field mode adds the node's positions (T, d) and its radius.
 struct Stage {
-  int step, logu, eps, mu, sig, size;
-  __device__ __forceinline__ Stage(int T, int d)
+  int step, logu, eps, mu, sig, xj, rad, size;
+  __device__ __forceinline__ Stage(int T, int d, bool split)
       : step(0), logu(T), eps(3 * T), mu(3 * T + 2 * T * d),
-        sig(3 * T + 3 * T * d), size(4 * T + 3 * T * d) {}
+        sig(3 * T + 3 * T * d), xj(4 * T + 3 * T * d),
+        rad(4 * T + 4 * T * d),
+        size(4 * T + 3 * T * d + (split ? T * d + 1 : 0)) {}
 };
 
 // b: (C,) intercepts, or (C, 2) = (b_in, b_out) when kDirected; radii:
@@ -453,8 +498,9 @@ struct Stage {
 // variances and per-chain lambda (kMixture); tau_sq, sigma_sq: the
 // random-walk prior's variances (!kMixture).  temper: (C,) per-chain
 // inverse temperatures (kTempered), unused otherwise.  W warps per
-// in-phase time, B blocks (a cluster) per chain.
-template <bool kDirected, bool kMixture, bool kTempered>
+// in-phase time, B blocks (a cluster) per chain.  kSplit: the
+// split-field mode (X_out holds the field during the scan).
+template <bool kDirected, bool kMixture, bool kTempered, bool kSplit>
 __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
     long long y_chain, const float* __restrict__ step,
@@ -462,21 +508,26 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     const float* __restrict__ mu_z, const float* __restrict__ sig_z,
     const float* __restrict__ b,
     const float* __restrict__ radii, const float* __restrict__ lmbda,
-    const float* __restrict__ temper, float* __restrict__ X_out,
+    const float* __restrict__ temper, float* X_out,
     float* __restrict__ acc, int T, int n, int d, int P, int W, int B,
     float tau_sq, float sigma_sq) {
   extern __shared__ __align__(16) float smem[];
   const int field = T * n * d;
   const int H = (T + 1) / 2;  // in-phase times, at most
   const int R = 32 * W * B;   // lanes that share one time's partners
-  const Stage st(T, d);
-  // (2,) mbarriers of the exchange halves, then (2, T, P) staged rows
+  const int Rl = 32 * W;      // a block's lanes of one time
+  // a block's partner slots of one time: its staged row bytes and, when
+  // directed, its u and v values (resident: the whole row)
+  const int Pb = kSplit ? P / B : P;
+  const int nu = kSplit ? Pb : n;
+  const Stage st(T, d, kSplit);
+  // (2,) mbarriers of the exchange halves, then (2, T, Pb) staged rows
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
   uint8_t* ys = reinterpret_cast<uint8_t*>(smem + 4);
-  float* xs = smem + 4 + T * P / 2;                // (T, n, d) positions
-  float* u_s = xs + field;                         // directed: b_in / r
-  float* v_s = u_s + n;                            // directed: b_out / r
-  float* xbuf = xs + field + (kDirected ? 2 * n : 0);  // (2, H, R)
+  float* xs = smem + 4 + T * Pb / 2;                // (T, n, d) positions
+  float* u_s = xs + (kSplit ? 0 : field);          // directed: b_in / r
+  float* v_s = u_s + nu;                           // directed: b_out / r
+  float* xbuf = u_s + (kDirected ? 2 * nu : 0);    // (2, H, R)
   float* ss = xbuf + 2 * H * R;                    // (2, st.size) scalars
   float* pri = ss + 2 * st.size;                   // (H, 2) lp, lc
   float* beta_s = pri + 2 * H;                     // the chain's temper
@@ -492,22 +543,46 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   const int c = blockIdx.x / B;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = B > 1 ? (int)cluster.block_rank() : 0;
-  const int r = 32 * W * rank + 32 * w + lane;  // this lane's residue
+  const int rl = 32 * w + lane;   // this lane's residue within the block
+  const int r = Rl * rank + rl;   // this lane's residue
+  // the partner of the block's slot m (m < Pb): its residue rank's lane
+  // m % Rl, at k = m / Rl
+  auto slot_partner = [&](int m) {
+    return kSplit ? Rl * rank + (m % Rl) + R * (m / Rl) : m;
+  };
 
   const float* X_c = X_in + (size_t)c * field;
+  float* Xo_c = X_out + (size_t)c * field;
   const uint8_t* Y_c = Y + (size_t)c * y_chain;
-  for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
+  const float* radii_c = kDirected ? radii + (size_t)c * n : nullptr;
+  if constexpr (kSplit) {
+    // this block's partners' positions at every time, into X_out
+    for (int k = tid; k < T * Pb; k += nthr) {
+      const int t = k / Pb;
+      const int i = slot_partner(k - t * Pb);
+      if (i < n)
+        for (int q = 0; q < d; ++q)
+          Xo_c[(t * n + i) * d + q] = X_c[(t * n + i) * d + q];
+    }
+  } else {
+    for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
+  }
 
   const float bc = kDirected ? 0.0f : b[c];
   const float b_in = kDirected ? b[2 * c] : 0.0f;
   const float b_out = kDirected ? b[2 * c + 1] : 0.0f;
   const float both = b_in + b_out;
   if (kDirected) {
-    const float* radii_c = radii + (size_t)c * n;
-    for (int k = tid; k < n; k += nthr) {
-      const float rk = radii_c[k];
-      u_s[k] = b_in / rk;
-      v_s[k] = b_out / rk;
+    for (int k = tid; k < nu; k += nthr) {
+      const int i = slot_partner(k);
+      if (kSplit && i >= n) {
+        u_s[k] = 0.0f;
+        v_s[k] = 0.0f;
+      } else {
+        const float rk = radii_c[i];
+        u_s[k] = b_in / rk;
+        v_s[k] = b_out / rk;
+      }
     }
   }
   if (kTempered && tid == 0) beta_s[0] = temper[c];
@@ -522,11 +597,16 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
 
   // node jn's inputs into half `half` of the staging buffers: copy k of
   // a node reads src + jn * stride and writes at byte dst + half * cp.half
-  // of shared memory; each thread keeps its first copy's description
-  const int row_chunks = P / 16;
-  const int n_copies = T * row_chunks + 3 * T + 2 * T * d
-                       + (kMixture ? T * d + T : 0);
-  const int ys_half = T * P;           // bytes
+  // of shared memory; each thread keeps its first copy's description.  A
+  // row is copied as its block's share: the whole row, or in the
+  // split-field mode the 2 W 16-byte pieces of the block's lanes at each
+  // k < P / R.
+  const int row_chunks = Pb / 16;
+  const int n_mu = kMixture ? T * d : 0;
+  const int n_sig = kMixture ? T : 0;
+  const int n_copies = T * row_chunks + 3 * T + 2 * T * d + n_mu + n_sig
+                       + (kSplit ? T * d + (kDirected ? 1 : 0) : 0);
+  const int ys_half = T * Pb;          // bytes
   const int ss_half = 4 * st.size;     // bytes
   const int ys_at = 4 * 4;             // bytes: after the mbarriers
   const int ss_at = 4 * (ss - smem);   // bytes
@@ -534,9 +614,16 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     Copy cp;
     if (k < T * row_chunks) {
       const int t = k / row_chunks;
-      const int off = 16 * (k - t * row_chunks);
-      cp = {reinterpret_cast<const char*>(Y_c + (size_t)t * n * P + off), P,
-            ys_at + t * P + off, ys_half, 16};
+      const int q = k - t * row_chunks;  // 16-byte piece of the share
+      int src = 16 * q, dst = 16 * q;
+      if (kSplit) {
+        const int kk = q / (2 * W);
+        const int piece = 16 * (q - kk * 2 * W);
+        src = Rl * rank + R * kk + piece;
+        dst = Rl * kk + piece;
+      }
+      cp = {reinterpret_cast<const char*>(Y_c + (size_t)t * n * P + src), P,
+            ys_at + t * Pb + dst, ys_half, 16};
       return cp;
     }
     k -= T * row_chunks;
@@ -552,13 +639,18 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
       const int ph = k / (T * d);
       src = eps_c + (size_t)ph * n * T * d + (k - ph * T * d);
       stride = T * d, at = st.eps + k;
-    } else if ((k -= 2 * T * d) < T * d) {
+    } else if ((k -= 2 * T * d) < n_mu) {
       const int t = k / d;
       src = muz_c + (size_t)t * n * d + (k - t * d), stride = d;
       at = st.mu + k;
-    } else {
-      k -= T * d;
+    } else if ((k -= n_mu) < n_sig) {
       src = sigz_c + (size_t)k * n, stride = 1, at = st.sig + k;
+    } else if ((k -= n_sig) < T * d) {
+      const int t = k / d;
+      src = X_c + (size_t)t * n * d + (k - t * d), stride = d;
+      at = st.xj + k;
+    } else {
+      src = radii_c, stride = 1, at = st.rad;
     }
     cp = {reinterpret_cast<const char*>(src), 4 * stride, ss_at + 4 * at,
           ss_half, 4};
@@ -596,14 +688,29 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     __syncthreads();
   }
 
+  // the field: shared memory, or the chain's X_out
+  float* xf = kSplit ? Xo_c : xs;
   for (int j = 0; j < n; ++j) {
     const int cur = j & 1;
     if (j + 1 < n) stage_node(j + 1, cur ^ 1);
-    const uint8_t* yst = ys + cur * T * P;
-    const float* sc = ss + cur * st.size;
+    const uint8_t* yst = ys + cur * T * Pb;
+    float* sc = ss + cur * st.size;
+    // the node's own positions: time t at xnode + t * xts
+    float* xnode = kSplit ? sc + st.xj : xs + j * d;
+    const int xts = kSplit ? d : n * d;
+    // split-field: this block owns node j's residue, and writes its moves
+    const bool owner = kSplit && (j & (R - 1)) / Rl == rank;
     // directed: the node's own reciprocal terms b_out / r_j and b_in / r_j
-    const float bo_rj = kDirected ? v_s[j] : 0.0f;
-    const float bi_rj = kDirected ? u_s[j] : 0.0f;
+    float bo_rj = 0.0f, bi_rj = 0.0f;
+    if (kDirected) {
+      if (kSplit) {
+        bo_rj = b_out / sc[st.rad];
+        bi_rj = b_in / sc[st.rad];
+      } else {
+        bo_rj = v_s[j];
+        bi_rj = u_s[j];
+      }
+    }
     for (int phase = 0; phase < 2; ++phase) {
       const int th = (T - phase + 1) / 2;  // in-phase times phase, phase+2, ..
       const int xoff = phase * H * R;  // double-buffered by step parity
@@ -619,8 +726,10 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
         const float ratio = (dl + pri[2 * m]) - pri[2 * m + 1];
         const bool accept = sc[st.logu + phase * T + t] < ratio;
         if (accept) {
-          float* x_j = xs + (t * n + j) * d;
+          float* x_j = xnode + t * xts;
           for (int q = 0; q < d; ++q) x_j[q] = x_j[q] + s * e[q];
+          if (owner)
+            for (int q = 0; q < d; ++q) Xo_c[(t * n + j) * d + q] = x_j[q];
         }
         if (rank == 0) acc_c[t * n + j] = accept ? 1.0f : 0.0f;
       };
@@ -637,9 +746,9 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
         const int tn = last ? t : t + 1;
         const float s = sc[st.step + t];
         const float* e = e_ph + t * d;
-        const float* x_j = xs + (t * n + j) * d;
-        const float* x_prev = xs + (tp * n + j) * d;
-        const float* x_next = xs + (tn * n + j) * d;
+        const float* x_j = xnode + t * xts;
+        const float* x_prev = xnode + tp * xts;
+        const float* x_next = xnode + tn * xts;
         float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
         for (int q = 0; q < d; ++q) {
           const float xc = x_j[q];
@@ -700,15 +809,16 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
           const int t = phase + 2 * m;
           const float s = sc[st.step + t];
           const float* e = e_ph + t * d;
-          const float* x_t = xs + t * n * d;
-          const uint8_t* y_row = yst + t * P;
+          const float* x_t = xf + t * n * d;
+          const uint8_t* y_row = yst + t * Pb;
+          const float* xn = xnode + t * xts;
           const float v =
-              d == 2 ? lane_levels<kDirected, 2>(x_t, y_row, e, s, j, n, d,
-                                                 r, R, P, bc, both, u_s, v_s,
-                                                 bo_rj, bi_rj)
-                     : lane_levels<kDirected, 0>(x_t, y_row, e, s, j, n, d,
-                                                 r, R, P, bc, both, u_s, v_s,
-                                                 bo_rj, bi_rj);
+              d == 2 ? lane_levels<kDirected, kSplit, 2>(
+                           x_t, y_row, xn, e, s, j, n, d, r, R, rl, Rl, P,
+                           bc, both, u_s, v_s, bo_rj, bi_rj)
+                     : lane_levels<kDirected, kSplit, 0>(
+                           x_t, y_row, xn, e, s, j, n, d, r, R, rl, Rl, P,
+                           bc, both, u_s, v_s, bo_rj, bi_rj);
           float* slot = xbuf + xoff + m * R + r;
           *slot = v;
           for (int q = 0; q < B; ++q)
@@ -741,10 +851,10 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     }
   }
 
-  if (rank == 0) {
-    float* out_c = X_out + (size_t)c * field;
-    for (int k = tid; k < field; k += nthr) out_c[k] = xs[k];
-  }
+  // resident: the cluster's block 0 writes the field (split-field: X_out
+  // is the field)
+  if (!kSplit && rank == 0)
+    for (int k = tid; k < field; k += nthr) Xo_c[k] = xs[k];
   // no block leaves while a peer may still address its shared memory
   if (B > 1) cluster.sync();
 }
@@ -755,17 +865,22 @@ int min3(int a, int b, int c) {
 
 }  // namespace
 
-// Shared memory of one block: two mbarriers, the (2, T, P) staged
-// adjacency rows, the (T, n, d) field, the directed (n,) u and v rows, the
-// (2, ceil(T/2), R) exchange buffer, the (2, 4T + 3Td) staged scalars, the
-// (ceil(T/2), 2) prior terms and the temperature, R = 32 * warps * cluster.
-// A cluster launch asks for at least half an SM's shared memory (see
-// configure).
+// Shared memory of one block: two mbarriers, the (2, T, Pb) staged
+// adjacency rows, the (T, n, d) field (resident only), the directed u and
+// v rows (n each; split-field: the block's Pb slots), the
+// (2, ceil(T/2), R) exchange buffer, the (2, 4T + 3Td) staged scalars
+// (split-field: and the node's (T, d) positions and radius), the
+// (ceil(T/2), 2) prior terms and the temperature; R = 32 * warps *
+// cluster, Pb = P (resident) or P / cluster (split-field).  A cluster
+// launch asks for at least half an SM's shared memory (see configure).
 extern "C" int node_scan_smem_bytes(int T, int n, int d, int P, int R,
-                                    int directed) {
+                                    int directed, int cluster, int split) {
   const int H = (T + 1) / 2;
-  return 4 * (4 + T * P / 2 + T * n * d + (directed ? 2 * n : 0)
-              + 2 * H * R + 2 * (4 * T + 3 * T * d) + 2 * H + 1);
+  const int Pb = split ? P / cluster : P;
+  const int stage = 4 * T + 3 * T * d + (split ? T * d + 1 : 0);
+  return 4 * (4 + T * Pb / 2 + (split ? 0 : T * n * d)
+              + (directed ? 2 * (split ? Pb : n) : 0) + 2 * H * R
+              + 2 * stage + 2 * H + 1);
 }
 
 // Threads of one block: ceil(T/2) groups of `warps` warps and the prior
@@ -787,10 +902,18 @@ using NodeScanKernel = void (*)(
     const float*, const float*, float*, float*, int, int, int, int, int, int,
     float, float);
 
-template <bool kDirected, bool kMixture>
+template <bool kDirected, bool kMixture, bool kSplit>
 NodeScanKernel pick_tempered(bool tempered) {
-  return tempered ? node_scan_kernel<kDirected, kMixture, true>
-                  : node_scan_kernel<kDirected, kMixture, false>;
+  return tempered ? node_scan_kernel<kDirected, kMixture, true, kSplit>
+                  : node_scan_kernel<kDirected, kMixture, false, kSplit>;
+}
+
+template <bool kSplit>
+NodeScanKernel pick(bool directed, bool mixture, bool tempered) {
+  return directed ? (mixture ? pick_tempered<true, true, kSplit>(tempered)
+                             : pick_tempered<true, false, kSplit>(tempered))
+                  : (mixture ? pick_tempered<false, true, kSplit>(tempered)
+                             : pick_tempered<false, false, kSplit>(tempered));
 }
 
 constexpr int kMaxDevices = 64;
@@ -801,19 +924,19 @@ constexpr int kMaxDevices = 64;
 // not take.
 cudaError_t configure(int C, int T, int n, int d, int P, int warps,
                       int cluster, int directed, int mixture, bool tempered,
-                      void* stream, NodeScanKernel* kernel,
+                      int split, void* stream, NodeScanKernel* kernel,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const int R = 32 * warps * cluster;
-  if ((warps != 1 && warps != 2 && warps != 4)
-      || (cluster != 1 && cluster != 2 && cluster != 4) || P % R != 0
+  if ((warps != 1 && warps != 2 && warps != 4) || cluster < 1
+      || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0
+      || R > 32 * kMaxExchange || P % R != 0
       || P / R > (kChunk << (kChunkLevels - 1)) || P < 32
       || (P & (P - 1)) != 0)
     return cudaErrorInvalidValue;
-  const int smem = node_scan_smem_bytes(T, n, d, P, R, directed);
-  *kernel = directed ? (mixture ? pick_tempered<true, true>(tempered)
-                                : pick_tempered<true, false>(tempered))
-                     : (mixture ? pick_tempered<false, true>(tempered)
-                                : pick_tempered<false, false>(tempered));
+  const int smem =
+      node_scan_smem_bytes(T, n, d, P, R, directed, cluster, split);
+  *kernel = split ? pick<true>(directed, mixture, tempered)
+                  : pick<false>(directed, mixture, tempered);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -829,10 +952,11 @@ cudaError_t configure(int C, int T, int n, int d, int P, int warps,
   }
   // the opt-in holds for the current device only: one record per device
   // (devices past kMaxDevices opt in at every launch)
-  static int opted_in[kMaxDevices][8] = {};
+  static int opted_in[kMaxDevices][16] = {};
   int unrecorded = 0;
   int& opted = dev < kMaxDevices
-      ? opted_in[dev][4 * (directed != 0) + 2 * (mixture != 0) + tempered]
+      ? opted_in[dev][8 * (split != 0) + 4 * (directed != 0)
+                      + 2 * (mixture != 0) + tempered]
       : unrecorded;
   if (smem_launch > opted) {
     err = cudaFuncSetAttribute(
@@ -860,13 +984,13 @@ cudaError_t configure(int C, int T, int n, int d, int P, int warps,
 // cluster 1, blocks), or minus a CUDA error code.
 extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
                                       int cluster, int directed, int mixture,
-                                      int tempered) {
+                                      int tempered, int split) {
   NodeScanKernel kernel;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(cluster, T, n, d, P, warps, cluster, directed,
-                              mixture, tempered != 0, nullptr, &kernel, &cfg,
-                              &attr);
+                              mixture, tempered != 0, split, nullptr, &kernel,
+                              &cfg, &attr);
   if (err != cudaSuccess) return -(int)err;
   int count = 0;
   if (cluster > 1) {
@@ -893,24 +1017,26 @@ extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
 // mixture prior (mu_z, sig_z, lmbda); otherwise the random-walk prior with
 // tau_sq and sigma_sq, and mu_z, sig_z, lmbda may be null.  temper: (C,)
 // inverse temperatures, or null for the untempered scan.  warps (1, 2, 4)
-// per in-phase time and cluster (1, 2, 4) blocks per chain, with
-// 32 * warps * cluster dividing P; a cluster the card refuses returns its
-// error.
+// per in-phase time and cluster (1, 2, 4, 8) blocks per chain, with
+// R = 32 * warps * cluster dividing P and at most 512; a cluster the card
+// refuses returns its error.  split != 0 selects the split-field mode
+// (X_out holds the field during the scan; X and X_out must not overlap).
 extern "C" int node_scan_launch(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
     const float* b, const float* radii, const float* lmbda,
     const float* temper, float* X_out, float* acc, int C, int T, int n,
     int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq, long long y_chain, void* stream) {
+    float tau_sq, float sigma_sq, long long y_chain, int split,
+    void* stream) {
   if (y_chain != 0 && y_chain != (long long)T * n * P)
     return (int)cudaErrorInvalidValue;
   NodeScanKernel kernel;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure(C, T, n, d, P, warps, cluster, directed,
-                              mixture, temper != nullptr, stream, &kernel,
-                              &cfg, &attr);
+                              mixture, temper != nullptr, split, stream,
+                              &kernel, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, kernel, X, Y, y_chain, step, eps, log_u,
                            mu_z, sig_z, b, radii, lmbda, temper, X_out, acc,

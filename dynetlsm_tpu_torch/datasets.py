@@ -53,14 +53,15 @@ def northstar_probas(n=500, n_groups=8, seed=3):
 
 def northstar_network(T=10, n=500, n_groups=8, seed=3, directed=False):
     """Synthetic community network at the north-star scale: undirected,
-    or directed with a zero diagonal."""
+    or directed with a zero diagonal; uint8 (T, n, n), the draws of
+    bench.py's float32 generator (0.67 GB at n = 8,192, not 2.7)."""
     rng = np.random.RandomState(seed)
     P = _community_probas(rng, n, n_groups)
-    Y = np.zeros((T, n, n), np.float32)
+    Y = np.zeros((T, n, n), np.uint8)
     for t in range(T):
-        draw = (rng.uniform(size=(n, n)) < P).astype(np.float32)
+        draw = (rng.uniform(size=(n, n)) < P).astype(np.uint8)
         if directed:
-            np.fill_diagonal(draw, 0.0)
+            np.fill_diagonal(draw, 0)
             Y[t] = draw
         else:
             upper = np.triu(draw, 1)
@@ -153,6 +154,21 @@ def northstar_edge_lists(T=10, n=20000, n_groups=8, seed=3, directed=True):
 
     return {'degrees': degrees, 'in_edges': fill(dst, src),
             'out_edges': fill(src, dst)}, (T, n)
+
+
+def network_of_edge_lists(lists, shape):
+    """The dense uint8 network (T, n, n) of padded edge lists
+    (``ops.case_control.build_edge_lists``'s layout, as
+    :func:`northstar_edge_lists` draws them): Y[t, i, j] = 1 for each j of
+    out_edges[t, i].  The fast way to a dense network of bench.py's model
+    at sizes where :func:`northstar_network`'s dense draws take a minute
+    (n = 16,384)."""
+    T, n = shape
+    out = lists['out_edges']
+    t, i, k = np.nonzero(out >= 0)
+    Y = np.zeros((T, n, n), np.uint8)
+    Y[t, i, out[t, i, k]] = 1
+    return Y
 
 
 def with_missing_dyads(Y, fraction=0.1, seed=0, directed=False):

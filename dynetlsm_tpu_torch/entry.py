@@ -33,7 +33,6 @@ from .models.base import (
     case_control_static, controls_of, impute_missing, init_cc_dict,
     validate_network)
 from .ops.case_control import build_edge_lists, max_degree_bound
-from .ops.distances import pairwise_distances
 
 # the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
 _HYPER = dict(a0=36.0, b0=40.0, c0=5.0, d0=2.0)
@@ -84,9 +83,10 @@ def entry(device='cuda'):
 
 
 def _initial_lsm_logp(cfg, Y, s0, prior, device, cc=None):
-    """The LSM log joint of the single-chain start, from dense distances
-    (the initial sample's logp, lsm.py:252-257), or with the case-control
-    structures ``cc`` from their estimator (Y unread)."""
+    """The LSM log joint of the single-chain start, from the dense network
+    Y (T, n, n) 0/1 (the initial sample's logp, lsm.py:252-257; in blocks
+    of times, ``ops.likelihoods.dense_network_loglik``), or with the
+    case-control structures ``cc`` from their estimator (Y unread)."""
     X = torch.as_tensor(s0['X'], dtype=torch.float32, device=device)[None]
     b = torch.as_tensor(s0['intercept'], dtype=torch.float32,
                         device=device)[None]
@@ -98,9 +98,8 @@ def _initial_lsm_logp(cfg, Y, s0, prior, device, cc=None):
     if cc is not None:
         return float(_lsm_logp(cfg, None, X, b, radii, None, prior,
                                cc=cc)[0])
-    Yd = torch.as_tensor(np.asarray(Y, np.float32), device=device)
-    return float(_lsm_logp(cfg, Yd, X, b, radii, pairwise_distances(X),
-                           prior)[0])
+    Yd = torch.as_tensor(np.asarray(Y), device=device)
+    return float(_lsm_logp(cfg, Yd, X, b, radii, None, prior)[0])
 
 
 def _fill_missing(Y, is_directed):
@@ -109,6 +108,13 @@ def _fill_missing(Y, is_directed):
     and its -1 or NaN dyads filled (``models.base.impute_missing``: the
     imputer's ``'random'`` draws, the observed dyads kept, the diagonal
     0)."""
+    Y = np.asarray(Y)
+    coded = Y.dtype.kind in 'if' and (bool((Y == -1).any()) or (
+        Y.dtype.kind == 'f' and bool(np.isnan(Y).any())))
+    if not coded:
+        # no missing dyad: validate_network's float64 copy and dyad
+        # indices (48 bytes a dyad) are skipped
+        return Y, None
     Y_valid, _, miss, sample_missing = validate_network(Y, is_directed)
     if not sample_missing:
         return Y, None
@@ -131,7 +137,8 @@ def _radii_of_degrees(degrees):
 def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                           device='cuda', is_directed=False, model='hdp',
                           n_temps=None, beta_min=0.2, quality_init=False,
-                          n_control=None, edge_lists=None, shape=None):
+                          n_control=None, edge_lists=None, shape=None,
+                          latent_update='exact'):
     """A replicated chain state, the sweep and its generator for the dense
     network Y (T, n, n), undirected or directed, on ``device`` (the card
     by default).  Returns (state, sweep, gen).
@@ -170,6 +177,9 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
     degrees (``initialize_radii``) with step 175000, tuned in the mixture
     models (``tune_radii``) and not in the LSM (lsm.py:222).
 
+    ``latent_update`` ('exact', 'parallel' or 'mala') is every model's
+    latent-position scheme (``cfg.latent_update``).
+
     ``n_control`` switches every model to the case-control likelihood with
     that many controls a node (``cfg.n_control``, redrawn every 100
     sweeps), as ``bench.build_state_and_sweep`` builds it: the edge lists
@@ -201,7 +211,7 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
         Y, miss = _fill_missing(Y, is_directed)
         T, n, _ = Y.shape
     missing = dict(sample_missing=miss is not None)
-    cc = dict(n_control=n_control)
+    common = dict(n_control=n_control, latent_update=latent_update)
     rng = np.random.RandomState(seed)
     d = 2
     n_int = 2 if is_directed else 1
@@ -241,7 +251,7 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
     stored = None if n_control is not None and miss is None else Y
     if model == 'lsm':
         cfg = SweepConfig(is_directed=is_directed, tune=0, n_burn=0,
-                          tau_sq=2.0, sigma_sq=0.1, **missing, **cc)
+                          tau_sq=2.0, sigma_sq=0.1, **missing, **common)
         cc_static, cc0 = case_control(cfg)
         sweep = make_lsm_sweep(stored, prior, cfg, device=device,
                                miss_mask=miss, cc_static=cc_static)
@@ -259,7 +269,8 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
         s0.update(_mixture_fields(mu0, sigma0, z0))
         cfg = SweepConfig(is_directed=is_directed, tune=0, tune_interval=100,
                           n_components=K, table_cap=table_cap,
-                          tune_radii=is_directed, **_HYPER, **missing, **cc)
+                          tune_radii=is_directed, **_HYPER, **missing,
+                          **common)
         cc_static, _ = case_control(cfg)
         if model == 'hdp':
             weights0 = np.zeros((T, K, K))

@@ -34,6 +34,11 @@ Every dyad is missing, so the sweep rebuilds each chain's edge lists
 every sweep, and its conflict graph is complete (one node a colour
 class).  ``it`` starts at 1 and the redraw cadence is never reached, so
 the enumerated controls stay.
+
+The MALA LSM (``'lsm mala'``, JAX ``test_lsm_mala_joint_distribution``)
+runs the LSM's check with ``latent_update='mala'``: the joint Langevin
+move is MH-exact, so a wrong gradient or proposal correction shows as
+shifted moments.
 """
 import numpy as np
 import scipy.special
@@ -69,9 +74,12 @@ D_BVAR = 0.25
 D_TAU_SQ, D_SIGMA_SQ = 0.01, 0.0025
 
 CC = 'lsm cc'
-MODELS = ('lsm', 'directed', 'lpcm', 'hdp', CC)
+MALA = 'lsm mala'
+MODELS = ('lsm', 'directed', 'lpcm', 'hdp', CC, MALA)
+# the LSM's check under other likelihoods or latent updates
+LSM_LIKE = ('lsm', CC, MALA)
 # the JAX tests' seeds, of each model and of the equal-temperature swap
-SEEDS = {'lsm': 7, 'directed': 23, 'lpcm': 13, 'hdp': 17, CC: 7,
+SEEDS = {'lsm': 7, 'directed': 23, 'lpcm': 13, 'hdp': 17, CC: 7, MALA: 7,
          'swap': 23}
 LIMIT = 5.0          # every |z| below it
 PT_LIMIT = 4.5       # the equal-temperature swap's block z-scores
@@ -191,7 +199,7 @@ def hdp_prior_draws(rng, M):
 
 PRIOR_DRAWS = {'lsm': lsm_prior_draws, 'directed': directed_prior_draws,
                'lpcm': lpcm_prior_draws, 'hdp': hdp_prior_draws,
-               CC: lsm_prior_draws}
+               CC: lsm_prior_draws, MALA: lsm_prior_draws}
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +225,7 @@ def _mixture_extra(lmbda, sigma, mu, log):
 def iid_stats(model, draws):
     """(M, S) statistics of the marginal-conditional draws."""
     d = draws
-    model = 'lsm' if model == CC else model
+    model = 'lsm' if model in LSM_LIKE else model
     if model == 'directed':
         s = _base_stats(d['b_in'], d['X'], d['Y'], _distances(d['X']),
                         _OFFD)
@@ -236,7 +244,7 @@ def iid_stats(model, draws):
 def chain_stats(model, state):
     """(C, S) float64 statistics of a chain-batched port state, on its
     device."""
-    model = 'lsm' if model == CC else model
+    model = 'lsm' if model in LSM_LIKE else model
     f = torch.float64
     X = state.X.to(f)
     Y = state.Y.to(f)
@@ -264,12 +272,13 @@ def chain_stats(model, state):
 def sweep_config(model):
     """The JAX tests' ``SweepConfig`` of each model, with every dyad
     missing."""
-    if model in ('lsm', CC):
+    if model in LSM_LIKE:
         cc = (dict(n_control=N_NODES - 1, n_resample_control=NEVER_BURN)
               if model == CC else {})
         return SweepConfig(sample_missing=True, tune=0, n_burn=NEVER_BURN,
                            tau_sq=TAU_SQ, sigma_sq=SIGMA_SQ,
                            intercept_variance_prior=B_VAR, center=False,
+                           latent_update='mala' if model == MALA else 'exact',
                            **cc)
     if model == 'directed':
         return SweepConfig(is_directed=True, sample_missing=True, tune=0,
@@ -293,7 +302,7 @@ def make_sweep(model, device):
                      np.float32)
     make = {'lsm': make_lsm_sweep, 'directed': make_lsm_sweep,
             'lpcm': make_lpcm_sweep, 'hdp': make_hdp_sweep,
-            CC: make_lsm_sweep}[model]
+            CC: make_lsm_sweep, MALA: make_lsm_sweep}[model]
     cc_static = None
     if model == CC:
         empty = np.zeros(_MISS.shape)
@@ -327,7 +336,11 @@ def initial_state(model, rng, n_chains, device):
     else:
         a.update(intercept=d['beta'][:, None], step_X=0.8, step_int=0.4,
                  acc_int=np.zeros((C, 1)))
-    if model in ('lsm', 'directed', CC):
+    if model == MALA:
+        # the whole field moves jointly: a smaller per-site scale than the
+        # single-site scan keeps the acceptance high (the JAX test's 0.12)
+        a['step_X'] = 0.12
+    if model in ('lsm', 'directed', CC, MALA):
         a.update(logp_map=-1e30, X_map=d['X'], intercept_map=a['intercept'],
                  logp_ref=-1e30, X_ref=d['X'], radii_map=a.get('radii'))
     else:

@@ -323,9 +323,11 @@ def longitudinal_kmeans(X, n_clusters=5, var_reg=1e-3, random_state=None):
 
 def initialize_radii(Y, reg=1e-5):
     """Degree-normalised social radii (reference latent_space.py:140-153)."""
-    Y = np.asarray(Y, dtype=np.float64)
-    radii = 0.5 * (Y.sum(axis=(0, 1)) + Y.sum(axis=(0, 2)))
-    radii /= Y.sum()
+    Y = np.asarray(Y)
+    f64 = np.float64
+    radii = 0.5 * (Y.sum(axis=(0, 1), dtype=f64) + Y.sum(axis=(0, 2),
+                                                        dtype=f64))
+    radii /= Y.sum(dtype=f64)
     if np.any(radii == 0.0):
         radii += reg
         radii /= radii.sum()
@@ -336,36 +338,46 @@ def initialize_radii(Y, reg=1e-5):
 # intercept MLEs (BFGS over the float32 likelihood, autograd gradients)
 # ---------------------------------------------------------------------------
 
-def _bfgs(neg_ll, x0, tol):
-    """SciPy BFGS on ``neg_ll(params)`` (a float32 CPU torch function of a
-    float32 (2,) tensor), its gradient from ``torch.autograd``."""
+def _bfgs(neg_ll, x0, tol, device):
+    """SciPy BFGS on ``neg_ll(params)`` (a float32 torch function of a
+    float32 (2,) tensor on ``device``), its gradient from
+    ``torch.autograd``."""
     def fun(x):
-        p = torch.tensor(np.asarray(x, np.float32), requires_grad=True)
+        p = torch.tensor(np.asarray(x, np.float32), device=device,
+                         requires_grad=True)
         v = neg_ll(p)
         g, = torch.autograd.grad(v, p)
-        return float(v.detach()), g.numpy().astype(np.float64)
+        return float(v.detach()), g.cpu().numpy().astype(np.float64)
 
     return minimize(fun, x0=x0, jac=True, method='BFGS', tol=tol)
 
 
-def scale_intercept_mle(Y, X, tol=1e-4):
+def _f32(a, device):
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def scale_intercept_mle(Y, X, tol=1e-4, device='cpu'):
     """Joint MLE of a log-scale for X and the intercept (reference
-    lsm.py:47-70), on the CPU in float32.  Returns (scale, intercept)."""
-    dist = pairwise_distances(torch.as_tensor(np.asarray(X, np.float32)))
-    Yt = torch.as_tensor(np.asarray(Y, np.float32))
+    lsm.py:47-70), in float32 on ``device`` (the CPU, or the card of a
+    fit there: each step's likelihood is a pass over T n^2 dyads).
+    Returns (scale, intercept)."""
+    dist = pairwise_distances(_f32(X, device))
+    Yt = _f32(Y, device)
     res = _bfgs(lambda p: -undirected_loglik_full(
-        Yt, torch.exp(p[0]) * dist, p[1]), np.array([0.0, 1.0]), tol)
+        Yt, torch.exp(p[0]) * dist, p[1]), np.array([0.0, 1.0]), tol,
+        device)
     return float(res.x[0]), float(res.x[1])
 
 
-def directed_intercept_mle(Y, X, radii, intercept_init=None, tol=1e-4):
-    """MLE of (intercept_in, intercept_out) (reference lsm.py:73-97), on
-    the CPU in float32."""
-    dist = pairwise_distances(torch.as_tensor(np.asarray(X, np.float32)))
-    Yt = torch.as_tensor(np.asarray(Y, np.float32))
-    rt = torch.as_tensor(np.asarray(radii, np.float32))
+def directed_intercept_mle(Y, X, radii, intercept_init=None, tol=1e-4,
+                           device='cpu'):
+    """MLE of (intercept_in, intercept_out) (reference lsm.py:73-97), in
+    float32 on ``device``."""
+    dist = pairwise_distances(_f32(X, device))
+    Yt = _f32(Y, device)
+    rt = _f32(radii, device)
     x0 = (np.asarray(intercept_init, np.float64)
           if intercept_init is not None else np.zeros(2))
     res = _bfgs(lambda p: -directed_loglik_full(Yt, dist, rt, p[0], p[1]),
-                x0, tol)
+                x0, tol, device)
     return float(res.x[0]), float(res.x[1])

@@ -1,14 +1,23 @@
-"""Latent-position Metropolis update, exact scheme (counterpart of
-``dynetlsm_tpu/mcmc/latent.py::sample_latent_positions``).
+"""Latent-position Metropolis updates (counterpart of
+``dynetlsm_tpu/mcmc/latent.py::sample_latent_positions``), in the JAX
+package's three schemes:
 
-One call runs the exact single-site scan over every (t, node) site of C
-chains.  On a dense network it is the sequential node scan: the CUDA
-node-scan kernel for CUDA tensors at every n, its plain PyTorch version
-for CPU tensors (``ops/node_scan.py``, which also holds the per-partner
-likelihood terms and the prior terms of each site's conditional).  Under
-the case-control likelihood it is the chromatic scan
-(:func:`cc_colored_scan`), torch code on any device: one vectorised
-update per colour class instead of one per node.
+* ``'exact'`` (the default): the single-site scan over every (t, node)
+  site of C chains.  On a dense network it is the sequential node scan:
+  the CUDA node-scan kernel for CUDA tensors at every n the kernel takes,
+  its plain PyTorch version for CPU tensors (``ops/node_scan.py``, which
+  also holds the per-partner likelihood terms and the prior terms of each
+  site's conditional).  Under the case-control likelihood it is the
+  chromatic scan (:func:`cc_colored_scan`), torch code on any device: one
+  vectorised update per colour class instead of one per node.
+* ``'parallel'``: every site's proposal scored against the stale field
+  with its own accept (:func:`_parallel_site_update`; a perturbed Markov
+  kernel, as in JAX), dense or case-control.
+* ``'mala'``: one joint Metropolis-adjusted Langevin step of each chain's
+  whole field on the dense joint density (:func:`_mala_update`), its
+  gradient from ``torch.autograd``.
+
+The last two are torch code on any device, on (C, T, n, n) tensors.
 """
 from functools import lru_cache
 
@@ -16,10 +25,15 @@ import numpy as np
 import torch
 
 from ..math.distributions import normal, uniform
-from ..ops.case_control import class_partial_loglik_segments, control_scale
+from ..ops.case_control import (
+    approx_partial_loglik_all, class_partial_loglik_segments, control_scale)
+from ..ops.distances import _sum_sq_last
+from ..ops.likelihoods import softplus
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
     _directed_partial_loglik_terms, _mixture_prior_per_t,
     _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
+
+SCHEMES = ('exact', 'parallel', 'mala')
 
 
 def latent_noise(gen, C, T, n, d, device):
@@ -36,24 +50,51 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                             sigma_sq=None, radii=None, is_directed=False,
                             mixture=True, scheme='exact', noise=None,
                             cc=None, temper=None):
-    """One full sweep of single-site MH updates of the positions under the
-    mixture prior (mu, sigma, lmbda, z) or, with ``mixture=False``, the
-    Gaussian random-walk prior of the LSM (tau_sq, sigma_sq).
+    """One full sweep of MH updates of the positions under the mixture
+    prior (mu, sigma, lmbda, z) or, with ``mixture=False``, the Gaussian
+    random-walk prior of the LSM (tau_sq, sigma_sq), by ``scheme``
+    ('exact', 'parallel' or 'mala'; the JAX package's ``ValueError``s for
+    another scheme, for MALA under case-control and for a ``noise`` stream
+    the two other schemes cannot honour).
 
     Undirected: Y (T, n, n) uint8 0/1, intercept (C, 1).  Directed
     (``is_directed``): Y the packed ``Y + 2 Y^T`` uint8, intercept (C, 2)
     = (b_in, b_out), radii (C, n).  Y may have its rows padded
-    (``ops.node_scan.pad_partners``), as the sweeps store it.
+    (``ops.node_scan.pad_partners``), as the sweeps store it, and may be
+    one network a chain (C, T, n, .).
     X (C, T, n, d); step_size (C, T, n); mu (C, K, d); sigma (C, K);
     lmbda (C,); z (C, T, n); tau_sq, sigma_sq floats.  ``noise`` =
-    (eps, log_u) injects the proposal stream.  ``temper`` (C,) scales
-    each chain's log-likelihood delta (parallel tempering; ``None``:
+    (eps, log_u) injects the exact scan's proposal stream.  ``temper``
+    (C,) scales each chain's log-likelihood (parallel tempering; ``None``:
     untempered).  Returns (X_new (C, T, n, d), accepted (C, T, n))."""
-    if scheme != 'exact':
-        raise NotImplementedError(
-            "latent_update=%r is not ported yet; only 'exact'" % (scheme,))
+    if scheme not in SCHEMES:
+        raise ValueError(
+            "latent_update must be 'exact', 'parallel', or 'mala', got %r"
+            % (scheme,))
     if is_directed and radii is None:
         raise ValueError('the directed latent update needs radii')
+    prior_kw = dict(tau_sq=tau_sq, sigma_sq=sigma_sq, mu=mu, sigma=sigma,
+                    lmbda=lmbda, z=z, is_directed=is_directed,
+                    mixture=mixture, temper=temper)
+    if scheme == 'parallel':
+        if noise is not None:
+            raise ValueError(
+                "scheme='parallel' draws its own (T, n) proposal field; an "
+                "injected exact-scan noise stream cannot be honoured")
+        return _parallel_site_update(gen, Y, X, intercept, step_size, radii,
+                                     cc=cc, **prior_kw)
+    if scheme == 'mala':
+        if cc is not None:
+            raise ValueError(
+                "latent_update='mala' differentiates the dense joint "
+                "likelihood; under case-control sampling use 'exact' or "
+                "'parallel'")
+        if noise is not None:
+            raise ValueError(
+                "scheme='mala' draws its own proposal noise; an injected "
+                "exact-scan noise stream cannot be honoured")
+        return _mala_update(gen, Y, X, intercept, step_size, radii,
+                            **prior_kw)
     C, T, n, d = X.shape
     eps, log_u = (noise if noise is not None
                   else latent_noise(gen, C, T, n, d, X.device))
@@ -61,8 +102,8 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
         if 'color_groups' not in cc:
             raise NotImplementedError(
                 'the sequential case-control scan without colour classes is '
-                'not ported (ROADMAP.md §1 item 5); build the structures '
-                'with models.base.build_case_control')
+                'not ported; build the structures with '
+                'models.base.build_case_control')
         return cc_colored_scan(X, intercept, step_size, eps, log_u,
                                radii=radii, tau_sq=tau_sq, sigma_sq=sigma_sq,
                                mu=mu, sigma=sigma, lmbda=lmbda, z=z, cc=cc,
@@ -79,6 +120,216 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                      radii=radii.contiguous() if is_directed else None,
                      temper=None if temper is None else temper.contiguous(),
                      **prior)
+
+
+def _dense_network(Y, n, is_directed, dtype):
+    """(Y_row, Y_col) float of the kernels' form of the network ((C,) T,
+    n, n or padded rows): the 0/1 adjacency Y[t, j, i] and, directed, its
+    transpose Y[t, i, j] (the packed bits ``& 1`` and ``>> 1``; None when
+    undirected)."""
+    Y = Y[..., :n]
+    if is_directed:
+        return (Y & 1).to(dtype), (Y >> 1).to(dtype)
+    return Y.to(dtype), None
+
+
+def _offdiag(n, X):
+    return 1.0 - torch.eye(n, dtype=X.dtype, device=X.device)
+
+
+def _shift(a, step, fill):
+    """a[:, t - 1] (step 1) or a[:, t + 1] (step -1) along axis 1, ``fill``
+    where that time does not exist."""
+    pad = torch.full_like(a[:, :1], fill)
+    if step == 1:
+        return torch.cat([pad, a[:, :-1]], dim=1)
+    return torch.cat([a[:, 1:], pad], dim=1)
+
+
+def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
+                          tau_sq=None, sigma_sq=None, mu=None, sigma=None,
+                          lmbda=None, z=None, is_directed=False, mixture=True,
+                          cc=None, temper=None, eps=None, log_u=None):
+    """Every (t, node) proposal evaluated against the stale position field
+    with its own accept (JAX ``_parallel_site_update``, SURVEY.md §7.1):
+    one O(T n^2 d) pass instead of 2n dependent steps, at the cost of a
+    perturbed Markov kernel (each site's accept ignores the other sites'
+    moves; JAX measures the temporal-smoothness moment E|X_{t+1} - X_t|^2
+    ~9% inflated at T=3, n=8).  JAX's formulas term by term, with a chain
+    axis: the (C, T, n, n, d) differences, the partner terms masked off the
+    diagonal and summed per site, the prior with stale temporal
+    neighbours, ``temper`` (C,) times the likelihood delta.  Under the
+    case-control structures ``cc`` the site terms are
+    ``ops.case_control.approx_partial_loglik_all``'s (Y unread).
+
+    Shapes as :func:`sample_latent_positions`.  The proposal eps (C, T, n,
+    d) and the log-uniforms log_u (C, T, n) are drawn from ``gen`` (eps
+    first) unless given.  Returns (X_new, accepted (C, T, n) float)."""
+    C, T, n, d = X.shape
+    if eps is None:
+        eps = normal(gen, (C, T, n, d), X.device)
+    if log_u is None:
+        log_u = torch.log(uniform(gen, (C, T, n), X.device))
+    X_prop = X + step_size[..., None] * eps
+    b0 = intercept[:, 0, None, None, None]
+    if cc is None:
+        Y_row, Y_col = _dense_network(Y, n, is_directed, X.dtype)
+        mask = _offdiag(n, X)
+        if is_directed:
+            b1 = intercept[:, 1, None, None, None]
+            r_self = radii[:, None, :, None]
+            r_other = radii[:, None, None, :]
+
+    def site_ll(Xq):
+        if cc is not None:
+            return approx_partial_loglik_all(X, Xq, cc, intercept, radii,
+                                             is_directed)
+        diff = Xq[:, :, :, None, :] - X[:, :, None, :, :]
+        dist = torch.sqrt(torch.clamp_min(_sum_sq_last(diff), 0.0))
+        if is_directed:
+            eta_out = (b0 * (1.0 - dist / r_other)
+                       + b1 * (1.0 - dist / r_self))
+            eta_in = (b0 * (1.0 - dist / r_self)
+                      + b1 * (1.0 - dist / r_other))
+            ll = Y_row * eta_out - softplus(eta_out)
+            ll = ll + (Y_col * eta_in - softplus(eta_in))
+        else:
+            eta = b0 - dist
+            ll = Y_row * eta - softplus(eta)
+        return torch.sum(ll * mask, dim=-1)                  # (C, T, n)
+
+    prev = _shift(X, 1, 0.0)
+    nxt = _shift(X, -1, 0.0)
+    first = torch.arange(T, device=X.device)[:, None] == 0
+    last = torch.arange(T, device=X.device)[:, None] == T - 1
+    if mixture:
+        mu_z, sig_z = site_cluster_params(mu, sigma, z)
+        lam = lmbda[:, None, None, None]
+        mu_nxt = _shift(mu_z, -1, 0.0)
+        sig_nxt = _shift(sig_z, -1, 1.0)
+    else:
+        tau = torch.as_tensor(tau_sq, dtype=X.dtype, device=X.device)
+        sig = torch.as_tensor(sigma_sq, dtype=X.dtype, device=X.device)
+
+    def site_prior(Xq):
+        if mixture:
+            diff0 = Xq - mu_z
+            difft = Xq - (1.0 - lam) * prev - lam * mu_z
+            diff = torch.where(first[..., None], diff0, difft)
+            back = -0.5 * _sum_sq_last(diff) / sig_z
+            fdiff = nxt - (1.0 - lam) * Xq - lam * mu_nxt
+            fwd = -0.5 * _sum_sq_last(fdiff) / sig_nxt
+        else:
+            back0 = -0.5 * _sum_sq_last(Xq) / tau
+            backt = -0.5 * _sum_sq_last(Xq - prev) / sig
+            back = torch.where(first, back0, backt)
+            fwd = -0.5 * _sum_sq_last(nxt - Xq) / sig
+        return back + torch.where(last, 0.0, fwd)
+
+    delta_ll = site_ll(X_prop) - site_ll(X)
+    if temper is not None:
+        delta_ll = temper[:, None, None] * delta_ll
+    ratio = delta_ll + site_prior(X_prop) - site_prior(X)
+    accept = log_u < ratio
+    X_new = torch.where(accept[..., None], X_prop, X)
+    return X_new, accept.to(X.dtype)
+
+
+def _joint_latent_logp(Y, X, intercept, radii=None, tau_sq=None,
+                       sigma_sq=None, mu=None, sigma=None, lmbda=None, z=None,
+                       is_directed=False, mixture=True, temper=None):
+    """Joint log density (C,) of each chain's position field, the network
+    likelihood (times ``temper`` when given) plus the temporal prior, each
+    transition once: the MALA target (JAX ``_joint_latent_logp``).  JAX's
+    formulas term by term: the (C, T, n, n, d) differences, the squared
+    distances off the diagonal floored at 1e-12 and the diagonal set to 1
+    before the sqrt (finite gradients), the undirected sum halved (each
+    dyad counted twice).  Y in the kernels' form, as
+    :func:`sample_latent_positions` takes it; differentiable in X."""
+    C, T, n, d = X.shape
+    Y_row, _ = _dense_network(Y, n, is_directed, X.dtype)
+    mask = _offdiag(n, X)
+    diff = X[:, :, :, None, :] - X[:, :, None, :, :]
+    d2 = _sum_sq_last(diff)
+    dist = torch.sqrt(torch.where(mask > 0, torch.clamp_min(d2, 1e-12),
+                                  1.0))
+    b0 = intercept[:, 0, None, None, None]
+    if is_directed:
+        b1 = intercept[:, 1, None, None, None]
+        r_i = radii[:, None, :, None]
+        r_j = radii[:, None, None, :]
+        eta = b0 * (1.0 - dist / r_j) + b1 * (1.0 - dist / r_i)
+        ll = torch.sum((Y_row * eta - softplus(eta)) * mask, dim=(1, 2, 3))
+    else:
+        eta = b0 - dist
+        ll = 0.5 * torch.sum((Y_row * eta - softplus(eta)) * mask,
+                             dim=(1, 2, 3))
+    if temper is not None:
+        ll = temper * ll
+    if mixture:
+        mu_z, sig_z = site_cluster_params(mu, sigma, z)
+        diff0 = X[:, 0] - mu_z[:, 0]
+        prior = -0.5 * torch.sum(_sum_sq_last(diff0) / sig_z[:, 0], dim=1)
+        if T > 1:
+            lam = lmbda[:, None, None, None]
+            dft = X[:, 1:] - (1.0 - lam) * X[:, :-1] - lam * mu_z[:, 1:]
+            prior = prior - 0.5 * torch.sum(_sum_sq_last(dft) / sig_z[:, 1:],
+                                            dim=(1, 2))
+    else:
+        prior = -0.5 * torch.sum(X[:, 0] * X[:, 0], dim=(1, 2)) / tau_sq
+        if T > 1:
+            dft = X[:, 1:] - X[:, :-1]
+            prior = prior - 0.5 * torch.sum(dft * dft,
+                                            dim=(1, 2, 3)) / sigma_sq
+    return ll + prior
+
+
+def _joint_value_and_grad(X, **kw):
+    """(_joint_latent_logp (C,), its gradient in X (C, T, n, d))."""
+    with torch.enable_grad():
+        Xg = X.detach().requires_grad_(True)
+        logp = _joint_latent_logp(X=Xg, **kw)
+        grad, = torch.autograd.grad(logp.sum(), Xg)
+    return logp.detach(), grad
+
+
+def _mala_update(gen, Y, X, intercept, step_size, radii=None, tau_sq=None,
+                 sigma_sq=None, mu=None, sigma=None, lmbda=None, z=None,
+                 is_directed=False, mixture=True, temper=None, eps=None,
+                 log_u=None):
+    """One joint Metropolis-adjusted Langevin step of each chain's whole
+    position field (JAX ``_mala_update``): the proposal drifts along the
+    gradient of :func:`_joint_latent_logp` (``torch.autograd``), scaled
+    per site by ``step_size`` (C, T, n) as a fixed diagonal
+    preconditioner, and one MH test per chain, with the drift's correction
+    log q(X | X') - log q(X' | X), accepts or keeps the whole field.  The
+    accept is broadcast to (C, T, n), so the acceptance counters and the
+    'mala' tuning schedule apply.  The proposal eps (C, T, n, d) and the
+    log-uniform log_u (C,) are drawn from ``gen`` (eps first) unless given.
+    Returns (X_new, accepted (C, T, n) float)."""
+    C, T, n, d = X.shape
+    kw = dict(Y=Y, intercept=intercept, radii=radii, tau_sq=tau_sq,
+              sigma_sq=sigma_sq, mu=mu, sigma=sigma, lmbda=lmbda, z=z,
+              is_directed=is_directed, mixture=mixture, temper=temper)
+    s = step_size[..., None]
+    s2 = s * s
+    logp_cur, g_cur = _joint_value_and_grad(X, **kw)
+    mean_fwd = X + 0.5 * s2 * g_cur
+    if eps is None:
+        eps = normal(gen, (C, T, n, d), X.device)
+    X_prop = mean_fwd + s * eps
+    logp_prop, g_prop = _joint_value_and_grad(X_prop, **kw)
+    mean_rev = X_prop + 0.5 * s2 * g_prop
+    # log q(X | X') - log q(X' | X); the normalisations cancel
+    log_q_rev = -0.5 * torch.sum((X - mean_rev) ** 2 / s2, dim=(1, 2, 3))
+    log_q_fwd = -0.5 * torch.sum((X_prop - mean_fwd) ** 2 / s2,
+                                 dim=(1, 2, 3))
+    ratio = logp_prop - logp_cur + log_q_rev - log_q_fwd
+    if log_u is None:
+        log_u = torch.log(uniform(gen, (C,), X.device))
+    accept = log_u < ratio
+    X_new = torch.where(accept[:, None, None, None], X_prop, X)
+    return X_new, accept.to(X.dtype)[:, None, None].expand(C, T, n)
 
 
 @lru_cache(maxsize=None)

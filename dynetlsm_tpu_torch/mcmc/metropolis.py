@@ -1,52 +1,68 @@
 """Adaptive Metropolis machinery (counterpart of
 ``dynetlsm_tpu/mcmc/metropolis.py``): step sizes and acceptance counters
 are chain-batched tensors adapted with the reference's piecewise schedules
-(reference metropolis.py:5-37, 122-136); the random-walk accept and the
+(reference metropolis.py:5-37, 122-136) and the JAX package's MALA
+schedule; the random-walk accept and the
 Dirichlet-proposal step of the social radii (metropolis.py:57-82)."""
 import torch
 
 from ..math.distributions import (
     _TINY, dirichlet_logpdf, sample_dirichlet, uniform)
 
-_CONDS = (lambda r: r < 0.001, lambda r: r < 0.05, lambda r: r < 0.25,
-          lambda r: r > 0.95, lambda r: r > 0.75, lambda r: r > 0.4)
+# (below, above): the schedule's rate bounds in the reference's if/elif
+# order, the "below" ones first
+_RW_BOUNDS = ((0.001, 0.05, 0.25), (0.95, 0.75, 0.4))
 _RW_FACTORS = (0.1, 0.5, 0.9, 10.0, 2.0, 1.1)
 # the Dirichlet proposal's concentration is inverse to its move size
 _DIRICHLET_FACTORS = (10.0, 2.0, 1.1, 0.1, 0.5, 0.9)
+# the joint MALA move's band around the 0.574 Langevin optimum
+_MALA_BOUNDS = ((0.001, 0.20, 0.45), (0.95, 0.70))
+_MALA_FACTORS = (0.1, 0.5, 0.9, 2.0, 1.1)
 
 
-def _piecewise(step_size, acc_rate, factors):
-    """step_size times the factor of the first matching condition, as in
+def _piecewise(step_size, acc_rate, bounds, factors):
+    """step_size times the factor of the first matching condition (rate
+    below each of ``bounds[0]``, then above each of ``bounds[1]``), as in
     the reference's if/elif chain."""
+    conds = ([acc_rate < b for b in bounds[0]]
+             + [acc_rate > b for b in bounds[1]])
     factor = torch.ones_like(acc_rate)
-    for cond, f in reversed(tuple(zip(_CONDS, factors))):
-        factor = torch.where(cond(acc_rate), torch.full_like(acc_rate, f),
-                             factor)
+    for cond, f in reversed(tuple(zip(conds, factors))):
+        factor = torch.where(cond, torch.full_like(acc_rate, f), factor)
     return step_size * factor
 
 
 def tune_step_size_random_walk(step_size, acc_rate):
     """Piecewise step-size adaptation targeting 25-40% acceptance
     (reference metropolis.py:5-20)."""
-    return _piecewise(step_size, acc_rate, _RW_FACTORS)
+    return _piecewise(step_size, acc_rate, _RW_BOUNDS, _RW_FACTORS)
 
 
 def tune_step_size_dirichlet(step_size, acc_rate):
     """The inverted schedule: a larger Dirichlet ``step_size`` means
     smaller moves (reference metropolis.py:23-37)."""
-    return _piecewise(step_size, acc_rate, _DIRICHLET_FACTORS)
+    return _piecewise(step_size, acc_rate, _RW_BOUNDS, _DIRICHLET_FACTORS)
+
+
+def tune_step_size_mala(step_size, acc_rate):
+    """The joint MALA move's schedule, toward the 0.45-0.70 band around
+    the 0.574 Langevin optimum (JAX ``tune_step_size_mala``; Roberts &
+    Rosenthal 1998)."""
+    return _piecewise(step_size, acc_rate, _MALA_BOUNDS, _MALA_FACTORS)
 
 
 _TUNE_FNS = {'random_walk': tune_step_size_random_walk,
-             'dirichlet': tune_step_size_dirichlet}
+             'dirichlet': tune_step_size_dirichlet,
+             'mala': tune_step_size_mala}
 
 
 def maybe_tune(it, tune, tune_interval, step_size, n_accepted,
                kind='random_walk'):
     """Adapt ``step_size`` from the accumulated acceptances when a chain's
-    tuning window closes, with the schedule of ``kind`` ('random_walk' or
-    'dirichlet').  ``it`` (C,) is each chain's sweep index before this
-    sweep; ``step_size`` / ``n_accepted`` carry the chain axis first.
+    tuning window closes, with the schedule of ``kind`` ('random_walk',
+    'dirichlet' or 'mala').  ``it`` (C,) is each chain's sweep index
+    before this sweep; ``step_size`` / ``n_accepted`` carry the chain axis
+    first.
     Returns (new_step_size, new_n_accepted)."""
     if not tune:
         return step_size, n_accepted

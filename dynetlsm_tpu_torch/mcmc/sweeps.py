@@ -1,6 +1,8 @@
 """Full Gibbs sweeps (counterpart of ``dynetlsm_tpu/mcmc/sweeps.py``) on a
 dense undirected or directed (social-radii) network, fixed or with missing
-dyads resampled, and the exact latent update:
+dyads resampled, and the latent update of ``cfg.latent_update``
+(``mcmc/latent.py``: the exact scan, stale-field parallel site updates or
+a joint MALA step):
 
 * LSM (:func:`make_lsm_sweep`, reference lsm.py:474-572): random-walk
   prior on the positions, Procrustes alignment after burn-in, MAP
@@ -77,8 +79,9 @@ from ..models.base import validate_network
 from ..ops.case_control import (
     cc_network_loglik, control_masks, edge_lists_device,
     sample_controls_colored)
-from ..ops.distances import _sum_sq_last, pairwise_distances
-from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
+from ..ops.distances import _sum_sq_last
+from ..ops.likelihoods import (
+    dense_network_loglik, directed_loglik_full, undirected_loglik_full)
 from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
 from .coefficients import (
     network_loglik, sample_intercept_undirected, sample_intercepts_directed,
@@ -129,17 +132,13 @@ class SweepConfig:
     # case-control: control nodes per node and the redraw cadence
     n_control: Optional[int] = None
     n_resample_control: int = 100
+    # 'exact' (the single-site scan), 'parallel' (stale-field site
+    # updates) or 'mala' (a joint Langevin step; tuned with the 'mala'
+    # schedule)
     latent_update: str = 'exact'
     table_cap: int = 64
     sample_concentrations: bool = True
     center: bool = True
-
-
-def _check_supported(cfg):
-    if cfg.latent_update != 'exact':
-        raise NotImplementedError(
-            "latent_update=%r is not ported yet; only 'exact'"
-            % (cfg.latent_update,))
 
 
 def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
@@ -157,7 +156,6 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
     ``None``, of the -1 or NaN dyads of ``Y_fixed``
     (``models.base.validate_network``).  Under the case-control likelihood
     (``cc_static``) no network is stored: ``Y_fixed`` may be ``None``."""
-    _check_supported(cfg)
     if (cfg.n_control is None) != (cc_static is None):
         raise ValueError('cfg.n_control and cc_static '
                          '(models.base.build_case_control) go together')
@@ -178,11 +176,14 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
     if cc_static is not None:
         return None, None, None, prior, prior_means
     Y_np = np.asarray(Y_fixed)
-    if not np.isin(Y_np, (0, 1)).all():
+    # an unsigned network is 0/1 when its largest dyad is: one pass, not
+    # isin's (2.7 GB of booleans at T = 10, n = 16,384)
+    if not (Y_np.max(initial=0) <= 1 if Y_np.dtype.kind in 'ub'
+            else np.isin(Y_np, (0, 1)).all()):
         raise ValueError('Y_fixed must be a 0/1 adjacency; a network with '
                          'missing (-1 or NaN) dyads needs '
                          'cfg.sample_missing')
-    Y = torch.as_tensor(Y_np.astype(np.uint8), device=device)
+    Y = torch.as_tensor(np.asarray(Y_np, np.uint8), device=device)
     if cfg.is_directed:
         Y = pack_directed(Y)
     return Y, pad_partners(Y), None, prior, prior_means
@@ -382,7 +383,8 @@ def _lsm_logp(cfg, Y, X, intercept, radii, dist, intercept_prior,
               net_ll=None, cc=None):
     """LSM log joint per chain (reference lsm.py:576-625): the network
     log-likelihood (``net_ll`` if given, else from the dense distances
-    ``dist`` and the 0/1 Y, or the case-control estimator of ``cc``), the
+    ``dist``, or when None from X in blocks, and the 0/1 Y, or the
+    case-control estimator of ``cc``), the
     random-walk prior of the positions and the intercepts' Gaussian prior.
     intercept_prior (1, P) or (P,)."""
     ll = (net_ll if net_ll is not None
@@ -426,10 +428,15 @@ def _count_chain_loglik(n_trans, nk, w0, w_trans):
 
 
 def _network_loglik(cfg, Y, dist, intercept, radii, X=None, cc=None):
-    """Dense network log-likelihood; Y (T, n, n) or (C, T, n, n) 0/1.
+    """Dense network log-likelihood; Y (T, n, n) or (C, T, n, n) 0/1, from
+    the distances ``dist`` or, when None, from X in blocks
+    (``ops.likelihoods.dense_network_loglik``: no (C, T, n, n) tensor).
     With ``cc``, the case-control estimator at the positions X."""
     if cc is not None:
         return cc_network_loglik(X, intercept, radii, cc, cfg.is_directed)
+    if dist is None:
+        return dense_network_loglik(Y, X, intercept,
+                                    radii if cfg.is_directed else None)
     if cfg.is_directed:
         return directed_loglik_full(Y, dist, radii, intercept[:, 0],
                                     intercept[:, 1])
@@ -483,8 +490,9 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                       lmbda, weights, beta, gamma, alpha_init, alpha, kappa,
                       mean_var, b_scale, radii=None, cc=None):
     """Full HDP-LPCM log joint at an arbitrary chain-batched state, with
-    the network term from dense distances (reference hdp_lpcm.py:798-809),
-    or from the case-control structures ``cc`` (Y unread).
+    the network term from the dense network (reference hdp_lpcm.py:798-809;
+    in blocks of times, no (C, T, n, n) tensor), or from the case-control
+    structures ``cc`` (Y unread).
     Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
     or (2,) and radii (C, n) for the directed model."""
     K = cfg.n_components
@@ -495,18 +503,15 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                              kappa)
     logp = logp + _count_chain_loglik(n_trans, nk, w0, weights)
     return logp + _mixture_common_logp(
-        cfg, Y, X, intercept, _dense_distances(X, cc), z, mu, sigma, lmbda,
-        mean_var, b_scale, prior, radii=radii, cc=cc)
-
-
-def _dense_distances(X, cc):
-    """Pairwise distances of X, or None under case-control."""
-    return None if cc is not None else pairwise_distances(X)
+        cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var, b_scale,
+        prior, radii=radii, cc=cc)
 
 
 def _finish_tuning(cfg, state, acc_X, acc_int, acc_radii):
     step_X, acc_X = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
-                               state.step_X, acc_X)
+                               state.step_X, acc_X,
+                               kind=('mala' if cfg.latent_update == 'mala'
+                                     else 'random_walk'))
     step_int, acc_int = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
                                    state.step_int, acc_int)
     step_radii = state.step_radii
@@ -554,7 +559,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             gen, Yk_scan, state.X, state.intercept, state.step_X,
             tau_sq=cfg.tau_sq, sigma_sq=cfg.sigma_sq, radii=state.radii,
             is_directed=cfg.is_directed, mixture=False, temper=state.temper,
-            cc=cc)
+            cc=cc, scheme=cfg.latent_update)
         acc_X = state.acc_X + acc_new
 
         # Procrustes toward the burn-phase reference (lsm.py:495-498),
@@ -627,8 +632,9 @@ def lpcm_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
                        lmbda, init_weights, trans_weights, mean_var, b_scale,
                        radii=None, cc=None):
     """Full LPCM log joint at an arbitrary chain-batched state, with the
-    network term from dense distances (reference lpcm.py:770-856), or from
-    the case-control structures ``cc`` (Y unread).
+    network term from the dense network (reference lpcm.py:770-856; in
+    blocks of times), or from the case-control structures ``cc`` (Y
+    unread).
     Y (T, n, n) 0/1, or each chain's (C, T, n, n); intercept_prior (1,),
     or (2,) and radii (C, n) for the directed model."""
     n_trans, nk, _ = _label_statistics(z, cfg.n_components)
@@ -637,8 +643,8 @@ def lpcm_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
     logp = logp + _lpcm_count_loglik(n_trans, nk, init_weights,
                                      trans_weights)
     return logp + _mixture_common_logp(
-        cfg, Y, X, intercept, _dense_distances(X, cc), z, mu, sigma, lmbda,
-        mean_var, b_scale, prior, radii=radii, cc=cc)
+        cfg, Y, X, intercept, None, z, mu, sigma, lmbda, mean_var, b_scale,
+        prior, radii=radii, cc=cc)
 
 
 def _conjugate_blocks(cfg, gen, X, state, z, resp, nk):
@@ -670,7 +676,8 @@ def _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan, state,
     X, acc_new = sample_latent_positions(
         gen, Y_scan, state.X, state.intercept, state.step_X, mu=state.mu,
         sigma=state.sigma, lmbda=state.lmbda, z=state.z, radii=state.radii,
-        is_directed=cfg.is_directed, temper=state.temper, cc=cc)
+        is_directed=cfg.is_directed, temper=state.temper, cc=cc,
+        scheme=cfg.latent_update)
     if cfg.center:
         X = X - torch.mean(X, dim=(1, 2), keepdim=True)
     return (X, state.acc_X + acc_new) + _sample_coefficients(

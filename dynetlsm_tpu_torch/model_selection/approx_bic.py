@@ -12,8 +12,7 @@ import torch
 
 from ..label_utils import calculate_cluster_counts, renormalize_sample
 from ..mcmc.labels import latent_marginal_loglikelihood
-from ..ops.distances import pairwise_distances
-from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
+from ..ops.likelihoods import dense_network_loglik
 
 __all__ = ['select_bic', 'DynamicNetworkMixtureModel']
 
@@ -54,7 +53,7 @@ def select_bic(Y, traces, n_burn, is_directed, n_features):
     zs = traces['zs']
     logps = traces['logps']
     counts = calculate_cluster_counts(zs, n_burn)
-    Yt = _f32(Y)
+    Yt = torch.as_tensor(np.asarray(Y))
     bic, models = [], []
     for k in np.unique(counts):
         masked = np.where(counts == k, logps[n_burn:], -np.inf)
@@ -69,18 +68,17 @@ def select_bic(Y, traces, n_burn, is_directed, n_features):
             zs[map_id], traces['betas'][map_id], traces['weights'][map_id],
             traces['mus'][map_id], traces['sigmas'][map_id])
 
-        dist = pairwise_distances(_f32(X))
+        # the network log-likelihood in blocks of times (no (T, n, n)
+        # distance tensor at large n)
+        loglik_k = float(dense_network_loglik(
+            Yt, _f32(X)[None], _f32(intercept).reshape(1, -1),
+            _f32(radii)[None] if is_directed else None)[0])
         if is_directed:
-            loglik_k = float(directed_loglik_full(
-                Yt, dist, _f32(radii), float(intercept[0]),
-                float(intercept[1])))
             bic_k = -2 * loglik_k
             n_params = 2 + n_nodes
             offdiag = Y.sum() - np.einsum('tii->', Y)
             bic_k += n_params * np.log(offdiag)
         else:
-            loglik_k = float(undirected_loglik_full(Yt, dist,
-                                                    float(intercept[0])))
             bic_k = -2 * loglik_k
             bic_k += np.log(0.5 * (Y.sum() - np.einsum('tii->', Y)))
 

@@ -14,6 +14,7 @@ import torch
 
 from ..array_utils import nondiag_indices_from_3d, triu_indices_from_3d
 from ..imputer import SimpleNetworkImputer
+from ..mcmc.latent import SCHEMES
 
 
 def validate_network(Y, is_directed, copy=True):
@@ -70,14 +71,18 @@ def impute_missing(Y, miss_mask):
 # the ROADMAP item that ports it)
 _UNSUPPORTED = (('devices', None, '§1 item 9 (multi-device)'),
                 ('node_devices', 1, '§1 item 9 (multi-device)'),
-                ('checkpoint_dir', None, '§1 item 7 (checkpoints)'),
-                ('latent_update', 'exact',
-                 '§1 item 5 (other latent update schemes)'))
+                ('checkpoint_dir', None, '§1 item 7 (checkpoints)'))
 
 
 def check_supported(estimator):
     """Raise ``NotImplementedError`` for a keyword of the JAX estimators
-    that the port accepts only at its default."""
+    that the port accepts only at its default, and the JAX sweep's
+    ``ValueError`` for an unknown ``latent_update`` (here, before any
+    initialisation work)."""
+    if estimator.latent_update not in SCHEMES:
+        raise ValueError(
+            "latent_update must be 'exact', 'parallel', or 'mala', got %r"
+            % (estimator.latent_update,))
     for name, default, item in _UNSUPPORTED:
         value = getattr(estimator, name)
         if value != default:

@@ -156,6 +156,7 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
         prior32 = self._resolve_priors(intercept0, n)
         cfg = SweepConfig(
             is_directed=self.is_directed,
+            latent_update=self.latent_update,
             sample_missing=miss_mask is not None,
             tune=int(self.tune or 0),
             tune_interval=self.tune_interval,

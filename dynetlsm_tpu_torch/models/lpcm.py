@@ -129,6 +129,7 @@ class DynamicNetworkLPCM(MixtureModelMixin):
         prior32 = self._resolve_priors(intercept0, n)
         cfg = SweepConfig(
             is_directed=self.is_directed,
+            latent_update=self.latent_update,
             sample_missing=miss_mask is not None,
             tune=int(self.tune or 0),
             tune_interval=self.tune_interval,

@@ -42,15 +42,19 @@ def _f32(x):
 
 def network_probas(X, intercept, radii, is_directed):
     """Edge probabilities (T, n, n) float64 of one sample, zero diagonal
-    (reference lsm.py:290-308), on the CPU in float32."""
-    dist = pairwise_distances(_f32(X))
-    if is_directed:
-        probas = directed_network_probas(dist, _f32(radii),
-                                         float(intercept[0]),
-                                         float(intercept[1]))
-    else:
-        probas = undirected_network_probas(dist, float(intercept[0]))
-    probas = probas.numpy().astype(np.float64)
+    (reference lsm.py:290-308), on the CPU in float32, a time at a time
+    (no float32 (T, n, n) temporaries beside the result)."""
+    X = _f32(X)
+    probas = np.empty((X.shape[0], X.shape[1], X.shape[1]), np.float64)
+    for t in range(X.shape[0]):
+        dist = pairwise_distances(X[t])
+        if is_directed:
+            p = directed_network_probas(dist[None], _f32(radii),
+                                        float(intercept[0]),
+                                        float(intercept[1]))[0]
+        else:
+            p = undirected_network_probas(dist[None], float(intercept[0]))[0]
+        probas[t] = p.numpy()
     probas[diag_indices_from_3d(probas)] = 0.0
     return probas
 
@@ -173,16 +177,18 @@ class DynamicNetworkLSM:
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
         n_control = resolve_n_control(self.n_control, n)
-        # the node-scan kernel's limit, checked on every device before any
-        # initialisation work: the card's first sweep would raise it only
-        # after GMDS and the intercept MLE.  The case-control sweep runs no
-        # node scan.
+        # the node-scan kernel's shared-memory limit (past n = 2048 at
+        # T = 10 its split-field mode; ops/node_scan.py::max_nodes),
+        # checked on every device before any initialisation work: the
+        # card's first sweep would raise it only after GMDS and the
+        # intercept MLE.  The case-control sweep runs no node scan.
         if n_control is None:
             check_smem(T, n, self.n_features, self.is_directed)
         self.Y_fit_ = impute_missing(Y, miss_mask) if sample_missing else Y
         timer = StageTimer(device)
 
-        # ---- host-side initialisation (reference lsm.py:386-417)
+        # ---- initialisation (reference lsm.py:386-417): GMDS on the
+        # host, the intercept MLE on the fit's device
         with timer('gmds'):
             X = generalized_mds(self.Y_fit_, n_features=self.n_features,
                                 is_directed=self.is_directed,
@@ -190,11 +196,13 @@ class DynamicNetworkLSM:
         with timer('intercept mle'):
             if self.is_directed:
                 radii = initialize_radii(self.Y_fit_)
-                b_in, b_out = directed_intercept_mle(self.Y_fit_, X, radii)
+                b_in, b_out = directed_intercept_mle(self.Y_fit_, X, radii,
+                                                    device=device)
                 intercept = np.array([b_in, b_out])
             else:
                 radii = None
-                scale, b = scale_intercept_mle(self.Y_fit_, X)
+                scale, b = scale_intercept_mle(self.Y_fit_, X,
+                                               device=device)
                 intercept = np.array([b])
                 X = X * np.exp(scale)
         X = X - X.mean(axis=(0, 1))
@@ -213,6 +221,7 @@ class DynamicNetworkLSM:
 
         cfg = SweepConfig(
             is_directed=self.is_directed,
+            latent_update=self.latent_update,
             sample_missing=sample_missing,
             tune=int(self.tune or 0),
             tune_interval=self.tune_interval,
@@ -308,7 +317,8 @@ class DynamicNetworkLSM:
         def t(x):
             return _f32(x).to(device)
         X = t(X)[None]
-        dist = pairwise_distances(X) if dist is None else t(dist)[None]
+        if dist is not None:
+            dist = t(dist)[None]
         return float(_lsm_logp(
             self._cfg, t(Y), X, t(intercept).reshape(1, -1),
             None if radii is None else t(radii)[None], dist,

@@ -138,8 +138,9 @@ class MixtureModelMixin:
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
         self.n_control_ = resolve_n_control(self.n_control, n)
-        # the node-scan kernel's limit, before the nested LSM fit (the
-        # case-control sweep runs no node scan)
+        # the node-scan kernel's limit (ops/node_scan.py::max_nodes),
+        # before the nested LSM fit (the case-control sweep runs no node
+        # scan)
         if self.n_control_ is None:
             check_smem(T, n, self.n_features, self.is_directed)
 

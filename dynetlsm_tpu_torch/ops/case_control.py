@@ -27,7 +27,9 @@ one:
 * the evaluators: :func:`class_partial_loglik_segments` (a colour class's
   nodes at candidate positions, from pre-gathered partner segments),
   :func:`approx_directed_partial_loglik` /
-  :func:`approx_undirected_partial_loglik` (one node) and
+  :func:`approx_undirected_partial_loglik` (one node),
+  :func:`approx_partial_loglik_all` (every node at its own candidate, for
+  the ``'parallel'`` latent update) and
   :func:`approx_directed_loglik_full` /
   :func:`approx_undirected_loglik_full` (the network, in node blocks that
   bound the gathered partners, :func:`_node_blocks`).
@@ -396,6 +398,63 @@ def approx_undirected_partial_loglik(X, x_new, edges, degrees, ctrl,
     ctrl_sum = torch.sum(torch.where(ctrl_valid, softplus(eta_c), 0.0),
                          dim=-1)
     return ll - control_scale(n, degrees, ctrl_valid) * ctrl_sum
+
+
+def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
+    """Case-control per-node log-likelihood terms of every node at once
+    (JAX ``approx_partial_loglik_all``): node j at its candidate Xq[:, :,
+    j] against the field X, as :func:`approx_directed_partial_loglik` /
+    :func:`approx_undirected_partial_loglik` score one node, for the
+    stale-field ``'parallel'`` latent update.  X, Xq (C, T, n, d);
+    intercept (C, 1) or (C, 2); radii (C, n) when directed; ``cc`` the
+    structures of ``mcmc/sweeps.py::build_cc_dict`` (lists shared or per
+    chain).  Every node's partner segments [in | out | ctrl_in |
+    ctrl_out] (undirected [out | ctrl_out]) are gathered in node blocks of
+    at most ``_BLOCK_ELEMS`` values and scored by
+    :func:`class_partial_loglik_segments`, each node's terms in the
+    one-node evaluators' order.  Returns (C, T, n)."""
+    C, T, n, d = X.shape
+    per_chain = cc['out_edges'].dim() == 4
+    if is_directed:
+        edges = torch.cat([cc['in_edges'], cc['out_edges']], -1)
+        ctrl = torch.cat([cc['ctrl_in'], cc['ctrl_out']], -1)
+        masks = (cc['ctrl_in_valid'], cc['ctrl_out_valid'])
+        degs = (cc['degrees'][..., 0], cc['degrees'][..., 1])
+        widths = [cc['in_edges'].shape[-1], cc['out_edges'].shape[-1],
+                  cc['ctrl_in'].shape[-1], cc['ctrl_out'].shape[-1]]
+    else:
+        edges, ctrl = cc['out_edges'], cc['ctrl_out']
+        masks = (cc['ctrl_out_valid'],)
+        degs = (cc['degrees'][..., 1],)
+        widths = [edges.shape[-1], ctrl.shape[-1]]
+    offsets = (0,) + tuple(int(v) for v in np.cumsum(widths))
+    scales = tuple(control_scale(n, dg, mk) for dg, mk in zip(degs, masks))
+    valid_ctrl = torch.cat(masks, -1)
+    sender = None
+    b_in, b_out = intercept[:, 0], None
+    Xr = X
+    if is_directed:
+        sender = torch.zeros(offsets[-1], dtype=torch.bool, device=X.device)
+        sender[offsets[1]:offsets[2]] = True              # out edges
+        sender[offsets[3]:offsets[4]] = True              # ctrl_out
+        b_out = intercept[:, 1]
+        Xr = torch.cat([X, radii[:, None, :, None].expand(C, T, n, 1)], -1)
+    out = torch.empty((C, T, n), dtype=X.dtype, device=X.device)
+    nb = _node_blocks(n, C * T * offsets[-1] * (d + 1))
+    for lo in range(0, n, nb):
+        hi = min(lo + nb, n)
+        e = _rows(edges, lo, hi, 2)                       # ([C,] T, b, De)
+        c = ctrl[lo:hi].expand(e.shape[:-1] + ctrl.shape[-1:])
+        partner = torch.cat([e, c], -1)                   # ([C,] T, b, Mtot)
+        valid = torch.cat([e >= 0, _rows(valid_ctrl, lo, hi, 2)], -1)
+        g = _take(Xr, partner, per_chain)                 # (C, T, b, Mtot, q)
+        dist = _dist_to(g[..., :d], Xq[:, :, lo:hi])
+        out[:, :, lo:hi] = class_partial_loglik_segments(
+            dist, valid, g[..., d] if is_directed else None,
+            radii[:, lo:hi] if is_directed else None, sender, offsets, None,
+            b_in, b_out, n, is_directed,
+            scales=tuple(_rows(s, lo, hi, 1) for s in scales))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,12 @@ counterpart to float32 rounding of the total.
 """
 import torch
 
+from .distances import pairwise_distances
+
+# values of one (times, n, n) block of :func:`dense_network_loglik`
+# (float32: 256 MB a temporary)
+_BLOCK_ELEMS = 1 << 26
+
 
 def softplus(eta):
     return torch.logaddexp(eta, torch.zeros((), dtype=eta.dtype,
@@ -83,3 +89,33 @@ def undirected_network_probas(dist, intercept):
                         device=dist.device)[..., None, None, None]
     probas = torch.sigmoid(b - dist)
     return probas * _offdiag_mask(n, probas.dtype, probas.device)
+
+
+def dense_network_loglik(Y, X, intercept, radii=None):
+    """The dense network log-likelihood (C,) of every chain at positions X
+    (C, T, n, d): :func:`undirected_loglik_full` (intercept (C, 1)) or,
+    with radii (C, n), :func:`directed_loglik_full` (intercept (C, 2)),
+    from distances computed here.  Y (T, n, n) or (C, T, n, n), 0/1 of any
+    dtype.  Runs over blocks of chains and times of at most
+    ``_BLOCK_ELEMS`` dyads, adding the blocks' sums in float64, so no
+    (C, T, n, n) tensor is made (2.7 GB a chain at T = 10, n = 8,192); one
+    block, the one call, where C T n^2 fits."""
+    C, T, n, _ = X.shape
+    per_chain = Y.dim() == 4
+    tb = min(T, max(1, _BLOCK_ELEMS // (n * n)))
+    cb = max(1, _BLOCK_ELEMS // (tb * n * n)) if tb == T else 1
+    total = torch.zeros(C, dtype=torch.float64, device=X.device)
+    for c0 in range(0, C, cb):
+        c = slice(c0, c0 + cb)
+        for t0 in range(0, T, tb):
+            t = slice(t0, t0 + tb)
+            Yb = Y[c, t] if per_chain else Y[t]
+            dist = pairwise_distances(X[c, t])
+            b = intercept[c]
+            if radii is None:
+                ll = undirected_loglik_full(Yb, dist, b[..., 0])
+            else:
+                ll = directed_loglik_full(Yb, dist, radii[c], b[..., 0],
+                                          b[..., 1])
+            total[c] += ll
+    return total.to(X.dtype)

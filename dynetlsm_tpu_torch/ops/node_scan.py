@@ -13,7 +13,10 @@ iff log_u < ratio.
   random-walk prior; optional per-chain temperature).
 * :func:`node_scan_cuda` launches ``csrc/node_scan.cu`` (mixture or
   random-walk prior; undirected, or directed when given ``radii``;
-  untempered, or with a per-chain temperature ``temper``).
+  untempered, or with a per-chain temperature ``temper``), in its resident
+  mode (each block holds the chain's field) or, past shared memory, its
+  split-field mode (the field in X_out, each block its partners' share;
+  :func:`launch_layout`).
 * :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
   error for what it does not take), the plain version for CPU tensors.
 
@@ -44,9 +47,13 @@ from .likelihoods import softplus
 
 # shared memory a block may opt into on sm_90 (232,448 bytes)
 _MAX_SMEM_BYTES = 232448
-# csrc/node_scan.cu: threads of one block, and groups (named barriers)
+# csrc/node_scan.cu: threads of one block, groups (named barriers), lanes
+# sharing one time's partners (R = 32 W B <= 32 kMaxExchange), and the
+# split-field mode's cluster sizes (at most 8, the portable size)
 _MAX_THREADS = 768
 _MAX_GROUPS = 15
+_MAX_LANES = 512
+SPLIT_CLUSTERS = (2, 4, 8)
 
 
 def partner_pad(n):
@@ -114,16 +121,31 @@ def pad_partners(Y):
     """The adjacency (T, n, n), or (C, T, n, n), with its rows
     zero-padded to the partner axis, (..., T, n, partner_pad(n))
     contiguous: the node-scan kernel copies whole 16-byte pieces of a
-    row."""
+    row.  Where n is already P, Y itself (no copy: 2.7 GB at T = 10,
+    n = 16,384)."""
     n = Y.shape[-1]
+    if partner_pad(n) == n:
+        return Y.contiguous()
     return torch.nn.functional.pad(Y, (0, partner_pad(n) - n)).contiguous()
 
 
+def _widest(T, P, B):
+    """The widest of 4, 2, 1 warps a time that fits a block (ceil(T/2)
+    groups, at most 15, and the prior warp in 768 threads) with
+    32 W B <= P and <= 512 lanes a time; None if none does."""
+    groups = min((T + 1) // 2, _MAX_GROUPS)
+    for W in (4, 2, 1):
+        if (32 * W * groups + 32 <= _MAX_THREADS
+                and 32 * W * B <= min(P, _MAX_LANES)):
+            return W
+    return None
+
+
 def scan_layout(C, T, n, sm_count, cluster=None, max_clusters=None):
-    """The node-scan launch of C chains: (warps W per in-phase time,
-    cluster B blocks per chain).  A block holds ceil(T/2) groups of W
-    warps (at most 15, then looping over the times) and one warp for the
-    prior terms, at most 768 threads (``node_scan_threads`` in
+    """The resident-mode node-scan launch of C chains: (warps W per
+    in-phase time, cluster B blocks per chain).  A block holds ceil(T/2)
+    groups of W warps (at most 15, then looping over the times) and one
+    warp for the prior terms, at most 768 threads (``node_scan_threads`` in
     csrc/node_scan.cu counts them).  W is the widest of 4, 2, 1 that fits
     with 32 W B <= P lanes per time.  B, unless given, is 2 where
     C * 2 <= sm_count (the card's SMs), 64 W <= P and, where
@@ -134,16 +156,9 @@ def scan_layout(C, T, n, sm_count, cluster=None, max_clusters=None):
     few percent at most, and lost in the undirected modes (PERF.md).  A
     given ``cluster`` that no W allows raises."""
     P = partner_pad(n)
-    groups = min((T + 1) // 2, _MAX_GROUPS)
-
-    def widest(B):
-        for W in (4, 2, 1):
-            if 32 * W * groups + 32 <= _MAX_THREADS and 32 * W * B <= P:
-                return W
-        return None
 
     if cluster is None:
-        W = widest(1)
+        W = _widest(T, P, 1)
         B = next(b for b in (2, 1)
                  if b == 1 or (C * b <= sm_count and 32 * W * b <= P
                                and (max_clusters is None
@@ -152,13 +167,73 @@ def scan_layout(C, T, n, sm_count, cluster=None, max_clusters=None):
         if cluster not in (1, 2, 4):
             raise ValueError('node_scan: cluster must be 1, 2 or 4, got %r'
                              % (cluster,))
-        B, W = cluster, widest(cluster)
+        B, W = cluster, _widest(T, P, cluster)
         if W is None:
             raise ValueError(
                 'node_scan: a cluster of %d blocks needs 32 * %d = %d '
                 'partner lanes, more than the padded partner axis P = %d '
                 '(n = %d)' % (B, B, 32 * B, P, n))
     return W, B
+
+
+def split_layout(T, n, d, directed=False, cluster=None):
+    """The split-field launch (W, B) of a (T, n, d) field: the given
+    ``cluster`` (1, 2, 4 or 8), or the smallest B of 2, 4, 8 whose block
+    fits the card's shared memory (``None`` if none does); W the widest
+    that B allows (:func:`_widest`).  A given ``cluster`` that no W
+    allows raises."""
+    P = partner_pad(n)
+    if cluster is not None:
+        if cluster not in (1, 2, 4, 8):
+            raise ValueError('node_scan: a split-field cluster must be 1, '
+                             '2, 4 or 8, got %r' % (cluster,))
+        W = _widest(T, P, cluster)
+        if W is None:
+            raise ValueError(
+                'node_scan: a split-field cluster of %d blocks needs 32 * %d '
+                '= %d partner lanes, more than the padded partner axis P = '
+                '%d (n = %d)' % (cluster, cluster, 32 * cluster, P, n))
+        return W, cluster
+    for B in SPLIT_CLUSTERS:
+        W = _widest(T, P, B)
+        if W is not None and smem_bytes(T, n, d, directed, W, B,
+                                        split=True) <= _MAX_SMEM_BYTES:
+            return W, B
+    return None
+
+
+def launch_layout(C, T, n, d, sm_count, directed=False, cluster=None,
+                  mode=None, max_clusters=None):
+    """The node-scan launch of C chains of (T, n, d) fields: (W, B,
+    split).  The resident mode, every block holding the chain's field,
+    wherever its block fits (:func:`scan_layout`'s W and B; for every
+    n <= 2048 at T = 10, d = 2, as before the split-field mode existed);
+    past that the split-field mode at the smallest cluster that fits
+    (:func:`split_layout`).  ``mode`` 'resident' or 'split' forces a mode,
+    ``cluster`` the blocks per chain (with no ``mode``: the resident mode
+    at that cluster).  ``max_clusters(W, B, split)`` tells how many
+    clusters the card runs at once.  Raises where no mode fits
+    (:func:`check_smem`)."""
+    if mode not in (None, 'resident', 'split'):
+        raise ValueError("node_scan: mode must be 'resident' or 'split', "
+                         "got %r" % (mode,))
+
+    def fits(W, B):
+        return smem_bytes(T, n, d, directed, W, B) <= _MAX_SMEM_BYTES
+
+    if mode != 'split':
+        # a resident launch that does not fit is never asked of the card
+        W, B = scan_layout(
+            C, T, n, sm_count, cluster,
+            None if max_clusters is None
+            else lambda W, B: max_clusters(W, B, False) if fits(W, B) else 0)
+        if mode == 'resident' or cluster is not None or fits(W, B):
+            return W, B, False
+    layout = split_layout(T, n, d, directed, cluster)
+    if layout is None:
+        _too_large(T, n, d, directed, 'no launch of the node-scan kernel '
+                   'fits')
+    return layout + (True,)
 
 
 def site_cluster_params(mu, sigma, z):
@@ -178,22 +253,23 @@ def pack_directed(Y):
 
 def _partial_loglik_terms(Y_row, X, x, b):
     """Per-partner Bernoulli log-lik terms of one node at candidate x
-    (C, T, d) against the field X (C, T, n, d); Y_row (T, n); b (C,).
-    Returns (C, T, n), the node's own slot not masked."""
-    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[:, :, None, :]),
+    (..., C, T, d) (leading axes: candidates scored together) against the
+    field X (C, T, n, d); Y_row (T, n); b (C,).  Returns (..., C, T, n),
+    the node's own slot not masked."""
+    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[..., None, :]),
                                       0.0))
     eta = b[:, None, None] - dist
     return Y_row * eta - softplus(eta)
 
 
 def _directed_partial_loglik_terms(P_row, X, x, both, p_out, p_in):
-    """Directed per-partner terms of one node at candidate x (C, T, d)
-    against the field X (C, T, n, d), in the hoisted-reciprocal op order of
+    """Directed per-partner terms of one node at candidate x (..., C, T,
+    d) against the field X (C, T, n, d), in the hoisted-reciprocal op order of
     ``dynetlsm_tpu/mcmc/latent.py::_partial_loglik_terms``.  P_row (T, n)
     packed uint8; both (C,) = b_in + b_out; p_out, p_in (C, n) the
     reciprocal rows b_in/r_i + b_out/r_j and b_out/r_i + b_in/r_j.
-    Returns (C, T, n), the node's own slot not masked."""
-    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[:, :, None, :]),
+    Returns (..., C, T, n), the node's own slot not masked."""
+    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(X - x[..., None, :]),
                                       0.0))
     y = (P_row & 1).to(X.dtype)
     yt = (P_row >> 1).to(X.dtype)
@@ -306,9 +382,9 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
         for phase in (0, 1):
             x_cur = X[:, :, j, :]
             x_prop = x_cur + step_size[:, :, j, None] * eps[:, phase, j]
-            ll_prop = terms(x_prop)
-            ll_cur = terms(x_cur)
-            delta_ll = _tree_sum((ll_prop - ll_cur) * mask, P)     # (C, T)
+            # the proposal's and the current terms in one stacked pass
+            ll = terms(torch.stack([x_prop, x_cur]))
+            delta_ll = _tree_sum((ll[0] - ll[1]) * mask, P)     # (C, T)
             if mixture:
                 mz, sz = mu_z[:, :, j], sig_z[:, :, j]
                 lp = _mixture_prior_per_t(x_prop, x_cur, mz, sz, lmbda)
@@ -325,37 +401,79 @@ def node_scan_plain(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,
     return X, acc
 
 
-def smem_bytes(T, n, d, directed=False, warps=1, cluster=1):
+def smem_bytes(T, n, d, directed=False, warps=1, cluster=1, split=False):
     """Shared memory of one block of the node-scan kernel, without a
     card (:func:`node_scan_cuda` asks the kernel library's
     ``node_scan_smem_bytes``; ``chip_smoke.py`` holds the two equal): two
-    mbarriers (16 bytes), the staged adjacency rows of two nodes (2, T, P)
-    uint8, the (T, n, d) position field, the directed mode's u and v rows
-    (2 n), the exchange buffer (2, ceil(T/2), 32 * warps * cluster), the
-    staged per-node scalars of two nodes (2, 4 T + 3 T d), the prior terms
-    (ceil(T/2), 2) and the temperature, float32 but the rows."""
+    mbarriers (16 bytes), the staged adjacency rows of two nodes (2, T, Pb)
+    uint8, the (T, n, d) position field (resident mode only), the directed
+    mode's u and v rows (n each; split-field: the block's Pb slots), the
+    exchange buffer (2, ceil(T/2), 32 * warps * cluster), the staged
+    per-node scalars of two nodes (2, 4 T + 3 T d; split-field: and the
+    node's T d positions and radius), the prior terms (ceil(T/2), 2) and
+    the temperature, float32 but the rows; Pb = P resident, P / cluster
+    split-field."""
     P = partner_pad(n)
     H = (T + 1) // 2
     R = 32 * warps * cluster
-    return 4 * (4 + T * P // 2 + T * n * d + (2 * n if directed else 0)
-                + 2 * H * R + 2 * (4 * T + 3 * T * d) + 2 * H + 1)
+    Pb = P // cluster if split else P
+    stage = 4 * T + 3 * T * d + (T * d + 1 if split else 0)
+    return 4 * (4 + T * Pb // 2 + (0 if split else T * n * d)
+                + ((2 * Pb if split else 2 * n) if directed else 0)
+                + 2 * H * R + 2 * stage + 2 * H + 1)
 
 
-def check_smem(T, n, d, directed=False, warps=1, cluster=1, smem=None):
-    """Raise unless one block's shared memory (``smem``, the kernel
-    library's count on the card; :func:`smem_bytes` by default) fits the
-    card's 232,448 bytes; return its size."""
+def max_nodes(T, d, directed=False):
+    """The largest n whose (T, n, d) field some node-scan launch takes:
+    the largest power of two P at which the resident mode (one block) or
+    the split-field mode (2, 4 or 8 blocks) fits shared memory.  At T = 10,
+    d = 2: 65,536 undirected, 32,768 directed (the split-field mode at
+    8 blocks).  A limit of shared memory only: the card must also hold the
+    network, T n^2 bytes (43 GB at n = 65,536, T = 10), and the scan has
+    run on an H100 to n = 16,384."""
+    best, P = 0, 32
+    while P <= 1 << 24:
+        W = _widest(T, P, 1)
+        fits = ((W is not None
+                 and smem_bytes(T, P, d, directed, W, 1) <= _MAX_SMEM_BYTES)
+                or split_layout(T, P, d, directed) is not None)
+        if not fits:
+            break
+        best, P = P, 2 * P
+    return best
+
+
+def check_smem(T, n, d, directed=False, warps=None, cluster=None, smem=None,
+               split=False):
+    """Raise unless the node scan takes a (T, n, d) field.  With a launch
+    given (``warps``, ``cluster``, ``split``, or the kernel library's
+    count ``smem`` on the card), unless its block's shared memory
+    (:func:`smem_bytes` by default) fits the card's 232,448 bytes; return
+    that size.  Without one, unless some launch fits (n <=
+    :func:`max_nodes`; the launch :func:`launch_layout` takes for one
+    chain); return its shared memory.  The message names the largest n and
+    the case-control likelihood, which has no such limit."""
+    if warps is None and smem is None:
+        W, B, sp = launch_layout(1, T, n, d, 1, directed)
+        return smem_bytes(T, n, d, directed, W, B, sp)
     if smem is None:
-        smem = smem_bytes(T, n, d, directed, warps, cluster)
+        smem = smem_bytes(T, n, d, directed, warps, cluster, split)
     if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            'node_scan_cuda: one block needs %d bytes of shared memory at '
-            'T=%d, n=%d, d=%d, directed=%s, %d warps a time, clusters of %d '
-            '(position field, staged rows and scalars, exchange buffer); '
-            'the kernel holds at most %d.  Streaming larger fields is not '
-            'implemented.' % (smem, T, n, d, directed, warps, cluster,
-                              _MAX_SMEM_BYTES))
+        _too_large(T, n, d, directed,
+                   'one block needs %d bytes of shared memory (%s mode, %d '
+                   'warps a time, clusters of %d); the kernel holds at most '
+                   '%d' % (smem, 'split-field' if split else 'resident',
+                           warps, cluster, _MAX_SMEM_BYTES))
     return smem
+
+
+def _too_large(T, n, d, directed, what):
+    raise ValueError(
+        'node_scan_cuda: at T=%d, n=%d, d=%d, directed=%s %s.  The exact '
+        'dense scan\'s shared memory takes at most n = %d at this T and d; '
+        'a larger network needs the case-control likelihood '
+        '(n_control=...), which runs no node scan.'
+        % (T, n, d, directed, what, max_nodes(T, d, directed)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,29 +483,32 @@ def _sm_count(index):
 
 @functools.lru_cache(maxsize=None)
 def _max_clusters(index, T, n, d, warps, cluster, directed, mixture,
-                  tempered):
+                  tempered, split):
     """Clusters of the launch the card at ``index`` runs at once."""
     with torch.cuda.device(index):
         count = cuda_lib.library().node_scan_max_clusters(
             T, n, d, partner_pad(n), warps, cluster, int(directed),
-            int(mixture), int(tempered))
+            int(mixture), int(tempered), int(split))
     cuda_lib.check_launch('node_scan occupancy', -count if count < 0 else 0)
     return count
 
 
 def cuda_layout(C, T, n, d, index, directed, mixture, tempered,
-                cluster=None):
-    """:func:`scan_layout` of the scan of C chains of (T, n, d) fields on
-    the card ``index``, with its count of clusters it runs at once."""
-    return scan_layout(
-        C, T, n, _sm_count(index), cluster,
-        lambda W, B: _max_clusters(index, T, n, d, W, B, bool(directed),
-                                   bool(mixture), bool(tempered)))
+                cluster=None, mode=None):
+    """:func:`launch_layout` of the scan of C chains of (T, n, d) fields
+    on the card ``index``, with its count of clusters it runs at once:
+    (W, B, split)."""
+    return launch_layout(
+        C, T, n, d, _sm_count(index), directed, cluster, mode,
+        lambda W, B, split: _max_clusters(index, T, n, d, W, B,
+                                          bool(directed), bool(mixture),
+                                          bool(tempered), bool(split)))
 
 
 def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                    sig_z=None, lmbda=None, radii=None, *, mixture=True,
-                   tau_sq=None, sigma_sq=None, temper=None, cluster=None):
+                   tau_sq=None, sigma_sq=None, temper=None, cluster=None,
+                   mode=None):
     """Launch the CUDA node-scan kernel.  Undirected: Y (T, n, n) uint8
     0/1, intercept (C,).  Directed (``radii`` (C, n) given): Y packed
     ``Y + 2 Y^T`` uint8, intercept (C, 2).  Y is one network for every
@@ -397,10 +518,13 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     call.  Mixture prior: mu_z, sig_z, lmbda;
     random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
     ``temper`` (C,) scales each chain's log-likelihood delta (``None``:
-    untempered).  ``cluster`` (1, 2 or 4) forces the blocks per chain;
-    ``None`` takes :func:`scan_layout`'s rule.  Every tensor float32 on
-    the same CUDA device, contiguous, shaped as in
-    :func:`node_scan_plain`."""
+    untempered).  ``mode`` ('resident' or 'split') forces the mode and
+    ``cluster`` (1, 2 or 4; split-field also 8) the blocks per chain;
+    ``None`` takes :func:`launch_layout`'s rule: the resident mode wherever
+    it fits, else the split-field mode.  A resident launch adds one to
+    ``node_scan_cuda.launches``, a split-field one to
+    ``node_scan_cuda.split_launches``.  Every tensor float32 on the same
+    CUDA device, contiguous, shaped as in :func:`node_scan_plain`."""
     C, T, n, d = X.shape
     P = partner_pad(n)
     dev = X.device
@@ -434,12 +558,15 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     if Y.data_ptr() % 16:
         raise ValueError('node_scan_cuda: Y must start on a 16-byte '
                          'boundary (its rows are copied 16 bytes at a time)')
-    warps, cluster = cuda_layout(C, T, n, d, dev.index, directed, mixture,
-                                 temper is not None, cluster)
+    warps, cluster, split = cuda_layout(C, T, n, d, dev.index, directed,
+                                        mixture, temper is not None, cluster,
+                                        mode)
     lib = cuda_lib.library()
     check_smem(T, n, d, directed, warps, cluster,
                smem=lib.node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster,
-                                             int(directed)))
+                                             int(directed), cluster,
+                                             int(split)),
+               split=split)
     X_out = torch.empty_like(X)
     acc = torch.empty((C, T, n), dtype=f32, device=dev)
     if mixture:
@@ -454,13 +581,17 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
         temper.data_ptr() if temper is not None else None, X_out.data_ptr(),
         acc.data_ptr(), C, T, n, d, P, warps, cluster, int(directed),
         int(mixture), prior[3], prior[4], T * n * P if per_chain else 0,
-        cuda_lib.stream_handle(dev))
-    node_scan_cuda.launches += 1
+        int(split), cuda_lib.stream_handle(dev))
+    if split:
+        node_scan_cuda.split_launches += 1
+    else:
+        node_scan_cuda.launches += 1
     cuda_lib.check_launch('node_scan', rc)
     return X_out, acc
 
 
 node_scan_cuda.launches = 0
+node_scan_cuda.split_launches = 0
 
 
 def node_scan(Y, X, intercept, step_size, eps, log_u, *, mu_z=None,

@@ -109,7 +109,7 @@ def main(argv=None):
             torch, ns, 32, directed)
         C, T, n, d = scan_args[1].shape
         for cluster in [int(b) for b in args.clusters.split(',')]:
-            W, B = ns.cuda_layout(C, T, n, d, dev.index, directed, True,
+            W, B, _ = ns.cuda_layout(C, T, n, d, dev.index, directed, True,
                                   False, cluster)
 
             def launch():
@@ -145,7 +145,8 @@ def main(argv=None):
             print(json.dumps({
                 'directed': directed, 'warps': W, 'cluster': B, 'ms': ms,
                 'max_clusters': lib.node_scan_max_clusters(
-                    T, n, d, ns.partner_pad(n), W, B, int(directed), 1, 0),
+                    T, n, d, ns.partner_pad(n), W, B, int(directed), 1, 0,
+                    0),
                 'step_cycles_median': steps,
                 'terms_done_max': med(rel[..., :pw, 1].max(-1)),
                 'terms_done_min': med(rel[..., :pw, 1].min(-1)),

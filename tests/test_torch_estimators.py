@@ -17,6 +17,7 @@ from dynetlsm_tpu_torch.datasets import load_dynamic_monks, with_missing_dyads
 from dynetlsm_tpu_torch.mcmc.sweeps import (
     hdp_logp_at_state, lpcm_logp_at_state)
 from dynetlsm_tpu_torch.models import lsm as lsm_mod, mixture_base
+from dynetlsm_tpu_torch.ops.node_scan import max_nodes
 
 CLASSES = [DynamicNetworkLSM, DynamicNetworkLPCM, DynamicNetworkHDPLPCM]
 BUDGET = dict(n_iter=30, tune=20, burn=20, random_state=11, device='cpu')
@@ -196,7 +197,7 @@ def test_missing_dyads_fit(short_nested_lsm, cls):
 
 
 UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2),
-               ('checkpoint_dir', 'ckpt'), ('latent_update', 'mala')]
+               ('checkpoint_dir', 'ckpt')]
 
 
 @pytest.mark.parametrize('cls', CLASSES)
@@ -204,6 +205,19 @@ UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2),
 def test_unsupported_keywords_raise(cls, name, value):
     with pytest.raises(NotImplementedError, match='ROADMAP.md §1 item'):
         cls(**{name: value}, device='cpu').fit(load_dynamic_monks())
+
+
+@pytest.mark.parametrize('cls', CLASSES)
+def test_unknown_latent_update_raises(monkeypatch, cls):
+    """JAX's ValueError for a scheme other than 'exact', 'parallel' and
+    'mala', before any initialisation work."""
+    def no_init(*args, **kw):
+        raise AssertionError('initialisation ran')
+    monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
+    monkeypatch.setattr(mixture_base, 'init_from_lsm', no_init)
+    with pytest.raises(ValueError, match="latent_update must be 'exact', "
+                       "'parallel', or 'mala', got 'gibbs'"):
+        cls(latent_update='gibbs', device='cpu').fit(load_dynamic_monks())
 
 
 @pytest.mark.parametrize('cls', CLASSES)
@@ -216,15 +230,24 @@ def test_fit_runs_on_the_card_by_default(cls):
 
 
 @pytest.mark.parametrize('cls', CLASSES)
-def test_too_large_network_raises_before_initialisation(monkeypatch, cls):
-    """n = 2049 at T = 10 does not fit the node-scan kernel's shared
-    memory: the fit raises its message before GMDS or the nested LSM."""
+def test_large_network_reaches_initialisation(monkeypatch, cls):
+    """n = 2049 at T = 10, past the resident node scan's shared memory,
+    runs in the split-field mode: the fit passes the size check and
+    reaches GMDS or the nested LSM (monkeypatched to raise).  A field past
+    every launch (n = max_nodes + 1 at T = 400) still raises before any
+    initialisation, naming the limit and case-control."""
     def no_init(*args, **kw):
         raise AssertionError('initialisation ran')
     monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
     monkeypatch.setattr(mixture_base, 'init_from_lsm', no_init)
     Y = np.zeros((10, 2049, 2049), np.uint8)
-    with pytest.raises(ValueError, match='node_scan_cuda: one block needs'):
+    with pytest.raises(AssertionError, match='initialisation ran'):
+        cls(device='cpu').fit(Y)
+    limit = max_nodes(400, 2)
+    assert 32 <= limit < 256
+    Y = np.zeros((400, limit + 1, limit + 1), np.uint8)
+    with pytest.raises(ValueError, match='at most n = %d.*case-control'
+                       % limit):
         cls(device='cpu').fit(Y)
 
 

@@ -83,3 +83,14 @@ def test_lsm_case_control_joint_distribution():
                                    geweke.SEEDS[geweke.CC], 'cpu')
     z = geweke.compare(mc, sc)
     assert np.all(np.abs(z) < geweke.LIMIT), 'Geweke z-scores %s' % z
+
+
+def test_lsm_mala_joint_distribution():
+    """The LSM with the joint MALA latent update (JAX
+    ``test_lsm_mala_joint_distribution``): the Langevin proposal's drift
+    from the autograd gradient of the joint density and its reversal
+    correction, inside the joint check at the JAX test's step 0.12."""
+    mc, sc = geweke.geweke_samples(geweke.MALA, N_CHAINS, N_SWEEPS,
+                                   geweke.SEEDS[geweke.MALA], 'cpu')
+    z = geweke.compare(mc, sc)
+    assert np.all(np.abs(z) < geweke.LIMIT), 'Geweke z-scores %s' % z

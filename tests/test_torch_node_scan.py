@@ -17,8 +17,8 @@ from dynetlsm_tpu.mcmc.latent import xla_exact_scan
 from dynetlsm_tpu.ops.pallas_scan import _node_scan_with_noise
 from dynetlsm_tpu_torch.ops.node_scan import (
     _kernel_order_sum, _tree_sum, check_smem, node_scan, node_scan_cuda,
-    node_scan_plain, pack_directed, pad_partners, partner_pad, scan_layout,
-    site_cluster_params, smem_bytes)
+    launch_layout, max_nodes, node_scan_plain, pack_directed, pad_partners,
+    partner_pad, scan_layout, site_cluster_params, smem_bytes, split_layout)
 
 # (chains, T, n, mixture, tempered): the cases of tests/test_pallas_scan.py
 # that the port covers (undirected)
@@ -239,11 +239,14 @@ def test_partner_pad():
 
 
 def _lanes(P):
-    """Every (warps, cluster) the kernel allows at partner axis P."""
-    return [(W, B) for W in (1, 2, 4) for B in (1, 2, 4) if 32 * W * B <= P]
+    """Every (warps, cluster) the kernel allows at partner axis P: at most
+    512 lanes a time (clusters of 8 only in the split-field mode)."""
+    return [(W, B) for W in (1, 2, 4) for B in (1, 2, 4, 8)
+            if 32 * W * B <= min(P, 512)]
 
 
-@pytest.mark.parametrize('P', [32, 64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize('P', [32, 64, 128, 256, 512, 1024, 2048, 4096,
+                               8192])
 def test_kernel_order_sum_matches_tree_sum(P):
     """The kernel's split of the partner tree (register, exchange and
     shuffle levels over 32 W B lanes) adds in ``_tree_sum``'s order, bit
@@ -259,7 +262,7 @@ def test_kernel_order_sum_matches_tree_sum(P):
         for warps, cluster in _lanes(P):
             got = _kernel_order_sum(a, P, warps, cluster)
             assert torch.equal(got, want), (n, warps, cluster)
-    assert len(_lanes(P)) == {32: 1, 64: 3, 128: 6, 256: 8}.get(P, 9)
+    assert len(_lanes(P)) == {32: 1, 64: 3, 128: 6, 256: 9}.get(P, 11)
 
 
 def test_scan_layout_rule():
@@ -316,28 +319,86 @@ def test_pad_partners():
 
 def test_smem_limit():
     """The north star fits at every cluster size; a field too large for
-    one block raises before any launch."""
+    one block of the resident mode raises before any launch, and the
+    launch rule takes the split-field mode for it instead."""
     for cluster in (1, 2, 4):
         assert check_smem(10, 500, 2, True, 4, cluster) == smem_bytes(
             10, 500, 2, True, 4, cluster) < 232448
     with pytest.raises(ValueError, match='at most 232448'):
-        check_smem(10, 2800, 2)
+        check_smem(10, 2800, 2, False, 1, 1)
+    W, B = split_layout(10, 2800, 2)
+    assert check_smem(10, 2800, 2) == smem_bytes(10, 2800, 2, False, W, B,
+                                                 split=True) < 232448
 
 
 @pytest.mark.parametrize('directed', [False, True])
 def test_smem_boundary_is_n_2048(directed):
-    """At T=10, d=2 the largest field one block holds is n = 2048, at the
-    narrowest launch and at the launch rule's (32 chains on 132 SMs); at
-    n = 2049 the partner axis pads to 4096 and every launch raises, with
-    the message a user of a larger network gets."""
+    """At T=10, d=2 the largest field one block of the resident mode holds
+    is n = 2048, at the narrowest launch and at the launch rule's (32
+    chains on 132 SMs); at n = 2049 the partner axis pads to 4096, every
+    resident launch raises, with the message that names the largest n and
+    case-control, and the launch rule takes the split-field mode."""
     layouts = [(1, 1), scan_layout(32, 10, 2048, 132)]
     for warps, cluster in layouts:
         assert check_smem(10, 2048, 2, directed, warps, cluster) <= 232448
+    assert launch_layout(32, 10, 2048, 2, 132, directed) == \
+        layouts[1] + (False,)
     for warps, cluster in layouts + [scan_layout(32, 10, 2049, 132)]:
         with pytest.raises(ValueError, match='T=10, n=2049, d=2.*at most '
-                           '232448.*Streaming larger fields is not '
-                           'implemented'):
+                           '232448.*at most n = %d.*case-control'
+                           % (32768 if directed else 65536)):
             check_smem(10, 2049, 2, directed, warps, cluster)
+    assert launch_layout(32, 10, 2049, 2, 132, directed) == (4, 2, True)
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_launch_rule_keeps_resident_mode_to_n_2048(directed):
+    """Every n <= 2048 at T=10, d=2 launches the resident mode at
+    :func:`scan_layout`'s W and B, as before the split-field mode existed,
+    for few and many chains; the estimators' check passes there."""
+    for n in range(2, 2049):
+        for C in (32, 512):
+            assert launch_layout(C, 10, n, 2, 132, directed) == \
+                scan_layout(C, 10, n, 132) + (False,), (n, C)
+    assert check_smem(10, 2048, 2, directed) == smem_bytes(
+        10, 2048, 2, directed, *scan_layout(1, 10, 2048, 1))
+
+
+@pytest.mark.parametrize('directed', [False, True])
+def test_launch_rule_past_n_2048(directed):
+    """Past n = 2048 the split-field mode at the smallest cluster of 2, 4,
+    8 whose block fits; ``mode='split'`` forces it at any n; past
+    :func:`max_nodes` every launch raises, naming the limit and
+    case-control."""
+    for n in (2049, 4096, 8192):
+        assert launch_layout(16, 10, n, 2, 132, directed) == (4, 2, True)
+        W, B = split_layout(10, n, 2, directed)
+        assert check_smem(10, n, 2, directed) == smem_bytes(
+            10, n, 2, directed, W, B, split=True) <= 232448
+    assert launch_layout(4, 10, 16384, 2, 132, directed) == \
+        ((4, 4, True) if directed else (4, 2, True))
+    limit = 32768 if directed else 65536
+    assert max_nodes(10, 2, directed) == limit
+    assert launch_layout(4, 10, limit, 2, 132, directed) == (2, 8, True)
+    for n in (limit + 1, 4 * limit):
+        with pytest.raises(ValueError, match='n=%d.*no launch.*at most n = '
+                           '%d.*case-control' % (n, limit)):
+            check_smem(10, n, 2, directed)
+        with pytest.raises(ValueError, match='at most n = %d' % limit):
+            launch_layout(4, 10, n, 2, 132, directed)
+    # forced: the split-field mode at the north star, any cluster
+    assert launch_layout(32, 10, 500, 2, 132, directed, mode='split') == \
+        (4, 2, True)
+    assert [launch_layout(32, 10, 500, 2, 132, directed, cluster=b,
+                          mode='split') for b in (1, 2, 4, 8)] == \
+        [(4, 1, True), (4, 2, True), (4, 4, True), (2, 8, True)]
+    assert launch_layout(32, 10, 500, 2, 132, directed, cluster=4) == \
+        (4, 4, False)
+    with pytest.raises(ValueError, match='1, 2, 4 or 8'):
+        launch_layout(32, 10, 500, 2, 132, directed, cluster=3,
+                      mode='split')
+    with pytest.raises(ValueError, match="'resident' or 'split'"):
+        launch_layout(32, 10, 500, 2, 132, directed, mode='streamed')
 
 
 @pytest.mark.cuda
@@ -369,6 +430,15 @@ def test_node_scan_kernel_matches_plain_at_each_cluster(directed, mixture,
     torch.cuda.synchronize()
     assert torch.equal(acc_k, acc_p)
     assert torch.equal(X_k, X_p)
+    # the split-field mode forced at the same cluster size, and at 8
+    for b in (cluster, 8) if cluster == 4 else (cluster,):
+        before = node_scan_cuda.split_launches
+        X_s, acc_s = node_scan_cuda(pad_partners(Y), *args[1:], radii=radii,
+                                    temper=temper, cluster=b, mode='split',
+                                    **kw)
+        torch.cuda.synchronize()
+        assert node_scan_cuda.split_launches == before + 1
+        assert torch.equal(acc_s, acc_p) and torch.equal(X_s, X_p), b
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@ the same standard as on the card: identical accepts and positions to
 :func:`node_scan_plain`, in all eight instantiations and at every
 (warps, cluster) the launch takes, on inputs the card check does not use,
 with one network shared by the chains or one network a chain (the chain
-stride of missing-dyad resampling).
+stride of missing-dyad resampling), in the resident mode and in the
+split-field mode (the field in X_out, each block its partners' share).
 The libraries' exp and log1p may differ from PyTorch's by an ulp, which
 could flip a decision at a near-tie; none of these inputs has one.
 """
@@ -72,7 +73,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.node_scan_host.argtypes = ([p] * 13 + [i] * 9 + [f] * 2
-                                   + [ctypes.c_longlong])
+                                   + [ctypes.c_longlong, i])
     return lib
 
 
@@ -113,7 +114,7 @@ def _inputs(seed, C, T, n, directed, d=2, K=3, per_chain=False):
     return t
 
 
-def _host_scan(lib, t, mixture, tempered, warps, cluster):
+def _host_scan(lib, t, mixture, tempered, warps, cluster, split=False):
     C, T, n, d = t['X'].shape
     Yp = pad_partners(t['Y'])
     y_chain = T * n * partner_pad(n) if Yp.dim() == 4 else 0
@@ -130,7 +131,7 @@ def _host_scan(lib, t, mixture, tempered, warps, cluster):
         ptr(t.get('radii')), ptr(t['lmbda']) if mixture else None,
         ptr(t['temper']) if tempered else None, ptr(X_out), ptr(acc), C, T,
         n, d, partner_pad(n), warps, cluster, int('radii' in t),
-        int(mixture), 2.0, 0.1, y_chain)
+        int(mixture), 2.0, 0.1, y_chain, int(split))
     return X_out, acc
 
 
@@ -191,3 +192,38 @@ def test_host_kernel_per_chain_network(host_lib, directed, mixture):
         want = _host_scan(host_lib, shared, mixture, tempered, warps, cluster)
         got = _host_scan(host_lib, same, mixture, tempered, warps, cluster)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the split-field mode forced at T = 4, n = 130 (P = 256): (warps,
+# cluster) = (1, 8), every lane one partner slot of a block's 32 (R = P),
+# and (1, 2), four partners a lane; both padded past n
+SPLIT_LAYOUTS = [(1, 8), (1, 2)]
+
+
+@pytest.mark.parametrize('tempered', [False, True])
+@pytest.mark.parametrize('mixture', [False, True])
+@pytest.mark.parametrize('directed', [False, True])
+def test_host_kernel_split_field_matches_plain(host_lib, directed, mixture,
+                                               tempered):
+    """The split-field mode (no block holds the field: each reads and
+    writes its partner residues' positions in X_out, stages its share of
+    the rows and u, v, and keeps the node's own positions in shared
+    memory) gives the plain version's accepts and positions, with one
+    network shared by the chains and one a chain; and the resident
+    mode's bits on the same inputs."""
+    T, n = 4, 130
+    # one chain shares the network; two chains read one network each at
+    # the chain stride
+    for per_chain, C in ((False, 1), (True, 2)):
+        t = _inputs(120 + 8 * per_chain + 4 * directed + 2 * mixture
+                    + tempered, C, T, n, directed, per_chain=per_chain)
+        X_p, acc_p = node_scan_plain(
+            t['Y'], t['X'], t['b'], t['step'], t['eps'], t['log_u'],
+            radii=t.get('radii'), temper=t['temper'] if tempered else None,
+            **_prior(t, mixture))
+        assert 0.0 < float(acc_p.mean()) < 1.0
+        for warps, cluster in SPLIT_LAYOUTS:
+            X_h, acc_h = _host_scan(host_lib, t, mixture, tempered, warps,
+                                    cluster, split=True)
+            assert torch.equal(acc_h, acc_p), (per_chain, warps, cluster)
+            assert torch.equal(X_h, X_p), (per_chain, warps, cluster)

@@ -15,9 +15,10 @@ import jax.numpy as jnp
 
 from dynetlsm_tpu.ops.distances import pairwise_distances
 from dynetlsm_tpu.ops.likelihoods import (
-    undirected_loglik_full, undirected_loglik_pair)
+    directed_loglik_full, undirected_loglik_full, undirected_loglik_pair)
 from dynetlsm_tpu.ops.pallas_loglik import (
     _MAX_C, undirected_loglik_pair_batch)
+from dynetlsm_tpu_torch.ops import likelihoods as tlik
 from dynetlsm_tpu_torch.ops.pair_loglik import (
     pair_loglik, pair_loglik_cuda, pair_loglik_plain)
 
@@ -81,6 +82,46 @@ def test_plain_pair_loglik_one_candidate_matches_jax(C, T, n, p):
                                rtol=RTOL)
     both = _torch_plain(X, Y, b_cur, b_cur + 0.3)
     np.testing.assert_array_equal(got.numpy()[:, 0], both[:, 0])
+
+
+@pytest.mark.parametrize('directed', [False, True])
+@pytest.mark.parametrize('per_chain', [False, True])
+@pytest.mark.parametrize('block', [None, 'time', 'times'])
+def test_dense_network_loglik_matches_jax(directed, per_chain, block,
+                                          monkeypatch):
+    """``dense_network_loglik`` (the sweeps' log joint, no (C, T, n, n)
+    tensor past one block) against JAX's dense log-likelihood of each
+    chain, rtol 1e-5: in one block (the one call), in blocks of one time
+    a chain, and in blocks of two times a chain."""
+    C, T, n = 3, 4, 40
+    rng = np.random.RandomState(7 + 2 * directed + per_chain)
+    X = rng.randn(C, T, n, 2).astype(np.float32)
+    Y = rng.binomial(1, 0.2, ((C,) if per_chain else ()) + (T, n, n))
+    if directed:
+        Y[..., np.arange(n), np.arange(n)] = 0
+    else:
+        Y = np.triu(Y, 1)
+        Y = Y + np.swapaxes(Y, -1, -2)
+    Y = Y.astype(np.float32)
+    b = rng.randn(C, 2 if directed else 1).astype(np.float32)
+    radii = (0.5 + rng.rand(C, n)).astype(np.float32) if directed else None
+    if block is not None:
+        monkeypatch.setattr(tlik, '_BLOCK_ELEMS',
+                            n * n * (1 if block == 'time' else 2))
+    got = tlik.dense_network_loglik(
+        torch.as_tensor(Y).to(torch.uint8), torch.as_tensor(X),
+        torch.as_tensor(b), None if radii is None else torch.as_tensor(radii))
+    dist = pairwise_distances(jnp.asarray(X))
+    Yc = jnp.asarray(Y if per_chain else np.broadcast_to(Y, (C,) + Y.shape))
+    if directed:
+        want = jax.vmap(directed_loglik_full)(Yc, dist, jnp.asarray(radii),
+                                              jnp.asarray(b[:, 0]),
+                                              jnp.asarray(b[:, 1]))
+    else:
+        want = jax.vmap(undirected_loglik_full)(Yc, dist,
+                                                jnp.asarray(b[:, 0]))
+    assert got.shape == (C,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
 
 
 def test_pair_loglik_dispatch_uses_plain_on_cpu():

@@ -170,32 +170,38 @@ using Kernel = void (*)(const float*, const uint8_t*, long long,
                         const float*, const float*, const float*, float*,
                         float*, int, int, int, int, int, int, float, float);
 
-template <bool kDirected, bool kMixture>
-Kernel pick(bool tempered) {
-  return tempered ? node_scan_kernel<kDirected, kMixture, true>
-                  : node_scan_kernel<kDirected, kMixture, false>;
+template <bool kDirected, bool kMixture, bool kSplit>
+Kernel pick_tempered(bool tempered) {
+  return tempered ? node_scan_kernel<kDirected, kMixture, true, kSplit>
+                  : node_scan_kernel<kDirected, kMixture, false, kSplit>;
+}
+
+template <bool kSplit>
+Kernel pick_mode(bool directed, bool mixture, bool tempered) {
+  return directed ? (mixture ? pick_tempered<true, true, kSplit>(tempered)
+                             : pick_tempered<true, false, kSplit>(tempered))
+                  : (mixture ? pick_tempered<false, true, kSplit>(tempered)
+                             : pick_tempered<false, false, kSplit>(tempered));
 }
 
 }  // namespace
 
 // node_scan_launch's arguments, but run on the host, one cluster (chain)
-// at a time; `warps` and `cluster` as the wrapper chooses them.
+// at a time; `warps`, `cluster` and `split` as the wrapper chooses them.
 extern "C" int node_scan_host(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
     const float* b, const float* radii, const float* lmbda,
     const float* temper, float* X_out, float* acc, int C, int T, int n,
     int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq, long long y_chain) {
+    float tau_sq, float sigma_sq, long long y_chain, int split) {
   const int threads = node_scan_threads(T, warps);
-  const int smem =
-      node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster, directed);
+  const int smem = node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster,
+                                        directed, cluster, split);
   const bool tempered = temper != nullptr;
   const Kernel kernel =
-      directed ? (mixture ? pick<true, true>(tempered)
-                          : pick<true, false>(tempered))
-               : (mixture ? pick<false, true>(tempered)
-                          : pick<false, false>(tempered));
+      split ? pick_mode<true>(directed, mixture, tempered)
+            : pick_mode<false>(directed, mixture, tempered);
   for (int c = 0; c < C; ++c) {
     Cluster cl;
     cl.all = std::make_unique<Barrier>(cluster * threads);
