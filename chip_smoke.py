@@ -148,8 +148,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    random-walk prior, shared and per-chain network, as in 3; the slices
    past n = 2048 (HDP-LPCM K=25 at n = 8,192, 16 chains, undirected and
    directed; the LSM at n = 4,096, 32 chains, and n = 16,384, 4 chains;
-   bench.py's north-star model at constant expected degree) as in 8, the
-   split-field scan launched once a sweep, each with its scan's device
+   bench.py's north-star model at constant expected degree) as in 8 (2 +
+   5 sweeps), the split-field scan launched once a sweep, each with its
+   scan's device
    time from one profiled sweep, the time per phase step, the cluster
    size, the bound, the device's busy share and peak memory; the scan
    launch of that profiled sweep, captured, timed at clusters of 2, 4 and
@@ -163,9 +164,24 @@ Phases, each of which fails the run (exit code 1) when it fails:
    latent_update=)`` at the north star (HDP-LPCM with each, the LSM with
    'mala', the directed HDP-LPCM with 'parallel', a tempered HDP-LPCM with
    'mala': no node scan launched, the logp at its dense log joint), the
-   directed case-control row with 'parallel' (as in 14), and a Sampson
-   HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43); the MALA LSM's
-   Geweke check runs in 12;
+   directed case-control row with 'parallel' (as in 14), a Sampson
+   HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43), and the HDP-LPCM
+   with 'parallel' and with 'mala' (from a step of 0.02) at n = 8,192, 16
+   chains, 2 + 3 sweeps as in 8, each with its ms/sweep, X acceptance,
+   busy share and peak memory, which must stay within 3 GB of the exact
+   scan's slice at that shape; the MALA LSM's Geweke check runs in 12;
+16. forecasts and the HDP-LPCM's headline scenario: the north-star fit's
+   ``forecast_probas_marginalized_`` and ``forecast_probas_pp_`` on the
+   card, timed with their peak memory, and the forecast functions on the
+   card and on the CPU on the same traces (the posterior-predictive one
+   on uniforms and normals drawn on the card), equal within rtol 1e-4,
+   atol 1e-6; then the community split of
+   tests/test_splitting_recovery.py:18-28 through the port
+   (``simple_splitting_dynamic_network(n_nodes=50, n_time_steps=4,
+   random_state=42)``, DynamicNetworkHDPLPCM at 3,000 + 1,500 + 1,500
+   sweeps, launches counted as in 13): mean ARI above 0.8 and fewer
+   groups at t = 0 than at t = T - 1, with the ARIs, the groups and the
+   stage seconds printed;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats; the node scan's plain version, seconds
    a call, is timed once, in its check), the node scan's at each cluster size
@@ -243,6 +259,9 @@ LARGE_SLICES = [('hdp n8192', 'hdp', False, 8192, 16, True),
                 ('lsm n16384', 'lsm', False, 16384, 4, True)]
 SPLIT_CHAINS = (0, -1)
 SPLIT_CLUSTERS_TIMED = (2, 4, 8)
+# warm and timed sweeps of each slice past n = 2048 (0.35-1.2 s a sweep;
+# fewer than the other slices' to keep the script inside its time)
+LARGE_SLICE_SWEEPS = (2, 5)
 # the refused-before fit: T = 10 waves of n = 2,100 nodes, past the
 # resident mode's n = 2048 (the estimators refused it before the
 # split-field mode); its GMDS runs on the host, SMACOF's O(n^2) steps and
@@ -253,6 +272,19 @@ SCHEME_SLICES = [('hdp', False, 'parallel', None),
                  ('hdp', True, 'parallel', None),
                  ('hdp', False, 'mala', N_TEMPS)]
 SCHEME_CC = ('cc_directed_northstar', True, 500, 145, 64)
+# 'parallel' and 'mala' at the first large slice's shape (the HDP-LPCM at
+# T = 10, n = 8,192, 16 chains, undirected), warm and timed sweeps each,
+# and how far their peak device memory may exceed that exact-scan slice's
+# in the same run (their dense passes go a block of dyads at a time)
+LARGE_SCHEMES = ('parallel', 'mala')
+LARGE_SCHEME_SWEEPS = (2, 3)
+LARGE_SCHEME_PEAK_SLACK_GB = 3.0
+# the MALA slice's starting step there: at the sweeps' default 0.1 the
+# drift sums 8,192 partners a site and every joint proposal of a random
+# start is rejected until the tuner's first window closes; 0.02 is on the
+# tuned side (scripts/latent_scheme_memory.py --step prints the
+# acceptance at a given step)
+LARGE_MALA_STEP = 0.02
 MALA_FIT = dict(n_iter=150, tune=150, burn=150, n_components=6,
                 random_state=3, latent_update='mala')
 # phase 14: bench.py's case-control rows (name, directed, n, controls a
@@ -761,12 +793,15 @@ def launch_counters():
 
 
 def run_slice(name, Y, shape, dev, directed=False, model='hdp',
-              n_temps=None, latent_update='exact', report=None):
+              n_temps=None, latent_update='exact', report=None, warm=WARM,
+              timed=TIMED, step=None):
     """Build ``model`` ('hdp', 'lpcm' or 'lsm') on Y with
     ``entry.build_state_and_sweep`` (with ``n_temps``, its parallel-
-    tempering step; ``latent_update`` its scheme), run WARM + TIMED sweeps
-    through the runner with the launch counters set to 0 just before and
-    read just after, and check them.  Dyads of Y coded -1 are missing: the
+    tempering step; ``latent_update`` its scheme), run ``warm`` +
+    ``timed`` sweeps (WARM + TIMED unless given) through the runner with
+    the launch counters set to 0 just before and read just after, and
+    check them.  ``step``, when given, is every site's starting step
+    size of the latent update.  Dyads of Y coded -1 are missing: the
     state carries each chain's network and the checks of phase 11 apply.
     The exact scheme launches the node scan once a sweep, in the mode its
     launch rule takes; 'parallel' and 'mala' launch none.  ``report``, a
@@ -786,12 +821,14 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
                                               beta_min=BETA_MIN,
                                               latent_update=latent_update)
     build_s = time.perf_counter() - t_build
+    if step is not None:
+        state = state.replace(step_X=torch.full_like(state.step_X, step))
     ladder = None if n_temps is None else state.temper.clone()
     missing = state.Y is not None
     check(missing == bool((Y == -1).any()), '%s: state.Y' % name)
     runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
-                              chunk=TIMED)
-    sweeps = WARM + TIMED
+                              chunk=timed)
+    sweeps = warm + timed
     # a tempered step adds the swap's log-likelihood, the missing dyads
     # the log joint's on the new network: one more pair or directed launch
     # each
@@ -811,15 +848,15 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
-    state, warm = runner(state, gen, WARM)
+    state, warm_trace = runner(state, gen, warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, traced = runner(state, gen, TIMED)
+    state, traced = runner(state, gen, timed)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    logps = torch.cat([warm['logp'][:WARM], traced['logp'][:TIMED]])
+    logps = torch.cat([warm_trace['logp'][:warm], traced['logp'][:timed]])
     check(bool(torch.isfinite(logps).all()), '%s: non-finite logp' % name)
     check(bool((state.it == sweeps).all()), '%s: it != %d'
           % (name, sweeps))
@@ -857,7 +894,7 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     rel = float((gap / s.logp.abs()).max())
     check(bool((gap <= 1e-5 * s.logp.abs() + 1e-3).all()),
           '%s: sweep logp vs dense log joint rel err %g' % (name, rel))
-    ms = 1e3 * elapsed / TIMED
+    ms = 1e3 * elapsed / timed
     extra = ''
     if T * n * n > 1 << 26:
         extra += ', build %.1f s, log-joint check %.1f s' % (
@@ -891,7 +928,8 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
            ms, C / (ms / 1e3), acc_rate, float(s.logp.mean()), rel,
            float(gap.max()), launches, peak_gb, extra))
     if report is not None:
-        report.update(state=s, sweep=sweep, gen=gen, peak_gb=peak_gb)
+        report.update(state=s, sweep=sweep, gen=gen, peak_gb=peak_gb,
+                      acc_rate=acc_rate)
     return launches, ms
 
 
@@ -1113,7 +1151,8 @@ def final_logp_gap(m, dev):
 
 def estimator_phase(dev):
     """Phase 13: the public estimators' ``fit`` on the card.  Returns the
-    kernels' launches summed over the phase's fits."""
+    kernels' launches summed over the phase's fits, and the north-star
+    fit (phase 16 forecasts from it)."""
     import torch
     from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, equivalence
     from dynetlsm_tpu_torch.datasets import (
@@ -1127,7 +1166,7 @@ def estimator_phase(dev):
             total[k] = total.get(k, 0) + v
 
     # the north-star fit, bench.py's north-star row through the public API
-    m = DynamicNetworkHDPLPCM(device=dev, **NS_FIT)
+    m = ns_fit = DynamicNetworkHDPLPCM(device=dev, **NS_FIT)
     launches, seconds, peak = counted_fit('hdp northstar', m,
                                           northstar_network(), dev)
     add(launches)
@@ -1242,7 +1281,7 @@ def estimator_phase(dev):
         # the split-field scan's fit (LARGE_FIT) is phase 15's
         check(v > 0 or k == 'node_scan_split',
               'estimators: %s was never launched' % k)
-    return total
+    return total, ns_fit
 
 
 # ---------------------------------------------------------------------------
@@ -1560,8 +1599,8 @@ def check_split_at_slice(name, call, plain):
 
 
 def run_large_slice(name, model, directed, n, C, plain, dev):
-    """One slice past the resident mode (2 + 20 sweeps, the checks of
-    phase 8: the split-field scan launched once a sweep), then one
+    """One slice past the resident mode (LARGE_SLICE_SWEEPS, the checks
+    of phase 8: the split-field scan launched once a sweep), then one
     profiled sweep, whose last scan's inputs :func:`check_split_at_slice`
     reruns (against the plain version where ``plain``): the scan's time,
     its time per phase step, its cluster size and bound, the device's busy
@@ -1573,8 +1612,10 @@ def run_large_slice(name, model, directed, n, C, plain, dev):
     net_s = time.perf_counter() - t0
     shape = dict(T=Y.shape[0], n=n, K=25, C=C)
     report = {}
+    warm, timed = LARGE_SLICE_SWEEPS
     launches, ms = run_slice(name, Y, shape, dev, directed=directed,
-                             model=model, report=report)
+                             model=model, report=report, warm=warm,
+                             timed=timed)
     del Y
     # the scan's time: the latent block of one sweep with a
     # synchronisation around it (the device runs it alone, back to back)
@@ -1660,6 +1701,167 @@ def scheme_phase(dev, networks, slices):
     log('fit hdp sampson mala: %.1f s, auc_ %.4f, launches %s'
         % (seconds, m.auc_, launches))
     return launches, out
+
+
+def run_large_schemes(dev, exact):
+    """The 'parallel' and 'mala' HDP-LPCM slices at the shape of the
+    first large slice (LARGE_SLICES[0]), as in 8 (no node scan launched,
+    the logp at the dense log joint), LARGE_SCHEME_SWEEPS each ('mala'
+    from LARGE_MALA_STEP), then one
+    profiled sweep: ms/sweep, X acceptance, peak device memory (within
+    LARGE_SCHEME_PEAK_SLACK_GB of the exact-scan slice's, ``exact``, from
+    this run) and the device's busy share.  Returns {name: numbers}."""
+    from dynetlsm_tpu_torch import profile_blocks
+    base, model, directed, n, C, _ = LARGE_SLICES[0]
+    Y = large_network(n, directed)
+    shape = dict(T=Y.shape[0], n=n, K=25, C=C)
+    warm, timed = LARGE_SCHEME_SWEEPS
+    out = {}
+    for scheme in LARGE_SCHEMES:
+        name = '%s %s' % (base, scheme)
+        report = {}
+        launches, ms = run_slice(
+            name, Y, shape, dev, directed=directed, model=model,
+            latent_update=scheme, report=report, warm=warm, timed=timed,
+            step=LARGE_MALA_STEP if scheme == 'mala' else None)
+        device = profile_blocks.device_times(report['sweep'], report['state'],
+                                             report['gen'], 1)
+        over = report['peak_gb'] - exact['peak_gb']
+        check(over <= LARGE_SCHEME_PEAK_SLACK_GB,
+              '%s: peak device memory %.3f GB, %.3f GB above the exact '
+              'scan\'s slice (%.3f GB)' % (name, report['peak_gb'], over,
+                                           exact['peak_gb']))
+        out[name] = dict(name=name, launches=launches, ms=ms,
+                         acc_rate=report['acc_rate'],
+                         peak_gb=report['peak_gb'],
+                         exact_peak_gb=exact['peak_gb'],
+                         device_busy=device['device_busy'])
+        log('slice %s: %.3f ms/sweep, X acceptance %.4f, peak device memory '
+            '%.3f GB (the exact scan\'s slice %.3f GB), device busy %s; '
+            'largest kernels (ms/sweep, profiled) %s'
+            % (name, ms, report['acc_rate'], report['peak_gb'],
+               exact['peak_gb'], device['device_busy'],
+               [(k[:60], round(v, 3)) for k, v in device['kernels_ms'][:3]]))
+        del report
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: forecasts and the headline scenario
+# ---------------------------------------------------------------------------
+
+# the forecasts of phase 13's north-star fit on the card against the same
+# functions on the CPU, on the same traces (the posterior-predictive one
+# on the same uniforms and normals)
+FORECAST_RTOL, FORECAST_ATOL = 1e-4, 1e-6
+# the community split (tests/test_splitting_recovery.py:18-28): the
+# network, the fit at its full budget, and its bar
+SPLIT_NET = dict(n_nodes=50, n_time_steps=4, random_state=42)
+SPLIT_FIT = dict(n_iter=3000, tune=1500, burn=1500, n_components=10,
+                 random_state=123)
+SPLIT_MIN_ARI = 0.8
+
+
+def forecast_phase(dev, m):
+    """Phase 16(a): ``forecast_probas_marginalized_`` and
+    ``forecast_probas_pp_`` of the fit ``m`` on the card, timed with their
+    peak device memory, and the forecast functions on the card and on the
+    CPU on the same traces (the posterior-predictive one on uniforms and
+    normals drawn on the card): equal within FORECAST_RTOL /
+    FORECAST_ATOL; (n, n), finite, in [0, 1], the marginal forecast's
+    diagonal 0.  Returns its numbers."""
+    import torch
+    from dynetlsm_tpu_torch.ops.forecast import (
+        marginal_forecast, posterior_predictive_forecast)
+
+    def timed(fn, card=True):
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        value = fn()
+        if card:
+            torch.cuda.synchronize()
+        return (value, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) / 1e9 if card else None)
+
+    out = {}
+    *args, renormalize = m._marginal_forecast_inputs()
+    pp_args = m._pp_forecast_inputs()
+    S, n, d = pp_args[0].shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    u = torch.rand((S, n), generator=gen, device=dev)
+    eps = torch.randn((S, n, d), generator=gen, device=dev)
+    runs = {
+        'marginalized': (lambda: m.forecast_probas_marginalized_,
+                         lambda device: marginal_forecast(
+                             *args, renormalize=renormalize, device=device)),
+        'pp': (lambda: m.forecast_probas_pp_,
+               lambda device: posterior_predictive_forecast(
+                   None, *pp_args, u=u.to(device), eps=eps.to(device),
+                   device=device))}
+    for name, (attribute, function) in runs.items():
+        probas, seconds, peak = timed(attribute)
+        card, card_s, card_peak = timed(lambda: function(dev).cpu())
+        cpu, cpu_s, _ = timed(lambda: function('cpu'), card=False)
+        for what, p in (('forecast_probas_%s_' % name, probas),
+                        ('%s on the card\'s draws' % name, card.numpy())):
+            check(p.shape == (n, n) and bool(np.isfinite(p).all())
+                  and bool(((p >= 0) & (p <= 1)).all()),
+                  'forecast %s: shape %s or values outside [0, 1]'
+                  % (what, p.shape))
+        if name == 'marginalized':
+            check(not np.diag(probas).any(), 'forecast_probas_marginalized_'
+                  ': non-zero diagonal')
+            check(np.allclose(probas, card.numpy(), rtol=1e-6, atol=0.0),
+                  'forecast_probas_marginalized_ differs from the function '
+                  'on its inputs')
+        err = float((card - cpu).abs().max())
+        check(torch.allclose(card, cpu, rtol=FORECAST_RTOL,
+                             atol=FORECAST_ATOL),
+              'forecast %s: the card and the CPU differ by %g' % (name, err))
+        out[name] = dict(attribute_s=seconds, attribute_peak_gb=peak,
+                         card_s=card_s, card_peak_gb=card_peak, cpu_s=cpu_s,
+                         max_abs_err=err)
+        log('forecast %s of the north-star fit (S=%d samples, n=%d): the '
+            'attribute %.3f s (peak device memory %.3f GB); the function '
+            'on the card %.3f s (%.3f GB), on the CPU %.3f s; max |card - '
+            'CPU| %g (rtol %g, atol %g)'
+            % (name, S, n, seconds, peak, card_s, card_peak, cpu_s, err,
+               FORECAST_RTOL, FORECAST_ATOL))
+    return out
+
+
+def split_recovery(dev):
+    """Phase 16(b): the HDP-LPCM's headline scenario at its full budget
+    through the port on the card (tests/test_splitting_recovery.py:18-28),
+    launches counted as in 13: mean ARI over the times above
+    SPLIT_MIN_ARI and fewer groups at t = 0 than at t = T - 1.  Returns
+    (launches, its numbers)."""
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM
+    from dynetlsm_tpu_torch.datasets import simple_splitting_dynamic_network
+    from dynetlsm_tpu_torch.metrics import adjusted_rand_score
+    Y, z_true = simple_splitting_dynamic_network(**SPLIT_NET)
+    m = DynamicNetworkHDPLPCM(device=dev, **SPLIT_FIT)
+    launches, seconds, peak = counted_fit('hdp split', m, Y, dev)
+    T = Y.shape[0]
+    aris = [adjusted_rand_score(z_true[t], m.z_[t]) for t in range(T)]
+    groups = [len(set(m.z_[t].tolist())) for t in range(T)]
+    log('fit hdp split (T=%d, n=%d, %d + %d sweeps): %.1f s, ARI by time '
+        '%s (mean %.4f), groups by time %s (true %s), stage seconds %s, '
+        'launches %s, peak device memory %.3f GB'
+        % (T, Y.shape[1], NESTED_SWEEPS, m.logps_.shape[-1] - 1, seconds,
+           [round(a, 4) for a in aris], np.mean(aris), groups,
+           [len(set(z_true[t].tolist())) for t in range(T)],
+           {k: round(v, 2) for k, v in m.stage_seconds_.items()},
+           launches, peak))
+    check(bool(np.isfinite(m.logps_).all()), 'split fit: non-finite logp')
+    check(np.mean(aris) > SPLIT_MIN_ARI, 'split fit: ARI %s, mean %.4f '
+          '<= %g' % (aris, np.mean(aris), SPLIT_MIN_ARI))
+    check(groups[0] < groups[-1], 'split fit: %d groups at t = 0, %d at t '
+          '= T - 1' % (groups[0], groups[-1]))
+    return launches, dict(seconds=seconds, aris=aris, groups=groups,
+                          stage_seconds=dict(m.stage_seconds_))
 
 
 # ---------------------------------------------------------------------------
@@ -1914,7 +2116,7 @@ def main():
         phase_done('phase 12')
 
         # phase 13: the estimators
-        fit_launches = estimator_phase(dev)
+        fit_launches, ns_fit = estimator_phase(dev)
         phase_done('phase 13')
 
         # phase 14: the case-control slices
@@ -1934,6 +2136,9 @@ def main():
         for row in LARGE_SLICES:
             launches, ms, large[row[0]] = run_large_slice(*row, dev=dev)
             slices[row[0]] = (launches, ms)
+        large_schemes = run_large_schemes(dev, large[LARGE_SLICES[0][0]])
+        for k, o in large_schemes.items():
+            slices[k] = (o['launches'], o['ms'])
         more_fits = [large_fit(dev)]
         launches, cc_parallel = scheme_phase(dev, networks, slices)
         more_fits.append(launches)
@@ -1943,6 +2148,14 @@ def main():
         check(fit_launches['node_scan_split'] > 0,
               'estimators: node_scan_split was never launched')
         phase_done('phase 15')
+
+        # phase 16: forecasts and the headline scenario
+        forecasts = forecast_phase(dev, ns_fit)
+        del ns_fit
+        launches, split_out = split_recovery(dev)
+        for k, v in launches.items():
+            fit_launches[k] = fit_launches.get(k, 0) + v
+        phase_done('phase 16')
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -2120,6 +2333,20 @@ def main():
             for o in large.values()))
         log('case-control parallel: %.3f ms/sweep (scan %.3f ms)'
             % (cc_parallel['ms'], cc_parallel['scan_ms']))
+        log('past n = 4,096 with the other latent updates: ' + ', '.join(
+            '%s %.3f ms/sweep (X acceptance %.4f, %.3f GB against %.3f, '
+            'busy %s)' % (o['name'], o['ms'], o['acc_rate'], o['peak_gb'],
+                          o['exact_peak_gb'], o['device_busy'])
+            for o in large_schemes.values()))
+        log('forecasts: ' + ', '.join(
+            '%s %.3f s (card function %.3f s, CPU %.3f s, max err %g, peak '
+            '%.3f GB)' % (k, o['attribute_s'], o['card_s'], o['cpu_s'],
+                          o['max_abs_err'], o['attribute_peak_gb'])
+            for k, o in forecasts.items()))
+        log('split recovery: %.1f s, ARI %s, groups %s'
+            % (split_out['seconds'],
+               [round(a, 4) for a in split_out['aris']],
+               split_out['groups']))
         log('case-control slices: ' + ', '.join(
             '%s %.3f ms/sweep (scan %.3f ms, %.0f launches, %.3f GB)'
             % (o['name'], o['ms'], o['scan_ms'], o['launches_per_sweep'],

@@ -54,15 +54,19 @@ def shortest_path_dissimilarity(Y, unweighted=True):
     return dist
 
 
-def euclidean_distances(X):
-    """scikit-learn's ``euclidean_distances(X)`` for float64 X: the
-    expanded square x^2 - 2 x.y + y^2, clipped at 0, diagonal 0."""
+def euclidean_distances(X, Y=None):
+    """scikit-learn's ``euclidean_distances(X, Y)`` (``pairwise_distances``
+    with its default metric) for float64 arrays: the expanded square
+    x^2 - 2 x.y + y^2, clipped at 0; between X and itself (Y None) the
+    diagonal 0."""
     XX = np.einsum('ij,ij->i', X, X)[:, None]
-    distances = -2 * np.dot(X, X.T)
+    YY = XX.T if Y is None else np.einsum('ij,ij->i', Y, Y)[None, :]
+    distances = -2 * np.dot(X, X.T if Y is None else Y.T)
     distances += XX
-    distances += XX.T
+    distances += YY
     np.maximum(distances, 0, out=distances)
-    np.fill_diagonal(distances, 0)
+    if Y is None:
+        np.fill_diagonal(distances, 0)
     return np.sqrt(distances)
 
 

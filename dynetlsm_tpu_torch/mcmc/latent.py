@@ -14,10 +14,13 @@ package's three schemes:
   with its own accept (:func:`_parallel_site_update`; a perturbed Markov
   kernel, as in JAX), dense or case-control.
 * ``'mala'``: one joint Metropolis-adjusted Langevin step of each chain's
-  whole field on the dense joint density (:func:`_mala_update`), its
-  gradient from ``torch.autograd``.
+  whole field on the dense joint density (:func:`_mala_update`), the
+  likelihood's gradient in closed form.
 
-The last two are torch code on any device, on (C, T, n, n) tensors.
+The last two are torch code on any device.  Their dense passes run over
+blocks of (chains, times, sites) of at most ``_BLOCK_ELEMS`` dyads
+(:func:`_site_blocks`), each site against its whole row of partners, so
+no (C, T, n, n) tensor is made.
 """
 from functools import lru_cache
 
@@ -28,7 +31,7 @@ from ..math.distributions import normal, uniform
 from ..ops.case_control import (
     approx_partial_loglik_all, class_partial_loglik_segments, control_scale)
 from ..ops.distances import _sum_sq_last
-from ..ops.likelihoods import softplus
+from ..ops.likelihoods import _BLOCK_ELEMS, softplus
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
     _directed_partial_loglik_terms, _mixture_prior_per_t,
     _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
@@ -122,19 +125,34 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                      **prior)
 
 
-def _dense_network(Y, n, is_directed, dtype):
-    """(Y_row, Y_col) float of the kernels' form of the network ((C,) T,
-    n, n or padded rows): the 0/1 adjacency Y[t, j, i] and, directed, its
-    transpose Y[t, i, j] (the packed bits ``& 1`` and ``>> 1``; None when
-    undirected)."""
-    Y = Y[..., :n]
+def _site_blocks(C, T, n):
+    """(chains, times, sites) slices that cover (C, T, n), each block at
+    most ``_BLOCK_ELEMS`` dyads (its sites times their n partners) and at
+    least one site: whole (time, site) fields of several chains where
+    they fit, then whole fields of several times, then rows of sites."""
+    rb = min(n, max(1, _BLOCK_ELEMS // n))
+    tb = min(T, max(1, _BLOCK_ELEMS // (n * n))) if rb == n else 1
+    cb = max(1, _BLOCK_ELEMS // (T * n * n)) if tb == T else 1
+    return [(slice(c0, min(c0 + cb, C)), slice(t0, min(t0 + tb, T)),
+             slice(r0, min(r0 + rb, n)))
+            for c0 in range(0, C, cb) for t0 in range(0, T, tb)
+            for r0 in range(0, n, rb)]
+
+
+def _block_network(Y, c, t, r, n, is_directed):
+    """(Y_row, Y_col, off) of one block's sites r of times t (chains c
+    when Y is one network a chain), from the kernels' form of the network
+    ((C,) T, n, n or padded rows): the 0/1 adjacency Y[t, i, j] of each
+    site i of r and partner j and, directed, Y[t, j, i] (the packed bits
+    ``& 1`` and ``>> 1``; None when undirected), uint8 (arithmetic with
+    float32 promotes them exactly, no float copy made); and the (sites,
+    n) bool mask of the partners other than the site itself."""
+    Yb = (Y[c, t] if Y.dim() == 4 else Y[t])[..., r, :n]
+    rows = torch.arange(r.start, r.stop, device=Yb.device)
+    off = rows[:, None] != torch.arange(n, device=Yb.device)
     if is_directed:
-        return (Y & 1).to(dtype), (Y >> 1).to(dtype)
-    return Y.to(dtype), None
-
-
-def _offdiag(n, X):
-    return 1.0 - torch.eye(n, dtype=X.dtype, device=X.device)
+        return Yb & 1, Yb >> 1, off
+    return Yb, None, off
 
 
 def _shift(a, step, fill):
@@ -156,11 +174,11 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     perturbed Markov kernel (each site's accept ignores the other sites'
     moves; JAX measures the temporal-smoothness moment E|X_{t+1} - X_t|^2
     ~9% inflated at T=3, n=8).  JAX's formulas term by term, with a chain
-    axis: the (C, T, n, n, d) differences, the partner terms masked off the
-    diagonal and summed per site, the prior with stale temporal
-    neighbours, ``temper`` (C,) times the likelihood delta.  Under the
-    case-control structures ``cc`` the site terms are
-    ``ops.case_control.approx_partial_loglik_all``'s (Y unread).
+    axis: each site's partner terms (:func:`_site_loglik`, in blocks of
+    sites), the prior with stale temporal neighbours, ``temper`` (C,)
+    times the likelihood delta.  Under the case-control structures ``cc``
+    the site terms are ``ops.case_control.approx_partial_loglik_all``'s (Y
+    unread).
 
     Shapes as :func:`sample_latent_positions`.  The proposal eps (C, T, n,
     d) and the log-uniforms log_u (C, T, n) are drawn from ``gen`` (eps
@@ -171,32 +189,12 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     if log_u is None:
         log_u = torch.log(uniform(gen, (C, T, n), X.device))
     X_prop = X + step_size[..., None] * eps
-    b0 = intercept[:, 0, None, None, None]
-    if cc is None:
-        Y_row, Y_col = _dense_network(Y, n, is_directed, X.dtype)
-        mask = _offdiag(n, X)
-        if is_directed:
-            b1 = intercept[:, 1, None, None, None]
-            r_self = radii[:, None, :, None]
-            r_other = radii[:, None, None, :]
 
     def site_ll(Xq):
         if cc is not None:
             return approx_partial_loglik_all(X, Xq, cc, intercept, radii,
                                              is_directed)
-        diff = Xq[:, :, :, None, :] - X[:, :, None, :, :]
-        dist = torch.sqrt(torch.clamp_min(_sum_sq_last(diff), 0.0))
-        if is_directed:
-            eta_out = (b0 * (1.0 - dist / r_other)
-                       + b1 * (1.0 - dist / r_self))
-            eta_in = (b0 * (1.0 - dist / r_self)
-                      + b1 * (1.0 - dist / r_other))
-            ll = Y_row * eta_out - softplus(eta_out)
-            ll = ll + (Y_col * eta_in - softplus(eta_in))
-        else:
-            eta = b0 - dist
-            ll = Y_row * eta - softplus(eta)
-        return torch.sum(ll * mask, dim=-1)                  # (C, T, n)
+        return _site_loglik(Y, X, Xq, intercept, radii, is_directed)
 
     prev = _shift(X, 1, 0.0)
     nxt = _shift(X, -1, 0.0)
@@ -235,37 +233,115 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     return X_new, accept.to(X.dtype)
 
 
-def _joint_latent_logp(Y, X, intercept, radii=None, tau_sq=None,
-                       sigma_sq=None, mu=None, sigma=None, lmbda=None, z=None,
-                       is_directed=False, mixture=True, temper=None):
-    """Joint log density (C,) of each chain's position field, the network
-    likelihood (times ``temper`` when given) plus the temporal prior, each
-    transition once: the MALA target (JAX ``_joint_latent_logp``).  JAX's
-    formulas term by term: the (C, T, n, n, d) differences, the squared
-    distances off the diagonal floored at 1e-12 and the diagonal set to 1
-    before the sqrt (finite gradients), the undirected sum halved (each
-    dyad counted twice).  Y in the kernels' form, as
-    :func:`sample_latent_positions` takes it; differentiable in X."""
-    C, T, n, d = X.shape
-    Y_row, _ = _dense_network(Y, n, is_directed, X.dtype)
-    mask = _offdiag(n, X)
-    diff = X[:, :, :, None, :] - X[:, :, None, :, :]
-    d2 = _sum_sq_last(diff)
-    dist = torch.sqrt(torch.where(mask > 0, torch.clamp_min(d2, 1e-12),
-                                  1.0))
-    b0 = intercept[:, 0, None, None, None]
+def _site_loglik(Y, X, Xq, intercept, radii, is_directed):
+    """Each site's dense log-likelihood terms at its candidate Xq (C, T,
+    n, d) against the field X, its own slot dropped and the rest summed
+    over its whole row of partners in one sum (JAX
+    ``_parallel_site_update``'s ``site_ll``): undirected y_ij eta -
+    softplus(eta), eta = b - d; directed the sender's and the receiver's
+    terms, the packed bits of Y (:func:`_block_network`).  Blocks of
+    :func:`_site_blocks` cut only the site axis, so each site's sum is
+    over the same row.  Returns (C, T, n)."""
+    C, T, n, _ = X.shape
+    out = torch.empty((C, T, n), dtype=X.dtype, device=X.device)
+    for c, t, r in _site_blocks(C, T, n):
+        out[c, t, r] = _site_block(Y, X, Xq, intercept, radii, is_directed,
+                                   c, t, r)
+    return out
+
+
+def _site_block(Y, X, Xq, intercept, radii, is_directed, c, t, r):
+    """:func:`_site_loglik` of one block (its temporaries freed on
+    return)."""
+    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed)
+    diff = Xq[c, t, r][:, :, :, None, :] - X[c, t][:, :, None, :, :]
+    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(diff), 0.0))
+    del diff
+    b0 = intercept[c, 0, None, None, None]
     if is_directed:
-        b1 = intercept[:, 1, None, None, None]
-        r_i = radii[:, None, :, None]
-        r_j = radii[:, None, None, :]
-        eta = b0 * (1.0 - dist / r_j) + b1 * (1.0 - dist / r_i)
-        ll = torch.sum((Y_row * eta - softplus(eta)) * mask, dim=(1, 2, 3))
+        b1 = intercept[c, 1, None, None, None]
+        r_self = radii[c, None, r, None]
+        r_other = radii[c, None, None, :]
+        eta_out = b0 * (1.0 - dist / r_other) + b1 * (1.0 - dist / r_self)
+        eta_in = b0 * (1.0 - dist / r_self) + b1 * (1.0 - dist / r_other)
+        ll = Y_row * eta_out - softplus(eta_out)
+        ll = ll + (Y_col * eta_in - softplus(eta_in))
     else:
         eta = b0 - dist
-        ll = 0.5 * torch.sum((Y_row * eta - softplus(eta)) * mask,
-                             dim=(1, 2, 3))
+        ll = Y_row * eta - softplus(eta)
+    return torch.sum(ll.masked_fill_(~off, 0.0), dim=-1)
+
+
+def _joint_loglik(Y, X, intercept, radii=None, is_directed=False,
+                  temper=None, grad=False):
+    """The dense network log-likelihood (C,) of each chain's field, as the
+    MALA target has it (JAX ``_joint_latent_logp``'s likelihood): the
+    squared distances off the diagonal floored at 1e-12 and the diagonal
+    set to 1 before the sqrt, the undirected sum halved (each dyad counted
+    twice), times ``temper`` when given.  Blocks of :func:`_site_blocks`,
+    their sums added in float64 and rounded once.  With ``grad``, also
+    its gradient in X (C, T, n, d) in closed form, block by block (no
+    graph spans the network): with s_ij = sigmoid(eta_ij) and e_ij = (X_i
+    - X_j) / d_ij, undirected sum_j (s_ij - y_ij) e_ij; directed, with
+    eta_ij = b_in (1 - d/r_j) + b_out (1 - d/r_i), sum_j [(s_ij - y_ij)
+    (b_in/r_j + b_out/r_i) + (s_ji - y_ji) (b_in/r_i + b_out/r_j)] e_ij;
+    a pair closer than the floor adds nothing, as the floor's gradient is
+    0.  Undirected networks are symmetric.  Returns (ll, grad or None)."""
+    C, T, n, _ = X.shape
+    total = torch.zeros(C, dtype=torch.float64, device=X.device)
+    g = torch.empty_like(X) if grad else None
+    for c, t, r in _site_blocks(C, T, n):
+        ll, g_block = _joint_block(Y, X, intercept, radii, is_directed,
+                                   grad, c, t, r)
+        total[c] += ll
+        if grad:
+            g[c, t, r] = g_block
+    ll = (total if is_directed else 0.5 * total).to(X.dtype)
     if temper is not None:
         ll = temper * ll
+        if grad:
+            g = temper[:, None, None, None] * g
+    return ll, g
+
+
+def _joint_block(Y, X, intercept, radii, is_directed, grad, c, t, r):
+    """:func:`_joint_loglik` of one block: its chains' float64 sums and
+    its sites' gradient (or None); its temporaries freed on return."""
+    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed)
+    diff = X[c, t, r][:, :, :, None, :] - X[c, t][:, :, None, :, :]
+    d2 = _sum_sq_last(diff)
+    dist = torch.sqrt(torch.where(off, torch.clamp_min(d2, 1e-12), 1.0))
+    b0 = intercept[c, 0, None, None, None]
+    if is_directed:
+        b1 = intercept[c, 1, None, None, None]
+        r_i = radii[c, None, r, None]
+        r_j = radii[c, None, None, :]
+        eta = b0 * (1.0 - dist / r_j) + b1 * (1.0 - dist / r_i)
+    else:
+        eta = b0 - dist
+    terms = (Y_row * eta - softplus(eta)).masked_fill_(~off, 0.0)
+    ll = torch.sum(terms, dim=(1, 2, 3), dtype=torch.float64)
+    if not grad:
+        return ll, None
+    del terms
+    coef = torch.sigmoid(eta) - Y_row
+    if is_directed:
+        eta_t = b0 * (1.0 - dist / r_i) + b1 * (1.0 - dist / r_j)
+        coef = (coef * (b0 / r_j + b1 / r_i)
+                + (torch.sigmoid(eta_t) - Y_col) * (b0 / r_i + b1 / r_j))
+        del eta_t
+    del eta
+    coef = torch.where(off & (d2 > 1e-12), coef / dist, 0.0)
+    del d2, dist
+    return ll, torch.sum(coef[..., None] * diff, dim=-2)
+
+
+def _joint_prior(X, tau_sq=None, sigma_sq=None, mu=None, sigma=None,
+                 lmbda=None, z=None, mixture=True):
+    """The temporal prior (C,) of each chain's field, each transition once
+    (JAX ``_joint_latent_logp``'s prior): the AR(1)-to-cluster-mean
+    mixture prior or the random walk."""
+    T = X.shape[1]
     if mixture:
         mu_z, sig_z = site_cluster_params(mu, sigma, z)
         diff0 = X[:, 0] - mu_z[:, 0]
@@ -281,16 +357,34 @@ def _joint_latent_logp(Y, X, intercept, radii=None, tau_sq=None,
             dft = X[:, 1:] - X[:, :-1]
             prior = prior - 0.5 * torch.sum(dft * dft,
                                             dim=(1, 2, 3)) / sigma_sq
-    return ll + prior
+    return prior
 
 
-def _joint_value_and_grad(X, **kw):
-    """(_joint_latent_logp (C,), its gradient in X (C, T, n, d))."""
+def _joint_latent_logp(Y, X, intercept, radii=None, tau_sq=None,
+                       sigma_sq=None, mu=None, sigma=None, lmbda=None, z=None,
+                       is_directed=False, mixture=True, temper=None):
+    """Joint log density (C,) of each chain's position field, the network
+    likelihood (times ``temper`` when given, :func:`_joint_loglik`) plus
+    the temporal prior, each transition once (:func:`_joint_prior`): the
+    MALA target (JAX ``_joint_latent_logp``).  Y in the kernels' form, as
+    :func:`sample_latent_positions` takes it."""
+    ll, _ = _joint_loglik(Y, X, intercept, radii, is_directed, temper)
+    return ll + _joint_prior(X, tau_sq, sigma_sq, mu, sigma, lmbda, z,
+                             mixture)
+
+
+def _joint_value_and_grad(X, Y, intercept, radii=None, is_directed=False,
+                          temper=None, **prior_kw):
+    """(_joint_latent_logp (C,), its gradient in X (C, T, n, d)): the
+    likelihood's in closed form (:func:`_joint_loglik`), the prior's,
+    O(C T n d), from ``torch.autograd``."""
+    ll, g_ll = _joint_loglik(Y, X, intercept, radii, is_directed, temper,
+                             grad=True)
     with torch.enable_grad():
         Xg = X.detach().requires_grad_(True)
-        logp = _joint_latent_logp(X=Xg, **kw)
-        grad, = torch.autograd.grad(logp.sum(), Xg)
-    return logp.detach(), grad
+        prior = _joint_prior(Xg, **prior_kw)
+        g_prior, = torch.autograd.grad(prior.sum(), Xg)
+    return ll + prior.detach(), g_ll + g_prior
 
 
 def _mala_update(gen, Y, X, intercept, step_size, radii=None, tau_sq=None,
@@ -299,8 +393,8 @@ def _mala_update(gen, Y, X, intercept, step_size, radii=None, tau_sq=None,
                  log_u=None):
     """One joint Metropolis-adjusted Langevin step of each chain's whole
     position field (JAX ``_mala_update``): the proposal drifts along the
-    gradient of :func:`_joint_latent_logp` (``torch.autograd``), scaled
-    per site by ``step_size`` (C, T, n) as a fixed diagonal
+    gradient of :func:`_joint_latent_logp` (:func:`_joint_value_and_grad`),
+    scaled per site by ``step_size`` (C, T, n) as a fixed diagonal
     preconditioner, and one MH test per chain, with the drift's correction
     log q(X | X') - log q(X' | X), accepts or keeps the whole field.  The
     accept is broadcast to (C, T, n), so the acceptance counters and the

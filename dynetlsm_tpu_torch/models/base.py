@@ -69,9 +69,9 @@ def impute_missing(Y, miss_mask):
 
 # the JAX keywords that mean something the port lacks: (accepted value,
 # the ROADMAP item that ports it)
-_UNSUPPORTED = (('devices', None, '§1 item 9 (multi-device)'),
-                ('node_devices', 1, '§1 item 9 (multi-device)'),
-                ('checkpoint_dir', None, '§1 item 7 (checkpoints)'))
+_UNSUPPORTED = (('devices', None, '§1 item 5 (multi-device)'),
+                ('node_devices', 1, '§1 item 5 (multi-device)'),
+                ('checkpoint_dir', None, '§1 item 2 (checkpoints)'))
 
 
 def check_supported(estimator):

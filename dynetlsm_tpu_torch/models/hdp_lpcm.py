@@ -15,6 +15,7 @@ from ..label_utils import renormalize_sample
 from ..mcmc.sweeps import SweepConfig, hdp_logp_at_state, make_hdp_sweep
 from ..model_selection.approx_bic import select_bic
 from ..model_selection.posterior_vi import minimize_posterior_expected_vi
+from ..ops.forecast import posterior_predictive_forecast
 from .base import sample_chains, with_init
 from .mixture_base import MixtureModelMixin
 
@@ -381,25 +382,69 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
                                      + (1 - lam) * self.X_[-1])
         return self._forecast_from(X_ahead, self.intercept_[0])
 
-    @property
-    def forecast_probas_plugin_(self):
-        """Posterior-averaged plug-in forecast with active-cluster
-        renormalisation (reference hdp_lpcm.py:511-527)."""
+    def _forecast_samples(self):
+        """Each sample's (last labels, last transition matrix, mus,
+        sigmas) renormalised over its active clusters (reference
+        hdp_lpcm.py:511-553)."""
         flat = {name: self._flat_posterior(name + '_') for name in (
             'zs', 'betas', 'weights', 'mus', 'sigmas')}
 
         def renorm(i):
             z, _, _, trans_w, mu, sigma = self._renormalize_flat(flat, i)
             return z[-1], trans_w[-1], mu, sigma
+        return renorm
 
-        return self._forecast_from(self._forecast_xhat(renorm),
-                                   np.ravel(self.intercepts_mean_)[0])
+    def _marginal_forecast_inputs(self):
+        """The HDP-LPCM's arguments of ``ops.forecast.marginal_forecast``
+        (reference hdp_lpcm.py:530-553): the raw last-time transition
+        matrices, renormalised over each sample's active clusters inside
+        the forecast."""
+        return (self._forecast_xhat(self._forecast_samples()),
+                self._flat_posterior('Xs_')[:, -1],
+                self._flat_posterior('zs_')[:, -1],
+                self._flat_posterior('weights_')[:, -1],
+                self._flat_posterior('mus_'),
+                self._flat_posterior('sigmas_'),
+                self._flat_posterior('intercepts_')[:, 0],
+                np.ravel(self._flat_posterior('lambdas_')), True)
+
+    def _pp_forecast_inputs(self):
+        """The trace arguments of
+        ``ops.forecast.posterior_predictive_forecast`` (x_last, z_full,
+        trans_last, mus, sigmas, intercepts, lmbdas)."""
+        return (self._flat_posterior('Xs_')[:, -1],
+                self._flat_posterior('zs_'),
+                self._flat_posterior('weights_')[:, -1],
+                self._flat_posterior('mus_'),
+                self._flat_posterior('sigmas_'),
+                self._flat_posterior('intercepts_')[:, 0],
+                np.ravel(self._flat_posterior('lambdas_')))
 
     @property
     def forecast_probas_pp_(self):
-        raise NotImplementedError(
-            'forecast_probas_pp_ needs ops/forecast.py, which is not ported '
-            'yet (ROADMAP.md §1 item 7)')
+        """Posterior-predictive one-step forecast (n, n) float64: per
+        posterior sample, labels resampled from the active-renormalised
+        transition row and positions from the mixture dynamics, the edge
+        probabilities averaged (reference hdp_lpcm.py:590-630), on the
+        fit's device with draws from a ``torch.Generator`` seeded by
+        ``random_state`` (0 unless an int).
+
+        Undirected-only, like the reference (whose implementation
+        broadcasts a scalar intercept; the directed pair would not
+        broadcast against the distance matrix there either).
+        """
+        if self.is_directed:
+            raise ValueError(
+                'forecast_probas_pp_ supports undirected models only (the '
+                'reference implementation, hdp_lpcm.py:590-630, has no '
+                'directed path either); use forecast_probas_marginalized_ '
+                'or forecast_probas(n_samples) instead.')
+        seed = (self.random_state
+                if isinstance(self.random_state, (int, np.integer)) else 0)
+        gen = torch.Generator(device=self.device_).manual_seed(int(seed))
+        return posterior_predictive_forecast(
+            gen, *self._pp_forecast_inputs(),
+            device=self.device_).cpu().numpy()
 
     def delete_traces(self):
         """Free trace storage (reference hdp_lpcm.py:1315-1330)."""

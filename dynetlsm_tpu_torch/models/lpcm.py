@@ -268,19 +268,6 @@ class DynamicNetworkLPCM(MixtureModelMixin):
         return self._forecast_from(X_ahead, self.intercept_[0])
 
     @property
-    def forecast_probas_plugin_(self):
-        """Posterior-averaged plug-in forecast (reference lpcm.py:243-258,
-        using each sample's own transition weights)."""
-        def renorm(i):
-            z = self._flat_posterior('zs_')[i]
-            return (z[-1], self._flat_posterior('trans_weights_')[i],
-                    self._flat_posterior('mus_')[i],
-                    self._flat_posterior('sigmas_')[i])
-
-        return self._forecast_from(self._forecast_xhat(renorm),
-                                   np.ravel(self.intercepts_mean_)[0])
-
-    @property
     def trans_weights_last_(self):
         return self.trans_weight_
 

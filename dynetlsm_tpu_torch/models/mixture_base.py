@@ -25,6 +25,7 @@ from ..math.procrustes import longitudinal_procrustes_rotation
 from ..metrics import network_auc
 from ..ops.node_scan import check_smem
 from ..ops.distances import pairwise_distances
+from ..ops.forecast import marginal_forecast
 from .base import (
     StageTimer, build_case_control, check_supported, controls_of, fit_rng,
     init_cc_dict, resolve_n_control, validate_network)
@@ -309,6 +310,17 @@ class MixtureModelMixin:
 
     # -------------------------------------------------------- forecasting
 
+    def _forecast_samples(self):
+        """The per-sample (last labels, last transition matrix, mus,
+        sigmas) the plug-in and marginal forecasts average, as a function
+        of the flattened sample index: the LPCM's own transition weights
+        (reference lpcm.py:243-283); the HDP-LPCM renormalises over each
+        sample's active clusters."""
+        flat = {name: self._flat_posterior(name + '_') for name in (
+            'zs', 'trans_weights', 'mus', 'sigmas')}
+        return lambda i: (flat['zs'][i][-1], flat['trans_weights'][i],
+                          flat['mus'][i], flat['sigmas'][i])
+
     def _forecast_xhat(self, renormalized_fn):
         """Posterior-averaged plug-in forecast position X_hat
         (reference hdp_lpcm.py:530-544)."""
@@ -325,6 +337,38 @@ class MixtureModelMixin:
                 + (1 - lams[i]) * Xs[i, -1][:, None, :])
             X_hat += contrib.sum(axis=1) / S
         return X_hat
+
+    @property
+    def forecast_probas_plugin_(self):
+        """Posterior-averaged plug-in forecast (reference lpcm.py:243-258,
+        hdp_lpcm.py:511-527)."""
+        return self._forecast_from(
+            self._forecast_xhat(self._forecast_samples()),
+            np.ravel(self.intercepts_mean_)[0])
+
+    def _marginal_forecast_inputs(self):
+        """The arguments of ``ops.forecast.marginal_forecast`` (x, x_prev,
+        z, trans_weights, mus, sigmas, intercepts, lmbdas, renormalize)
+        from the flattened traces: the LPCM's (reference lpcm.py:261-283),
+        each sample's own transition matrix, not renormalised."""
+        return (self._forecast_xhat(self._forecast_samples()),
+                self._flat_posterior('Xs_')[:, -1],
+                self._flat_posterior('zs_')[:, -1],
+                self._flat_posterior('trans_weights_'),
+                self._flat_posterior('mus_'),
+                self._flat_posterior('sigmas_'),
+                self._flat_posterior('intercepts_')[:, 0],
+                np.ravel(self._flat_posterior('lambdas_')), False)
+
+    @property
+    def forecast_probas_marginalized_(self):
+        """Posterior-marginalised one-step-ahead forecast (n, n) float64,
+        computed on the fit's device in blocks of posterior samples
+        (``ops.forecast.marginal_forecast``; reference lpcm.py:261-283,
+        hdp_lpcm.py:530-553)."""
+        *args, renormalize = self._marginal_forecast_inputs()
+        return marginal_forecast(*args, renormalize=renormalize,
+                                 device=self.device_).cpu().numpy()
 
     def _forecast_from(self, X_ahead, intercept):
         """expit(intercept - distances) of the forecast positions."""
@@ -371,8 +415,3 @@ class MixtureModelMixin:
         np.fill_diagonal(probas, 0.0)
         return probas
 
-    @property
-    def forecast_probas_marginalized_(self):
-        raise NotImplementedError(
-            'forecast_probas_marginalized_ needs ops/forecast.py, which is '
-            'not ported yet (ROADMAP.md §1 item 7)')

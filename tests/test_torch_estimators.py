@@ -40,6 +40,16 @@ def _dense_args(fs, fields):
         torch.int64 if f == 'z' else torch.float32) for f in fields]
 
 
+def _check_forecast(probas, n, diagonal=None):
+    """A one-step-ahead forecast: (n, n) float64 probabilities, finite,
+    in [0, 1], its diagonal ``diagonal`` where given."""
+    assert probas.shape == (n, n) and probas.dtype == np.float64
+    assert np.isfinite(probas).all()
+    assert ((probas >= 0) & (probas <= 1)).all()
+    if diagonal is not None:
+        assert (np.diag(probas) == diagonal).all()
+
+
 def _first_chain(model):
     return {k: (None if v is None else v[0])
             for k, v in vars(model._final_state).items()}
@@ -112,9 +122,12 @@ def test_hdp_fit_end_to_end():
     assert m.forecast_probas_map_.shape == (n, n)
     assert m.forecast_probas_plugin_.shape == (n, n)
     assert m.forecast_probas(n_samples=3).shape == (n, n)
-    for name in ('forecast_probas_marginalized_', 'forecast_probas_pp_'):
-        with pytest.raises(NotImplementedError, match='item 7'):
-            getattr(m, name)
+    _check_forecast(m.forecast_probas_marginalized_, n, diagonal=0.0)
+    _check_forecast(m.forecast_probas_pp_, n)
+    # the reference's refusal of a directed posterior-predictive forecast
+    with pytest.raises(ValueError, match='undirected models only'):
+        DynamicNetworkHDPLPCM(is_directed=True,
+                              device='cpu').forecast_probas_pp_
     m.set_best_model('map')
     assert m.best_k_ == np.argmax(np.bincount(m.counts_))
     m.delete_traces()
@@ -149,8 +162,7 @@ def test_lpcm_fit(short_nested_lsm, directed):
     if not directed:
         assert m.forecast_probas_map_.shape == (n, n)
         assert m.forecast_probas_plugin_.shape == (n, n)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        m.forecast_probas_marginalized_
+    _check_forecast(m.forecast_probas_marginalized_, n, diagonal=0.0)
 
 
 def test_tempered_fits_keep_cold_slots(short_nested_lsm):

@@ -138,9 +138,7 @@ def _run_jax(fn, a, directed, mixture, tempered, cc=None):
     return np.stack(Xs), np.stack(accs)
 
 
-@pytest.mark.parametrize('tempered', [False, True])
-@pytest.mark.parametrize('directed, mixture', MODES)
-def test_parallel_site_update_matches_jax(directed, mixture, tempered):
+def _check_parallel(directed, mixture, tempered):
     seed = 1 + 4 * directed + 2 * mixture + tempered
     a = dict(_inputs(seed, directed, mixture), seed=seed)
     draws = [_parallel_draws(k) for k in _keys(seed)]
@@ -154,9 +152,7 @@ def test_parallel_site_update_matches_jax(directed, mixture, tempered):
     _compare(X_p, acc_p, X_j, acc_j)
 
 
-@pytest.mark.parametrize('tempered', [False, True])
-@pytest.mark.parametrize('directed, mixture', MODES)
-def test_mala_update_matches_jax(directed, mixture, tempered):
+def _check_mala(directed, mixture, tempered):
     # a joint move of every site: chain 0's small steps accept, chain 2's
     # large ones do not
     seed = 11 + 4 * directed + 2 * mixture + tempered
@@ -173,10 +169,7 @@ def test_mala_update_matches_jax(directed, mixture, tempered):
     _compare(X_p, acc_p, X_j, acc_j)
 
 
-@pytest.mark.parametrize('tempered', [False, True])
-@pytest.mark.parametrize('directed, mixture', MODES)
-def test_joint_latent_logp_and_gradient_match_jax(directed, mixture,
-                                                  tempered):
+def _check_joint(directed, mixture, tempered):
     seed = 21 + 4 * directed + 2 * mixture + tempered
     a = _inputs(seed, directed, mixture)
     a['X'][0, :, 1] = a['X'][0, :, 0]        # a coincident pair
@@ -197,6 +190,65 @@ def test_joint_latent_logp_and_gradient_match_jax(directed, mixture,
         np.testing.assert_allclose(grad[c].numpy(), np.asarray(g),
                                    rtol=1e-5, atol=1e-4)
     assert torch.isfinite(grad).all()
+
+
+@pytest.mark.parametrize('tempered', [False, True])
+@pytest.mark.parametrize('directed, mixture', MODES)
+def test_parallel_site_update_matches_jax(directed, mixture, tempered):
+    _check_parallel(directed, mixture, tempered)
+
+
+@pytest.mark.parametrize('tempered', [False, True])
+@pytest.mark.parametrize('directed, mixture', MODES)
+def test_mala_update_matches_jax(directed, mixture, tempered):
+    _check_mala(directed, mixture, tempered)
+
+
+@pytest.mark.parametrize('tempered', [False, True])
+@pytest.mark.parametrize('directed, mixture', MODES)
+def test_joint_latent_logp_and_gradient_match_jax(directed, mixture,
+                                                  tempered):
+    _check_joint(directed, mixture, tempered)
+
+
+# forced block sizes in dyads: one site a block, five sites (rows cut
+# mid-field), two chains' whole fields
+BLOCKS = [1, 5 * N, 2 * T * N * N]
+CHECKS = {'parallel': _check_parallel, 'mala': _check_mala,
+          'joint': _check_joint}
+
+
+@pytest.mark.parametrize('block_elems', BLOCKS)
+@pytest.mark.parametrize('check', sorted(CHECKS))
+@pytest.mark.parametrize('directed, mixture', MODES)
+def test_schemes_in_site_blocks_match_jax(monkeypatch, directed, mixture,
+                                          check, block_elems):
+    """The three parity checks above, tempered, with the dense passes cut
+    into many blocks of (chains, times, sites): the same inputs and
+    tolerances."""
+    monkeypatch.setattr(pl, '_BLOCK_ELEMS', block_elems)
+    assert len(pl._site_blocks(C, T, N)) > 1
+    CHECKS[check](directed, mixture, True)
+
+
+@pytest.mark.parametrize('shape', [(3, 3, 14), (2, 5, 9), (1, 1, 1),
+                                   (4, 2, 7)])
+@pytest.mark.parametrize('block_elems', [1, 6, 30, 81, 200, 1 << 26])
+def test_site_blocks_cover_each_site_once(monkeypatch, shape, block_elems):
+    """Each (chain, time, site) in exactly one block, a block at most
+    ``_BLOCK_ELEMS`` dyads or one site; one block where the whole field
+    fits."""
+    monkeypatch.setattr(pl, '_BLOCK_ELEMS', block_elems)
+    C_, T_, n = shape
+    seen = np.zeros(shape, int)
+    blocks = pl._site_blocks(C_, T_, n)
+    for c, t, r in blocks:
+        seen[c, t, r] += 1
+        dyads = ((c.stop - c.start) * (t.stop - t.start)
+                 * (r.stop - r.start) * n)
+        assert dyads <= block_elems or r.stop - r.start == 1
+    assert (seen == 1).all()
+    assert (len(blocks) == 1) == (C_ * T_ * n * n <= block_elems)
 
 
 def _cc_structures(Y, directed, seed, m=5):

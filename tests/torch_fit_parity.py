@@ -1,8 +1,11 @@
 """Helpers of the whole-fit parity tests
 (``tests/test_torch_estimators_parity*.py``): fit the JAX estimator and
 the port's on one network, the port's sampler output replaced by the JAX
-fit's, and compare every fitted attribute."""
+fit's, and compare every fitted attribute and the forecasts."""
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from dynetlsm_tpu.datasets import load_monks
 from dynetlsm_tpu.models import lsm as jlsm, mixture_base as jmb
@@ -10,6 +13,7 @@ from dynetlsm_tpu.models import lsm as jlsm, mixture_base as jmb
 from dynetlsm_tpu_torch.mcmc import driver as pdriver
 from dynetlsm_tpu_torch.mcmc.states import state_from_numpy
 from dynetlsm_tpu_torch.models import mixture_base as pmb
+from dynetlsm_tpu_torch.ops.forecast import posterior_predictive_forecast
 
 BUDGET = dict(n_iter=20, tune=10, burn=10, random_state=42)
 # JAX-only attributes: the device mesh of a multi-device fit
@@ -80,6 +84,42 @@ def assert_same(name, p, j, rtol):
                                        err_msg=name)
 
 
+def jax_pp_draws(key, S, n, d):
+    """The uniforms (S, n) and normals (S, n, d) that JAX's
+    ``posterior_predictive_forecast`` draws from ``key``: its scan body
+    splits the carried key into (key, k_u, k_e) for each sample in
+    turn."""
+    u, eps = [], []
+    for _ in range(S):
+        key, k_u, k_e = jax.random.split(key, 3)
+        u.append(np.asarray(jax.random.uniform(k_u, (n,), jnp.float32)))
+        eps.append(np.asarray(jax.random.normal(k_e, (n, d), jnp.float32)))
+    return np.stack(u), np.stack(eps)
+
+
+def compare_forecasts(jm, pm):
+    """The marginal forecast at rtol 1e-5; for an undirected HDP-LPCM the
+    posterior-predictive one on JAX's draws from ``PRNGKey(random_state)``
+    (atol 2e-5), the port's traces passed to its own function with those
+    draws, and JAX's refusal of a directed one."""
+    assert_same('forecast_probas_marginalized_',
+                pm.forecast_probas_marginalized_,
+                jm.forecast_probas_marginalized_, 1e-5)
+    if not hasattr(type(jm), 'forecast_probas_pp_'):
+        return
+    if jm.is_directed:
+        for m in (jm, pm):
+            with pytest.raises(ValueError, match='undirected models only'):
+                m.forecast_probas_pp_
+        return
+    args = pm._pp_forecast_inputs()
+    S, n, d = args[0].shape
+    u, eps = jax_pp_draws(jax.random.PRNGKey(pm.random_state), S, n, d)
+    got = posterior_predictive_forecast(None, *args, u=u, eps=eps)
+    np.testing.assert_allclose(got.numpy(), jm.forecast_probas_pp_,
+                               atol=2e-5, err_msg='forecast_probas_pp_')
+
+
 def compare(jm, pm, lsm=False):
     names = sorted(k for k in vars(jm) if k.endswith('_')
                    and not k.startswith('_') and k not in JAX_ONLY)
@@ -101,6 +141,8 @@ def compare(jm, pm, lsm=False):
                                        err_msg=name)
         else:
             assert_same(name, p, j, 1e-5)
+    if not lsm:
+        compare_forecasts(jm, pm)
 
 
 def monks(directed=False):
