@@ -95,10 +95,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
    HDP-LPCM at T=3, n=8, 1,024 chains of 600 sweeps from exact prior
    draws with every dyad missing (every |z| < 5), the case-control LSM at
    its full-control limit (torch code, no kernel), the LSM with the joint
-   MALA latent update (torch code, no node scan), the LSM's power check
+   MALA latent update (torch code, no node scan), the directed
+   case-control LSM at its full-control limit (every other node an in-
+   and an out-control; JAX test_geweke_joint.py:404-437 runs 8 chains x
+   3,000 sweeps), the LSM's power check
    (|z| of the smoothness moment against a perturbed prior > 8) and the
    equal-temperature replica swap of the directed LSM (256 ladders of 4
-   rungs, block |z| < 4.5); the z-scores and the seconds are printed;
+   rungs, block |z| < 4.5); then the JAX package's three checks of the
+   tempered and MALA samplers: the tempered HDP-LPCM's cold slots (32
+   ladders of 4 rungs to beta 0.25 x 2,500 steps; JAX
+   test_tempering.py:161-205 runs 10 ladders; block |z| < 4.5), the
+   metastable target (the directed LSM's hard regime, 16 ladders of 10
+   rungs to beta 0.02 x 4,000 steps and 16 untempered chains; JAX
+   test_tempering.py:208-258 runs 8 of each: cold-slot block |z| < 4.5,
+   and the edge density's spread over chains at least 1.5x smaller than
+   the untempered chains'), whose steps are the JAX tests' own because
+   the hot slots start from the untempered joint, not their targets (more
+   ladders with fewer steps test less), and MALA against the exact scan
+   on Sampson (two LSM fits of 4 chains x 1,200 + 400 + 400 samples, JAX
+   test_mala.py:21-39: intercept means within 3 sds, logp means within 3
+   sds, the distances' correlation > 0.7, MALA's auc_ > 0.8); the
+   z-scores, the statistics and the seconds are printed;
 13. the public estimators' ``fit`` on the card, through the kernels: the
    sticky HDP-LPCM at bench.py's north-star row (``northstar_network()``,
    T=10, n=500, K=25, 32 chains, 100 + 50 + 50 samples after its nested
@@ -149,7 +166,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    past n = 2048 (HDP-LPCM K=25 at n = 8,192, 16 chains, undirected and
    directed; the LSM at n = 4,096, 32 chains, and n = 16,384, 4 chains;
    bench.py's north-star model at constant expected degree) as in 8 (2 +
-   5 sweeps), the split-field scan launched once a sweep, each with its
+   3 sweeps; 2 + 5 before phase 17 came), the split-field scan launched once a sweep, each with its
    scan's device
    time from one profiled sweep, the time per phase step, the cluster
    size, the bound, the device's busy share and peak memory; the scan
@@ -182,6 +199,22 @@ Phases, each of which fails the run (exit code 1) when it fails:
    sweeps, launches counted as in 13): mean ARI above 0.8 and fewer
    groups at t = 0 than at t = T - 1, with the ARIs, the groups and the
    stage seconds printed;
+17. checkpoints: five fits (CKPT_FITS: the LSM at the north star, T=10,
+   n=500, 4 chains; at Sampson size the HDP-LPCM, a directed tempered LSM
+   (4 rungs, stopped mid-tune), a missing-dyad HDP-LPCM (10%) and a directed
+   case-control LSM whose controls are redrawn across the stop; 199
+   samples in chunks of 40) each run uninterrupted here, with launches
+   counted as in 13, and with ``checkpoint_dir`` in a child process
+   (``--checkpoint-child crash``, all five at once) that ends itself with
+   ``os._exit`` after its second chunk, then resumed in one fresh child
+   process (``--checkpoint-child resume``): ``Xs_``, ``intercepts_``,
+   ``logps_`` and, where present, ``zs_``, ``temper_ladder_``,
+   ``missings_`` and ``radiis_`` must equal the uninterrupted fit's bit
+   for bit; then the missing-dyad north-star HDP-LPCM fit (32 chains,
+   chunks of 50) with a checkpoint.  The checkpoint's bytes (state and
+   chunk), its write seconds per chunk and their share of the sampling
+   stage's seconds are printed for the north-star LSM state (from the
+   resume) and the missing-dyad north-star HDP state;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats; the node scan's plain version, seconds
    a call, is timed once, in its check), the node scan's at each cluster size
@@ -206,7 +239,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    kernel and its plain version at 15's comparison shape (n = 2,560) and
    carry the slice's scan time, time per phase step, cluster size, bound,
    its launch's time at each cluster size and its plain version's time
-   on two chains (``slice_*``).
+   on two chains (``slice_*``).  ``checkpoint_launches`` counts each
+kernel's launches in phase 17's uninterrupted fits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -261,7 +295,7 @@ SPLIT_CHAINS = (0, -1)
 SPLIT_CLUSTERS_TIMED = (2, 4, 8)
 # warm and timed sweeps of each slice past n = 2048 (0.35-1.2 s a sweep;
 # fewer than the other slices' to keep the script inside its time)
-LARGE_SLICE_SWEEPS = (2, 5)
+LARGE_SLICE_SWEEPS = (2, 3)
 # the refused-before fit: T = 10 waves of n = 2,100 nodes, past the
 # resident mode's n = 2048 (the estimators refused it before the
 # split-field mode); its GMDS runs on the host, SMACOF's O(n^2) steps and
@@ -301,6 +335,11 @@ CC_SCAN_CHAINS, CC_MARGIN, CC_DX = 4, 1e-4, 1e-5
 CC_FIT_CONTROLS = 10
 # the Geweke phase: chains, sweeps; the swap's ladders
 GEWEKE_CHAINS, GEWEKE_SWEEPS, GEWEKE_LADDERS = 1024, 600, 256
+# the tempered checks' (ladders, steps): the JAX tests' steps (the hot
+# slots start off their targets, so the steps cannot be traded for
+# ladders), more ladders (JAX: 10 and 8)
+PT_HDP_RUN = (32, 2500)
+METASTABLE_RUN = (16, 4000)
 PER_CHAIN = 'per-chain Y'
 # (instructions, MUFU instructions among them) per dyad of each kernel's
 # inner loop as compiled for d = 2 (CUDA 12.8, sm_90a, -fmad=false), by
@@ -1013,11 +1052,14 @@ def alternate_tempered(Y, shape, dev, rounds=10):
 
 def geweke_phase(dev):
     """Every model's Geweke check (``dynetlsm_tpu_torch/geweke.py``) at
-    GEWEKE_CHAINS chains of GEWEKE_SWEEPS sweeps, the LSM's power check and
-    the equal-temperature swap, through the kernels, from the JAX tests'
-    seeds.  Returns {check: (max |z|, seconds)}."""
+    GEWEKE_CHAINS chains of GEWEKE_SWEEPS sweeps, the LSM's power check,
+    the equal-temperature swap, the tempered HDP-LPCM's cold slots and the
+    metastable target (PT_HDP_RUN, METASTABLE_RUN) and MALA against the
+    exact scan on Sampson, through the kernels, from the JAX tests' seeds.
+    Returns {check: (max |z| or the bar's statistic, seconds)}."""
     import torch
     from dynetlsm_tpu_torch import geweke
+    from dynetlsm_tpu_torch.mcmc.tempering import temper_ladder
     out = {}
     for model in geweke.MODELS:
         t0 = time.perf_counter()
@@ -1052,6 +1094,61 @@ def geweke_phase(dev):
     check(bool(np.all(np.abs(z) < geweke.PT_LIMIT)),
           'geweke swap: |z| >= %g: %s' % (geweke.PT_LIMIT, z))
     out['swap'] = (float(np.abs(z).max()), seconds)
+
+    # the tempered HDP-LPCM (JAX test_pt_hdp_joint_distribution)
+    n_ladders, steps = PT_HDP_RUN
+    t0 = time.perf_counter()
+    mc, sc, ladder = geweke.pt_hdp_samples(n_ladders, steps,
+                                           geweke.SEEDS['pt hdp'], dev)
+    seconds = time.perf_counter() - t0
+    z = geweke.block_z(mc, sc.mean(1))
+    log('geweke tempered hdp: %d ladders x %d rungs (beta_min %g) x %d '
+        'steps in %.1f s, cold-slot block z %s'
+        % (n_ladders, geweke.PT_HDP[0], geweke.PT_HDP[1], steps, seconds,
+           np.round(z, 3).tolist()))
+    check(bool(np.all(np.abs(z) < geweke.PT_LIMIT)),
+          'geweke tempered hdp: |z| >= %g: %s' % (geweke.PT_LIMIT, z))
+    check(np.array_equal(ladder, temper_ladder(
+        *geweke.PT_HDP, n_ladders=n_ladders).numpy()),
+        'geweke tempered hdp: the ladder moved')
+    out['tempered hdp'] = (float(np.abs(z).max()), seconds)
+
+    # the metastable target (JAX test_pt_samples_metastable_joint)
+    n_ladders, steps = METASTABLE_RUN
+    t0 = time.perf_counter()
+    mc, cold, plain, ladder = geweke.metastable_samples(
+        n_ladders, steps, geweke.SEEDS[geweke.METASTABLE], dev)
+    seconds = time.perf_counter() - t0
+    z = geweke.block_z(mc, cold.mean(1))
+    spread_pt = geweke.density_spread(cold)
+    spread_plain = geweke.density_spread(plain)
+    log('geweke metastable: %d ladders x %d rungs (beta_min %g) x %d steps '
+        'and %d untempered chains in %.1f s, cold-slot block z %s, edge '
+        'density spread over chains %.5f tempered, %.5f untempered (%.2fx)'
+        % (n_ladders, geweke.PT_METASTABLE[0], geweke.PT_METASTABLE[1],
+           steps, n_ladders, seconds, np.round(z, 3).tolist(), spread_pt,
+           spread_plain, spread_plain / max(spread_pt, 1e-300)))
+    check(bool(np.all(np.abs(z) < geweke.PT_LIMIT)),
+          'geweke metastable: |z| >= %g: %s' % (geweke.PT_LIMIT, z))
+    check(np.array_equal(ladder, temper_ladder(
+        *geweke.PT_METASTABLE, n_ladders=n_ladders).numpy()),
+        'geweke metastable: the ladder moved')
+    check(spread_pt * geweke.SPREAD_GAIN < spread_plain,
+          'geweke metastable: the tempered density spread %g is not %gx '
+          'below the untempered %g' % (spread_pt, geweke.SPREAD_GAIN,
+                                        spread_plain))
+    out['metastable'] = (float(np.abs(z).max()), seconds)
+    out['metastable spread gain'] = (spread_plain / spread_pt, 0.0)
+
+    # MALA against the exact scan (JAX test_mala_lsm_matches_exact_posterior)
+    t0 = time.perf_counter()
+    rows = geweke.mala_posterior_check(dev)
+    seconds = time.perf_counter() - t0
+    log('mala vs exact on sampson (%s, twice): %.1f s, %s'
+        % (geweke.MALA_EXACT_FIT, seconds, ', '.join(
+            '%s %.4f (bar %.4f)' % (k, v, bar) for k, v, bar, _ in rows)))
+    check(all(ok for *_, ok in rows), 'mala vs exact: %s' % rows)
+    out['mala vs exact distance r'] = (float(rows[2][1]), seconds)
     return out
 
 
@@ -1865,6 +1962,283 @@ def split_recovery(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: checkpoints
+# ---------------------------------------------------------------------------
+
+# the checkpointed fits: name -> (estimator, keywords, network, counted_fit
+# flags, traces compared); each stops after CKPT_CRASH_AFTER of its chunks
+# of CKPT_CHUNK samples in its own process and resumes in another
+CKPT_CHUNK = 40
+CKPT_CRASH_AFTER = 2
+CKPT_CRASH_CODE = 86
+CKPT_BUDGET = dict(n_chains=4, n_iter=100, tune=50, burn=50,
+                   trace_chunk=CKPT_CHUNK)
+CKPT_TRACES = ('Xs_', 'intercepts_', 'logps_')
+CKPT_FITS = {
+    'lsm northstar': ('lsm', dict(random_state=0), 'northstar',
+                      dict(nested=False), CKPT_TRACES),
+    'hdp sampson': ('hdp', dict(n_components=10, random_state=3), 'sampson',
+                    dict(nested=True), CKPT_TRACES + ('zs_',)),
+    # directed (the dir_loglik kernel), stopped at sample 80 of a tuning
+    # stage of 100 whose ladder adapts every 20 sweeps: the resume adapts
+    # it once more
+    'lsm sampson directed tempered': ('lsm', dict(
+        random_state=3, is_directed=True, n_temps=N_TEMPS,
+        beta_min=BETA_MIN, n_iter=50, tune=100, tune_interval=20),
+        'sampson directed', dict(nested=False, tempered=True),
+        CKPT_TRACES + ('radiis_', 'temper_ladder_')),
+    'hdp sampson missing': ('hdp', dict(n_components=10, random_state=3),
+                            'sampson missing',
+                            dict(nested=True, missing=True),
+                            CKPT_TRACES + ('zs_', 'missings_')),
+    # the controls redrawn every 30 sweeps, across the interruption
+    'lsm sampson cc': ('lsm', dict(random_state=3, is_directed=True,
+                                   n_control=CC_FIT_CONTROLS,
+                                   n_resample_control=30),
+                       'sampson directed', dict(nested=False, cc=True),
+                       CKPT_TRACES + ('radiis_',)),
+}
+# the missing-dyad north-star HDP-LPCM fit whose checkpoint writes are
+# timed (its state carries each chain's Y and missing_sum)
+CKPT_NS_MISSING = dict(NS_FIT, trace_chunk=50)
+
+
+def checkpoint_network(key):
+    from dynetlsm_tpu_torch.datasets import (
+        load_dynamic_monks, northstar_network, with_missing_dyads)
+    if key == 'northstar':
+        return northstar_network()
+    if key == 'sampson directed':
+        return load_dynamic_monks(is_directed=True)
+    Y = load_dynamic_monks()
+    return with_missing_dyads(Y, MISSING, seed=6) if 'missing' in key else Y
+
+
+def checkpoint_estimator(name, dev, checkpoint_dir=None):
+    """(the estimator of CKPT_FITS[name] on ``dev``, its network)."""
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, DynamicNetworkLSM
+    model, kw, net, _, _ = CKPT_FITS[name]
+    cls = DynamicNetworkLSM if model == 'lsm' else DynamicNetworkHDPLPCM
+    kw = dict(CKPT_BUDGET, **kw)
+    return (cls(device=dev, checkpoint_dir=checkpoint_dir, **kw),
+            checkpoint_network(net))
+
+
+class CheckpointWrites:
+    """Times the checkpoint's writes (the trace chunk, the state with the
+    generator's state, the meta) per chunk, and their bytes, by wrapping
+    ``dynetlsm_tpu_torch.checkpoint``'s writers (``collect_traces`` imports
+    them when it is called)."""
+
+    def __init__(self):
+        self.seconds = []       # per chunk: the three writes
+        self.state_bytes = []
+        self.chunk_bytes = []
+
+    def __enter__(self):
+        from dynetlsm_tpu_torch import checkpoint
+        self.saved = {k: getattr(checkpoint, k) for k in
+                      ('save_traces_chunk', 'save_state', 'write_meta')}
+
+        def timed(key):
+            fn = self.saved[key]
+
+            def wrapper(*args):
+                t0 = time.perf_counter()
+                fn(*args)
+                dt = time.perf_counter() - t0
+                if key == 'save_traces_chunk':
+                    self.seconds.append(dt)
+                    self.chunk_bytes.append(os.path.getsize(os.path.join(
+                        args[0], 'chunk_%05d.npz' % args[1])))
+                else:
+                    self.seconds[-1] += dt
+                if key == 'save_state':
+                    self.state_bytes.append(os.path.getsize(args[0]))
+            return wrapper
+        for k in self.saved:
+            setattr(checkpoint, k, timed(k))
+        return self
+
+    def __exit__(self, *exc):
+        from dynetlsm_tpu_torch import checkpoint
+        for k, fn in self.saved.items():
+            setattr(checkpoint, k, fn)
+
+    def numbers(self, sampling_seconds):
+        return dict(chunks=len(self.seconds),
+                    write_s=[round(s, 4) for s in self.seconds],
+                    state_bytes=max(self.state_bytes),
+                    chunk_bytes=max(self.chunk_bytes),
+                    sampling_s=sampling_seconds,
+                    share=sum(self.seconds) / sampling_seconds)
+
+
+def checkpoint_child(mode, names, root, device):
+    """The child processes of phase 17 (``chip_smoke.py
+    --checkpoint-child MODE NAMES ROOT DEVICE``; DEVICE 'cuda:0' as the
+    phase runs them, or 'cpu' to rehearse the Sampson fits on the host).
+    'crash': fit CKPT_FITS[NAMES]
+    with ``checkpoint_dir`` ROOT/NAME and end the process with
+    ``os._exit(CKPT_CRASH_CODE)`` from the progress report after
+    CKPT_CRASH_AFTER chunks (no exception, no clean-up: a crash).  'resume':
+    fit each of the comma-separated NAMES over its checkpoint, timing the
+    writes, and save the compared traces, the write numbers and the
+    launches to ROOT/NAME/result.npz."""
+    import torch
+    from dynetlsm_tpu_torch.mcmc import driver
+    dev = torch.device(device)
+    if mode == 'crash':
+        orig = driver.collect_traces
+
+        def crashing(*args, checkpoint_dir=None, progress=None, **kw):
+            if checkpoint_dir is None:      # a mixture fit's nested LSM
+                return orig(*args, progress=progress, **kw)
+            done = []
+
+            def report(k, total):
+                done.append(k)
+                if len(done) == CKPT_CRASH_AFTER:
+                    os._exit(CKPT_CRASH_CODE)
+            return orig(*args, checkpoint_dir=checkpoint_dir,
+                        progress=report, **kw)
+        driver.collect_traces = crashing
+        est, Y = checkpoint_estimator(names, dev, os.path.join(root, names))
+        est.fit(Y)
+        log('checkpoint child: %s ran to its end' % names)
+        return 1
+    counters = launch_counters()
+    for name in names.split(','):
+        path = os.path.join(root, name)
+        est, Y = checkpoint_estimator(name, dev, path)
+        for fn in counters.values():
+            fn.launches = 0
+        with CheckpointWrites() as writes:
+            est.fit(Y)
+        out = {k: getattr(est, k) for k in CKPT_FITS[name][4]}
+        out['writes'] = np.array(json.dumps(writes.numbers(
+            est.stage_seconds_['sampling'])))
+        out['launches'] = np.array(json.dumps(
+            {k: fn.launches for k, fn in counters.items()}))
+        np.savez(os.path.join(path, 'result.npz'), **out)
+    return 0
+
+
+def run_child(args, log_path, timeout):
+    """Start ``chip_smoke.py --checkpoint-child ARGS`` with its output in
+    ``log_path``; (process, log path, timeout) for :func:`wait_child`."""
+    with open(log_path, 'w') as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--checkpoint-child']
+            + args, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    return proc, log_path, timeout
+
+
+def wait_child(child):
+    """(exit code, the end of its output); a child past its time limit is
+    killed and fails the phase."""
+    proc, log_path, timeout = child
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure('checkpoint child %s timed out' % log_path)
+    with open(log_path) as f:
+        return proc.returncode, f.read()[-3000:]
+
+
+def checkpoint_phase(dev):
+    """Phase 17: each CKPT_FITS fit runs uninterrupted here (launches
+    counted as in 13), is killed in a child process after
+    CKPT_CRASH_AFTER chunks (the five children at once) and resumed in a
+    fresh process; the resumed traces must equal the uninterrupted ones
+    bit for bit.  Then the missing-dyad north-star HDP-LPCM fit with a
+    checkpoint, its writes timed.  Returns (launches, the write numbers
+    by state)."""
+    import shutil
+    import torch
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM
+    root = os.path.join(ROOT, 'build', 'checkpoints')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    crashes = {name: run_child(['crash', name, root, str(dev)],
+                               os.path.join(root, name + '.crash.log'), 600)
+               for name in CKPT_FITS}
+    total = {}
+    twins = {}
+    for name, (_, _, _, flags, traces) in CKPT_FITS.items():
+        est, Y = checkpoint_estimator(name, dev)
+        launches, seconds, _ = counted_fit('checkpoint twin ' + name, est,
+                                           Y, dev, **flags)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        twins[name] = {k: getattr(est, k) for k in traces}
+        log('checkpoint twin %s: %.1f s uninterrupted, %d samples a chain '
+            'in chunks of %d, launches %s'
+            % (name, seconds, est.logps_.shape[-1] - 1, CKPT_CHUNK,
+               launches))
+    for name, proc in crashes.items():
+        code, out = wait_child(proc)
+        from dynetlsm_tpu_torch.checkpoint import read_meta
+        meta = read_meta(os.path.join(root, name))
+        check(code == CKPT_CRASH_CODE and meta is not None
+              and meta['n_done'] == CKPT_CRASH_AFTER * CKPT_CHUNK,
+              'checkpoint %s: the crash child exited %s with meta %s: %s'
+              % (name, code, meta, out))
+    t0 = time.perf_counter()
+    code, out = wait_child(run_child(['resume', ','.join(CKPT_FITS), root,
+                                      str(dev)],
+                                     os.path.join(root, 'resume.log'), 900))
+    check(code == 0, 'checkpoint resume child exited %s: %s'
+          % (code, out))
+    log('checkpoint resume child: the %d fits in %.1f s'
+        % (len(CKPT_FITS), time.perf_counter() - t0))
+    writes = {}
+    for name, twin in twins.items():
+        with np.load(os.path.join(root, name, 'result.npz')) as r:
+            got = {k: r[k] for k in r.files}
+        diffs = {k: float(np.max(np.abs(got[k].astype(np.float64)
+                                        - v.astype(np.float64))))
+                 for k, v in twin.items() if got[k].shape == v.shape}
+        equal = all(got[k].dtype == v.dtype and np.array_equal(got[k], v)
+                    for k, v in twin.items())
+        log('checkpoint %s: killed after %d of its chunks, resumed in a '
+            'fresh process: %s; max |resumed - uninterrupted| %s, resumed '
+            'launches %s' % (name, CKPT_CRASH_AFTER,
+                             'equal bit for bit' if equal else 'DIFFERENT',
+                             diffs, json.loads(str(got['launches']))))
+        check(equal, 'checkpoint %s: the resumed traces differ from the '
+              'uninterrupted fit\'s: %s' % (name, diffs))
+        if name == 'lsm northstar':
+            writes['lsm northstar'] = json.loads(str(got['writes']))
+    # the missing-dyad north-star state: 32 chains' Y and missing_sum
+    from dynetlsm_tpu_torch.datasets import (
+        northstar_network, with_missing_dyads)
+    path = os.path.join(root, 'hdp northstar missing')
+    m = DynamicNetworkHDPLPCM(device=dev, checkpoint_dir=path,
+                              **CKPT_NS_MISSING)
+    with CheckpointWrites() as w:
+        launches, seconds, peak = counted_fit(
+            'checkpointed hdp northstar missing', m,
+            with_missing_dyads(northstar_network(), MISSING, seed=5), dev,
+            missing=True)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    writes['hdp northstar missing'] = w.numbers(m.stage_seconds_['sampling'])
+    check(bool(np.isfinite(m.logps_).all()), 'checkpointed north-star '
+          'missing fit: non-finite logps_')
+    for name, o in writes.items():
+        log('checkpoint writes %s: state.npz %d bytes, chunk %d bytes, '
+            'write seconds per chunk %s (mean %.4f), %.1f%% of the sampling '
+            "stage's %.3f s"
+            % (name, o['state_bytes'], o['chunk_bytes'], o['write_s'],
+               np.mean(o['write_s']), 100 * o['share'], o['sampling_s']))
+    shutil.rmtree(root, ignore_errors=True)
+    return total, writes
+
+
+# ---------------------------------------------------------------------------
 # phase 9: bounds
 # ---------------------------------------------------------------------------
 
@@ -1968,6 +2342,8 @@ def main():
             'run it from the root of a checkout')
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ['--checkpoint-child']:
+        return checkpoint_child(*sys.argv[2:6])
     import torch
     if not torch.cuda.is_available():
         log('chip_smoke: torch.cuda.is_available() is False; this script '
@@ -2157,6 +2533,12 @@ def main():
             fit_launches[k] = fit_launches.get(k, 0) + v
         phase_done('phase 16')
 
+        # phase 17: checkpoints
+        ckpt_launches, ckpt_writes = checkpoint_phase(dev)
+        for k, v in ckpt_launches.items():
+            fit_launches[k] = fit_launches.get(k, 0) + v
+        phase_done('phase 17')
+
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
         from dynetlsm_tpu_torch.ops.pair_loglik import (
@@ -2318,6 +2700,7 @@ def main():
                 'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
                 'bound_ms': bound_ms, 'bound_by': bound_by,
                 'library_ms': None, 'fit_launches': fit_launches[name],
+                'checkpoint_launches': ckpt_launches[name],
                 'mode': mode, 'slice': slice_at,
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         log('slice ms/sweep: ' + ', '.join(
@@ -2351,6 +2734,11 @@ def main():
             '%s %.3f ms/sweep (scan %.3f ms, %.0f launches, %.3f GB)'
             % (o['name'], o['ms'], o['scan_ms'], o['launches_per_sweep'],
                o['peak_gb']) for o in cc_out))
+        log('checkpoint writes: ' + ', '.join(
+            '%s state %d bytes, chunk %d bytes, %.4f s a chunk, %.1f%% of '
+            'sampling' % (k, o['state_bytes'], o['chunk_bytes'],
+                          np.mean(o['write_s']), 100 * o['share'])
+            for k, o in ckpt_writes.items()))
         log('geweke max |z| and seconds: ' + ', '.join(
             '%s %.3f (%.1f s)' % (k, z, sec)
             for k, (z, sec) in geweke_out.items()))

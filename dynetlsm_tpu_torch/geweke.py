@@ -39,6 +39,26 @@ The MALA LSM (``'lsm mala'``, JAX ``test_lsm_mala_joint_distribution``)
 runs the LSM's check with ``latent_update='mala'``: the joint Langevin
 move is MH-exact, so a wrong gradient or proposal correction shows as
 shifted moments.
+
+The directed case-control LSM (``'directed cc'``, JAX
+``test_directed_case_control_joint_distribution``) is the directed LSM's
+check at the same full-control limit: every other node both an in- and an
+out-control, so the directed case-control branches of the intercept and
+radii steps run inside the joint check.
+
+Three checks of the tempered and MALA samplers close the JAX suite
+(``tests/test_tempering.py``, ``tests/test_mala.py``):
+
+* :func:`pt_hdp_samples`: ladders of the HDP-LPCM whose
+  cold slots must match the iid joint (block z-scores,
+  :func:`block_z`); a tempered prior-side block would shift them;
+* :func:`metastable_samples`: the directed LSM in its hard regime
+  (``HARD``: distances ~15x the radii, a near-bimodal joint), whose cold
+  slots must match the joint and estimate the edge density with a block
+  spread at least ``SPREAD_GAIN`` times smaller than as many untempered
+  chains (:func:`density_spread`);
+* :func:`mala_posterior_check`: the Sampson LSM fitted with the exact
+  scan and with MALA must agree in intercept, logp level and distances.
 """
 import numpy as np
 import scipy.special
@@ -49,7 +69,7 @@ from .diagnostics import effective_n_geyer
 from .mcmc.states import state_from_numpy
 from .mcmc.sweeps import (
     SweepConfig, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
-from .mcmc.tempering import make_pt_step
+from .mcmc.tempering import make_pt_step, temper_ladder
 from .models.base import case_control_static
 from .ops.case_control import build_edge_lists, max_degree_bound
 from .ops.distances import pairwise_distances
@@ -75,15 +95,35 @@ D_TAU_SQ, D_SIGMA_SQ = 0.01, 0.0025
 
 CC = 'lsm cc'
 MALA = 'lsm mala'
-MODELS = ('lsm', 'directed', 'lpcm', 'hdp', CC, MALA)
+DIRECTED_CC = 'directed cc'
+# the directed LSM's hard regime (JAX tests/test_tempering.py:31-32), the
+# target of the metastable check; not a Geweke model of its own
+METASTABLE = 'directed hard'
+MODELS = ('lsm', 'directed', 'lpcm', 'hdp', CC, MALA, DIRECTED_CC)
 # the LSM's check under other likelihoods or latent updates
 LSM_LIKE = ('lsm', CC, MALA)
-# the JAX tests' seeds, of each model and of the equal-temperature swap
+DIRECTED_LIKE = ('directed', DIRECTED_CC, METASTABLE)
+# the JAX tests' seeds, of each model, of the equal-temperature swap and
+# of the tempered checks
 SEEDS = {'lsm': 7, 'directed': 23, 'lpcm': 13, 'hdp': 17, CC: 7, MALA: 7,
-         'swap': 23}
+         DIRECTED_CC: 23, 'swap': 23, 'pt hdp': 17, METASTABLE: 31}
 LIMIT = 5.0          # every |z| below it
-PT_LIMIT = 4.5       # the equal-temperature swap's block z-scores
+PT_LIMIT = 4.5       # the tempered checks' block z-scores
 POWER_LIMIT = 8.0    # the perturbed prior's smoothness z above it
+SPREAD_GAIN = 1.5    # the metastable density spread: untempered / cold
+# the directed case-control redraw cadence: JAX's 100 * N_SWEEPS (3,000
+# sweeps), never reached from it = 1 at any budget run here
+CC_RESAMPLE = 100 * 3000
+
+# the JAX tests' ladders: (rungs, beta_min) of the tempered HDP
+# (tests/test_tempering.py:186-190) and of the metastable target (:230-231)
+PT_HDP = (4, 0.25)
+PT_METASTABLE = (10, 0.02)
+HARD = dict(tau_sq=2.0, sigma_sq=0.3, b_var=1.0, b_in_mean=1.0,
+            b_out_mean=0.8)
+# the MALA posterior check's fits (JAX tests/test_mala.py:26)
+MALA_EXACT_FIT = dict(n_iter=1200, tune=400, burn=400, random_state=11,
+                      n_chains=4)
 
 _IU = np.triu(np.ones((N_NODES, N_NODES), bool), 1)
 _OFFD = _IU | _IU.T
@@ -119,11 +159,12 @@ def lsm_prior_draws(rng, M, sigma_sq=SIGMA_SQ):
     return dict(beta=beta, X=X, Y=_symmetric_bernoulli(rng, P))
 
 
-def directed_prior_draws(rng, M):
-    b_in = B_IN + np.sqrt(D_BVAR) * rng.randn(M)
-    b_out = B_OUT + np.sqrt(D_BVAR) * rng.randn(M)
+def directed_prior_draws(rng, M, tau_sq=D_TAU_SQ, sigma_sq=D_SIGMA_SQ,
+                         b_var=D_BVAR, b_in_mean=B_IN, b_out_mean=B_OUT):
+    b_in = b_in_mean + np.sqrt(b_var) * rng.randn(M)
+    b_out = b_out_mean + np.sqrt(b_var) * rng.randn(M)
     radii = rng.dirichlet(np.ones(N_NODES), size=M)
-    X = _random_walk(rng, M, D_TAU_SQ, D_SIGMA_SQ)
+    X = _random_walk(rng, M, tau_sq, sigma_sq)
     D_ = _distances(X)
     eta = (b_in[:, None, None, None] * (1.0 - D_ / radii[:, None, None, :])
            + b_out[:, None, None, None]
@@ -197,9 +238,15 @@ def hdp_prior_draws(rng, M):
                 beta_w=beta_w, w0=w0, trans=trans)
 
 
+def hard_prior_draws(rng, M):
+    return directed_prior_draws(rng, M, **HARD)
+
+
 PRIOR_DRAWS = {'lsm': lsm_prior_draws, 'directed': directed_prior_draws,
                'lpcm': lpcm_prior_draws, 'hdp': hdp_prior_draws,
-               CC: lsm_prior_draws, MALA: lsm_prior_draws}
+               CC: lsm_prior_draws, MALA: lsm_prior_draws,
+               DIRECTED_CC: directed_prior_draws,
+               METASTABLE: hard_prior_draws}
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +269,17 @@ def _mixture_extra(lmbda, sigma, mu, log):
             log(sigma).mean(-1)]
 
 
+def _stats_model(model):
+    """The model whose statistics a check reads."""
+    if model in LSM_LIKE:
+        return 'lsm'
+    return 'directed' if model in DIRECTED_LIKE else model
+
+
 def iid_stats(model, draws):
     """(M, S) statistics of the marginal-conditional draws."""
     d = draws
-    model = 'lsm' if model in LSM_LIKE else model
+    model = _stats_model(model)
     if model == 'directed':
         s = _base_stats(d['b_in'], d['X'], d['Y'], _distances(d['X']),
                         _OFFD)
@@ -244,7 +298,7 @@ def iid_stats(model, draws):
 def chain_stats(model, state):
     """(C, S) float64 statistics of a chain-batched port state, on its
     device."""
-    model = 'lsm' if model in LSM_LIKE else model
+    model = _stats_model(model)
     f = torch.float64
     X = state.X.to(f)
     Y = state.Y.to(f)
@@ -280,12 +334,17 @@ def sweep_config(model):
                            intercept_variance_prior=B_VAR, center=False,
                            latent_update='mala' if model == MALA else 'exact',
                            **cc)
-    if model == 'directed':
+    if model in DIRECTED_LIKE:
+        hard = model == METASTABLE
+        cc = (dict(n_control=N_NODES - 1, n_resample_control=CC_RESAMPLE)
+              if model == DIRECTED_CC else {})
         return SweepConfig(is_directed=True, sample_missing=True, tune=0,
-                           n_burn=NEVER_BURN, tau_sq=D_TAU_SQ,
-                           sigma_sq=D_SIGMA_SQ,
-                           intercept_variance_prior=D_BVAR,
-                           tune_radii=False, center=False)
+                           n_burn=NEVER_BURN,
+                           tau_sq=HARD['tau_sq'] if hard else D_TAU_SQ,
+                           sigma_sq=HARD['sigma_sq'] if hard else D_SIGMA_SQ,
+                           intercept_variance_prior=(HARD['b_var'] if hard
+                                                     else D_BVAR),
+                           tune_radii=False, center=False, **cc)
     common = dict(sample_missing=True, tune=0, n_burn=NEVER_BURN,
                   n_components=K, a=A_SIGMA, lambda_prior=LAMBDA_MEAN,
                   lambda_variance_prior=LAMBDA_VAR, a0=None, c0=None,
@@ -298,13 +357,13 @@ def sweep_config(model):
 
 def make_sweep(model, device):
     cfg = sweep_config(model)
-    prior = np.array([B_IN, B_OUT] if model == 'directed' else [B_MEAN],
-                     np.float32)
-    make = {'lsm': make_lsm_sweep, 'directed': make_lsm_sweep,
-            'lpcm': make_lpcm_sweep, 'hdp': make_hdp_sweep,
-            CC: make_lsm_sweep, MALA: make_lsm_sweep}[model]
+    prior = np.array([B_MEAN] if model not in DIRECTED_LIKE else
+                     [HARD['b_in_mean'], HARD['b_out_mean']]
+                     if model == METASTABLE else [B_IN, B_OUT], np.float32)
+    make = {'lpcm': make_lpcm_sweep, 'hdp': make_hdp_sweep}.get(
+        model, make_lsm_sweep)
     cc_static = None
-    if model == CC:
+    if model in (CC, DIRECTED_CC):
         empty = np.zeros(_MISS.shape)
         cc_static, _ = case_control_static(
             cfg, build_edge_lists(empty), N_NODES, device, color_seed=0,
@@ -329,10 +388,13 @@ def initial_state(model, rng, n_chains, device):
     a = {'it': np.zeros(C, np.int64), 'X': d['X'], 'Y': d['Y'],
          'missing_sum': np.zeros_like(d['Y']),
          'acc_X': np.zeros((C, T, N_NODES)), 'logp': np.zeros(C)}
-    if model == 'directed':
+    if model in DIRECTED_LIKE:
         b = np.stack([d['b_in'], d['b_out']], -1)
-        a.update(intercept=b, radii=d['radii'], step_X=0.1, step_int=0.4,
-                 acc_int=np.zeros((C, 2)), step_radii=100.0, acc_radii=0.0)
+        # the hard regime's steps: JAX tests/test_tempering.py:43
+        hard = model == METASTABLE
+        a.update(intercept=b, radii=d['radii'], step_X=0.8 if hard else 0.1,
+                 step_int=0.5 if hard else 0.4, acc_int=np.zeros((C, 2)),
+                 step_radii=100.0, acc_radii=0.0)
     else:
         a.update(intercept=d['beta'][:, None], step_X=0.8, step_int=0.4,
                  acc_int=np.zeros((C, 1)))
@@ -340,14 +402,17 @@ def initial_state(model, rng, n_chains, device):
         # the whole field moves jointly: a smaller per-site scale than the
         # single-site scan keeps the acceptance high (the JAX test's 0.12)
         a['step_X'] = 0.12
-    if model in ('lsm', 'directed', CC, MALA):
+    if model in LSM_LIKE + DIRECTED_LIKE:
         a.update(logp_map=-1e30, X_map=d['X'], intercept_map=a['intercept'],
                  logp_ref=-1e30, X_ref=d['X'], radii_map=a.get('radii'))
     else:
         a.update(z=d['z'], mu=d['mu'], sigma=d['sigma'], lmbda=d['lmbda'],
                  mean_var=MEAN_VAR, b_scale=B_SIGMA)
-    if model == CC:
+    if model in (CC, DIRECTED_CC):
+        # it starts at 1, so the redraw cadence is never reached
         a.update(it=np.ones(C, np.int64), ctrl_out=all_others(N_NODES))
+    if model == DIRECTED_CC:
+        a['ctrl_in'] = all_others(N_NODES)
     if model == 'lpcm':
         a.update(init_weights=d['init_w'], trans_weights=d['trans_w'])
     if model == 'hdp':
@@ -443,14 +508,115 @@ def pt_swap_samples(n_ladders, n_sweeps, seed, device, n_temps=4):
     return mc, sc.transpose(1, 0, 2)
 
 
-def pt_block_z(mc, sc, n_temps=4):
-    """Block z-scores of the equal-temperature swap: each ladder's mean
-    over sweeps and rungs is one block, the standard error from the
-    spread of the blocks."""
-    n_sweeps, C, S = sc.shape
-    blocks = sc.reshape(n_sweeps, C // n_temps, n_temps, S).mean(axis=(0, 2))
+def block_z(mc, blocks):
+    """z-scores of block means (B, S) against the iid draws (M, S): the
+    blocks' grand mean, its standard error from their spread (honest
+    however the chains mix, since every chain starts from an exact draw
+    of the joint)."""
     gm = blocks.mean(0)
     se = blocks.std(0, ddof=1) / np.sqrt(blocks.shape[0])
     mc_se = mc.std(0, ddof=1) / np.sqrt(mc.shape[0])
     return (gm - mc.mean(0)) / np.sqrt(se ** 2 + mc_se ** 2)
 
+
+def pt_block_z(mc, sc, n_temps=4):
+    """Block z-scores of the equal-temperature swap: each ladder's mean
+    over sweeps and rungs is one block, the standard error from the
+    spread of the blocks."""
+    n_sweeps, C, S = sc.shape
+    return block_z(mc, sc.reshape(n_sweeps, C // n_temps, n_temps,
+                                  S).mean(axis=(0, 2)))
+
+
+def _tempered_chains(model, rng, n_ladders, n_temps, beta_min, device):
+    """The ladders' state (slots from exact prior draws, each block of
+    ``n_temps`` slots one ladder from 1 to ``beta_min``) and the PT step
+    swapping every sweep."""
+    C = n_ladders * n_temps
+    state = initial_state(model, rng, C, device)
+    state = state.replace(
+        temper=temper_ladder(n_temps, beta_min, n_ladders=n_ladders,
+                             device=device),
+        acc_swap=torch.zeros(C, device=device))
+    sweep = make_sweep(model, device)
+    return state, make_pt_step(sweep, sweep.cfg, None, n_temps,
+                               swap_every=1)
+
+
+def pt_hdp_samples(n_ladders, n_sweeps, seed, device):
+    """The HDP-LPCM under ladders of ``PT_HDP`` (rungs, beta_min) (JAX
+    ``test_pt_hdp_joint_distribution``): (iid statistics (N_MC, S), the
+    cold slots' statistics (n_ladders, n_sweeps, S), the final ladder
+    (NumPy)); :func:`block_z` of the cold slots' means over sweeps must
+    stay below ``PT_LIMIT``.  The hot slots
+    start from draws of the untempered joint, not of their own targets,
+    so the cold slots are exact only once the ladder has equilibrated:
+    unlike the untempered checks, fewer sweeps on more ladders do not test
+    the same thing (at 10 ladders x 1,000 steps on the CPU the smoothness
+    moment sat at z = -10; at the JAX test's 2,500, |z| < 3)."""
+    n_temps, beta_min = PT_HDP
+    rng = np.random.RandomState(seed)
+    mc = iid_stats('hdp', hdp_prior_draws(rng, N_MC))
+    state, pt = _tempered_chains('hdp', rng, n_ladders, n_temps, beta_min,
+                                 device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state, sc = run_chains(pt, state, gen, n_sweeps,
+                           lambda s: chain_stats('hdp', s)[::n_temps])
+    return mc, sc, state.temper.cpu().numpy()
+
+
+def metastable_samples(n_ladders, n_sweeps, seed, device):
+    """The hard directed regime (JAX ``test_pt_samples_metastable_joint``):
+    (iid statistics, the cold slots' statistics (n_ladders, n_sweeps, S)
+    under ladders of ``PT_METASTABLE``, those of ``n_ladders`` untempered chains
+    (n_ladders, n_sweeps, S), the final ladder), the untempered chains'
+    starts drawn after the ladders' from the same stream.  Two bars:
+    :func:`block_z` of the cold slots below ``PT_LIMIT``, and their
+    :func:`density_spread` ``SPREAD_GAIN`` times below the untempered
+    chains'."""
+    n_temps, beta_min = PT_METASTABLE
+    rng = np.random.RandomState(seed)
+    mc = iid_stats(METASTABLE, hard_prior_draws(rng, N_MC))
+    state, pt = _tempered_chains(METASTABLE, rng, n_ladders, n_temps,
+                                 beta_min, device)
+    plain = initial_state(METASTABLE, rng, n_ladders, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stats = lambda s: chain_stats(METASTABLE, s)   # noqa: E731
+    state, cold = run_chains(pt, state, gen, n_sweeps,
+                             lambda s: stats(s)[::n_temps])
+    _, sc = run_chains(make_sweep(METASTABLE, device), plain, gen,
+                       n_sweeps, stats)
+    return mc, cold, sc, state.temper.cpu().numpy()
+
+
+def density_spread(sc):
+    """The spread (sd over chains) of each chain's mean edge density
+    (statistic 3), ``sc`` (chains, sweeps, S)."""
+    return float(sc[:, :, 3].mean(1).std(ddof=1))
+
+
+def mala_posterior_check(device, **fit):
+    """The Sampson LSM (``load_monks``, undirected) fitted with the exact
+    scan and with MALA (JAX ``test_mala_lsm_matches_exact_posterior``;
+    ``MALA_EXACT_FIT`` updated by ``fit``).  Returns [(name, value, bar,
+    passed)] for the JAX test's four bars: the mean intercepts within 3
+    pooled sds, the mean logps within 3 sds, the posterior distances'
+    correlation above 0.7, MALA's ``auc_`` above 0.8 (and its logps
+    finite)."""
+    from .datasets import load_monks
+    from .models.lsm import DynamicNetworkLSM
+    Y, _, _ = load_monks(is_directed=False)
+    kw = dict(MALA_EXACT_FIT, device=device, **fit)
+    exact = DynamicNetworkLSM(latent_update='exact', **kw).fit(Y)
+    mala = DynamicNetworkLSM(latent_update='mala', **kw).fit(Y)
+    b_gap = abs(exact.intercepts_.mean() - mala.intercepts_.mean())
+    b_tol = 3.0 * max(exact.intercepts_.std(), 0.05)
+    lp_gap = abs(exact.logps_.mean() - mala.logps_.mean())
+    lp_tol = 3.0 * exact.logps_.std()
+    r = np.corrcoef(exact.distances_.ravel(), mala.distances_.ravel())[0, 1]
+    finite = bool(np.isfinite(mala.logps_).all())
+    return [('intercept gap', b_gap, b_tol, bool(b_gap < b_tol)),
+            ('logp gap', lp_gap, lp_tol, bool(lp_gap < lp_tol)),
+            ('distance correlation', r, 0.7, bool(r > 0.7)),
+            ('mala auc', mala.auc_, 0.8, bool(mala.auc_ > 0.8)),
+            ('mala logps finite', float(finite), 1.0, finite)]

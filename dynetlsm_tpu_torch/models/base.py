@@ -69,9 +69,8 @@ def impute_missing(Y, miss_mask):
 
 # the JAX keywords that mean something the port lacks: (accepted value,
 # the ROADMAP item that ports it)
-_UNSUPPORTED = (('devices', None, '§1 item 5 (multi-device)'),
-                ('node_devices', 1, '§1 item 5 (multi-device)'),
-                ('checkpoint_dir', None, '§1 item 2 (checkpoints)'))
+_UNSUPPORTED = (('devices', None, '§1 item 3 (multi-device)'),
+                ('node_devices', 1, '§1 item 3 (multi-device)'))
 
 
 def check_supported(estimator):
@@ -224,9 +223,12 @@ def sample_chains(est, sweep, cfg, s0, trace_fn, rng, device, timer,
     """The sampling stage of a fit: replicate the start ``s0`` over the
     estimator's chain slots on ``device``, attach the tempering ladders,
     record ``(n_total - 1) // thin`` samples of the cold slots
-    (``trace_fn``), timed as ``'sampling'``.  Sets ``est.temper_ladder_``
-    and ``est._final_state`` (the cold slots' fields as NumPy arrays).
-    Returns (the traces in the reference layout, n_total)."""
+    (``trace_fn``), timed as ``'sampling'``, checkpointed to
+    ``est.checkpoint_dir`` when set (only this stage resumes: the stages
+    before it replay from the fit's ``random_state``).  Sets
+    ``est.temper_ladder_`` and ``est._final_state`` (the cold slots'
+    fields as NumPy arrays).  Returns (the traces in the reference layout,
+    n_total)."""
     from ..mcmc.driver import (
         collect_traces, make_scan_runner, replicate_state)
     from ..mcmc.states import state_to_numpy
@@ -243,7 +245,8 @@ def sample_chains(est, sweep, cfg, s0, trace_fn, rng, device, timer,
     with timer('sampling'):
         state, traces = collect_traces(
             runner, state, gen, (n_total - 1) // thin,
-            chunk=est.trace_chunk, progress=progress_reporter(est.verbose))
+            chunk=est.trace_chunk, progress=progress_reporter(est.verbose),
+            checkpoint_dir=est.checkpoint_dir)
     state, est.temper_ladder_ = strip_hot_slots(state, est.n_temps)
     est._final_state = types.SimpleNamespace(**state_to_numpy(state))
     return chain_traces_to_numpy(traces, est.n_chains), n_total

@@ -208,8 +208,7 @@ def test_missing_dyads_fit(short_nested_lsm, cls):
     assert np.isfinite(m.logps_).all()
 
 
-UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2),
-               ('checkpoint_dir', 'ckpt')]
+UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2)]
 
 
 @pytest.mark.parametrize('cls', CLASSES)

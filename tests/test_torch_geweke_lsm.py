@@ -94,3 +94,15 @@ def test_lsm_mala_joint_distribution():
                                    geweke.SEEDS[geweke.MALA], 'cpu')
     z = geweke.compare(mc, sc)
     assert np.all(np.abs(z) < geweke.LIMIT), 'Geweke z-scores %s' % z
+
+
+def test_directed_case_control_joint_distribution():
+    """The directed LSM with the case-control likelihood at its
+    full-control limit (every other node an in- and an out-control; JAX
+    ``test_directed_case_control_joint_distribution``): the directed
+    case-control branches of the intercept and radii steps and of the
+    chromatic scan inside the directed joint check."""
+    mc, sc = geweke.geweke_samples(geweke.DIRECTED_CC, N_CHAINS, N_SWEEPS,
+                                   geweke.SEEDS[geweke.DIRECTED_CC], 'cpu')
+    z = geweke.compare(mc, sc)
+    assert np.all(np.abs(z) < geweke.LIMIT), 'Geweke z-scores %s' % z

@@ -47,7 +47,7 @@ def fit_pair(monkeypatch, jax_mod, port_cls, Y, kwargs):
     jm = jax_cls(**kwargs).fit(Y)
 
     def collect_inject(runner, state, gen, n_samples, chunk=512,
-                       progress=None):
+                       progress=None, checkpoint_dir=None):
         final, traces = captured['collect']
         assert next(iter(traces.values())).shape[0] == n_samples
         return state_from_numpy(final, state.X.device), dict(traces)
