@@ -131,8 +131,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    HDP-LPCM fit at Sampson size with ``thin=2``: cold slots only,
    ``(n_total - 1) // 2 + 1`` samples a chain, observed dyads unchanged and
    ``missings_`` in [0, 1]; and a case-control fit (directed Sampson,
-   ``n_control=10``, its nested LSM case-control too), whose seconds are
-   printed.  Each fit runs with the launch counters set to
+   ``n_control=10``, its nested LSM case-control too, cut to 50 + 25 +
+   25 samples since phase 18 came), whose seconds are printed.  Each fit runs with the launch counters set to
    0 just before and read just after, and every count must equal its
    sweeps' (none under case-control; the kernels line's ``fit_launches``
    sums them);
@@ -165,8 +165,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    random-walk prior, shared and per-chain network, as in 3; the slices
    past n = 2048 (HDP-LPCM K=25 at n = 8,192, 16 chains, undirected and
    directed; the LSM at n = 4,096, 32 chains, and n = 16,384, 4 chains;
-   bench.py's north-star model at constant expected degree) as in 8 (2 +
-   3 sweeps; 2 + 5 before phase 17 came), the split-field scan launched once a sweep, each with its
+   bench.py's north-star model at constant expected degree) as in 8 (1 +
+   2 sweeps since phase 18 came; 2 + 3 before, 2 + 5 before phase 17),
+   the split-field scan launched once a sweep, each with its
    scan's device
    time from one profiled sweep, the time per phase step, the cluster
    size, the bound, the device's busy share and peak memory; the scan
@@ -176,7 +177,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    plain version (identical accepts, max |dX| = 0, the rule's launch
    equal to the sweep's own on those chains); a DynamicNetworkLSM fit at
    T=10, n=2,100 (20 sweeps), which the estimators refused before, with
-   its stage seconds; and the 'parallel'
+   its stage seconds (in a child process started with the phase and
+   waited for at its end: its GMDS is ~80 s of host work); and the
+   'parallel'
    and 'mala' latent updates through ``build_state_and_sweep(...,
    latent_update=)`` at the north star (HDP-LPCM with each, the LSM with
    'mala', the directed HDP-LPCM with 'parallel', a tempered HDP-LPCM with
@@ -184,7 +187,7 @@ Phases, each of which fails the run (exit code 1) when it fails:
    directed case-control row with 'parallel' (as in 14), a Sampson
    HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43), and the HDP-LPCM
    with 'parallel' and with 'mala' (from a step of 0.02) at n = 8,192, 16
-   chains, 2 + 3 sweeps as in 8, each with its ms/sweep, X acceptance,
+   chains, 1 + 2 sweeps as in 8, each with its ms/sweep, X acceptance,
    busy share and peak memory, which must stay within 3 GB of the exact
    scan's slice at that shape; the MALA LSM's Geweke check runs in 12;
 16. forecasts and the HDP-LPCM's headline scenario: the north-star fit's
@@ -195,8 +198,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    atol 1e-6; then the community split of
    tests/test_splitting_recovery.py:18-28 through the port
    (``simple_splitting_dynamic_network(n_nodes=50, n_time_steps=4,
-   random_state=42)``, DynamicNetworkHDPLPCM at 3,000 + 1,500 + 1,500
-   sweeps, launches counted as in 13): mean ARI above 0.8 and fewer
+   random_state=42)``, DynamicNetworkHDPLPCM at 1,500 + 750 + 750
+   sweeps, half the test's budget, launches counted as in 13): mean ARI
+   above 0.8 and fewer
    groups at t = 0 than at t = T - 1, with the ARIs, the groups and the
    stage seconds printed;
 17. checkpoints: five fits (CKPT_FITS: the LSM at the north star, T=10,
@@ -215,6 +219,37 @@ Phases, each of which fails the run (exit code 1) when it fails:
    chunk), its write seconds per chunk and their share of the sampling
    stage's seconds are printed for the north-star LSM state (from the
    resume) and the missing-dyad north-star HDP state;
+18. multi-device fits, on min(cards, 4) distinct cards, or on a one-card
+   machine ``cuda:0`` twice (printed first; a repeated card checks the
+   sharded path with its kernels at shard shapes, not peer copies): the
+   row-range modes of the two log-likelihood kernels (``*_rows_launch``,
+   rows [a, b) held, every dyad i in them with j > i) against their plain
+   versions, the north star split 2 and 4 ways (pair 1-2 intercepts,
+   directed 1-3 candidates, shard s on card s mod k; each float64 share
+   rtol 1e-9, bit-identical on rerun; the shares' float64 sum rounded
+   once against the whole-network launch, rtol 1e-6) and n = 8,192 with
+   16 chains in halves, checked alike (the first half timed: CUDA events,
+   a CUDA graph of 5 calls, the plain share, the bound); the ``chains``
+   axis: a Sampson
+   HDP-LPCM fit and a tempered LSM fit with ``devices`` of two shards,
+   each shard's traces equal to the unsharded runner's on its chains with
+   its generator, bit for bit; the ``nodes`` axis at full width: the
+   HDP-LPCM 'parallel' and 'mala' slices at n = 8,192, 16 chains (15's),
+   node_devices = 2, one sweep against the unsharded sweep from the same
+   state and generator (X rtol 1e-5 where the accepts agree, at most 4
+   accepts flipped at near ties, printed; the log joint of each chain
+   whose accepts agree rtol 1e-6), then 1 timed sweep with each card's
+   peak memory; node-sharded fits at the north star
+   (``node_devices=2``, 'parallel', 4 chains, 79 sweeps, a mixture's
+   nested LSM cut to 99): LSM, HDP-LPCM, directed LSM, missing-dyad LSM
+   and case-control LSM, each with finite log joints, no whole-network
+   kernel launched, the row-range modes launched (none under
+   case-control) and ``auc_`` within 0.05 of its unsharded twin's; the
+   missing-dyad one killed after its second chunk in a child process
+   (17's machinery) and resumed in another, equal to its uninterrupted
+   twin bit for bit; then ``entry.dryrun_multichip``.  The row-range
+   counters are set to 0 before the node-sharded sweeps and fits and
+   read after: both must be above 0;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats; the node scan's plain version, seconds
    a call, is timed once, in its check), the node scan's at each cluster size
@@ -240,7 +275,9 @@ Phases, each of which fails the run (exit code 1) when it fails:
    carry the slice's scan time, time per phase step, cluster size, bound,
    its launch's time at each cluster size and its plain version's time
    on two chains (``slice_*``).  ``checkpoint_launches`` counts each
-kernel's launches in phase 17's uninterrupted fits.
+kernel's launches in phase 17's uninterrupted fits.  The row-range rows
+(``pair_loglik_rows``, ``dir_loglik_rows``) are 18's timed shares, their
+``launches`` the node-sharded sweeps' and fits' of 18.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -287,15 +324,16 @@ MISSING = 0.1
 # north star (model, directed, latent_update, n_temps) and the
 # case-control row they run
 SPLIT_PLAIN = dict(T=10, n=2560, C=2, K=5)
+# (the last field: hold the slice's own launch against the plain version)
 LARGE_SLICES = [('hdp n8192', 'hdp', False, 8192, 16, True),
                 ('hdp n8192 directed', 'hdp', True, 8192, 16, True),
                 ('lsm n4096', 'lsm', False, 4096, 32, False),
                 ('lsm n16384', 'lsm', False, 16384, 4, True)]
 SPLIT_CHAINS = (0, -1)
 SPLIT_CLUSTERS_TIMED = (2, 4, 8)
-# warm and timed sweeps of each slice past n = 2048 (0.35-1.2 s a sweep;
+# warm and timed sweeps of each slice past n = 2048 (0.35-1.9 s a sweep;
 # fewer than the other slices' to keep the script inside its time)
-LARGE_SLICE_SWEEPS = (2, 3)
+LARGE_SLICE_SWEEPS = (1, 2)
 # the refused-before fit: T = 10 waves of n = 2,100 nodes, past the
 # resident mode's n = 2048 (the estimators refused it before the
 # split-field mode); its GMDS runs on the host, SMACOF's O(n^2) steps and
@@ -311,7 +349,7 @@ SCHEME_CC = ('cc_directed_northstar', True, 500, 145, 64)
 # and how far their peak device memory may exceed that exact-scan slice's
 # in the same run (their dense passes go a block of dyads at a time)
 LARGE_SCHEMES = ('parallel', 'mala')
-LARGE_SCHEME_SWEEPS = (2, 3)
+LARGE_SCHEME_SWEEPS = (1, 2)
 LARGE_SCHEME_PEAK_SLACK_GB = 3.0
 # the MALA slice's starting step there: at the sweeps' default 0.1 the
 # drift sums 8,192 partners a site and every joint proposal of a random
@@ -344,11 +382,12 @@ PER_CHAIN = 'per-chain Y'
 # (instructions, MUFU instructions among them) per dyad of each kernel's
 # inner loop as compiled for d = 2 (CUDA 12.8, sm_90a, -fmad=false), by
 # kernel and candidate count (scripts/loglik_sass.py prints them from
-# cuobjdump -sass; a pass of the loop scores 4 dyads)
+# cuobjdump -sass; a pass of the loop scores 4 dyads); the whole-network
+# instantiations, recounted when the row-range mode came
 LOGLIK_SASS = {
-    ('pair_loglik', 1): (82.25, 2), ('pair_loglik', 2): (133.25, 3),
-    ('dir_loglik', 1): (145.0, 3), ('dir_loglik', 2): (238.5, 5),
-    ('dir_loglik', 3): (336.25, 7)}
+    ('pair_loglik', 1): (82.75, 2), ('pair_loglik', 2): (134.0, 3),
+    ('dir_loglik', 1): (144.25, 3), ('dir_loglik', 2): (238.5, 5),
+    ('dir_loglik', 3): (337.5, 7)}
 
 
 class SmokeFailure(Exception):
@@ -1360,17 +1399,20 @@ def estimator_phase(dev):
             % (name, thin, C, seconds, float(m.logps_[:, -1].mean()),
                m.auc_, launches, extra_log))
     # a case-control fit: directed Sampson, its nested LSM case-control too
+    # (its nested LSM cut to SHORT_NESTED, to keep the script inside its
+    # time)
     m = DynamicNetworkHDPLPCM(device=dev, is_directed=True,
                               n_control=CC_FIT_CONTROLS, **SMALL_FIT)
-    launches, seconds, _ = counted_fit(
-        'sampson cc', m, load_dynamic_monks(is_directed=True), dev, cc=True)
+    launches, seconds, _ = short_nested(lambda: counted_fit(
+        'sampson cc', m, load_dynamic_monks(is_directed=True), dev, cc=True))
     add(launches)
     check(bool(np.isfinite(m.logps_).all()), 'sampson cc fit: non-finite '
           'logps_')
     log('estimator sampson directed case-control (n_control=%d, %d chains, '
         '%d + %d sweeps): %.1f s, stages %s, logp mean %.2f, auc_ %.4f, '
         'launches %s'
-        % (CC_FIT_CONTROLS, m.n_chains, NESTED_SWEEPS, m.logps_.shape[1] - 1,
+        % (CC_FIT_CONTROLS, m.n_chains, sum(SHORT_NESTED.values()) - 1,
+           m.logps_.shape[1] - 1,
            seconds, ', '.join('%s %.3f s' % kv
                               for kv in m.stage_seconds_.items()),
            float(m.logps_[:, -1].mean()), m.auc_, launches))
@@ -1774,6 +1816,40 @@ def large_fit(dev):
     return launches
 
 
+def start_large_fit(dev):
+    """Start :func:`large_fit` in a child process (``--checkpoint-child
+    large-fit``), beside the rest of phase 15: its GMDS is ~80 s of host
+    work that the card does not wait for.  Returns the child for
+    :func:`large_fit_launches`."""
+    import shutil
+    root = os.path.join(ROOT, 'build', 'large_fit')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # half the host's cores for its GMDS, the rest for this process
+    threads = str(max(1, (os.cpu_count() or 2) // 2))
+    env = dict(os.environ, OMP_NUM_THREADS=threads,
+               OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+    return run_child(['large-fit', '-', root, str(dev)],
+                     os.path.join(root, 'child.log'), 900, env=env), root
+
+
+def large_fit_launches(started):
+    """Wait for the :func:`start_large_fit` child, show its report and
+    return the fit's launches (its checks fail the child, and so the
+    phase)."""
+    import shutil
+    child, root = started
+    code, out = wait_child(child)
+    check(code == 0, 'large fit child exited %s: %s' % (code, out))
+    with open(os.path.join(root, 'launches.json')) as f:
+        launches = json.load(f)
+    for line in out.splitlines():
+        if line.startswith('fit lsm T'):
+            log(line + ' (in a child process, beside phase 15)')
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def scheme_phase(dev, networks, slices):
     """The 'parallel' and 'mala' latent updates at the north star through
     ``build_state_and_sweep(..., latent_update=)`` (phase 8's checks: no
@@ -1852,9 +1928,10 @@ def run_large_schemes(dev, exact):
 # on the same uniforms and normals)
 FORECAST_RTOL, FORECAST_ATOL = 1e-4, 1e-6
 # the community split (tests/test_splitting_recovery.py:18-28): the
-# network, the fit at its full budget, and its bar
+# network, the fit at half its full budget (to keep the script inside its
+# time: the full one gave ARI 1.0 in every run), and its bar
 SPLIT_NET = dict(n_nodes=50, n_time_steps=4, random_state=42)
-SPLIT_FIT = dict(n_iter=3000, tune=1500, burn=1500, n_components=10,
+SPLIT_FIT = dict(n_iter=1500, tune=750, burn=750, n_components=10,
                  random_state=123)
 SPLIT_MIN_ARI = 0.8
 
@@ -2015,8 +2092,11 @@ def checkpoint_network(key):
 
 
 def checkpoint_estimator(name, dev, checkpoint_dir=None):
-    """(the estimator of CKPT_FITS[name] on ``dev``, its network)."""
+    """(the estimator of CKPT_FITS[name] on ``dev``, or of phase 18's
+    NODE_FITS[name], its network)."""
     from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, DynamicNetworkLSM
+    if name in NODE_FITS:
+        return node_estimator(name, dev, checkpoint_dir)
     model, kw, net, _, _ = CKPT_FITS[name]
     cls = DynamicNetworkLSM if model == 'lsm' else DynamicNetworkHDPLPCM
     kw = dict(CKPT_BUDGET, **kw)
@@ -2084,10 +2164,17 @@ def checkpoint_child(mode, names, root, device):
     CKPT_CRASH_AFTER chunks (no exception, no clean-up: a crash).  'resume':
     fit each of the comma-separated NAMES over its checkpoint, timing the
     writes, and save the compared traces, the write numbers and the
-    launches to ROOT/NAME/result.npz."""
+    launches to ROOT/NAME/result.npz.  'large-fit' (phase 15, NAMES '-'):
+    :func:`large_fit`, its launches to ROOT/launches.json."""
     import torch
     from dynetlsm_tpu_torch.mcmc import driver
     dev = torch.device(device)
+    if mode == 'large-fit':
+        # a CUDA context before counted_fit reads the memory statistics
+        torch.zeros(1, device=dev)
+        with open(os.path.join(root, 'launches.json'), 'w') as f:
+            json.dump(large_fit(dev), f)
+        return 0
     if mode == 'crash':
         orig = driver.collect_traces
 
@@ -2115,7 +2202,8 @@ def checkpoint_child(mode, names, root, device):
             fn.launches = 0
         with CheckpointWrites() as writes:
             est.fit(Y)
-        out = {k: getattr(est, k) for k in CKPT_FITS[name][4]}
+        out = {k: getattr(est, k) for k in (
+            CKPT_FITS[name][4] if name in CKPT_FITS else NODE_CKPT_TRACES)}
         out['writes'] = np.array(json.dumps(writes.numbers(
             est.stage_seconds_['sampling'])))
         out['launches'] = np.array(json.dumps(
@@ -2124,14 +2212,28 @@ def checkpoint_child(mode, names, root, device):
     return 0
 
 
-def run_child(args, log_path, timeout):
-    """Start ``chip_smoke.py --checkpoint-child ARGS`` with its output in
-    ``log_path``; (process, log path, timeout) for :func:`wait_child`."""
+def run_child(args, log_path, timeout, env=None):
+    """Start ``chip_smoke.py --checkpoint-child ARGS`` (in ``env``, this
+    process's by default) with its output in ``log_path``; (process, log
+    path, timeout) for :func:`wait_child`."""
     with open(log_path, 'w') as out:
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), '--checkpoint-child']
-            + args, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+            + args, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, env=env)
+    CHILDREN.append(proc)
     return proc, log_path, timeout
+
+
+# every child started, killed at exit if still running (a phase that
+# failed before waiting for its children)
+CHILDREN = []
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def wait_child(child):
@@ -2143,7 +2245,7 @@ def wait_child(child):
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
-        raise SmokeFailure('checkpoint child %s timed out' % log_path)
+        raise SmokeFailure('child %s timed out' % log_path)
     with open(log_path) as f:
         return proc.returncode, f.read()[-3000:]
 
@@ -2239,6 +2341,488 @@ def checkpoint_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: multi-device fits (devices=, node_devices=)
+# ---------------------------------------------------------------------------
+
+# the cards the phase lays its meshes on: min(cards, MESH_CARDS) distinct
+# ones, or cuda:0 twice on a one-card machine
+MESH_CARDS = 4
+# the row-range kernels: the north star split 2 and 4 ways, and n = 8,192
+# with 16 chains split in halves (the node-sharded slices' network; the
+# first half, 3/4 of the dyads, timed)
+ROW_SPLITS = (2, 4)
+ROW_BLOCK = dict(T=10, n=8192, C=16, K=25)
+# a float64 share against the plain float64 share: the sound kernels read
+# up to 8.3e-12 (directed, n = 8,192), 3.0e-10 (directed, north star) and
+# 4.2e-16 (pair) relative (H100 80GB HBM3, 700 W; seeded inputs, so the
+# readings repeat); a 32 x 32 tile skipped in one chain of n = 8,192
+# moves a share by ~4e-6
+ROW_SHARE_RTOL = 1e-9
+ROW_SUM_RTOL = 1e-6         # the shares' sum against the whole launch
+# one node-sharded sweep against the unsharded one: X within this rtol
+# (atol 1e-6) where the accepts agree; an accept may flip only at a near
+# tie of the float64 sums' order, at most this many a sweep (printed); the
+# float32 log joint of a chain whose accepts all agree within
+# NODE_LOGP_RTOL (16 ulps; both sum float64 shares and round once)
+NODE_SWEEP_RTOL = 1e-5
+NEAR_TIES = 4
+NODE_LOGP_RTOL = 1e-6
+NODE_SWEEPS = (1, 1)        # compared, then timed
+# the node-sharded fits at the north star (node_devices=2), each against
+# its unsharded twin at the same budget: auc_ within NODE_AUC_GAP
+NODE_BUDGET = dict(n_chains=4, n_iter=40, tune=20, burn=20, trace_chunk=30,
+                   latent_update='parallel')
+SHORT_NESTED = dict(n_iter=50, tune=25, burn=25)
+NODE_AUC_GAP = 0.05
+NODE_FITS = {
+    'nodes lsm': ('lsm', dict(random_state=0), 'northstar'),
+    'nodes hdp': ('hdp', dict(n_components=8, random_state=1), 'northstar'),
+    'nodes lsm directed': ('lsm', dict(random_state=2, is_directed=True),
+                           'northstar directed'),
+    'nodes lsm missing': ('lsm', dict(random_state=3), 'northstar missing'),
+    'nodes lsm cc': ('lsm', dict(random_state=4, n_control=64),
+                     'northstar'),
+}
+# killed after CKPT_CRASH_AFTER chunks in a child and resumed in another
+NODE_CKPT = 'nodes lsm missing'
+NODE_CKPT_TRACES = CKPT_TRACES + ('missings_',)
+# the chains mesh: Sampson-size fits on two shards, each shard's traces
+# against the unsharded runner with the shard's generator
+MESH_FITS = {
+    'hdp sampson': ('hdp', dict(n_components=10, n_chains=8, n_iter=40,
+                                tune=20, burn=20, random_state=3)),
+    'lsm sampson tempered': ('lsm', dict(n_chains=4, n_temps=N_TEMPS,
+                                         beta_min=BETA_MIN, n_iter=40,
+                                         tune=20, burn=20, random_state=3)),
+}
+
+
+def phase18_devices(dev):
+    """(the devices of phase 18's meshes, 'distinct' or 'repeated'):
+    min(cards, MESH_CARDS) cards, or on one card cuda:0 twice (``dev`` the
+    CPU: the CPU twice, to rehearse the phase)."""
+    import torch
+    if torch.device(dev).type == 'cpu':
+        return [torch.device('cpu')] * 2, 'repeated'
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return ([torch.device('cuda', i)
+                 for i in range(min(count, MESH_CARDS))], 'distinct')
+    return [torch.device('cuda', 0)] * 2, 'repeated'
+
+
+def row_counters():
+    """The row-range modes' launch counters."""
+    from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_rows_cuda
+    from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_rows_cuda
+    return {'pair_loglik_rows': pair_loglik_rows_cuda,
+            'dir_loglik_rows': dir_loglik_rows_cuda}
+
+
+def share_dyads(C, T, n, a, b):
+    """The dyads i in [a, b), j > i of C chains and T times."""
+    return C * T * sum(n - 1 - i for i in range(a, b))
+
+
+def check_row_range(name, args, cuts, devices, label, timed=False):
+    """The row-range mode of one kernel (``name`` 'pair' or 'dir') on the
+    whole-network inputs ``args``, its rows cut at ``cuts`` and shard s on
+    ``devices[s % k]``: each share against the plain share (rtol
+    ROW_SHARE_RTOL), bit-identical on rerun; the shares' float64 sum,
+    rounded once, against the whole launch (rtol ROW_SUM_RTOL; the count
+    of bit-equal values printed).  With ``timed``, the first share's
+    CUDA-event and graph ms, the plain share's ms and the share's bound.
+    Returns (max abs error of a share, timing numbers or None)."""
+    import torch
+    from dynetlsm_tpu_torch.ops import dir_loglik as dl, pair_loglik as pl
+    kernel, plain, whole = {
+        'pair': (pl.pair_loglik_rows_cuda, pl.pair_loglik_rows_plain,
+                 pl.pair_loglik_cuda),
+        'dir': (dl.dir_loglik_rows_cuda, dl.dir_loglik_rows_plain,
+                dl.dir_loglik_cuda)}[name]
+    Y, X, rest = args[0], args[1], tuple(args[2:])
+    full = whole(*args) if cuts[0] == 0 and cuts[-1] == X.shape[2] else None
+    total, err, worst, numbers = None, 0.0, 0.0, None
+    for s, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        dev = devices[s % len(devices)]
+        part = (Y[..., a:b, :].contiguous().to(dev), X.to(dev)) + tuple(
+            v.to(dev) for v in rest)
+        got = kernel(*part, row0=a)
+        again = kernel(*part, row0=a)
+        plain_ms = []
+        want = cuda_ms(lambda: plain_ms.append(plain(*part, row0=a)), 1,
+                       warmup=0)
+        want, plain_ms = plain_ms[0], want
+        torch.cuda.synchronize(dev)
+        check(bool(torch.isfinite(got).all()) and torch.equal(got, again),
+              '%s_loglik_rows %s rows [%d, %d): non-finite or not '
+              'bit-identical on rerun' % (name, label, a, b))
+        rel = float(((got - want).abs() / want.abs()).max())
+        check(rel <= ROW_SHARE_RTOL, '%s_loglik_rows %s rows [%d, %d): max '
+              'rel err %g against the plain share' % (name, label, a, b, rel))
+        worst = max(worst, rel)
+        err = max(err, float((got - want).abs().max()))
+        total = got.to(X.device) if total is None else total + got.to(
+            X.device)
+        if timed and s == 0:
+            C, T, n, _ = X.shape
+            in_graph, replayed = graph_ms(lambda: kernel(*part, row0=a), 3,
+                                          calls=5)
+            check(torch.equal(replayed, got), '%s_loglik_rows %s: the CUDA '
+                  'graph replay differs from the eager call' % (name, label))
+            dyads = share_dyads(C, T, n, a, b)
+            numbers = dict(
+                ms=cuda_ms(lambda: kernel(*part, row0=a), 5),
+                graph_ms=in_graph, plain_ms=plain_ms,
+                bound=(pair_bound(part, dyads) if name == 'pair'
+                       else dir_bound(part, dyads)),
+                rows=(a, b), dyads=dyads)
+    same = ''
+    if full is not None:
+        rounded = total.to(torch.float32)
+        rel = float(((rounded - full).abs() / full.abs()).max())
+        check(rel <= ROW_SUM_RTOL, '%s_loglik_rows %s split %s: the shares\' '
+              'sum against the whole launch, max rel err %g'
+              % (name, label, cuts, rel))
+        same = ', the shares\' sum against the whole launch max rel err %g ' \
+            '(%d of %d values bit-equal)' % (
+                rel, int((rounded == full).sum()), full.numel())
+    log('%s_loglik_rows %s, rows cut at %s: shares against the plain '
+        'shares max abs err %g (rel %g), bit-identical on rerun%s'
+        % (name, label, cuts, err, worst, same))
+    return err, numbers
+
+
+def row_range_phase(devices, Y8192):
+    """The row-range modes against their plain versions (see 18).
+    Returns {kernel name: (max abs err, timing numbers, mode, shape)}."""
+    import torch
+    from dynetlsm_tpu_torch.ops.node_scan import pack_directed
+    dev = devices[0]
+    out = {}
+    n = NS['n']
+    for k in ROW_SPLITS:
+        cuts = [s * n // k for s in range(k + 1)]
+        for n_cand in (1, 2):
+            args = pair_inputs(NS['C'], NS['T'], n, dev, 300 + n_cand)
+            check_row_range('pair', args[:2 + n_cand], cuts, devices,
+                            'north star n_cand=%d' % n_cand)
+        for n_cand in (1, 2, 3):
+            check_row_range('dir', dir_inputs(NS['C'], NS['T'], n, n_cand,
+                                              dev, 310 + n_cand),
+                            cuts, devices, 'north star n_cand=%d' % n_cand)
+    # n = 8,192's rows in halves, 16 chains, the slices' network; the
+    # first half timed
+    T, n, C = Y8192.shape[0], Y8192.shape[1], ROW_BLOCK['C']
+    rng = np.random.RandomState(320)
+    f = dict(dtype=torch.float32, device=dev)
+    X = torch.as_tensor(rng.randn(C, T, n, 2), **f)
+    Y = torch.as_tensor(Y8192, device=dev)
+    b = torch.as_tensor(1.0 + 0.1 * rng.randn(C), **f)
+    label = 'T=%d n=%d chains=%d' % (T, n, C)
+    shape = '%s, rows [0, %d)' % (label, n // 2)
+    err, numbers = check_row_range('pair', (Y, X, b, b + 0.05),
+                                   [0, n // 2, n], devices, label,
+                                   timed=True)
+    out['pair_loglik_rows'] = (err, numbers, 'row range, 2 intercepts',
+                               shape)
+    bd = 0.3 + 0.5 * rng.randn(C, 3, 2)
+    bd[:, 0, 0] = -np.abs(bd[:, 0, 0]) - 0.1
+    args = (pack_directed(Y), X, torch.as_tensor(0.5 + rng.rand(C, 3, n),
+                                                 **f),
+            torch.as_tensor(bd, **f))
+    del Y
+    err, numbers = check_row_range('dir', args, [0, n // 2, n], devices,
+                                   label, timed=True)
+    out['dir_loglik_rows'] = (err, numbers, 'row range, 3 candidates',
+                              shape)
+    return out
+
+
+def mesh_fit(name, dev, devices):
+    """(the estimator of MESH_FITS[name] on ``devices`` (a chains mesh),
+    its network)."""
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, DynamicNetworkLSM
+    from dynetlsm_tpu_torch.datasets import load_dynamic_monks
+    model, kw = MESH_FITS[name]
+    cls = DynamicNetworkLSM if model == 'lsm' else DynamicNetworkHDPLPCM
+    return cls(device=dev, devices=devices, **kw), load_dynamic_monks()
+
+
+def chain_mesh_phase(dev, devices):
+    """The chains axis: each MESH_FITS fit on two shards (the first two
+    of ``devices``); every shard's traces, replayed alone by the
+    unsharded runner over its chains with its sweep and a generator in
+    its generator's first state, equal the mesh's bit for bit."""
+    import torch
+    from dynetlsm_tpu_torch.mcmc import driver
+    make, collect = driver.make_scan_runner, driver.collect_traces
+    for name in MESH_FITS:
+        seen = {}
+
+        def make_spy(sweep_fn, trace_fn, **kw):
+            if isinstance(sweep_fn, list):
+                seen.update(sweeps=sweep_fn, trace=trace_fn, kw=kw)
+            return make(sweep_fn, trace_fn, **kw)
+
+        def collect_spy(runner, state, gen, n, **kw):
+            if not isinstance(state, list):     # a nested LSM
+                return collect(runner, state, gen, n, **kw)
+            seen.update(states=[s.replace() for s in state], n=n,
+                        gens=[g.get_state() for g in gen])
+            out = collect(runner, state, gen, n, **kw)
+            seen['traces'] = out[1]
+            return out
+        driver.make_scan_runner, driver.collect_traces = make_spy, collect_spy
+        try:
+            t0 = time.perf_counter()
+            est, Y = mesh_fit(name, dev, devices[:2])
+            short_nested(lambda: est.fit(Y))
+            seconds = time.perf_counter() - t0
+        finally:
+            driver.make_scan_runner, driver.collect_traces = make, collect
+        check(dict(est.mesh_.shape) == {'chains': 2}, 'chains mesh %s: mesh '
+              '%s' % (name, est.mesh_))
+        check(bool(np.isfinite(est.logps_).all()), 'chains mesh %s: '
+              'non-finite logps_' % name)
+        c0 = 0
+        for r, (sweep, state, g_state) in enumerate(zip(
+                seen['sweeps'], seen['states'], seen['gens'])):
+            gen = torch.Generator(device=state.X.device)
+            gen.set_state(g_state)
+            runner = make(sweep, seen['trace'], **seen['kw'])
+            _, alone = collect(runner, state, gen, seen['n'],
+                               chunk=seen['kw']['chunk'])
+            C = next(iter(alone.values())).shape[1]
+            for k, v in alone.items():
+                check(np.array_equal(seen['traces'][k][:, c0:c0 + C], v),
+                      'chains mesh %s: shard %d trace %s differs from the '
+                      'unsharded runner\'s' % (name, r, k))
+            c0 += C
+        log('chains mesh %s on %s: %.1f s, %d shards, each shard\'s traces '
+            '(%s) equal to the unsharded runner\'s with its generator bit '
+            'for bit' % (name, [str(d) for d in devices[:2]], seconds,
+                         len(seen['sweeps']), ', '.join(seen['traces'])))
+
+
+def node_sweep_phase(devices, Y8192):
+    """The nodes axis at full width: the HDP-LPCM 'parallel' and 'mala'
+    slices at n = 8,192, 16 chains (phase 15's), node_devices = 2: one
+    sweep against the unsharded sweep from the same state and generator
+    state, then NODE_SWEEPS[1] timed sweeps; ms/sweep and each card's
+    peak memory.  Returns {name: numbers}."""
+    import torch
+    from dynetlsm_tpu_torch.entry import build_state_and_sweep
+    dev = devices[0]
+    nodes = devices[:2]
+    out = {}
+    for scheme in LARGE_SCHEMES:
+        name = 'hdp n%d %s nodes=2' % (Y8192.shape[1], scheme)
+
+        def build(**kw):
+            """(state, sweep, gen), the state and generator the same in
+            every build (the entry's seed)."""
+            state, sweep, gen = build_state_and_sweep(
+                Y8192, ROW_BLOCK['C'], K=ROW_BLOCK['K'], device=dev,
+                latent_update=scheme, **kw)
+            if scheme == 'mala':
+                state = state.replace(step_X=torch.full_like(
+                    state.step_X, LARGE_MALA_STEP))
+            return state, sweep, gen
+        state, sweep, gen = build()
+        ref = sweep(state, gen)
+        torch.cuda.synchronize()
+        del sweep, state
+        state, sharded, gen = build(node_devices=nodes)
+        for d in set(nodes):
+            torch.cuda.reset_peak_memory_stats(d)
+        got = sharded(state, gen)
+        torch.cuda.synchronize()
+        flips = (got.acc_X != ref.acc_X)
+        n_flips = int(flips.sum())
+        check(n_flips <= NEAR_TIES, '%s: %d accepts differ from the '
+              'unsharded sweep\'s' % (name, n_flips))
+        agree = ~flips[..., None].expand_as(ref.X)
+        gap = float(((got.X - ref.X).abs() - NODE_SWEEP_RTOL
+                     * ref.X.abs()).masked_fill(~agree, -1).max())
+        check(gap <= 1e-6, '%s: positions off the unsharded sweep\'s by '
+              '%g beyond rtol %g' % (name, gap, NODE_SWEEP_RTOL))
+        check(n_flips > 0 or (torch.equal(got.acc_int, ref.acc_int)
+                              and torch.equal(got.z, ref.z)),
+              '%s: intercept accepts or labels differ' % name)
+        rel_by_chain = (got.logp - ref.logp).abs() / ref.logp.abs()
+        rel = float(rel_by_chain.max())
+        clean = ~flips.reshape(flips.shape[0], -1).any(1)
+        if bool(clean.any()):
+            gap = float(rel_by_chain[clean].max())
+            check(gap <= NODE_LOGP_RTOL, '%s: log joint off the unsharded '
+                  'sweep\'s by rel %g on a chain whose accepts agree'
+                  % (name, gap))
+        t0 = time.perf_counter()
+        s = got
+        for _ in range(NODE_SWEEPS[1]):
+            s = sharded(s, gen)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / NODE_SWEEPS[1]
+        check(bool(torch.isfinite(s.logp).all()), '%s: non-finite logp'
+              % name)
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                 for d in set(nodes)}
+        out[name] = dict(ms=ms, flips=n_flips, logp_rel=rel, peak_gb=peaks)
+        log('node-sharded %s on %s: one sweep against the unsharded sweep '
+            'from the same state and generator: %d accepts differ, X within '
+            'rtol %g elsewhere, logp rel err %g; %.3f ms/sweep over %d '
+            'sweeps, peak memory by card %s GB (both shards on one card '
+            'when repeated)'
+            % (name, [str(d) for d in nodes], n_flips, NODE_SWEEP_RTOL, rel,
+               ms, NODE_SWEEPS[1], {k: round(v, 3) for k, v in
+                                    peaks.items()}))
+        del ref, got, s, sharded, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def node_network(key):
+    from dynetlsm_tpu_torch.datasets import (
+        northstar_network, with_missing_dyads)
+    Y = northstar_network(directed='directed' in key)
+    return with_missing_dyads(Y, MISSING, seed=5) if 'missing' in key else Y
+
+
+def node_estimator(name, dev, checkpoint_dir=None, nodes=True):
+    """(the estimator of NODE_FITS[name], node_devices=2 on phase 18's
+    devices, or with ``nodes`` False its unsharded twin; its network)."""
+    from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM, DynamicNetworkLSM
+    model, kw, net = NODE_FITS[name]
+    cls = DynamicNetworkLSM if model == 'lsm' else DynamicNetworkHDPLPCM
+    kw = dict(NODE_BUDGET, **kw)
+    if nodes:
+        kw.update(node_devices=2, devices=phase18_devices(dev)[0])
+    return (cls(device=dev, checkpoint_dir=checkpoint_dir, **kw),
+            node_network(net))
+
+
+def short_nested(fn):
+    """Run ``fn()`` with the mixture fits' nested LSM cut to
+    SHORT_NESTED."""
+    from dynetlsm_tpu_torch.models import mixture_base
+    init = mixture_base.init_from_lsm
+
+    def short(*args, **kw):
+        kw['lsm_kwargs'] = dict(SHORT_NESTED)
+        return init(*args, **kw)
+    mixture_base.init_from_lsm = short
+    try:
+        return fn()
+    finally:
+        mixture_base.init_from_lsm = init
+
+
+def node_fit_phase(dev):
+    """The node-sharded fits (NODE_FITS) and their unsharded twins; the
+    NODE_CKPT fit killed in a child after CKPT_CRASH_AFTER chunks and
+    resumed in another, against its twin bit for bit.  Returns the
+    launches of the node-sharded fits."""
+    import shutil
+    root = os.path.join(ROOT, 'build', 'checkpoints18')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    crash = run_child(['crash', NODE_CKPT, root, str(dev)],
+                      os.path.join(root, 'crash.log'), 600)
+    counters = dict(launch_counters(), **row_counters())
+    total = {}
+    twins = {}
+    for name in NODE_FITS:
+        runs = {}
+        for nodes in (True, False):
+            est, Y = node_estimator(name, dev, nodes=nodes)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            short_nested(lambda: est.fit(Y))
+            runs[nodes] = (est, time.perf_counter() - t0,
+                           {k: fn.launches for k, fn in counters.items()})
+            check(bool(np.isfinite(est.logps_[..., 1:]).all()),
+                  '%s%s: non-finite logps_' % (name, '' if nodes
+                                               else ' twin'))
+        (m, seconds, launches), (twin, twin_s, _) = runs[True], runs[False]
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        # no whole-network kernel under node sharding; the row-range modes
+        # unless case-control (its own estimator, no kernel)
+        check(not any(v for k, v in launches.items()
+                      if not k.endswith('_rows'))
+              and ('cc' in name) != any(launches[k] for k in row_counters()),
+              '%s: launches %s' % (name, launches))
+        gap = abs(m.auc_ - twin.auc_)
+        log('node-sharded fit %s (mesh %s, T=10, n=500, %d chains, %d '
+            'sweeps): %.1f s, auc_ %.4f against the unsharded twin\'s %.4f '
+            '(%.1f s), launches %s'
+            % (name, dict(m.mesh_.shape), m.n_chains,
+               m.logps_.shape[-1] - 1, seconds, m.auc_, twin.auc_, twin_s,
+               launches))
+        check(gap <= NODE_AUC_GAP, '%s: auc_ %.4f against its unsharded '
+              'twin\'s %.4f' % (name, m.auc_, twin.auc_))
+        if name == NODE_CKPT:
+            twins[name] = {k: getattr(m, k) for k in NODE_CKPT_TRACES}
+    code, out = wait_child(crash)
+    check(code == CKPT_CRASH_CODE, 'node checkpoint crash child exited %s: '
+          '%s' % (code, out))
+    code, out = wait_child(run_child(['resume', NODE_CKPT, root, str(dev)],
+                                     os.path.join(root, 'resume.log'), 600))
+    check(code == 0, 'node checkpoint resume child exited %s: %s'
+          % (code, out))
+    with np.load(os.path.join(root, NODE_CKPT, 'result.npz')) as r:
+        got = {k: r[k] for k in r.files}
+    equal = all(got[k].dtype == v.dtype and np.array_equal(got[k], v)
+                for k, v in twins[NODE_CKPT].items())
+    log('node checkpoint %s: killed after %d of its chunks, resumed in a '
+        'fresh process: %s' % (NODE_CKPT, CKPT_CRASH_AFTER,
+                               'equal bit for bit' if equal
+                               else 'DIFFERENT'))
+    check(equal, 'node checkpoint %s: the resumed traces differ from the '
+          'uninterrupted fit\'s' % NODE_CKPT)
+    shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
+def multi_device_phase(dev):
+    """Phase 18 (see the module's text).  Returns (the row-range rows'
+    numbers, the launches of the node-sharded path, the node-sharded
+    sweeps' numbers)."""
+    import torch
+    from dynetlsm_tpu_torch.entry import dryrun_multichip
+    devices, kind = phase18_devices(dev)
+    log('phase 18 meshes on %s: %s' % (
+        kind + (' cards' if kind == 'distinct'
+                else ' (one card, cuda:0 repeated)'),
+        [str(d) for d in devices]))
+    Y8192 = large_network(ROW_BLOCK['n'], False, ROW_BLOCK['T'])
+    rows = row_range_phase(devices, Y8192)
+    chain_mesh_phase(dev, devices)
+    # the main path of the row-range modes: the node-sharded sweeps and
+    # fits, every count set to 0 just before and read just after
+    counters = row_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    sweeps = node_sweep_phase(devices, Y8192)
+    sweep_launches = {k: fn.launches for k, fn in counters.items()}
+    del Y8192
+    fit_launches = node_fit_phase(dev)
+    launches = {k: sweep_launches[k] + fit_launches[k] for k in counters}
+    for k, v in launches.items():
+        check(v > 0, 'phase 18: %s was never launched on the node-sharded '
+              'path' % k)
+    t0 = time.perf_counter()
+    dryrun_multichip(len(devices), device=dev.type)
+    log('dryrun_multichip(%d): passed in %.1f s'
+        % (len(devices), time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    log('phase 18 launches of the row-range modes: %s' % launches)
+    return rows, launches, sweeps
+
+
+# ---------------------------------------------------------------------------
 # phase 9: bounds
 # ---------------------------------------------------------------------------
 
@@ -2286,26 +2870,29 @@ def scan_bound_of(C, T, n, d, directed, mixture, tempered, per_chain):
     return bound(ops, nbytes)
 
 
-def pair_bound(args):
+def pair_bound(args, dyads=None):
     """Per unordered dyad: a distance (7 with the clamp and sqrt), then per
     intercept eta, y * eta, softplus (6), their difference and the sum
-    (10)."""
+    (10).  ``dyads``: the dyads scored (a row range's), all by default."""
     Y, X = args[:2]
     C, T, n, _ = X.shape
     n_cand = len(args) - 2
-    dyads = C * T * n * (n - 1) // 2
+    if dyads is None:
+        dyads = C * T * n * (n - 1) // 2
     return bound(dyads * (7 + n_cand * 10), _bytes(*args) + 4 * C * n_cand)
 
 
-def dir_bound(args):
+def dir_bound(args, dyads=None):
     """Per unordered dyad: a distance (7), then per candidate both
     directions' scale, eta, softplus and y * eta - softplus (24); per
-    candidate and node, two reciprocals."""
+    candidate and node, two reciprocals.  ``dyads``: the dyads scored (a
+    row range's), all by default."""
     Yp, X, radii, b = args
     C, T, n, _ = X.shape
     n_cand = radii.shape[1]
-    ops = (C * T * n * (n - 1) // 2 * (7 + 24 * n_cand)
-           + 2 * C * n_cand * n)
+    if dyads is None:
+        dyads = C * T * n * (n - 1) // 2
+    ops = dyads * (7 + 24 * n_cand) + 2 * C * n_cand * n
     return bound(ops, _bytes(Yp, X, radii, b) + 4 * C * n_cand)
 
 
@@ -2500,6 +3087,7 @@ def main():
         phase_done('phase 14')
 
         # phase 15: the split-field node scan and the other latent updates
+        large_fit_child = start_large_fit(dev)
         check_split_vs_resident(scans)
         split_checks = {}
         for k, (directed, mixture, per_chain) in enumerate(
@@ -2515,7 +3103,7 @@ def main():
         large_schemes = run_large_schemes(dev, large[LARGE_SLICES[0][0]])
         for k, o in large_schemes.items():
             slices[k] = (o['launches'], o['ms'])
-        more_fits = [large_fit(dev)]
+        more_fits = [large_fit_launches(large_fit_child)]
         launches, cc_parallel = scheme_phase(dev, networks, slices)
         more_fits.append(launches)
         for launches in more_fits:
@@ -2538,6 +3126,10 @@ def main():
         for k, v in ckpt_launches.items():
             fit_launches[k] = fit_launches.get(k, 0) + v
         phase_done('phase 17')
+
+        # phase 18: multi-device fits
+        row_rows, row_launches, node_sweeps = multi_device_phase(dev)
+        phase_done('phase 18')
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -2703,6 +3295,27 @@ def main():
                 'checkpoint_launches': ckpt_launches[name],
                 'mode': mode, 'slice': slice_at,
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
+        for name, (err, nums, mode, shape) in row_rows.items():
+            bound_ms, bound_by = nums['bound']
+            log('%s (%s) %s: kernel %.4f ms, %.4f ms a call in a CUDA graph '
+                'of 5, plain %.4f ms, bound %.6f ms (%s), %d dyads'
+                % (name, mode, shape, nums['ms'], nums['graph_ms'],
+                   nums['plain_ms'], bound_ms, bound_by, nums['dyads']))
+            kernels.append({
+                'name': name, 'route': 'cuda',
+                'source': pair_cu if name.startswith('pair') else dir_cu,
+                'replaces': loglik_py + (':25' if name.startswith('pair')
+                                         else ':219'),
+                'launches': row_launches[name], 'max_abs_err': err,
+                'ms': nums['ms'], 'plain_ms': nums['plain_ms'],
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'library_ms': None, 'graph_ms': nums['graph_ms'],
+                'mode': mode, 'shape': shape,
+                'slice': 'phase 18 node-sharded sweeps and fits'})
+        log('node-sharded sweeps at n = 8,192: ' + ', '.join(
+            '%s %.3f ms/sweep (%d accepts off the unsharded sweep, peak GB '
+            'by card %s)' % (k, o['ms'], o['flips'], o['peak_gb'])
+            for k, o in node_sweeps.items()))
         log('slice ms/sweep: ' + ', '.join(
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
         log('slices past n = 2048: ' + ', '.join(
@@ -2762,4 +3375,8 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

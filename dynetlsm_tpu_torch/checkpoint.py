@@ -15,6 +15,9 @@ Layout of a checkpoint directory (the JAX package's)::
     meta.json          {"n_done": int, "n_samples": int, "chunk": int,
                         "fingerprint": str}
     state.npz          the state's fields by name, and the generator state
+                       (on a mesh: the chain rows' states joined, and the
+                       state of every generator, the rows' and the node
+                       shards', in order)
     chunk_00000.npz    the traces of the first chunk, by name
     ...
 
@@ -32,8 +35,17 @@ import torch
 
 from .mcmc.states import state_from_numpy, state_to_numpy
 
-# the generator's bytes in state.npz (no state field has this name)
+# the generator's bytes in state.npz (no state field has this name);
+# further generators (a mesh's) as GENERATOR_k, k = 1, 2, ...
 GENERATOR = '__generator__'
+
+
+def _generator_key(k):
+    return GENERATOR if k == 0 else '__generator_%d__' % k
+
+
+def _generator_list(gen):
+    return list(gen) if isinstance(gen, (list, tuple)) else [gen]
 
 
 def _atomic_write(path, write_fn):
@@ -47,30 +59,51 @@ def _atomic_write(path, write_fn):
 
 def _state_arrays(state):
     """The state's fields as NumPy arrays keyed by name, ``None`` fields
-    left out, each in its own dtype (integers as int64)."""
+    left out, each in its own dtype (integers as int64); a mesh's list of
+    row states joined, row-split fields gathered."""
     return state_to_numpy(state, int_dtype=np.int64)
 
 
-def state_fingerprint(state, gen):
-    """Structural fingerprint of a state and its generator: each field's
-    name, shape and dtype, then the generator's device type and state
-    length.  Stored in meta.json, so a resume against another sampler
-    configuration (chains, model, dimensions, optional fields) or a
-    generator of another device type (whose stream differs) starts
+def state_fingerprint(state, gen, layout=(1, 1)):
+    """Structural fingerprint of a state and its generator(s): each
+    field's name, shape and dtype, then each generator's device type and
+    state length, and the mesh's ``layout`` (chain rows, node shards)
+    unless it is one device's (1, 1).  Stored in meta.json, so a resume
+    against another sampler configuration (chains, model, dimensions,
+    optional fields), a generator of another device type (whose stream
+    differs) or another mesh (whose shards draw other streams) starts
     fresh instead of splicing incompatible runs."""
     parts = ['%s:%s:%s' % (name, tuple(a.shape), a.dtype)
              for name, a in _state_arrays(state).items()]
-    parts.append('generator:%s:%d' % (gen.device.type,
-                                      gen.get_state().numel()))
+    for k, g in enumerate(_generator_list(gen)):
+        parts.append('%s:%s:%d' % (_generator_key(k).strip('_'),
+                                   g.device.type, g.get_state().numel()))
+    if tuple(layout) != (1, 1):
+        parts.append('mesh:%dx%d' % tuple(layout))
     return '|'.join(parts)
 
 
 def save_state(path, state, gen):
-    """Persist a state and its generator's state to ``path`` (.npz),
-    atomically."""
+    """Persist a state (a mesh's list of row states, joined) and its
+    generator's state (or each state of a list of generators) to ``path``
+    (.npz), atomically."""
     arrays = _state_arrays(state)
-    arrays[GENERATOR] = gen.get_state().numpy()
+    for k, g in enumerate(_generator_list(gen)):
+        arrays[_generator_key(k)] = g.get_state().numpy()
     _atomic_write(path, lambda f: np.savez(f, **arrays))
+
+
+def load_state_arrays(path):
+    """(the state's fields saved at ``path`` as NumPy arrays keyed by
+    name, the generators' states in order, uint8 tensors for
+    ``torch.Generator.set_state``)."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    gen_states = []
+    while _generator_key(len(gen_states)) in arrays:
+        gen_states.append(torch.from_numpy(
+            arrays.pop(_generator_key(len(gen_states)))))
+    return arrays, gen_states
 
 
 def load_state(path, device):
@@ -79,10 +112,8 @@ def load_state(path, device):
     ``None`` where it was not saved) and the generator's state (a uint8
     tensor for ``torch.Generator.set_state`` on a generator of the saving
     one's device type)."""
-    with np.load(path, allow_pickle=False) as data:
-        arrays = {k: data[k] for k in data.files}
-    gen_state = torch.from_numpy(arrays.pop(GENERATOR))
-    return state_from_numpy(arrays, device), gen_state
+    arrays, gen_states = load_state_arrays(path)
+    return state_from_numpy(arrays, device), gen_states[0]
 
 
 def save_traces_chunk(directory, index, traces):

@@ -20,10 +20,11 @@
 // rounded separately (-fmad=false); device-memory traffic is one read of
 // the packed uint8 adjacency per chain (L2-resident: 2.5 MB at T=10,
 // n=500) plus the positions and radii.  The inner loop as compiled for
-// d = 2 (CUDA 12.8, cuobjdump -sass, scripts/loglik_sass.py): 580, 954 and
-// 1345 instructions a pass of 4 dyads with 1, 2 and 3 candidates, so 145,
-// 238.5 and 336.25 a dyad, 3, 5 and 7 of them MUFU (one rsqrt, two ex2 per
-// candidate).
+// d = 2 (CUDA 12.8, cuobjdump -sass, scripts/loglik_sass.py; recounted
+// with the row-range mode beside it): 577, 954 and 1350 instructions a
+// pass of 4 dyads with 1, 2 and 3 candidates, so 144.25, 238.5 and 337.5 a
+// dyad (the row-range mode 146, 243.75 and 338), 3, 5 and 7 of them MUFU
+// (one rsqrt, two ex2 per candidate).
 //
 // Design (loglik_common.cuh has the shared parts): the pair kernel's, in
 // one launch.  A chain's upper-triangle tiles of all times form one work
@@ -42,6 +43,16 @@
 // The packed adjacency is one network for every chain, or one a chain
 // (missing-dyad resampling): chain c reads it at Yp + c * y_chain,
 // y_chain = T n n bytes or 0.
+//
+// Row-range mode (dir_loglik_rows_launch): the launch holds the packed rows
+// [row0, row0 + rows), (T, rows, n) (a chain stride of T rows n); a packed
+// row holds both directions of its dyads, so the dyads i in the rows,
+// j > i, are scored from it alone, with the whole X and radii, to float64
+// (loglik_common.cuh).  It serves the node-sharded fits (devices split the
+// network's rows: mcmc/nodes.py), in which the TPU package's GSPMD
+// partitions the dense path instead (dynetlsm_tpu/mcmc/sweeps.py:92-94,
+// cfg.spatial keeps it off Pallas); the whole network is its case
+// row0 = 0, rows = n.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,14 +71,14 @@ constexpr int kUvFloats = 4 * NC * kTile;
 // radii_c (NC, n) and b_c (NC, 2) of one chain.
 template <int NC>
 __device__ __forceinline__ void stage_uv(float* uv, const float* radii_c,
-                                         const float* b_c, int ti, int tj,
-                                         int n) {
+                                         const float* b_c, int row0, int ti,
+                                         int tj, int n) {
   for (int e = threadIdx.x; e < 2 * NC * kTile; e += kThreads) {
     const int side = e / (NC * kTile);
     const int r = e - side * NC * kTile;
     const int k = r / kTile;
     const int local = r - k * kTile;
-    const int node = (side ? tj : ti) * kTile + local;
+    const int node = row0 + (side ? tj : ti) * kTile + local;
     const float rad = node < n ? radii_c[(size_t)k * n + node] : 1.0f;
     float* at = uv + (side * 2 * NC + k) * kTile + local;
     at[0] = b_c[2 * k] / rad;
@@ -79,11 +90,14 @@ __device__ __forceinline__ void stage_uv(float* uv, const float* radii_c,
 // every live dyad at candidate k.
 template <int NC, int D>
 __device__ __forceinline__ void dir_tile(const float* buf,
-                                         const uint8_t* p_t, int ti, int tj,
-                                         int n, int d, bool words,
-                                         const float* B, double* s) {
+                                         const uint8_t* p_t, Rows rows,
+                                         int ti, int tj, int n, int d,
+                                         bool words, const float* B,
+                                         double* s) {
+  const int row0 = rows.row0;
+  const int row_end = row0 + rows.rows;
   const int c4 = threadIdx.x % kColGroups;
-  const int j0 = tj * kTile + kCols * c4;
+  const int j0 = row0 + tj * kTile + kCols * c4;
   if (j0 >= n) return;
   const float* uv = buf + 2 * kTile * d;
   const float* ui = uv;
@@ -92,10 +106,11 @@ __device__ __forceinline__ void dir_tile(const float* buf,
   const float4* vj = reinterpret_cast<const float4*>(uv + 3 * NC * kTile);
   for (int p = 0; p < kPasses; ++p) {
     const int il = threadIdx.x / kColGroups + p * kRowsPerPass;
-    const int i = ti * kTile + il;
+    const int i = row0 + ti * kTile + il;
     // no column of the thread's lies right of the diagonal, or no row
-    if (i >= j0 + kCols - 1 || i >= n) continue;
-    const uint32_t w = load_y4(p_t + (size_t)i * n + j0, n - j0, words);
+    if (i >= j0 + kCols - 1 || i >= row_end) continue;
+    const uint32_t w = load_y4(p_t + (size_t)(i - row0) * n + j0, n - j0,
+                               words);
     float d2[kCols];
     squared_distances<D>(buf, d, il, c4, d2);
     float dist[kCols];
@@ -129,14 +144,17 @@ __device__ __forceinline__ void dir_tile(const float* buf,
   }
 }
 
-// D: the latent dimension it is compiled for (2), or 0 for any d.
-template <int NC, int D>
+// D: the latent dimension it is compiled for (2), or 0 for any d; R: the
+// row-range mode (without it the rows are [0, n), which the compiler
+// folds into the whole network's code).
+template <int NC, int D, bool R>
 __global__ void __launch_bounds__(kThreads)
 dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
                   long long y_chain, const float* __restrict__ radii,
                   const float* __restrict__ b, double* __restrict__ partials,
                   unsigned* __restrict__ tickets, float* __restrict__ out,
-                  int T, int n, int d, int G, int words) {
+                  double* __restrict__ out64, int T, int n, Rows rows, int d,
+                  int G, int words) {
   extern __shared__ __align__(16) float smem[];
   const int blk = blockIdx.x;
   const int c = blockIdx.y;
@@ -145,6 +163,7 @@ dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
   const float* radii_c = radii + (size_t)c * NC * n;
   const float* b_c = b + (size_t)c * NC * 2;
   const int per_buf = 2 * kTile * d + kUvFloats<NC>;
+  const Rows range = R ? rows : Rows{0, n};
   float B[NC];
   double s[NC];
   for (int k = 0; k < NC; ++k) {
@@ -153,17 +172,20 @@ dir_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Yp,
   }
 
   walk_tiles(
-      T, n, blk, G,
+      T, n, range, blk, G,
       [&](int which, const TileWalk& w) {
         float* buf = smem + which * per_buf;
-        stage_positions<D>(buf, x_c + (size_t)w.t * n * d, w.ti, w.tj, n, d);
-        stage_uv<NC>(buf + 2 * kTile * d, radii_c, b_c, w.ti, w.tj, n);
+        stage_positions<D>(buf, x_c + (size_t)w.t * n * d, range.row0, w.ti,
+                           w.tj, n, d);
+        stage_uv<NC>(buf + 2 * kTile * d, radii_c, b_c, range.row0, w.ti,
+                     w.tj, n);
       },
       [&](int which, const TileWalk& w) {
-        dir_tile<NC, D>(smem + which * per_buf, y_c + (size_t)w.t * n * n,
-                        w.ti, w.tj, n, d, words != 0, B, s);
+        dir_tile<NC, D>(smem + which * per_buf,
+                        y_c + (size_t)w.t * range.rows * n, range, w.ti,
+                        w.tj, n, d, words != 0, B, s);
       });
-  block_finish<NC>(s, partials, tickets, out, c, blk, G);
+  block_finish<NC>(s, partials, tickets, out, R ? out64 : nullptr, c, blk, G);
 }
 
 }  // namespace
@@ -175,25 +197,33 @@ namespace {
 template <int NC, int D>
 int launch_d(const float* X, const uint8_t* Yp, long long y_chain,
              const float* radii, const float* b, double* partials,
-             unsigned* tickets, float* out, int C, int T, int n, int d, int G,
-             cudaStream_t s) {
+             unsigned* tickets, float* out, double* out64, int C, int T,
+             int n, Rows rows, int d, int G, cudaStream_t s) {
   const size_t smem = loglik::smem_bytes(d, kUvFloats<NC>);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int words = loglik::word_rows(Yp, n, y_chain);
-  dir_loglik_kernel<NC, D><<<dim3(G, C), kThreads, smem, s>>>(
-      X, Yp, y_chain, radii, b, partials, tickets, out, T, n, d, G, words);
+  const int words = loglik::word_rows(Yp, n, y_chain, rows.row0);
+  const dim3 grid(G, C);
+  if (out64 != nullptr) {
+    dir_loglik_kernel<NC, D, true><<<grid, kThreads, smem, s>>>(
+        X, Yp, y_chain, radii, b, partials, tickets, out, out64, T, n, rows,
+        d, G, words);
+  } else {
+    dir_loglik_kernel<NC, D, false><<<grid, kThreads, smem, s>>>(
+        X, Yp, y_chain, radii, b, partials, tickets, out, out64, T, n, rows,
+        d, G, words);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int NC>
 int launch(const float* X, const uint8_t* Yp, long long y_chain,
            const float* radii, const float* b, double* partials,
-           unsigned* tickets, float* out, int C, int T, int n, int d, int G,
-           cudaStream_t s) {
+           unsigned* tickets, float* out, double* out64, int C, int T, int n,
+           Rows rows, int d, int G, cudaStream_t s) {
   return d == 2 ? launch_d<NC, 2>(X, Yp, y_chain, radii, b, partials, tickets,
-                                  out, C, T, n, d, G, s)
+                                  out, out64, C, T, n, rows, d, G, s)
                 : launch_d<NC, 0>(X, Yp, y_chain, radii, b, partials, tickets,
-                                  out, C, T, n, d, G, s);
+                                  out, out64, C, T, n, rows, d, G, s);
 }
 
 template <int NC>
@@ -202,10 +232,37 @@ int blocks_per_sm(int d) {
   const size_t smem = loglik::smem_bytes(d, kUvFloats<NC>);
   const cudaError_t err =
       d == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &blocks, dir_loglik_kernel<NC, 2>, kThreads, smem)
+                   &blocks, dir_loglik_kernel<NC, 2, false>, kThreads, smem)
              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &blocks, dir_loglik_kernel<NC, 0>, kThreads, smem);
+                   &blocks, dir_loglik_kernel<NC, 0, false>, kThreads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+int launch_any(const float* X, const uint8_t* Yp, const float* radii,
+               const float* b, double* partials, unsigned* tickets,
+               float* out, double* out64, int C, int n_cand, int T, int n,
+               Rows rows, int d, int G, long long y_chain, void* stream) {
+  const long long items = (long long)T * rows.per_t(n);
+  if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
+      rows.row0 < 0 || rows.rows < 1 || rows.row0 + rows.rows > n ||
+      items > INT32_MAX ||
+      (y_chain != 0 && y_chain != (long long)T * rows.rows * n)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_cand) {
+    case 1:
+      return launch<1>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                       out64, C, T, n, rows, d, G, s);
+    case 2:
+      return launch<2>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                       out64, C, T, n, rows, d, G, s);
+    case 3:
+      return launch<3>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                       out64, C, T, n, rows, d, G, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -240,24 +297,22 @@ extern "C" int dir_loglik_launch(const float* X, const uint8_t* Yp,
                                  float* out, int C, int n_cand, int T, int n,
                                  int d, int G, long long y_chain,
                                  void* stream) {
-  const int nt = (n + kTile - 1) / kTile;
-  const long long items = (long long)T * nt * (nt + 1) / 2;
-  if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
-      items > INT32_MAX || (y_chain != 0 && y_chain != (long long)T * n * n)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (n_cand) {
-    case 1:
-      return launch<1>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
-                       n, d, G, s);
-    case 2:
-      return launch<2>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
-                       n, d, G, s);
-    case 3:
-      return launch<3>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T,
-                       n, d, G, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_any(X, Yp, radii, b, partials, tickets, out, nullptr, C,
+                    n_cand, T, n, Rows{0, n}, d, G, y_chain, stream);
+}
+
+// The row-range mode: Yp (T, rows, n), or (C, T, rows, n) with y_chain =
+// T rows n, the packed rows [row0, row0 + rows); X (C, T, n, d) and radii
+// (C, n_cand, n) whole; out64 (C, n_cand) float64, the sums of both
+// directions of the dyads i in the rows, j > i.  G <= T * tiles of the
+// rows' trapezoid.  The rest as dir_loglik_launch.
+extern "C" int dir_loglik_rows_launch(const float* X, const uint8_t* Yp,
+                                      const float* radii, const float* b,
+                                      double* partials, unsigned* tickets,
+                                      double* out64, int C, int n_cand,
+                                      int T, int n, int row0, int rows,
+                                      int d, int G, long long y_chain,
+                                      void* stream) {
+  return launch_any(X, Yp, radii, b, partials, tickets, nullptr, out64, C,
+                    n_cand, T, n, Rows{row0, rows}, d, G, y_chain, stream);
 }

@@ -14,6 +14,16 @@
 // bytes at a time; dyads off the upper triangle or past n are masked by
 // index.  Every thread adds its dyads in a fixed order in float64, so a
 // rerun on the same card gives the same bits.
+//
+// Row-range mode (node sharding: one device holds rows [row0, row0 + rows)
+// of the network, (T, rows, n), and sums the dyads i in its rows, j > i):
+// tiles start at row0 on both axes, tile_i over the held rows and tile_j
+// over the columns row0 .. n - 1, so a time's list is the trapezoid
+// tile_j >= tile_i of an mt x ct grid (mt = ceil(rows / kTile) <= ct =
+// ceil((n - row0) / kTile)); the last row tile is masked at row0 + rows.
+// The whole network is the case row0 = 0, rows = n (mt = ct): the same
+// list, the same order, the same bits.  The shares of the shards cover
+// every dyad once.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,24 +44,41 @@ __device__ __forceinline__ float softplus(float eta) {
   return m + log1pf(expf(-fabsf(eta)));
 }
 
-// One item of a chain's work list: time t and the tile (ti, tj), tj >= ti.
+// The rows a launch holds: [row0, row0 + rows) of an n-node network.
+struct Rows {
+  int row0, rows;
+  // tiles a time: row tiles mt, column tiles ct, the trapezoid's per_t
+  __host__ __device__ __forceinline__ int mt() const {
+    return (rows + kTile - 1) / kTile;
+  }
+  __host__ __device__ __forceinline__ int ct(int n) const {
+    return (n - row0 + kTile - 1) / kTile;
+  }
+  __host__ __device__ __forceinline__ long long per_t(int n) const {
+    const long long m = mt();
+    return m * ct(n) - m * (m - 1) / 2;
+  }
+};
+
+// One item of a chain's work list: time t and the tile (ti, tj), tj >= ti,
+// both counted from row0.
 struct TileWalk {
   int t, ti, tj;
-  // item = t * per_t + m, m counting the tiles of the upper triangle row
-  // by row; nt tiles a side, per_t = nt (nt + 1) / 2.
-  __device__ __forceinline__ TileWalk(int item, int per_t, int nt) {
+  // item = t * per_t + m, m counting the tiles of the trapezoid row by
+  // row: row tile ti has ct - ti of them.
+  __device__ __forceinline__ TileWalk(int item, int per_t, int ct) {
     t = item / per_t;
     int m = item % per_t;
     ti = 0;
-    while (m >= nt - ti) {
-      m -= nt - ti;
+    while (m >= ct - ti) {
+      m -= ct - ti;
       ++ti;
     }
     tj = ti + m;
   }
-  __device__ __forceinline__ void advance(int nt) {
-    if (++tj == nt) {
-      if (++ti == nt) {
+  __device__ __forceinline__ void advance(int ct, int mt) {
+    if (++tj == ct) {
+      if (++ti == mt) {
         ti = 0;
         ++t;
       }
@@ -66,20 +93,21 @@ struct TileWalk {
 // staged while this one is scored, so the block meets once per tile.
 // Every thread of the block must call it.
 template <class Stage, class Work>
-__device__ __forceinline__ void walk_tiles(int T, int n, int blk, int G,
-                                           Stage stage, Work work) {
-  const int nt = (n + kTile - 1) / kTile;
-  const int per_t = nt * (nt + 1) / 2;
+__device__ __forceinline__ void walk_tiles(int T, int n, Rows rows, int blk,
+                                           int G, Stage stage, Work work) {
+  const int ct = rows.ct(n);
+  const int mt = rows.mt();
+  const int per_t = (int)rows.per_t(n);
   const long long N = (long long)T * per_t;
   int item = (int)(N * blk / G);
   const int end = (int)(N * (blk + 1) / G);
   if (item >= end) return;
-  TileWalk w(item, per_t, nt);
+  TileWalk w(item, per_t, ct);
   stage(item & 1, w);
   for (; item < end; ++item) {
     __syncthreads();
     TileWalk next = w;
-    next.advance(nt);
+    next.advance(ct, mt);
     if (item + 1 < end) stage((item + 1) & 1, next);
     work(item & 1, w);
     w = next;
@@ -87,14 +115,14 @@ __device__ __forceinline__ void walk_tiles(int T, int n, int blk, int G,
 }
 
 // Positions of the tile's kTile row nodes and kTile column nodes into
-// buf[side][q][node], side 0 the rows (ti) and 1 the columns (tj); nodes
-// past n read as 0.  x_t: (n, d) of one chain and time.  D is the latent
-// dimension where the kernel was compiled for it (2), else 0 and `d_any`
-// holds it.
+// buf[side][q][node], side 0 the rows (ti) and 1 the columns (tj), both
+// counted from row0; nodes past n read as 0.  x_t: (n, d) of one chain and
+// time.  D is the latent dimension where the kernel was compiled for it
+// (2), else 0 and `d_any` holds it.
 template <int D>
 __device__ __forceinline__ void stage_positions(float* buf, const float* x_t,
-                                                int ti, int tj, int n,
-                                                int d_any) {
+                                                int row0, int ti, int tj,
+                                                int n, int d_any) {
   const int d = D ? D : d_any;
   const int per_side = kTile * d;
   for (int e = threadIdx.x; e < 2 * per_side; e += kThreads) {
@@ -102,7 +130,7 @@ __device__ __forceinline__ void stage_positions(float* buf, const float* x_t,
     const int r = e - side * per_side;
     const int local = r / d;
     const int q = r - local * d;
-    const int node = (side ? tj : ti) * kTile + local;
+    const int node = row0 + (side ? tj : ti) * kTile + local;
     buf[side * per_side + q * kTile + local] =
         node < n ? x_t[(size_t)node * d + q] : 0.0f;
   }
@@ -143,10 +171,12 @@ __device__ __forceinline__ uint32_t load_y4(const uint8_t* p, int left,
 }
 
 // Whether the launch reads the adjacency as 32-bit words: every row of
-// every chain's network starts on a 4-byte boundary (y_chain: the chain
-// stride in bytes, 0 for one network shared by the chains).
-inline bool word_rows(const uint8_t* Y, int n, long long y_chain) {
-  return n % 4 == 0 && y_chain % 4 == 0 && (uintptr_t)Y % 4 == 0;
+// every chain's network starts on a 4-byte boundary, and so does every
+// thread's first column, row0 + a multiple of 4 (y_chain: the chain stride
+// in bytes, 0 for one network shared by the chains).
+inline bool word_rows(const uint8_t* Y, int n, long long y_chain, int row0) {
+  return n % 4 == 0 && row0 % 4 == 0 && y_chain % 4 == 0 &&
+         (uintptr_t)Y % 4 == 0;
 }
 
 // Lane 0 gets the warp's sum, lanes added in a fixed tree (the shuffle
@@ -159,15 +189,18 @@ __device__ __forceinline__ double warp_sum(double v) {
 // The end of a block: its threads' sums s[NC] become one partial per
 // candidate (warps by shuffle, then one meeting in shared memory), and the
 // chain's last block to arrive adds the chain's G partials in index order
-// and writes out[c, :] as float32.  Which block is last changes nothing:
-// the order of the sum is the blocks' index order.  The ticket counter of
-// the chain goes back to 0, so the next launch needs no reset.  With G = 1
-// the block writes out directly.  Every thread of the block must call it.
+// and writes out[c, :] as float32, or when out64 is given the float64 sum
+// to out64[c, :] (a row range's share, which the shards' sum rounds once).
+// Which block is last changes nothing: the order of the sum is the blocks'
+// index order.  The ticket counter of the chain goes back to 0, so the
+// next launch needs no reset.  With G = 1 the block writes out directly.
+// Every thread of the block must call it.
 template <int NC>
 __device__ __forceinline__ void block_finish(const double* s,
                                              double* partials,
                                              unsigned* tickets, float* out,
-                                             int c, int blk, int G) {
+                                             double* out64, int c, int blk,
+                                             int G) {
   __shared__ double red[NC][kWarps];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -184,7 +217,11 @@ __device__ __forceinline__ void block_finish(const double* s,
       double tot = red[k][0];
       for (int w = 1; w < kWarps; ++w) tot += red[k][w];
       if (G == 1) {
-        out[c * NC + k] = (float)tot;
+        if (out64) {
+          out64[c * NC + k] = tot;
+        } else {
+          out[c * NC + k] = (float)tot;
+        }
       } else {
         p[blk * NC + k] = tot;
       }
@@ -202,7 +239,13 @@ __device__ __forceinline__ void block_finish(const double* s,
     double v = 0.0;
     for (int m = lane; m < G; m += 32) v += __ldcg(&p[m * NC + k]);
     v = warp_sum(v);
-    if (lane == 0) out[c * NC + k] = (float)v;
+    if (lane == 0) {
+      if (out64) {
+        out64[c * NC + k] = v;
+      } else {
+        out[c * NC + k] = (float)v;
+      }
+    }
   }
   if (lane == 0) tickets[c] = 0u;
 }

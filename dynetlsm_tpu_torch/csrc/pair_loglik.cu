@@ -15,9 +15,10 @@
 // every multiply and add rounded separately (-fmad=false); device-memory
 // traffic is one read of the uint8 adjacency per chain (L2-resident:
 // 2.5 MB at T=10, n=500) plus the positions.  The inner loop as compiled
-// for d = 2 (CUDA 12.8, cuobjdump -sass, scripts/loglik_sass.py): 329
-// instructions a pass of 4 dyads with one intercept, 533 with two, so
-// 82.25 and 133.25 a dyad, 2 and 3 of them MUFU (one rsqrt, one ex2 per
+// for d = 2 (CUDA 12.8, cuobjdump -sass, scripts/loglik_sass.py; recounted
+// with the row-range mode beside it): 331 instructions a pass of 4 dyads
+// with one intercept, 536 with two, so 82.75 and 134 a dyad (the row-range
+// mode 83.75 and 139.75), 2 and 3 of them MUFU (one rsqrt, one ex2 per
 // intercept); each further softplus costs about 51: expf about 10,
 // log1pf about 30, the float64 add with its conversion and mask about 6.
 //
@@ -38,6 +39,15 @@
 // The adjacency is one network for every chain, or one a chain (missing-
 // dyad resampling): chain c reads it at Y + c * y_chain, y_chain = T n n
 // bytes or 0.
+//
+// Row-range mode (pair_loglik_rows_launch): the launch holds rows
+// [row0, row0 + rows) of the network, (T, rows, n) (a chain stride of
+// T rows n), reads the whole X and sums the dyads i in its rows, j > i, to
+// float64 (loglik_common.cuh).  It serves the node-sharded fits
+// (devices split the network's rows: mcmc/nodes.py), in which the TPU
+// package's GSPMD partitions the dense path instead
+// (dynetlsm_tpu/mcmc/sweeps.py:92-94, cfg.spatial keeps it off Pallas);
+// the whole network is its case row0 = 0, rows = n.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -51,18 +61,22 @@ using namespace loglik;
 // intercept b[k].
 template <int NB, int D>
 __device__ __forceinline__ void pair_tile(const float* buf,
-                                          const uint8_t* y_t, int ti, int tj,
-                                          int n, int d, bool words,
-                                          const float* b, double* s) {
+                                          const uint8_t* y_t, Rows rows,
+                                          int ti, int tj, int n, int d,
+                                          bool words, const float* b,
+                                          double* s) {
+  const int row0 = rows.row0;
+  const int row_end = row0 + rows.rows;
   const int c4 = threadIdx.x % kColGroups;
-  const int j0 = tj * kTile + kCols * c4;
+  const int j0 = row0 + tj * kTile + kCols * c4;
   if (j0 >= n) return;
   for (int p = 0; p < kPasses; ++p) {
     const int il = threadIdx.x / kColGroups + p * kRowsPerPass;
-    const int i = ti * kTile + il;
+    const int i = row0 + ti * kTile + il;
     // no column of the thread's lies right of the diagonal, or no row
-    if (i >= j0 + kCols - 1 || i >= n) continue;
-    const uint32_t w = load_y4(y_t + (size_t)i * n + j0, n - j0, words);
+    if (i >= j0 + kCols - 1 || i >= row_end) continue;
+    const uint32_t w = load_y4(y_t + (size_t)(i - row0) * n + j0, n - j0,
+                               words);
     float d2[kCols];
     squared_distances<D>(buf, d, il, c4, d2);
 #pragma unroll
@@ -81,21 +95,25 @@ __device__ __forceinline__ void pair_tile(const float* buf,
   }
 }
 
-// D: the latent dimension it is compiled for (2), or 0 for any d.
-template <int NB, int D>
+// D: the latent dimension it is compiled for (2), or 0 for any d; R: the
+// row-range mode (without it the rows are [0, n), which the compiler
+// folds into the whole network's code).
+template <int NB, int D, bool R>
 __global__ void __launch_bounds__(kThreads)
 pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
                    long long y_chain, const float* __restrict__ b_cur,
                    const float* __restrict__ b_prop,
                    double* __restrict__ partials,
                    unsigned* __restrict__ tickets, float* __restrict__ out,
-                   int T, int n, int d, int G, int words) {
+                   double* __restrict__ out64, int T, int n, Rows rows,
+                   int d, int G, int words) {
   extern __shared__ __align__(16) float smem[];
   const int blk = blockIdx.x;
   const int c = blockIdx.y;
   const float* x_c = X + (size_t)c * T * n * d;
   const uint8_t* y_c = Y + (size_t)c * y_chain;
   const int per_buf = 2 * kTile * d;
+  const Rows range = R ? rows : Rows{0, n};
   float b[NB];
   double s[NB];
   b[0] = b_cur[c];
@@ -103,16 +121,17 @@ pair_loglik_kernel(const float* __restrict__ X, const uint8_t* __restrict__ Y,
   for (int k = 0; k < NB; ++k) s[k] = 0.0;
 
   walk_tiles(
-      T, n, blk, G,
+      T, n, range, blk, G,
       [&](int which, const TileWalk& w) {
         stage_positions<D>(smem + which * per_buf, x_c + (size_t)w.t * n * d,
-                        w.ti, w.tj, n, d);
+                           range.row0, w.ti, w.tj, n, d);
       },
       [&](int which, const TileWalk& w) {
-        pair_tile<NB, D>(smem + which * per_buf, y_c + (size_t)w.t * n * n,
-                         w.ti, w.tj, n, d, words != 0, b, s);
+        pair_tile<NB, D>(smem + which * per_buf,
+                         y_c + (size_t)w.t * range.rows * n, range, w.ti,
+                         w.tj, n, d, words != 0, b, s);
       });
-  block_finish<NB>(s, partials, tickets, out, c, blk, G);
+  block_finish<NB>(s, partials, tickets, out, R ? out64 : nullptr, c, blk, G);
 }
 
 }  // namespace
@@ -124,13 +143,20 @@ namespace {
 template <int NB, int D>
 int launch(const float* X, const uint8_t* Y, long long y_chain,
            const float* b_cur, const float* b_prop, double* partials,
-           unsigned* tickets, float* out, int C, int T, int n, int d, int G,
-           cudaStream_t s) {
-  const int words = loglik::word_rows(Y, n, y_chain);
-  pair_loglik_kernel<NB, D><<<dim3(G, C), kThreads,
-                              loglik::smem_bytes(d, 0), s>>>(
-      X, Y, y_chain, b_cur, b_prop, partials, tickets, out, T, n, d, G,
-      words);
+           unsigned* tickets, float* out, double* out64, int C, int T, int n,
+           Rows rows, int d, int G, cudaStream_t s) {
+  const int words = loglik::word_rows(Y, n, y_chain, rows.row0);
+  const dim3 grid(G, C);
+  const size_t smem = loglik::smem_bytes(d, 0);
+  if (out64 != nullptr) {
+    pair_loglik_kernel<NB, D, true><<<grid, kThreads, smem, s>>>(
+        X, Y, y_chain, b_cur, b_prop, partials, tickets, out, out64, T, n,
+        rows, d, G, words);
+  } else {
+    pair_loglik_kernel<NB, D, false><<<grid, kThreads, smem, s>>>(
+        X, Y, y_chain, b_cur, b_prop, partials, tickets, out, out64, T, n,
+        rows, d, G, words);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -138,9 +164,33 @@ template <int NB, int D>
 int blocks_per_sm(int d) {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, pair_loglik_kernel<NB, D>, kThreads,
+      &blocks, pair_loglik_kernel<NB, D, false>, kThreads,
       loglik::smem_bytes(d, 0));
   return err == cudaSuccess ? blocks : -(int)err;
+}
+
+int launch_any(const float* X, const uint8_t* Y, const float* b_cur,
+               const float* b_prop, double* partials, unsigned* tickets,
+               float* out, double* out64, int C, int T, int n, Rows rows,
+               int d, int G, long long y_chain, void* stream) {
+  const long long items = (long long)T * rows.per_t(n);
+  if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
+      rows.row0 < 0 || rows.rows < 1 || rows.row0 + rows.rows > n ||
+      items > INT32_MAX || loglik::smem_bytes(d, 0) > 48 * 1024 ||
+      (y_chain != 0 && y_chain != (long long)T * rows.rows * n)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (b_prop == nullptr) {
+    return d == 2 ? launch<1, 2>(X, Y, y_chain, b_cur, b_cur, partials,
+                                 tickets, out, out64, C, T, n, rows, d, G, s)
+                  : launch<1, 0>(X, Y, y_chain, b_cur, b_cur, partials,
+                                 tickets, out, out64, C, T, n, rows, d, G, s);
+  }
+  return d == 2 ? launch<2, 2>(X, Y, y_chain, b_cur, b_prop, partials,
+                               tickets, out, out64, C, T, n, rows, d, G, s)
+                : launch<2, 0>(X, Y, y_chain, b_cur, b_prop, partials,
+                               tickets, out, out64, C, T, n, rows, d, G, s);
 }
 
 }  // namespace
@@ -168,22 +218,22 @@ extern "C" int pair_loglik_launch(const float* X, const uint8_t* Y,
                                   double* partials, unsigned* tickets,
                                   float* out, int C, int T, int n, int d,
                                   int G, long long y_chain, void* stream) {
-  const int nt = (n + kTile - 1) / kTile;
-  const long long items = (long long)T * nt * (nt + 1) / 2;
-  if (C < 1 || C > 65535 || T < 1 || n < 1 || d < 1 || G < 1 || G > items ||
-      items > INT32_MAX || loglik::smem_bytes(d, 0) > 48 * 1024 ||
-      (y_chain != 0 && y_chain != (long long)T * n * n)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (b_prop == nullptr) {
-    return d == 2 ? launch<1, 2>(X, Y, y_chain, b_cur, b_cur, partials,
-                                 tickets, out, C, T, n, d, G, s)
-                  : launch<1, 0>(X, Y, y_chain, b_cur, b_cur, partials,
-                                 tickets, out, C, T, n, d, G, s);
-  }
-  return d == 2 ? launch<2, 2>(X, Y, y_chain, b_cur, b_prop, partials,
-                               tickets, out, C, T, n, d, G, s)
-                : launch<2, 0>(X, Y, y_chain, b_cur, b_prop, partials,
-                               tickets, out, C, T, n, d, G, s);
+  return launch_any(X, Y, b_cur, b_prop, partials, tickets, out, nullptr, C,
+                    T, n, Rows{0, n}, d, G, y_chain, stream);
+}
+
+// The row-range mode: Y (T, rows, n), or (C, T, rows, n) with y_chain =
+// T rows n, the rows [row0, row0 + rows) of the network; X the whole
+// (C, T, n, d); out64 (C, n_cand) float64, the sums of the dyads i in the
+// rows, j > i.  G <= T * tiles of the rows' trapezoid.  The rest as
+// pair_loglik_launch.
+extern "C" int pair_loglik_rows_launch(const float* X, const uint8_t* Y,
+                                       const float* b_cur,
+                                       const float* b_prop, double* partials,
+                                       unsigned* tickets, double* out64,
+                                       int C, int T, int n, int row0,
+                                       int rows, int d, int G,
+                                       long long y_chain, void* stream) {
+  return launch_any(X, Y, b_cur, b_prop, partials, tickets, nullptr, out64,
+                    C, T, n, Rows{row0, rows}, d, G, y_chain, stream);
 }

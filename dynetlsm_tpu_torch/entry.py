@@ -3,6 +3,9 @@
 
 * :func:`entry` — one HDP-LPCM Gibbs sweep on a tiny random problem, with
   its arguments.
+* :func:`dryrun_multichip` — that sweep on a ``chains`` mesh of n devices,
+  then on a 2-D ``('chains', 'nodes')`` mesh (``__graft_entry__``'s
+  multi-chip check).
 * :func:`build_state_and_sweep` — a replicated chain state and the sweep
   of the sticky HDP-LPCM, the finite LPCM or the dynamic LSM for a dense
   undirected or directed network, from random positions, means and
@@ -16,8 +19,10 @@
   rows), from Y or, with no dense network at all, from padded edge lists
   and the network's shape.
 
-Both run on the card unless the caller passes ``device='cpu'``; without a
-CUDA device they raise (``config.resolve_device``).
+They run on the card unless the caller passes ``device='cpu'``; without a
+CUDA device they raise (``config.resolve_device``).  ``build_state_and_sweep``
+takes ``node_devices`` to split the network's rows over devices
+(``mcmc/nodes.py``).
 """
 import numpy as np
 import torch
@@ -25,7 +30,9 @@ import torch
 from .config import resolve_device
 from .math.init import (
     generalized_mds, initialize_radii, longitudinal_kmeans)
-from .mcmc.driver import replicate_state
+from .mcmc.driver import (
+    all_devices, chain_mesh, replicate_state, shard_state, spatial_mesh)
+from .mcmc.nodes import derive_seed
 from .mcmc.sweeps import (
     SweepConfig, _lsm_logp, make_hdp_sweep, make_lpcm_sweep, make_lsm_sweep)
 from .mcmc.tempering import make_pt_step, temper_ladder
@@ -33,6 +40,7 @@ from .models.base import (
     case_control_static, controls_of, impute_missing, init_cc_dict,
     validate_network)
 from .ops.case_control import build_edge_lists, max_degree_bound
+from .ops.shards import RowShards
 
 # the estimators' hyper-prior shapes at std 4 (mixture_base.py:77-88)
 _HYPER = dict(a0=36.0, b0=40.0, c0=5.0, d0=2.0)
@@ -58,18 +66,34 @@ def _hdp_fields(weights0, beta0):
             'alpha_init': 1.0, 'alpha': 1.0, 'kappa': 4.0}
 
 
-def _tiny_problem(device, n_chains=1, T=3, n=18, K=5, d=2, seed=0):
+def _tiny_problem(device, n_chains=1, T=3, n=18, K=5, d=2, seed=0,
+                  node_devices=None):
+    """(sweep, state, gen) of the HDP-LPCM on a random network; with
+    ``node_devices`` the sweep ('parallel') splits the network's rows over
+    them and resamples a few missing dyads, so the state's network is
+    row-split too (the state stays on ``device``, the chains whole)."""
     rng = np.random.RandomState(seed)
     Y = rng.binomial(1, 0.3, size=(T, n, n)).astype(np.float32)
     Y = np.triu(Y, 1)
     Y = Y + Y.transpose(0, 2, 1)
     z0 = rng.randint(0, K, size=(T, n))
     weights0 = np.full((T, K, K), 1.0 / K)
-    cfg = SweepConfig(tune=100, tune_interval=100, n_components=K, **_HYPER)
-    sweep = make_hdp_sweep(Y, np.zeros(1, np.float32), cfg, device=device)
+    miss = None
+    if node_devices is not None:
+        miss = np.triu(rng.rand(T, n, n) < 0.05, 1)
+        miss |= np.swapaxes(miss, 1, 2)
+    cfg = SweepConfig(tune=100, tune_interval=100, n_components=K,
+                      latent_update='exact' if miss is None else 'parallel',
+                      sample_missing=miss is not None, **_HYPER)
+    sweep = make_hdp_sweep(None if miss is not None else Y,
+                           np.zeros(1, np.float32), cfg, device=device,
+                           miss_mask=miss, node_devices=node_devices,
+                           node_seed=seed)
     s0 = _single_state(T, n, rng.randn(T, n, d))
     s0.update(_mixture_fields(rng.randn(K, d), np.ones(K), z0),
               **_hdp_fields(weights0, np.full(K, 1.0 / K)))
+    if miss is not None:
+        s0['Y'] = Y
     state = replicate_state(s0, n_chains, device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return sweep, state, gen
@@ -80,6 +104,50 @@ def entry(device='cuda'):
     on ``device`` (the card by default)."""
     sweep, state, gen = _tiny_problem(resolve_device(device))
     return sweep, (state, gen)
+
+
+def dryrun_multichip(n_devices, device='cuda'):
+    """The multi-device check of ``__graft_entry__.dryrun_multichip``: one
+    HDP-LPCM sweep of 2 n_devices chains on a ``chains`` mesh of
+    ``n_devices`` shards, each on its device with its own sweep and
+    generator; then, with n_devices >= 2, one 'parallel' sweep of 4 chains
+    on a 2 x n_devices/2 ``('chains', 'nodes')`` mesh (8 nodes a node
+    shard, a few missing dyads resampled).  Asserts what JAX's asserts:
+    every chain's sweep count is 1, its logp finite, and the layout kept
+    (each row's chains on its device, the row-split network on its
+    row's devices).  The mesh takes the devices of ``device``'s type in
+    turn, repeating them when there are fewer than ``n_devices`` (one card,
+    or the CPU)."""
+    dev = resolve_device(device)
+    avail = all_devices(dev.type)
+    devices = [avail[k % len(avail)] for k in range(n_devices)]
+
+    def step(mesh, **problem):
+        rows = mesh.rows
+        sweeps = [_tiny_problem(devs[0], node_devices=(
+            devs if len(devs) > 1 else None), **problem)[0]
+            for devs in rows]
+        state = shard_state(_tiny_problem(
+            'cpu', node_devices=['cpu'] * len(rows[0])
+            if len(rows[0]) > 1 else None, **problem)[1], mesh)
+        gens = [torch.Generator(device=devs[0]).manual_seed(
+            derive_seed(0, r)) for r, devs in enumerate(rows)]
+        out = [sw(s, g) for sw, s, g in zip(sweeps, state, gens)]
+        for devs, s in zip(rows, out):
+            assert s.X.device == devs[0], (s.X.device, devs)
+            assert s.X.shape[0] == problem['n_chains'] // len(rows)
+            it = s.it.cpu().numpy()
+            assert (it == 1).all(), it
+            assert np.isfinite(s.logp.cpu().numpy()).all()
+            if len(devs) > 1:
+                assert isinstance(s.Y, RowShards) and s.Y.devices == devs
+        return out
+
+    step(chain_mesh(devices), n_chains=2 * n_devices)
+    if n_devices >= 2:
+        cols = n_devices // 2
+        step(spatial_mesh(2, cols, devices[:2 * cols]), n_chains=4,
+             n=8 * cols)
 
 
 def _initial_lsm_logp(cfg, Y, s0, prior, device, cc=None):
@@ -138,7 +206,7 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                           device='cuda', is_directed=False, model='hdp',
                           n_temps=None, beta_min=0.2, quality_init=False,
                           n_control=None, edge_lists=None, shape=None,
-                          latent_update='exact'):
+                          latent_update='exact', node_devices=None):
     """A replicated chain state, the sweep and its generator for the dense
     network Y (T, n, n), undirected or directed, on ``device`` (the card
     by default).  Returns (state, sweep, gen).
@@ -178,7 +246,11 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
     models (``tune_radii``) and not in the LSM (lsm.py:222).
 
     ``latent_update`` ('exact', 'parallel' or 'mala') is every model's
-    latent-position scheme (``cfg.latent_update``).
+    latent-position scheme (``cfg.latent_update``).  ``node_devices`` (a
+    list of devices, the first ``device``; 'parallel' or 'mala') splits
+    the network's rows over them, and with missing dyads the state's
+    ``Y`` and ``missing_sum`` (``mcmc/nodes.py``); the rest of the state
+    stays on ``device``.
 
     ``n_control`` switches every model to the case-control likelihood with
     that many controls a node (``cfg.n_control``, redrawn every 100
@@ -254,7 +326,8 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                           tau_sq=2.0, sigma_sq=0.1, **missing, **common)
         cc_static, cc0 = case_control(cfg)
         sweep = make_lsm_sweep(stored, prior, cfg, device=device,
-                               miss_mask=miss, cc_static=cc_static)
+                               miss_mask=miss, cc_static=cc_static,
+                               node_devices=node_devices)
         logp0 = _initial_lsm_logp(cfg, Y, s0, prior, device, cc=cc0)
         s0.update(logp=logp0, logp_map=logp0, X_map=s0['X'],
                   intercept_map=s0['intercept'], logp_ref=logp0,
@@ -281,13 +354,19 @@ def build_state_and_sweep(Y, n_chains, K=10, seed=0, table_cap=64,
                     weights0[t, k] = rng.dirichlet(beta0 + 4.0 * np.eye(K)[k])
             s0.update(_hdp_fields(weights0, beta0))
             sweep = make_hdp_sweep(stored, prior, cfg, device=device,
-                                   miss_mask=miss, cc_static=cc_static)
+                                   miss_mask=miss, cc_static=cc_static,
+                                   node_devices=node_devices)
         else:
             s0.update(init_weights=np.bincount(z0[0], minlength=K) / n,
                       trans_weights=np.full((K, K), 1.0 / K))
             sweep = make_lpcm_sweep(stored, prior, cfg, device=device,
-                                    miss_mask=miss, cc_static=cc_static)
+                                    miss_mask=miss, cc_static=cc_static,
+                                    node_devices=node_devices)
     state = replicate_state(s0, n_chains, device)
+    if node_devices is not None and len(node_devices) > 1 and miss is not None:
+        state = state.replace(
+            Y=RowShards.split(state.Y, node_devices),
+            missing_sum=RowShards.split(state.missing_sum, node_devices))
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     if n_temps is not None:
         betas = temper_ladder(n_temps, beta_min, n_chains // n_temps,

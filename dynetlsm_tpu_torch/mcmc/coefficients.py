@@ -15,14 +15,16 @@ sweep's log joint reuse it.  Under parallel tempering
 each takes ``temper`` (C,), which scales the log-likelihood difference in
 its ratio and nothing else (the returned log-likelihoods stay untempered).
 The network is one for every chain, or each chain's own (C, T, n, n) when
-missing dyads are resampled; the kernels read either.
+missing dyads are resampled; the kernels read either.  A node-sharded
+network (``ops.shards.RowShards``, ``mcmc/nodes.py``) is scored by the sum
+of its shards' row-range shares, and node-sharded case-control structures
+by the sum of theirs (``ops/case_control.py::cc_loglik``): the samplers
+read them unchanged.
 """
 import torch
 
 from ..math.distributions import normal
-from ..ops.case_control import (
-    approx_directed_loglik_full, approx_undirected_loglik_full,
-    cc_network_loglik)
+from ..ops.case_control import cc_loglik, cc_network_loglik
 from ..ops.dir_loglik import dir_loglik
 from ..ops.pair_loglik import pair_loglik
 from .metropolis import dirichlet_metropolis_step, random_walk_accept
@@ -52,9 +54,7 @@ def sample_intercept_undirected(gen, Y, X, intercept, step_size,
     C = X.shape[0]
     prop = intercept + step_size * normal(gen, (C, 1), X.device)
     if cc is not None:
-        ll = approx_undirected_loglik_full(
-            X, cc['out_edges'], cc['degrees'][..., 1], cc['ctrl_out'],
-            cc['ctrl_out_valid'], torch.cat([intercept, prop], dim=1))
+        ll = cc_loglik(X, cc, False, torch.cat([intercept, prop], dim=1))
     else:
         ll = pair_loglik(Y, X.contiguous(), intercept[:, 0].contiguous(),
                          prop[:, 0].contiguous())
@@ -74,9 +74,7 @@ def sample_intercept_undirected(gen, Y, X, intercept, step_size,
 
 
 def _cc_directed(X, radii, b_in, b_out, cc):
-    return approx_directed_loglik_full(
-        X, radii, cc['out_edges'], cc['degrees'], cc['ctrl_out'],
-        cc['ctrl_out_valid'], b_in, b_out)
+    return cc_loglik(X, cc, True, b_in, b_out, radii)
 
 
 def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,

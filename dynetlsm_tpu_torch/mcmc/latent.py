@@ -20,7 +20,11 @@ package's three schemes:
 The last two are torch code on any device.  Their dense passes run over
 blocks of (chains, times, sites) of at most ``_BLOCK_ELEMS`` dyads
 (:func:`_site_blocks`), each site against its whole row of partners, so
-no (C, T, n, n) tensor is made.
+no (C, T, n, n) tensor is made.  On a node-sharded network
+(``ops.shards.RowShards``, ``mcmc/nodes.py``) each shard scores its own
+sites from its rows, on its device with its own copy of the field, and
+the first device gathers the sites' terms (and adds the shards' float64
+shares of the MALA joint); the exact scan is not sharded.
 """
 from functools import lru_cache
 
@@ -31,7 +35,8 @@ from ..math.distributions import normal, uniform
 from ..ops.case_control import (
     approx_partial_loglik_all, class_partial_loglik_segments, control_scale)
 from ..ops.distances import _sum_sq_last
-from ..ops.likelihoods import _BLOCK_ELEMS, softplus
+from ..ops.likelihoods import _BLOCK_ELEMS, site_blocks, softplus
+from ..ops.shards import RowShards
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
     _directed_partial_loglik_terms, _mixture_prior_per_t,
     _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
@@ -98,6 +103,10 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                 "exact-scan noise stream cannot be honoured")
         return _mala_update(gen, Y, X, intercept, step_size, radii,
                             **prior_kw)
+    if isinstance(Y, RowShards) or (cc is not None and 'shards' in cc):
+        raise ValueError(
+            "the sequential exact node scan cannot be partitioned over node "
+            "shards; use latent_update='parallel' or 'mala'")
     C, T, n, d = X.shape
     eps, log_u = (noise if noise is not None
                   else latent_noise(gen, C, T, n, d, X.device))
@@ -125,29 +134,35 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                      **prior)
 
 
-def _site_blocks(C, T, n):
-    """(chains, times, sites) slices that cover (C, T, n), each block at
-    most ``_BLOCK_ELEMS`` dyads (its sites times their n partners) and at
-    least one site: whole (time, site) fields of several chains where
-    they fit, then whole fields of several times, then rows of sites."""
-    rb = min(n, max(1, _BLOCK_ELEMS // n))
-    tb = min(T, max(1, _BLOCK_ELEMS // (n * n))) if rb == n else 1
-    cb = max(1, _BLOCK_ELEMS // (T * n * n)) if tb == T else 1
-    return [(slice(c0, min(c0 + cb, C)), slice(t0, min(t0 + tb, T)),
-             slice(r0, min(r0 + rb, n)))
-            for c0 in range(0, C, cb) for t0 in range(0, T, tb)
-            for r0 in range(0, n, rb)]
+def _site_blocks(C, T, n, rows=None):
+    """(chains, times, sites) slices that cover (C, T, n), or the sites
+    ``rows`` = [a, b) of a node shard, each block at most ``_BLOCK_ELEMS``
+    dyads (its sites times their n partners) and at least one site: whole
+    (time, site) fields of several chains where they fit, then whole
+    fields of several times, then rows of sites
+    (``ops.likelihoods.site_blocks``)."""
+    return site_blocks(C, T, n, rows, _BLOCK_ELEMS)
 
 
-def _block_network(Y, c, t, r, n, is_directed):
+def _shard_parts(Y):
+    """(part, first row) of each node shard of a row-split network, or the
+    whole network as one part at row 0."""
+    if isinstance(Y, RowShards):
+        return [(part, Y.bounds[s]) for s, part in enumerate(Y.parts)]
+    return [(Y, 0)]
+
+
+def _block_network(Y, c, t, r, n, is_directed, row0=0):
     """(Y_row, Y_col, off) of one block's sites r of times t (chains c
     when Y is one network a chain), from the kernels' form of the network
-    ((C,) T, n, n or padded rows): the 0/1 adjacency Y[t, i, j] of each
-    site i of r and partner j and, directed, Y[t, j, i] (the packed bits
-    ``& 1`` and ``>> 1``; None when undirected), uint8 (arithmetic with
-    float32 promotes them exactly, no float copy made); and the (sites,
-    n) bool mask of the partners other than the site itself."""
-    Yb = (Y[c, t] if Y.dim() == 4 else Y[t])[..., r, :n]
+    ((C,) T, n, n or padded rows; a node shard's rows from ``row0``): the
+    0/1 adjacency Y[t, i, j] of each site i of r and partner j and,
+    directed, Y[t, j, i] (the packed bits ``& 1`` and ``>> 1``; None when
+    undirected), uint8 (arithmetic with float32 promotes them exactly, no
+    float copy made); and the (sites, n) bool mask of the partners other
+    than the site itself."""
+    local = slice(r.start - row0, r.stop - row0)
+    Yb = (Y[c, t] if Y.dim() == 4 else Y[t])[..., local, :n]
     rows = torch.arange(r.start, r.stop, device=Yb.device)
     off = rows[:, None] != torch.arange(n, device=Yb.device)
     if is_directed:
@@ -192,8 +207,7 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
 
     def site_ll(Xq):
         if cc is not None:
-            return approx_partial_loglik_all(X, Xq, cc, intercept, radii,
-                                             is_directed)
+            return _cc_site_loglik(X, Xq, cc, intercept, radii, is_directed)
         return _site_loglik(Y, X, Xq, intercept, radii, is_directed)
 
     prev = _shift(X, 1, 0.0)
@@ -233,6 +247,24 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     return X_new, accept.to(X.dtype)
 
 
+def _cc_site_loglik(X, Xq, cc, intercept, radii, is_directed):
+    """``ops.case_control.approx_partial_loglik_all`` of every site, or
+    of node-sharded structures (``{'shards': [...]}``) each shard's sites
+    on its device, gathered on X's device."""
+    if 'shards' not in cc:
+        return approx_partial_loglik_all(X, Xq, cc, intercept, radii,
+                                         is_directed)
+    parts = []
+    for part in cc['shards']:
+        dev = part['out_edges'].device
+        args = [None if v is None else v.to(dev)
+                for v in (X, Xq, intercept, radii)]
+        parts.append(approx_partial_loglik_all(
+            args[0], args[1], part, args[2], args[3], is_directed).to(
+                X.device))
+    return torch.cat(parts, dim=2)
+
+
 def _site_loglik(Y, X, Xq, intercept, radii, is_directed):
     """Each site's dense log-likelihood terms at its candidate Xq (C, T,
     n, d) against the field X, its own slot dropped and the rest summed
@@ -241,19 +273,27 @@ def _site_loglik(Y, X, Xq, intercept, radii, is_directed):
     softplus(eta), eta = b - d; directed the sender's and the receiver's
     terms, the packed bits of Y (:func:`_block_network`).  Blocks of
     :func:`_site_blocks` cut only the site axis, so each site's sum is
-    over the same row.  Returns (C, T, n)."""
+    over the same row.  A node-sharded Y: each shard's sites on its device
+    (its own copy of X, Xq and the coefficients), gathered on X's device.
+    Returns (C, T, n)."""
     C, T, n, _ = X.shape
     out = torch.empty((C, T, n), dtype=X.dtype, device=X.device)
-    for c, t, r in _site_blocks(C, T, n):
-        out[c, t, r] = _site_block(Y, X, Xq, intercept, radii, is_directed,
-                                   c, t, r)
+    for part, row0 in _shard_parts(Y):
+        dev = part.device
+        Xs, Xqs, bs, rs = [None if v is None else v.to(dev)
+                           for v in (X, Xq, intercept, radii)]
+        rows = (row0, row0 + part.shape[-2])
+        for c, t, r in _site_blocks(C, T, n, rows):
+            out[c, t, r] = _site_block(part, Xs, Xqs, bs, rs, is_directed,
+                                       c, t, r, row0).to(X.device)
     return out
 
 
-def _site_block(Y, X, Xq, intercept, radii, is_directed, c, t, r):
+def _site_block(Y, X, Xq, intercept, radii, is_directed, c, t, r, row0=0):
     """:func:`_site_loglik` of one block (its temporaries freed on
     return)."""
-    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed)
+    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed,
+                                       row0)
     diff = Xq[c, t, r][:, :, :, None, :] - X[c, t][:, :, None, :, :]
     dist = torch.sqrt(torch.clamp_min(_sum_sq_last(diff), 0.0))
     del diff
@@ -286,16 +326,25 @@ def _joint_loglik(Y, X, intercept, radii=None, is_directed=False,
     eta_ij = b_in (1 - d/r_j) + b_out (1 - d/r_i), sum_j [(s_ij - y_ij)
     (b_in/r_j + b_out/r_i) + (s_ji - y_ji) (b_in/r_i + b_out/r_j)] e_ij;
     a pair closer than the floor adds nothing, as the floor's gradient is
-    0.  Undirected networks are symmetric.  Returns (ll, grad or None)."""
+    0.  Undirected networks are symmetric.  A node-sharded Y: each shard's
+    sites on its device, its float64 sums added on X's device in shard
+    order and its gradient rows gathered there.  Returns (ll, grad or
+    None)."""
     C, T, n, _ = X.shape
     total = torch.zeros(C, dtype=torch.float64, device=X.device)
     g = torch.empty_like(X) if grad else None
-    for c, t, r in _site_blocks(C, T, n):
-        ll, g_block = _joint_block(Y, X, intercept, radii, is_directed,
-                                   grad, c, t, r)
-        total[c] += ll
-        if grad:
-            g[c, t, r] = g_block
+    for part, row0 in _shard_parts(Y):
+        dev = part.device
+        Xs, bs, rs = [None if v is None else v.to(dev)
+                      for v in (X, intercept, radii)]
+        share = torch.zeros(C, dtype=torch.float64, device=dev)
+        for c, t, r in _site_blocks(C, T, n, (row0, row0 + part.shape[-2])):
+            ll, g_block = _joint_block(part, Xs, bs, rs, is_directed, grad,
+                                       c, t, r, row0)
+            share[c] += ll
+            if grad:
+                g[c, t, r] = g_block.to(X.device)
+        total += share.to(X.device)
     ll = (total if is_directed else 0.5 * total).to(X.dtype)
     if temper is not None:
         ll = temper * ll
@@ -304,10 +353,12 @@ def _joint_loglik(Y, X, intercept, radii=None, is_directed=False,
     return ll, g
 
 
-def _joint_block(Y, X, intercept, radii, is_directed, grad, c, t, r):
+def _joint_block(Y, X, intercept, radii, is_directed, grad, c, t, r,
+                 row0=0):
     """:func:`_joint_loglik` of one block: its chains' float64 sums and
     its sites' gradient (or None); its temporaries freed on return."""
-    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed)
+    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed,
+                                       row0)
     diff = X[c, t, r][:, :, :, None, :] - X[c, t][:, :, None, :, :]
     d2 = _sum_sq_last(diff)
     dist = torch.sqrt(torch.where(off, torch.clamp_min(d2, 1e-12), 1.0))

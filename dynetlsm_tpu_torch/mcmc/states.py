@@ -38,6 +38,13 @@ an untempered state.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across the two
 implementations as a dict of NumPy arrays keyed by the JAX field names, so
 tests can hand both samplers the same state.
+
+On a mesh (``mcmc/driver.py``) a fit's state is a list of states, one a
+chain row, each on its row's first device; under node sharding the row's
+``Y`` and ``missing_sum`` are row-split over its node devices
+(``ops.shards.RowShards``, the fields ``NODE_FIELDS``).
+:func:`gather_state` joins such a list into one state and
+:func:`place_like` lays a state out as another.
 """
 import dataclasses
 from typing import Optional
@@ -46,6 +53,7 @@ import numpy as np
 import torch
 
 from ..config import DTYPE, ITYPE
+from ..ops.shards import RowShards
 
 
 @dataclasses.dataclass
@@ -128,6 +136,8 @@ class MixtureState(_State):
 _INT_FIELDS = ('it', 'z', 'ctrl_in', 'ctrl_out')
 # the fields with no chain axis
 SHARED_FIELDS = ('ctrl_in', 'ctrl_out')
+# the fields that node sharding splits by rows (their axis 2 of 4)
+NODE_FIELDS = ('Y', 'missing_sum')
 
 
 def state_class(arrays):
@@ -157,12 +167,67 @@ def state_from_numpy(arrays, device):
 def state_to_numpy(state, int_dtype=np.int32):
     """Dict of NumPy arrays keyed by field name, ``None`` fields left out;
     integer fields are cast to ``int_dtype`` (int32, the JAX package's
-    label dtype, by default); the network ``Y`` stays uint8."""
+    label dtype, by default); the network ``Y`` stays uint8.  Row-split
+    fields are gathered; a list of row states (a mesh's) is joined first
+    (:func:`gather_state`)."""
+    if isinstance(state, list):
+        state = gather_state(state)
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
         if v is None:
             continue
+        if isinstance(v, RowShards):
+            v = v.gather('cpu')
         a = v.detach().cpu().numpy()
         out[f.name] = a.astype(int_dtype) if f.name in _INT_FIELDS else a
     return out
+
+
+def gather_state(states, device='cpu'):
+    """One chain-batched state on ``device`` from the chain rows' states
+    of a mesh (a list; a single state is returned as it is): the chain
+    axes joined in row order, row-split fields gathered, the shared fields
+    taken from the first row."""
+    if not isinstance(states, list):
+        return states
+    fields = {}
+    for f in dataclasses.fields(states[0]):
+        vals = [getattr(s, f.name) for s in states]
+        if vals[0] is None:
+            continue
+        if f.name in SHARED_FIELDS:
+            fields[f.name] = vals[0].to(device)
+            continue
+        fields[f.name] = torch.cat(
+            [v.gather(device) if isinstance(v, RowShards) else v.to(device)
+             for v in vals], dim=0)
+    return type(states[0])(**fields)
+
+
+def place_like(state, like):
+    """The chain-batched ``state`` (on any device) laid out as ``like``: a
+    single state's fields moved to its devices, or for a mesh's list of
+    row states the chains cut into the rows' chain counts, each row on its
+    devices; a field row-split in ``like`` is split with its bounds over
+    its devices."""
+    rows = like if isinstance(like, list) else [like]
+    out = []
+    c0 = 0
+    for row in rows:
+        sl = slice(c0, c0 + row.X.shape[0])
+        c0 = sl.stop
+        fields = {}
+        for f in dataclasses.fields(state):
+            v, ref = getattr(state, f.name), getattr(row, f.name)
+            if v is None:
+                continue
+            if f.name in SHARED_FIELDS:
+                fields[f.name] = v.to(ref.device)
+            elif isinstance(ref, RowShards):
+                fields[f.name] = RowShards.split(v[sl], ref.devices,
+                                                 ref.bounds)
+            else:
+                fields[f.name] = v[sl].to(ref.device)
+        out.append(type(row)(**fields))
+    return out if isinstance(like, list) else out[0]

@@ -58,6 +58,16 @@ rebuilt from it.  The state carries the draw in ``ctrl_in`` and
 ``ctrl_out`` (n, m), shared by the chains.  No launch of the node-scan,
 pair or directed kernel happens in such a sweep.
 
+With ``node_devices`` (a list of devices, the first the sweep's own) the
+factories shard the network by rows over them (``mcmc/nodes.py``): what
+grows as n^2 (the network, the missing-dyad mask, ``state.Y`` and
+``state.missing_sum``, the case-control edge lists) is split, the rest of
+the state stays whole on ``device``, and only the blocks that read the
+network change (the 'parallel' or 'mala' latent update, the coefficient
+steps and the missing dyads, whose draws come from one generator a shard,
+``sweep.node_gens``, seeded by ``node_seed``).  The exact scan is not
+sharded.
+
 A state with ``temper`` (C,) runs the tempered sweep of parallel tempering
 (``mcmc/tempering.py``): the latent update, the intercept step(s) and the
 radii step scale their log-likelihood differences by each chain's inverse
@@ -73,16 +83,16 @@ import torch
 
 from ..config import DTYPE, SMALL_EPS, resolve_device
 from ..math.distributions import (
-    dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf, uniform)
+    dirichlet_logpdf, sample_dirichlet, truncated_normal_logpdf)
 from ..math.procrustes import longitudinal_procrustes_rotation
 from ..models.base import validate_network
 from ..ops.case_control import (
     cc_network_loglik, control_masks, edge_lists_device,
     sample_controls_colored)
-from ..ops.distances import _sum_sq_last
 from ..ops.likelihoods import (
     dense_network_loglik, directed_loglik_full, undirected_loglik_full)
 from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
+from ..ops.shards import RowShards
 from .coefficients import (
     network_loglik, sample_intercept_undirected, sample_intercepts_directed,
     sample_radii)
@@ -96,6 +106,10 @@ from .labels import (
     _label_statistics, sample_labels_block, sample_labels_block_lpcm)
 from .latent import sample_latent_positions
 from .metropolis import maybe_tune
+from .nodes import (
+    ShardedMissing, build_cc_shards, kernel_rows, missing_draws,
+    node_generators, shard_cc_static, shard_network, sharded_missing)
+from .nodes import missing_dyad_step as sharded_missing_dyad_step
 from .states import LSMState, MixtureState
 
 
@@ -142,7 +156,7 @@ class SweepConfig:
 
 
 def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
-                   cc_static=None):
+                   cc_static=None, node_devices=None):
     """Check the configuration and store the network on ``device``.
     Returns (Y, Y with its rows padded for the node scan, the
     :class:`MissingDyads`, the prior means as a (1, P) tensor, the same as
@@ -155,11 +169,21 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
     :func:`missing_dyads` of ``miss_mask`` (T, n, n) bool, or, when it is
     ``None``, of the -1 or NaN dyads of ``Y_fixed``
     (``models.base.validate_network``).  Under the case-control likelihood
-    (``cc_static``) no network is stored: ``Y_fixed`` may be ``None``."""
+    (``cc_static``) no network is stored: ``Y_fixed`` may be ``None``.
+    With more than one ``node_devices`` the network and the missing dyads
+    are split by rows over them (``nodes.shard_network``,
+    ``nodes.sharded_missing``) and the latent update reads the same rows
+    (no padded rows: the exact scan is not sharded)."""
     if (cfg.n_control is None) != (cc_static is None):
         raise ValueError('cfg.n_control and cc_static '
                          '(models.base.build_case_control) go together')
     device = resolve_device(device)
+    sharded = node_devices is not None and len(node_devices) > 1
+    if sharded and cfg.latent_update not in ('parallel', 'mala'):
+        raise ValueError(
+            "node_devices > 1 shards the node axis across devices; the "
+            "sequential exact node scan cannot be partitioned - construct "
+            "the model with latent_update='parallel' or 'mala'")
     prior = torch.as_tensor(np.asarray(intercept_prior, np.float32),
                             device=device).reshape(1, -1)
     prior_means = [float(m) for m in prior[0]]
@@ -169,6 +193,10 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
                 raise ValueError('sample_missing needs miss_mask or a '
                                  '-1-coded Y_fixed')
             miss_mask = validate_network(Y_fixed, cfg.is_directed)[2]
+        if sharded:
+            return (None, None, sharded_missing(miss_mask, cfg.is_directed,
+                                                node_devices),
+                    prior, prior_means)
         miss = torch.as_tensor(np.asarray(miss_mask, dtype=bool),
                                device=device)
         return (None, None, missing_dyads(miss, cfg.is_directed), prior,
@@ -183,15 +211,57 @@ def _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask=None,
         raise ValueError('Y_fixed must be a 0/1 adjacency; a network with '
                          'missing (-1 or NaN) dyads needs '
                          'cfg.sample_missing')
+    if sharded:
+        Y = shard_network(cfg, Y_np, node_devices)
+        return Y, Y, None, prior, prior_means
     Y = torch.as_tensor(np.asarray(Y_np, np.uint8), device=device)
     if cfg.is_directed:
         Y = pack_directed(Y)
     return Y, pad_partners(Y), None, prior, prior_means
 
 
+def _sweep_inputs(Y_fixed, intercept_prior, cfg, device, miss_mask,
+                  cc_static, node_devices, node_seed):
+    """What a sweep factory closes over: :func:`_fixed_network`'s five
+    values, the case-control structures on ``device`` (split by rows over
+    more than one ``node_devices``, ``nodes.shard_cc_static``) and the
+    node shards' generators of the missing-dyad draws (None unless node
+    sharding resamples missing dyads)."""
+    out = _fixed_network(Y_fixed, intercept_prior, cfg, device, miss_mask,
+                         cc_static, node_devices)
+    device = resolve_device(device)
+    sharded = node_devices is not None and len(node_devices) > 1
+    if cc_static is not None:
+        cc_static = (shard_cc_static(cc_static, device, node_devices)
+                     if sharded else
+                     {k: v.to(device) if torch.is_tensor(v) else v
+                      for k, v in cc_static.items()})
+    node_gens = (node_generators(node_devices, node_seed)
+                 if sharded and cfg.sample_missing else None)
+    return out + (cc_static, node_gens)
+
+
+def _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices):
+    """The sweep with its configuration ``sweep.cfg``, its stored network
+    ``sweep.Y``, the missing-dyad mask ``sweep.miss_mask``, the
+    case-control structures ``sweep.cc_static``, the node shards'
+    generators ``sweep.node_gens`` and their count ``sweep.node_shards``."""
+    sweep.cfg = cfg
+    sweep.Y = Y
+    sweep.miss_mask = None if miss is None else miss.mask
+    sweep.cc_static = cc_static
+    sweep.node_gens = node_gens
+    sweep.node_shards = 1 if node_devices is None else len(node_devices)
+    return sweep
+
+
 def kernel_network(cfg, Y):
     """The form of a 0/1 network Y (..., T, n, n) uint8 that the kernels
-    read: packed as ``Y + 2 Y^T`` when directed, Y itself otherwise."""
+    read: packed as ``Y + 2 Y^T`` when directed, Y itself otherwise; of a
+    row-split network (RowShards) its row-split form
+    (``nodes.kernel_rows``)."""
+    if isinstance(Y, RowShards):
+        return kernel_rows(cfg, Y)
     return pack_directed(Y) if cfg.is_directed else Y
 
 
@@ -206,6 +276,8 @@ def _sweep_network(cfg, Y, Y_scan, state):
         raise ValueError('a sweep with sample_missing needs the per-chain '
                          'network state.Y')
     Yk = kernel_network(cfg, state.Y)
+    if isinstance(Yk, RowShards):
+        return Yk, Yk
     return Yk, pad_partners(Yk)
 
 
@@ -249,19 +321,8 @@ def resample_missing(cfg, gen, Y, X, intercept, radii, dyads, temper=None,
     missing dyads change; the cost is that of the M drawn dyads, with no
     dense (C, T, n, n) intermediate.  Returns the new Y."""
     t, i, j = dyads.t, dyads.i, dyads.j
-    dist = torch.sqrt(torch.clamp_min(
-        _sum_sq_last(X[:, t, i] - X[:, t, j]), 0.0))          # (C, M)
-    if cfg.is_directed:
-        b_in, b_out = intercept[:, 0, None], intercept[:, 1, None]
-        eta = (b_in * (1.0 - dist / radii[:, j])
-               + b_out * (1.0 - dist / radii[:, i]))
-    else:
-        eta = intercept[:, 0, None] - dist
-    if temper is not None:
-        eta = temper[:, None] * eta
-    u = (uniform(gen, dist.shape, Y.device) if u is None
-         else u[:, t, i, j])
-    draw = (u < torch.sigmoid(eta)).to(Y.dtype)
+    draw = missing_draws(cfg, gen, X, intercept, radii, t, i, j, temper,
+                         None if u is None else u[:, t, i, j]).to(Y.dtype)
     Y = Y.clone()
     Y[:, t, i, j] = draw
     if not cfg.is_directed:
@@ -304,7 +365,11 @@ def build_cc_dict(cfg, Y, cc_static, ctrl_in, ctrl_out):
     (``cc_static``'s, or with ``cfg.sample_missing`` rebuilt from the
     network Y ((C,) T, n, n), each chain's own), the controls with their
     validity masks, and the colour classes.  The sweeps' and the initial
-    logp's single source (JAX ``build_cc_dict``)."""
+    logp's single source (JAX ``build_cc_dict``).  Node-sharded
+    structures (``nodes.shard_cc_static``) give one such dict a shard
+    (``nodes.build_cc_shards``)."""
+    if 'bounds' in cc_static:
+        return build_cc_shards(cfg, Y, cc_static, ctrl_in, ctrl_out)
     if cfg.sample_missing:
         lists = edge_lists_device(Y, cc_static['max_deg'])
     else:
@@ -326,23 +391,31 @@ def _cc_structures(cfg, state, cc_static):
 
 
 def _missing_dyad_step(cfg, gen, state, dyads, X, intercept, radii,
-                       it_next, cc_static=None, ctrl=None):
+                       it_next, cc_static=None, ctrl=None, node_gens=None):
     """Step 7 of the JAX sweeps: resample the missing ``dyads``
     (:func:`resample_missing`), add them to ``missing_sum`` once a chain's
     sweep count passes ``cfg.n_burn``, and score the new network (one pair
     launch at one intercept, or one directed candidate; under case-control,
     ``cc_static`` and the sweep's controls ``ctrl``, the estimator on the
     new network's edge lists): the coefficient steps' log-likelihood
-    belongs to the old network.  Returns (Y, missing_sum, the network
-    log-likelihood)."""
-    Y = resample_missing(cfg, gen, state.Y, X, intercept, radii, dyads,
-                         temper=state.temper)
-    t, i, j = dyads.t, dyads.i, dyads.j
-    add = Y[:, t, i, j].to(DTYPE) * (it_next > cfg.n_burn).to(DTYPE)[:, None]
-    missing_sum = state.missing_sum.clone()
-    missing_sum[:, t, i, j] += add
-    if not cfg.is_directed:
-        missing_sum[:, t, j, i] += add
+    belongs to the old network.  Node-sharded ``dyads``
+    (``nodes.ShardedMissing``) are drawn by their shards from
+    ``node_gens`` (``nodes.missing_dyad_step``).  Returns (Y, missing_sum,
+    the network log-likelihood)."""
+    if isinstance(dyads, ShardedMissing):
+        Y, missing_sum = sharded_missing_dyad_step(
+            cfg, dyads, node_gens, state.Y, state.missing_sum, X, intercept,
+            radii, it_next, state.temper)
+    else:
+        Y = resample_missing(cfg, gen, state.Y, X, intercept, radii, dyads,
+                             temper=state.temper)
+        t, i, j = dyads.t, dyads.i, dyads.j
+        add = (Y[:, t, i, j].to(DTYPE)
+               * (it_next > cfg.n_burn).to(DTYPE)[:, None])
+        missing_sum = state.missing_sum.clone()
+        missing_sum[:, t, i, j] += add
+        if not cfg.is_directed:
+            missing_sum[:, t, j, i] += add
     if cc_static is not None:
         cc = build_cc_dict(cfg, Y, cc_static, *ctrl)
         return Y, missing_sum, cc_network_loglik(X, intercept, radii, cc,
@@ -528,7 +601,8 @@ def _chain_mask(mask, like):
 
 
 def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda', miss_mask=None, cc_static=None):
+                   device='cuda', miss_mask=None, cc_static=None,
+                   node_devices=None, node_seed=0):
     """Build the dynamic LSM sweep (reference lsm.py:474-572) over the
     fixed 0/1 network ``Y_fixed`` (T, n, n), or with
     ``cfg.sample_missing`` over each chain's ``state.Y`` with the dyads of
@@ -544,8 +618,9 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     ``cc_static`` the case-control likelihood (see the module's text).  The returned ``sweep(state, gen)``
     carries its configuration as ``sweep.cfg`` and the stored network as
     ``sweep.Y``."""
-    Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
+    (Y, Y_scan, miss, prior, prior_means, cc_static,
+     node_gens) = _sweep_inputs(Y_fixed, intercept_prior, cfg, device,
+                                miss_mask, cc_static, node_devices, node_seed)
 
     def sweep(state: LSMState, gen: torch.Generator) -> LSMState:
         it_next = state.it + 1
@@ -575,7 +650,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
                 cfg, gen, state, miss, X, intercept, radii, it_next,
-                cc_static, (ctrl_in, ctrl_out))
+                cc_static, (ctrl_in, ctrl_out), node_gens)
 
         # log joint and MAP tracking (lsm.py:547-566)
         logp = _lsm_logp(cfg, None, X, intercept, radii, None, prior,
@@ -606,11 +681,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref, Y=Y_new,
             missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
-    sweep.cfg = cfg
-    sweep.Y = Y
-    sweep.miss_mask = None if miss is None else miss.mask
-    sweep.cc_static = cc_static
-    return sweep
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
 
 
 def _lpcm_weights_logp(cfg, init_weights, trans_weights):
@@ -685,7 +756,8 @@ def _mixture_latent_and_coefficients(cfg, gen, Y, Y_scan, state,
 
 
 def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                    device='cuda', miss_mask=None, cc_static=None):
+                    device='cuda', miss_mask=None, cc_static=None,
+                    node_devices=None, node_seed=0):
     """Build the finite-K LPCM sweep (reference lpcm.py:514-701) over the
     fixed 0/1 network ``Y_fixed`` (T, n, n), or with ``cfg.sample_missing``
     over each chain's ``state.Y`` (see :func:`make_lsm_sweep`), on
@@ -697,8 +769,9 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     ``sweep.cfg`` is its configuration and ``sweep.Y`` the stored
     network.  ``cc_static``: the case-control likelihood, as in
     :func:`make_lsm_sweep`."""
-    Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
+    (Y, Y_scan, miss, prior, prior_means, cc_static,
+     node_gens) = _sweep_inputs(Y_fixed, intercept_prior, cfg, device,
+                                miss_mask, cc_static, node_devices, node_seed)
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         cc, ctrl_in, ctrl_out = (
@@ -725,7 +798,7 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
                 cfg, gen, state, miss, X, intercept, radii, state.it + 1,
-                cc_static, (ctrl_in, ctrl_out))
+                cc_static, (ctrl_in, ctrl_out), node_gens)
 
         # log joint (lpcm.py:770-856)
         logp = _lpcm_weights_logp(cfg, init_weights, trans_weights)
@@ -746,15 +819,12 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             logp=logp, Y=Y_new, missing_sum=missing_sum, ctrl_in=ctrl_in,
             ctrl_out=ctrl_out)
 
-    sweep.cfg = cfg
-    sweep.Y = Y
-    sweep.miss_mask = None if miss is None else miss.mask
-    sweep.cc_static = cc_static
-    return sweep
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
 
 
 def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
-                   device='cuda', miss_mask=None, cc_static=None):
+                   device='cuda', miss_mask=None, cc_static=None,
+                   node_devices=None, node_seed=0):
     """Build the sticky HDP-LPCM sweep over the fixed 0/1 network
     ``Y_fixed`` (T, n, n), stored as uint8 on ``device`` (packed as
     ``Y + 2 Y^T`` for the directed model, once here), or with
@@ -764,8 +834,9 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     carries its configuration as ``sweep.cfg`` and the stored network as
     ``sweep.Y``.  ``cc_static``: the case-control likelihood, as in
     :func:`make_lsm_sweep`."""
-    Y, Y_scan, miss, prior, prior_means = _fixed_network(
-        Y_fixed, intercept_prior, cfg, device, miss_mask, cc_static)
+    (Y, Y_scan, miss, prior, prior_means, cc_static,
+     node_gens) = _sweep_inputs(Y_fixed, intercept_prior, cfg, device,
+                                miss_mask, cc_static, node_devices, node_seed)
     K = cfg.n_components
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
@@ -829,7 +900,7 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         if miss is not None:
             Y_new, missing_sum, net_ll = _missing_dyad_step(
                 cfg, gen, state, miss, X, intercept, radii, state.it + 1,
-                cc_static, (ctrl_in, ctrl_out))
+                cc_static, (ctrl_in, ctrl_out), node_gens)
 
         # log joint (hdp_lpcm.py:1188-1280)
         logp = _hdp_weights_logp(beta, w0, weights, gamma, alpha_init,
@@ -850,8 +921,4 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp, Y=Y_new,
             missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
-    sweep.cfg = cfg
-    sweep.Y = Y
-    sweep.miss_mask = None if miss is None else miss.mask
-    sweep.cc_static = cc_static
-    return sweep
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)

@@ -1,7 +1,8 @@
 """Shared estimator machinery of the three model classes (counterpart of
 ``dynetlsm_tpu/models/base.py``), in NumPy and torch: network validation
-and the missing dyads' initial fill, the keywords the port does not
-support yet, the case-control structures, tempering set-up, trace layout,
+and the missing dyads' initial fill, the keyword checks, the fit's mesh
+(``devices``, ``node_devices``), the case-control structures, tempering
+set-up, the sampling stage on one device or a mesh, trace layout,
 iteration counts, progress reports and per-stage wall times.
 """
 import contextlib
@@ -67,17 +68,16 @@ def impute_missing(Y, miss_mask):
     return Y
 
 
-# the JAX keywords that mean something the port lacks: (accepted value,
-# the ROADMAP item that ports it)
-_UNSUPPORTED = (('devices', None, '§1 item 3 (multi-device)'),
-                ('node_devices', 1, '§1 item 3 (multi-device)'))
+# the JAX keywords that mean something the port lacks: (name, accepted
+# value, the ROADMAP item that ports it); none since multi-device fits
+_UNSUPPORTED = ()
 
 
 def check_supported(estimator):
     """Raise ``NotImplementedError`` for a keyword of the JAX estimators
-    that the port accepts only at its default, and the JAX sweep's
-    ``ValueError`` for an unknown ``latent_update`` (here, before any
-    initialisation work)."""
+    that the port accepts only at its default (``_UNSUPPORTED``), and the
+    JAX sweep's ``ValueError`` for an unknown ``latent_update`` (here,
+    before any initialisation work)."""
     if estimator.latent_update not in SCHEMES:
         raise ValueError(
             "latent_update must be 'exact', 'parallel', or 'mala', got %r"
@@ -88,6 +88,44 @@ def check_supported(estimator):
             raise NotImplementedError(
                 '%s=%r is not ported yet (ROADMAP.md %s); the port takes '
                 'only %s=%r' % (name, value, item, name, default))
+
+
+def resolve_fit_mesh(n_chains, n_nodes, node_devices, devices,
+                     latent_update, n_temps=1, device_type='cuda'):
+    """Pick the fit's mesh (JAX ``resolve_fit_mesh``), validated before
+    any initialisation work.  Returns the mesh, or None on one device.
+
+    Default: a 1-D ``chains`` mesh over the largest subset of ``devices``
+    (by default every device of ``device_type``: each card, or the one
+    CPU) that divides ``n_chains`` (``mcmc.driver.auto_mesh``), or None on
+    one device.  ``n_chains`` counts tempering ladders, not slots: a
+    ladder stays whole on one device, so no replica swap crosses devices.
+    With ``node_devices > 1``: a 2-D ``('chains', 'nodes')`` mesh
+    splitting the network's rows over ``node_devices`` devices within each
+    chain row (``spatial_auto_mesh``), with JAX's ``ValueError``s for
+    parallel tempering, for the exact node scan and for a
+    ``node_devices`` that does not divide n.  ``devices`` may repeat a
+    device; they must be of ``device_type``."""
+    from ..mcmc.driver import auto_mesh, device_list, spatial_auto_mesh
+    devices = device_list(devices, device_type)
+    if any(d.type != device_type for d in devices):
+        raise ValueError('devices=%s: the fit runs on %r devices (device=)'
+                         % ([str(d) for d in devices], device_type))
+    if node_devices and node_devices > 1:
+        if n_temps and int(n_temps) > 1:
+            raise ValueError(
+                'n_temps > 1 (parallel tempering) is not supported '
+                'together with node_devices > 1: the replica-exchange '
+                'gather permutes the chain axis, which conflicts with '
+                'the 2-D spatial mesh')
+        if latent_update not in ('parallel', 'mala'):
+            raise ValueError(
+                "node_devices > 1 shards the node axis across devices; the "
+                "sequential exact node scan cannot be partitioned - "
+                "construct the model with latent_update='parallel' or "
+                "'mala'")
+        return spatial_auto_mesh(n_chains, n_nodes, node_devices, devices)
+    return auto_mesh(n_chains, devices)
 
 
 def resolve_n_control(n_control, n_nodes):
@@ -184,14 +222,31 @@ def fit_rng(random_state):
         else None)
 
 
+def _seed_draws(rng):
+    """The two draws with which the JAX estimators seed their state key
+    and the chain keys (models/hdp_lpcm.py:278, :311)."""
+    return rng.randint(0, 2**31 - 1), rng.randint(0, 2**31 - 1)
+
+
 def chain_generator(rng, device):
-    """The sweeps' ``torch.Generator`` on ``device``, seeded from the two
-    draws with which the JAX estimators seed their state key and the chain
-    keys (models/hdp_lpcm.py:278, :311)."""
-    key_seed = rng.randint(0, 2**31 - 1)
-    chain_seed = rng.randint(0, 2**31 - 1)
+    """The sweeps' ``torch.Generator`` on ``device``, seeded from
+    :func:`_seed_draws`."""
+    key_seed, chain_seed = _seed_draws(rng)
     return torch.Generator(device=device).manual_seed(
         int(key_seed) * 2**31 + int(chain_seed))
+
+
+def row_generators(rng, mesh):
+    """(one generator a chain row of ``mesh``, on the row's first device,
+    row r seeded by ``derive_seed(key, chain, r)``; the rows' node seeds,
+    ``derive_seed(key, chain, r, 1)``), from :func:`_seed_draws`."""
+    from ..mcmc.nodes import derive_seed
+    key_seed, chain_seed = _seed_draws(rng)
+    gens = [torch.Generator(device=devs[0]).manual_seed(
+                derive_seed(key_seed, chain_seed, r))
+            for r, devs in enumerate(mesh.rows)]
+    return gens, [derive_seed(key_seed, chain_seed, r, 1)
+                  for r in range(len(gens))]
 
 
 def setup_tempering(sweep, cfg, n_chains, n_temps, beta_min, swap_every,
@@ -218,36 +273,71 @@ def setup_tempering(sweep, cfg, n_chains, n_temps, beta_min, swap_every,
     return step, state
 
 
-def sample_chains(est, sweep, cfg, s0, trace_fn, rng, device, timer,
+def fit_mesh(est, n_nodes, device):
+    """Resolve and set ``est.mesh_`` (:func:`resolve_fit_mesh` with the
+    estimator's keywords, the mesh's device type that of ``device``)."""
+    est.mesh_ = resolve_fit_mesh(
+        est.n_chains, n_nodes, est.node_devices, est.devices,
+        est.latent_update, n_temps=est.n_temps, device_type=device.type)
+    return est.mesh_
+
+
+def sample_chains(est, make_sweep, cfg, s0, trace_fn, rng, device, timer,
                   thin=1):
     """The sampling stage of a fit: replicate the start ``s0`` over the
     estimator's chain slots on ``device``, attach the tempering ladders,
     record ``(n_total - 1) // thin`` samples of the cold slots
     (``trace_fn``), timed as ``'sampling'``, checkpointed to
     ``est.checkpoint_dir`` when set (only this stage resumes: the stages
-    before it replay from the fit's ``random_state``).  Sets
+    before it replay from the fit's ``random_state``).
+    ``make_sweep(node_devices, node_seed)`` builds the sweep on
+    ``node_devices[0]``, its network split over them when there are
+    several.  On the estimator's mesh ``est.mesh_`` each chain row gets
+    its sweep, its share of the slots (whole ladders) and its generator
+    (``mcmc.driver``), and ``est.state_sharding_`` its layout.  Sets
     ``est.temper_ladder_`` and ``est._final_state`` (the cold slots'
     fields as NumPy arrays).  Returns (the traces in the reference layout,
     n_total)."""
     from ..mcmc.driver import (
-        collect_traces, make_scan_runner, replicate_state)
+        collect_traces, make_scan_runner, replicate_state, shard_state,
+        state_sharding)
     from ..mcmc.states import state_to_numpy
     from ..mcmc.tempering import cold_slot_trace_fn, strip_hot_slots
     n_slots = est.n_chains * max(1, int(est.n_temps or 1))
-    gen = chain_generator(rng, device)
-    state = replicate_state(s0, n_slots, device)
-    step_fn, state = setup_tempering(sweep, cfg, est.n_chains, est.n_temps,
-                                     est.beta_min, est.swap_every, state)
-    runner = make_scan_runner(step_fn,
-                              cold_slot_trace_fn(trace_fn, est.n_temps),
-                              chunk=est.trace_chunk, thin=thin)
+    mesh = est.mesh_
+    trace = cold_slot_trace_fn(trace_fn, est.n_temps)
+    if mesh is None:
+        gen = chain_generator(rng, device)
+        state = replicate_state(s0, n_slots, device)
+        step_fn, state = setup_tempering(
+            make_sweep([device], 0), cfg, est.n_chains, est.n_temps,
+            est.beta_min, est.swap_every, state)
+    else:
+        gen, node_seeds = row_generators(rng, mesh)
+        rows = shard_state(replicate_state(s0, n_slots, 'cpu'), mesh)
+        step_fn, state = [], []
+        for devs, row, seed in zip(mesh.rows, rows, node_seeds):
+            step, row = setup_tempering(
+                make_sweep(devs, seed), cfg, est.n_chains // len(rows),
+                est.n_temps, est.beta_min, est.swap_every, row)
+            step_fn.append(step)
+            state.append(row)
+    runner = make_scan_runner(step_fn, trace, chunk=est.trace_chunk,
+                              thin=thin)
     n_total = total_iterations(est.n_iter, est.tune, est.burn)
     with timer('sampling'):
         state, traces = collect_traces(
             runner, state, gen, (n_total - 1) // thin,
             chunk=est.trace_chunk, progress=progress_reporter(est.verbose),
             checkpoint_dir=est.checkpoint_dir)
-    state, est.temper_ladder_ = strip_hot_slots(state, est.n_temps)
+    est.state_sharding_ = state_sharding(mesh, state)
+    if mesh is not None:
+        ladders = [strip_hot_slots(row, est.n_temps) for row in state]
+        state = [row for row, _ in ladders]
+        est.temper_ladder_ = (None if ladders[0][1] is None else
+                              np.concatenate([lad for _, lad in ladders]))
+    else:
+        state, est.temper_ladder_ = strip_hot_slots(state, est.n_temps)
     est._final_state = types.SimpleNamespace(**state_to_numpy(state))
     return chain_traces_to_numpy(traces, est.n_chains), n_total
 

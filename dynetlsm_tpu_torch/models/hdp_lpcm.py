@@ -179,8 +179,12 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
         self._cfg = cfg
         cc_static, ctrl0, cc0 = self._case_control(cfg, rng, miss_mask)
         stored = None if cfg.sample_missing or cc_static else self.Y_fit_
-        sweep = make_hdp_sweep(stored, prior32, cfg, device=self.device_,
-                               miss_mask=miss_mask, cc_static=cc_static)
+
+        def make_sweep(node_devices, node_seed):
+            return make_hdp_sweep(
+                stored, prior32, cfg, device=node_devices[0],
+                miss_mask=miss_mask, cc_static=cc_static,
+                node_devices=node_devices, node_seed=node_seed)
 
         s0 = self._initial_state(
             X0, intercept0, radii0, z0, mu0, sigma0,
@@ -204,8 +208,8 @@ class DynamicNetworkHDPLPCM(MixtureModelMixin):
                 out['radii'] = s.radii
             return out
 
-        tr, n_total = sample_chains(self, sweep, cfg, s0, trace_fn, rng,
-                                    self.device_, self._timer,
+        tr, n_total = sample_chains(self, make_sweep, cfg, s0, trace_fn,
+                                    rng, self.device_, self._timer,
                                     thin=self.thin or 1)
         c = self.n_chains
         self.Xs_ = with_init(tr, 'X', X0, c)

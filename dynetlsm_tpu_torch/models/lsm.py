@@ -10,7 +10,11 @@ card by default; ``'cpu'`` runs every kernel's plain version) and
 is sample i); with more chains they gain a leading chain axis.  With
 ``n_control`` the sampler runs the case-control likelihood (the chromatic
 scan, no dense network on the device), and the node-scan kernel's limit
-on n no longer applies.
+on n no longer applies.  ``devices`` and ``node_devices`` lay the sampling
+stage on a mesh as in JAX (``models/base.py::resolve_fit_mesh``): the
+chains split over devices, and with ``node_devices > 1`` the network's
+rows too (``mcmc/nodes.py``); ``mesh_`` and ``state_sharding_`` report
+the layout.
 """
 import numpy as np
 import torch
@@ -29,8 +33,8 @@ from ..ops.likelihoods import (
     directed_network_probas, undirected_network_probas)
 from ..ops.node_scan import check_smem
 from .base import (
-    StageTimer, build_case_control, check_supported, controls_of, fit_rng,
-    impute_missing, init_cc_dict, resolve_n_control, sample_chains,
+    StageTimer, build_case_control, check_supported, controls_of, fit_mesh,
+    fit_rng, impute_missing, init_cc_dict, resolve_n_control, sample_chains,
     validate_network, with_init)
 
 __all__ = ['DynamicNetworkLSM']
@@ -176,6 +180,9 @@ class DynamicNetworkLSM:
             Y, self.is_directed, copy=self.copy)
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
+        # the mesh first: it validates devices / node_devices before any
+        # initialisation work (JAX lsm.py:171-178)
+        fit_mesh(self, n, device)
         n_control = resolve_n_control(self.n_control, n)
         # the node-scan kernel's shared-memory limit (past n = 2048 at
         # T = 10 its split-field mode; ops/node_scan.py::max_nodes),
@@ -235,11 +242,14 @@ class DynamicNetworkLSM:
         prior32 = intercept_prior.astype(np.float32)
         cc_static, ctrl0 = build_case_control(cfg, self.Y_fit_, rng, device,
                                               miss_mask=miss_mask)
-        sweep = make_lsm_sweep(
-            None if sample_missing or cc_static else self.Y_fit_, prior32,
-            cfg, device=device,
-            miss_mask=miss_mask if sample_missing else None,
-            cc_static=cc_static)
+
+        def make_sweep(node_devices, node_seed):
+            return make_lsm_sweep(
+                None if sample_missing or cc_static else self.Y_fit_,
+                prior32, cfg, device=node_devices[0],
+                miss_mask=miss_mask if sample_missing else None,
+                cc_static=cc_static, node_devices=node_devices,
+                node_seed=node_seed)
 
         # ---- initial state (the JAX state's fields, lsm.py:259-277)
         s0 = {'it': 0, 'X': X, 'intercept': intercept, 'radii': radii,
@@ -267,8 +277,8 @@ class DynamicNetworkLSM:
                 out['radii'] = s.radii
             return out
 
-        tr, n_total = sample_chains(self, sweep, cfg, s0, trace_fn, rng,
-                                    device, timer)
+        tr, n_total = sample_chains(self, make_sweep, cfg, s0, trace_fn,
+                                    rng, device, timer)
 
         with timer('post-processing'):
             self._store_traces(tr, X, intercept, radii, logp0)

@@ -27,21 +27,28 @@ from ..ops.node_scan import check_smem
 from ..ops.distances import pairwise_distances
 from ..ops.forecast import marginal_forecast
 from .base import (
-    StageTimer, build_case_control, check_supported, controls_of, fit_rng,
-    init_cc_dict, resolve_n_control, validate_network)
+    StageTimer, build_case_control, check_supported, controls_of, fit_mesh,
+    fit_rng, init_cc_dict, resolve_n_control, validate_network)
 from .lsm import DynamicNetworkLSM, _f32, network_probas
 
 
 def init_from_lsm(Y, is_directed, n_features, sample_missing,
                   n_control, n_resample_control, random_state,
-                  lsm_kwargs=None, device='cuda'):
+                  lsm_kwargs=None, device='cuda', node_devices=1,
+                  devices=None):
     """Nested short LSM run used to initialise X / intercept / radii
-    (reference hdp_lpcm.py:58-86), on ``device``.  Returns (the fitted
-    LSM, Y with its missing dyads set to the LSM's rounded
-    probabilities)."""
+    (reference hdp_lpcm.py:58-86), on ``device``.  ``node_devices`` /
+    ``devices`` propagate the caller's sharding (JAX
+    mixture_base.py:33-45): a network that needs a node-sharded main fit
+    would not fit the init on one device, and the init must not spill onto
+    devices the caller excluded; under node sharding the nested LSM takes
+    ``latent_update='parallel'``.  Returns (the fitted LSM, Y with its
+    missing dyads set to the LSM's rounded probabilities)."""
     common = dict(n_iter=500, tune=250, burn=250, n_features=n_features,
                   is_directed=is_directed, random_state=random_state,
-                  device=device)
+                  device=device, devices=devices)
+    if node_devices and node_devices > 1:
+        common.update(node_devices=node_devices, latent_update='parallel')
     if is_directed:
         common.update(sigma_sq=0.001, tau_sq='auto', step_size_X=0.0075,
                       n_control=n_control,
@@ -138,6 +145,8 @@ class MixtureModelMixin:
             Y, self.is_directed, copy=self.copy)
         self.nan_mask_ = nan_mask
         T, n, _ = Y.shape
+        # the mesh before any initialisation work (JAX lsm.py:171-178)
+        fit_mesh(self, n, self.device_)
         self.n_control_ = resolve_n_control(self.n_control, n)
         # the node-scan kernel's limit (ops/node_scan.py::max_nodes),
         # before the nested LSM fit (the case-control sweep runs no node
@@ -150,7 +159,8 @@ class MixtureModelMixin:
             emb, self.Y_fit_ = init_from_lsm(
                 Y, self.is_directed, self.n_features, sample_missing,
                 self.n_control, self.n_resample_control,
-                rng.randint(0, 2**31 - 1), device=self.device_)
+                rng.randint(0, 2**31 - 1), device=self.device_,
+                node_devices=self.node_devices, devices=self.devices)
         for stage, sec in getattr(emb, 'stage_seconds_', {}).items():
             self._timer.seconds['nested lsm: ' + stage] = sec
         with self._timer('kmeans'):

@@ -37,6 +37,13 @@ one:
 Every gather of a -1-padded index clamps it to 0 and masks the term.
 Edge lists, degrees and masks are either one for every chain, (T, n, D),
 or each chain's own, (C, T, n, D): the gathers take either.
+
+Under node sharding (``mcmc/nodes.py``) a shard's structures hold the rows
+[row0, row0 + rows) of the lists, masks and controls (``'row0'`` in the
+dict) and the evaluators read the whole X: :func:`approx_partial_loglik_all`
+scores the shard's own nodes, and :func:`cc_loglik` adds the shards'
+float64 shares of the network log-likelihood (a dict ``{'shards': [...]}``)
+and rounds once.
 """
 import numpy as np
 import torch
@@ -164,14 +171,16 @@ def color_conflict_graph(lists, n, miss_mask=None, seed=0):
 # ---------------------------------------------------------------------------
 
 
-def edge_lists_device(Y, max_deg):
+def edge_lists_device(Y, max_deg, Y_in=None):
     """The padded lists of :func:`build_edge_lists` from a 0/1 network Y
     (..., T, n, n) (uint8 or float, zero diagonal) on its device, every
     row cut to ``max_deg`` (a bound on the degrees,
     :func:`max_degree_bound`).  A stable descending sort of each 0/1 row
     puts its edges first in ascending index order, so the lists equal the
-    host function's.  Returns {'degrees' (..., T, n, 2) [in, out],
-    'in_edges', 'out_edges' (..., T, n, max_deg)}, int64."""
+    host function's.  ``Y_in``: the rows of Y^T the in-edges come from
+    (a node shard's, whose Y holds only some rows), Y^T by default.
+    Returns {'degrees' (..., T, n, 2) [in, out], 'in_edges', 'out_edges'
+    (..., T, n, max_deg)}, int64."""
     rank = torch.arange(max_deg, device=Y.device)
 
     def rows(adj):
@@ -182,7 +191,7 @@ def edge_lists_device(Y, max_deg):
                            torch.full_like(idx, -1)), deg
 
     out_edges, deg_out = rows(Y)
-    in_edges, deg_in = rows(Y.transpose(-1, -2))
+    in_edges, deg_in = rows(Y.transpose(-1, -2) if Y_in is None else Y_in)
     return {'degrees': torch.stack([deg_in, deg_out], dim=-1),
             'in_edges': in_edges, 'out_edges': out_edges}
 
@@ -412,9 +421,12 @@ def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
     ctrl_out] (undirected [out | ctrl_out]) are gathered in node blocks of
     at most ``_BLOCK_ELEMS`` values and scored by
     :func:`class_partial_loglik_segments`, each node's terms in the
-    one-node evaluators' order.  Returns (C, T, n)."""
+    one-node evaluators' order.  Returns (C, T, n), or with a shard's
+    structures (``cc['row0']``) (C, T, rows) of its nodes."""
     C, T, n, d = X.shape
     per_chain = cc['out_edges'].dim() == 4
+    row0 = cc.get('row0', 0)
+    rows = cc['out_edges'].shape[-2]
     if is_directed:
         edges = torch.cat([cc['in_edges'], cc['out_edges']], -1)
         ctrl = torch.cat([cc['ctrl_in'], cc['ctrl_out']], -1)
@@ -439,20 +451,20 @@ def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
         sender[offsets[3]:offsets[4]] = True              # ctrl_out
         b_out = intercept[:, 1]
         Xr = torch.cat([X, radii[:, None, :, None].expand(C, T, n, 1)], -1)
-    out = torch.empty((C, T, n), dtype=X.dtype, device=X.device)
-    nb = _node_blocks(n, C * T * offsets[-1] * (d + 1))
-    for lo in range(0, n, nb):
-        hi = min(lo + nb, n)
+    out = torch.empty((C, T, rows), dtype=X.dtype, device=X.device)
+    nb = _node_blocks(rows, C * T * offsets[-1] * (d + 1))
+    for lo in range(0, rows, nb):
+        hi = min(lo + nb, rows)
         e = _rows(edges, lo, hi, 2)                       # ([C,] T, b, De)
         c = ctrl[lo:hi].expand(e.shape[:-1] + ctrl.shape[-1:])
         partner = torch.cat([e, c], -1)                   # ([C,] T, b, Mtot)
         valid = torch.cat([e >= 0, _rows(valid_ctrl, lo, hi, 2)], -1)
         g = _take(Xr, partner, per_chain)                 # (C, T, b, Mtot, q)
-        dist = _dist_to(g[..., :d], Xq[:, :, lo:hi])
+        dist = _dist_to(g[..., :d], Xq[:, :, row0 + lo:row0 + hi])
         out[:, :, lo:hi] = class_partial_loglik_segments(
             dist, valid, g[..., d] if is_directed else None,
-            radii[:, lo:hi] if is_directed else None, sender, offsets, None,
-            b_in, b_out, n, is_directed,
+            radii[:, row0 + lo:row0 + hi] if is_directed else None, sender,
+            offsets, None, b_in, b_out, n, is_directed,
             scales=tuple(_rows(s, lo, hi, 1) for s in scales))
     return out
 
@@ -476,27 +488,30 @@ def _rows(a, lo, hi, node_axis_from_end):
     return a[tuple(idx)]
 
 
-def _full_loglik(X, radii, edges, degree, ctrl, ctrl_valid, eta_fn):
+def _full_loglik(X, radii, edges, degree, ctrl, ctrl_valid, eta_fn, row0=0):
     """Sum over each chain's nodes and times of the exact terms of each
     node's ``edges`` (T, n, Mo) or (C, T, n, Mo) plus the scaled control
     estimates of its non-edge terms, in node blocks, accumulated in
     float64.  ``eta_fn(dist, r_other, r_self)`` gives eta (K, C, ...) of
     the dyads the node sends at K candidates (radii None when undirected);
-    the distances are computed once for all of them.  Returns (K, C)
-    float64."""
+    the distances are computed once for all of them.  With ``row0`` the
+    lists, degrees, controls and masks hold the rows [row0, row0 + rows)
+    (a node shard's) and X, radii stay whole.  Returns (K, C) float64."""
     C, T, n, d = X.shape
+    rows = edges.shape[-2]
     Mo, m = edges.shape[-1], ctrl.shape[-1]
     q = d + (radii is not None)
-    nb = _node_blocks(n, C * T * (Mo + m) * q)
+    nb = _node_blocks(rows, C * T * (Mo + m) * q)
     Xr = X
     if radii is not None:
         Xr = torch.cat([X, radii[:, None, :, None].expand(C, T, n, 1)], -1)
     total = 0.0
-    for lo in range(0, n, nb):
-        hi = min(lo + nb, n)
+    for lo in range(0, rows, nb):
+        hi = min(lo + nb, rows)
         e = _rows(edges, lo, hi, 2)                          # (.., T, b, Mo)
-        x_blk = X[:, :, lo:hi]                               # (C, T, b, d)
-        r_self = None if radii is None else radii[:, None, lo:hi, None]
+        x_blk = X[:, :, row0 + lo:row0 + hi]                 # (C, T, b, d)
+        r_self = (None if radii is None
+                  else radii[:, None, row0 + lo:row0 + hi, None])
         ge = _take(Xr, e, e.dim() == 4)                      # (C, T, b, Mo, q)
         dist_e = _dist_to(ge[..., :d], x_blk)
         eta_e = eta_fn(dist_e, None if radii is None else ge[..., d],
@@ -562,14 +577,41 @@ def approx_undirected_loglik_full(X, edges, degrees, ctrl, ctrl_valid,
     return ll.T if several else ll[0]
 
 
+def cc_loglik(X, cc, is_directed, b_in, b_out=None, radii=None):
+    """The case-control network log-likelihood from the structures ``cc``
+    (``mcmc/sweeps.py::build_cc_dict``) at the intercept ``b_in`` (C,) or
+    (C, K) candidates (undirected), or at (b_in, b_out) with radii (C, n)
+    (directed), as :func:`approx_undirected_loglik_full` /
+    :func:`approx_directed_loglik_full` compute it.  A node-sharded ``cc``
+    (``{'shards': [...]}``, each shard's rows with its ``'row0'``) gives
+    each shard's float64 share on the shard's device, added on X's device
+    in shard order and rounded once.  Returns (C,) or (C, K) float32."""
+    (bi, bo), several = _candidates(b_in, b_in if b_out is None else b_out)
+    total = None
+    for part in cc.get('shards', (cc,)):
+        dev = part['out_edges'].device
+        r = None if radii is None else radii.to(dev)
+        if is_directed:
+            def eta_fn(dist, r_other, r_self, bi=bi.to(dev), bo=bo.to(dev)):
+                return _directed_eta(dist, r_other, r_self, bi, bo)
+        else:
+            def eta_fn(dist, r_other, r_self, b=bi.to(dev)):
+                return b - dist
+        share = _full_loglik(X.to(dev), r if is_directed else None,
+                             part['out_edges'], part['degrees'][..., 1],
+                             part['ctrl_out'],
+                             part['ctrl_out_valid'], eta_fn,
+                             part.get('row0', 0)).to(X.device)
+        total = share if total is None else total + share
+    ll = (total if is_directed else 0.5 * total).to(X.dtype)
+    return ll.T if several else ll[0]
+
+
 def cc_network_loglik(X, intercept, radii, cc, is_directed):
     """The case-control network log-likelihood (C,) of every chain from the
-    structures ``cc`` (``mcmc/sweeps.py::build_cc_dict``); intercept (C, 1)
-    or (C, 2), radii (C, n) when directed."""
+    structures ``cc`` (:func:`cc_loglik`); intercept (C, 1) or (C, 2),
+    radii (C, n) when directed."""
     if is_directed:
-        return approx_directed_loglik_full(
-            X, radii, cc['out_edges'], cc['degrees'], cc['ctrl_out'],
-            cc['ctrl_out_valid'], intercept[:, 0], intercept[:, 1])
-    return approx_undirected_loglik_full(
-        X, cc['out_edges'], cc['degrees'][..., 1], cc['ctrl_out'],
-        cc['ctrl_out_valid'], intercept[:, 0])
+        return cc_loglik(X, cc, True, intercept[:, 0], intercept[:, 1],
+                         radii)
+    return cc_loglik(X, cc, False, intercept[:, 0])

@@ -39,8 +39,10 @@ _SIGNATURES = {
     'node_scan_threads': [_I] * 2,
     'node_scan_max_clusters': [_I] * 10,
     'pair_loglik_launch': [_P] * 7 + [_I] * 5 + [_L, _P],
+    'pair_loglik_rows_launch': [_P] * 7 + [_I] * 7 + [_L, _P],
     'pair_loglik_blocks_per_sm': [_I] * 2,
     'dir_loglik_launch': [_P] * 7 + [_I] * 6 + [_L, _P],
+    'dir_loglik_rows_launch': [_P] * 7 + [_I] * 8 + [_L, _P],
     'dir_loglik_blocks_per_sm': [_I] * 2,
 }
 

@@ -17,6 +17,23 @@ from .distances import pairwise_distances
 _BLOCK_ELEMS = 1 << 26
 
 
+def site_blocks(C, T, n, rows=None, limit=_BLOCK_ELEMS):
+    """(chains, times, sites) slices that cover (C, T, rows) of n-node
+    fields, ``rows`` = (a, b) the sites [a, b) (all n by default), each
+    block at most ``limit`` dyads (its sites times their n partners) and
+    at least one site: whole (time, site) fields of several chains where
+    they fit, then whole fields of several times, then rows of sites."""
+    a, b = (0, n) if rows is None else rows
+    m = b - a
+    rb = min(m, max(1, limit // n))
+    tb = min(T, max(1, limit // (m * n))) if rb == m else 1
+    cb = max(1, limit // (T * m * n)) if tb == T else 1
+    return [(slice(c0, min(c0 + cb, C)), slice(t0, min(t0 + tb, T)),
+             slice(r0, min(r0 + rb, b)))
+            for c0 in range(0, C, cb) for t0 in range(0, T, tb)
+            for r0 in range(a, b, rb)]
+
+
 def softplus(eta):
     return torch.logaddexp(eta, torch.zeros((), dtype=eta.dtype,
                                             device=eta.device))

@@ -9,6 +9,12 @@ tiles row by row.  Block ``blk`` of a chain's ``n_blocks`` takes items
 functions here spell that split out as the kernels compute it, so the CPU
 tests can hold it to covering every dyad i < j once, and choose the blocks
 per chain and the scratch for a launch.
+
+The kernels' row-range mode (node sharding) holds rows ``[row0, row0 +
+rows)`` of the network: its tiles count from ``row0`` on both axes, the
+row tiles over the held rows and the column tiles over the columns
+``row0 .. n - 1``, so a time's list is the trapezoid ``tile_j >= tile_i``
+of that grid; ``row0 = 0, rows = n`` is the whole network.
 """
 import functools
 
@@ -36,19 +42,31 @@ def tiles_per_side(n):
     return -(-n // TILE)
 
 
-def n_items(T, n):
-    """Length of a chain's work list."""
-    nt = tiles_per_side(n)
-    return T * nt * (nt + 1) // 2
+def _grid(n, row0, rows):
+    """(row tiles, column tiles, tiles a time) of the rows [row0, row0 +
+    rows) of n nodes (all n rows when ``rows`` is None)."""
+    rows = n - row0 if rows is None else rows
+    if not (0 <= row0 and 1 <= rows and row0 + rows <= n):
+        raise ValueError('rows [%d, %d) do not lie in [0, %d)'
+                         % (row0, row0 + rows, n))
+    mt, ct = tiles_per_side(rows), tiles_per_side(n - row0)
+    return mt, ct, mt * ct - mt * (mt - 1) // 2
 
 
-def work_item(item, n):
-    """(t, tile_i, tile_j) of the work list's ``item`` for n nodes."""
-    nt = tiles_per_side(n)
-    t, m = divmod(item, nt * (nt + 1) // 2)
+def n_items(T, n, row0=0, rows=None):
+    """Length of a chain's work list (of the rows [row0, row0 + rows) in
+    the row-range mode)."""
+    return T * _grid(n, row0, rows)[2]
+
+
+def work_item(item, n, row0=0, rows=None):
+    """(t, tile_i, tile_j) of the work list's ``item`` for n nodes, the
+    tiles counted from ``row0`` (node ``row0 + TILE * tile + k``)."""
+    _, ct, per_t = _grid(n, row0, rows)
+    t, m = divmod(item, per_t)
     ti = 0
-    while m >= nt - ti:
-        m -= nt - ti
+    while m >= ct - ti:
+        m -= ct - ti
         ti += 1
     return t, ti, ti + m
 
@@ -74,7 +92,9 @@ def workspace(device, n_partials, C):
     zero when made and left zero by every launch.  One pair per device,
     replaced by a larger one when a launch needs more (the old one is kept,
     never freed) and otherwise reused, so a call allocates nothing but its
-    output; it serves one stream at a time."""
+    output; it serves one stream at a time.  Node shards on one device
+    (``mcmc/nodes.py``) launch on its one current stream, so their
+    launches never overlap on it."""
     held = _WORKSPACES.get(device)
     if held is not None:
         if held[0].numel() >= n_partials and held[1].numel() >= C:
@@ -101,10 +121,10 @@ def resident_blocks(index, kernel, n_cand, d):
     return sms * per_sm
 
 
-def launch_layout(X, kernel, n_cand):
-    """(blocks per chain, partials, tickets) of one launch on X's
-    device."""
+def launch_layout(X, kernel, n_cand, row0=0, rows=None):
+    """(blocks per chain, partials, tickets) of one launch on X's device
+    (of the rows [row0, row0 + rows) in the row-range mode)."""
     C, T, n, d = X.shape
-    G = blocks_per_chain(C, n_items(T, n),
+    G = blocks_per_chain(C, n_items(T, n, row0, rows),
                          resident_blocks(X.device.index, kernel, n_cand, d))
     return (G,) + workspace(X.device, C * G * n_cand, C)

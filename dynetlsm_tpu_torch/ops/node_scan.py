@@ -574,14 +574,17 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                  1.0)
     else:
         prior = (None, None, None, float(tau_sq), float(sigma_sq))
-    rc = lib.node_scan_launch(
-        X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
-        log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
-        radii.data_ptr() if directed else None, prior[2],
-        temper.data_ptr() if temper is not None else None, X_out.data_ptr(),
-        acc.data_ptr(), C, T, n, d, P, warps, cluster, int(directed),
-        int(mixture), prior[3], prior[4], T * n * P if per_chain else 0,
-        int(split), cuda_lib.stream_handle(dev))
+    # the launch goes to the current device's stream: X's card
+    with torch.cuda.device(dev):
+        rc = lib.node_scan_launch(
+            X.data_ptr(), Y.data_ptr(), step_size.data_ptr(), eps.data_ptr(),
+            log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
+            radii.data_ptr() if directed else None, prior[2],
+            temper.data_ptr() if temper is not None else None,
+            X_out.data_ptr(), acc.data_ptr(), C, T, n, d, P, warps, cluster,
+            int(directed), int(mixture), prior[3], prior[4],
+            T * n * P if per_chain else 0, int(split),
+            cuda_lib.stream_handle(dev))
     if split:
         node_scan_cuda.split_launches += 1
     else:

@@ -5,7 +5,8 @@
 Builds the port's kernel library (nvcc, on a machine with the CUDA
 toolkit), disassembles it with ``cuobjdump -sass`` and prints one JSON line
 per instantiation of ``pair_loglik_kernel`` and ``dir_loglik_kernel`` (by
-candidate count, compiled for d = 2 or for any d): the kernel's
+candidate count, compiled for d = 2 or for any d, whole network or the
+row-range mode, ``row_range``): the kernel's
 instructions in all, and for its hot loop (the innermost loop
 around the first ``MUFU.EX2``: the loop over a tile's passes, or over the
 tiles where the compiler unrolled the passes) the instructions of its body,
@@ -72,8 +73,10 @@ def _hot_loop(instrs):
 def describe(name, instrs):
     kind = 'pair_loglik' if 'pair_loglik' in name else 'dir_loglik'
     n_cand, d = map(int, re.search(r'ILi(\d)ELi(\d)E', name).groups())
+    ranged = re.search(r'ILi\dELi\dELb1E', name) is not None
     row = {'kernel': kind, 'n_cand': n_cand, 'compiled_for_d': d or 'any',
-           'function': name, 'instructions': len(instrs)}
+           'row_range': ranged, 'function': name,
+           'instructions': len(instrs)}
     loop = _hot_loop(instrs)
     if loop is None:
         return row

@@ -208,13 +208,25 @@ def test_missing_dyads_fit(short_nested_lsm, cls):
     assert np.isfinite(m.logps_).all()
 
 
+# the JAX keywords the port once refused; these values are invalid
+# combinations, refused as JAX refuses them, before any initialisation
 UNSUPPORTED = [('devices', ['cuda:0']), ('node_devices', 2)]
+UNSUPPORTED_MATCH = {'devices': "the fit runs on 'cpu' devices",
+                     'node_devices': "latent_update='parallel' or 'mala'"}
 
 
 @pytest.mark.parametrize('cls', CLASSES)
 @pytest.mark.parametrize('name, value', UNSUPPORTED)
-def test_unsupported_keywords_raise(cls, name, value):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 item'):
+def test_unsupported_keywords_raise(monkeypatch, cls, name, value):
+    """``devices`` of another type than ``device``, and ``node_devices``
+    with the default exact scan, raise ValueError before any
+    initialisation work (the port takes both keywords since multi-device
+    fits; ``models.base._UNSUPPORTED`` is empty)."""
+    def no_init(*args, **kw):
+        raise AssertionError('initialisation ran')
+    monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
+    monkeypatch.setattr(mixture_base, 'init_from_lsm', no_init)
+    with pytest.raises(ValueError, match=UNSUPPORTED_MATCH[name]):
         cls(**{name: value}, device='cpu').fit(load_dynamic_monks())
 
 

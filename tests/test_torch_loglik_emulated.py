@@ -18,6 +18,10 @@ The last block of a chain to finish adds the chain's partial sums; running
 the blocks in the opposite order makes another block the last, and the
 result must not change by a bit (the last test holds the final sum alone
 to its index order, on values whose sum depends on the order).
+The kernels' row-range mode (node sharding: rows [row0, row0 + rows) held,
+the dyads i in them, j > i, summed to float64) is held to its plain version
+the same way, at row offsets that are and are not multiples of the tile
+and of 4, and the shards' shares to the whole network.
 """
 import ctypes
 import pathlib
@@ -29,9 +33,11 @@ import pytest
 import torch
 
 from dynetlsm_tpu_torch.ops import loglik_tiles
-from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_plain
+from dynetlsm_tpu_torch.ops.dir_loglik import (
+    dir_loglik_plain, dir_loglik_rows_plain)
 from dynetlsm_tpu_torch.ops.node_scan import pack_directed
-from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_plain
+from dynetlsm_tpu_torch.ops.pair_loglik import (
+    pair_loglik_plain, pair_loglik_rows_plain)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / 'dynetlsm_tpu_torch' / 'csrc'
@@ -75,8 +81,8 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     q = ctypes.c_longlong
-    lib.pair_loglik_host.argtypes = [p] * 7 + [i] * 5 + [q, i]
-    lib.dir_loglik_host.argtypes = [p] * 7 + [i] * 6 + [q, i]
+    lib.pair_loglik_host.argtypes = [p] * 8 + [i] * 7 + [q, i]
+    lib.dir_loglik_host.argtypes = [p] * 8 + [i] * 8 + [q, i]
     lib.block_finish_host.argtypes = [p] * 4 + [i] * 3
     return lib
 
@@ -116,32 +122,39 @@ def _block_counts(T, n):
                    max(1, items // 3)})
 
 
-def _host(lib, directed, args, G, reverse):
+def _host(lib, directed, args, G, reverse, row0=None):
     """The kernel on the host with G blocks a chain.  The scratch starts
-    as NaN and the tickets at 0; they must be 0 again at the end."""
+    as NaN and the tickets at 0; they must be 0 again at the end.  With
+    ``row0`` the row-range mode: args[0] holds the rows [row0, row0 +
+    rows), and the float64 share is returned."""
     X = args[1]
     C, T, n, d = X.shape
+    rows = args[0].shape[-2]
     n_cand = args[3].shape[1] if directed else len(args) - 2
     partials = torch.full((C * G * n_cand,), float('nan'),
                           dtype=torch.float64)
     tickets = torch.zeros(C, dtype=torch.int32)
     out = torch.full((C, n_cand), float('nan'))
-    y_chain = T * n * n if args[0].dim() == 4 else 0
+    out64 = torch.full((C, n_cand), float('nan'), dtype=torch.float64)
+    o32, o64 = ((None, out64.data_ptr()) if row0 is not None
+                else (out.data_ptr(), None))
+    y_chain = T * rows * n if args[0].dim() == 4 else 0
+    r0 = row0 or 0
     if directed:
         Yp, _, radii, b = args
         rc = lib.dir_loglik_host(
             X.data_ptr(), Yp.data_ptr(), radii.data_ptr(), b.data_ptr(),
-            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), C,
-            n_cand, T, n, d, G, y_chain, int(reverse))
+            partials.data_ptr(), tickets.data_ptr(), o32, o64, C, n_cand, T,
+            n, r0, rows, d, G, y_chain, int(reverse))
     else:
         rc = lib.pair_loglik_host(
             X.data_ptr(), args[0].data_ptr(), args[2].data_ptr(),
             args[3].data_ptr() if n_cand == 2 else None,
-            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), C, T, n,
-            d, G, y_chain, int(reverse))
+            partials.data_ptr(), tickets.data_ptr(), o32, o64, C, T, n, r0,
+            rows, d, G, y_chain, int(reverse))
     assert rc == 0
     assert not tickets.any()
-    return out
+    return out64 if row0 is not None else out
 
 
 def _check(lib, directed, n_cand, per_chain=False):
@@ -184,6 +197,50 @@ def test_host_kernels_per_chain_network(host_lib, directed):
         assert torch.equal(_host(lib=host_lib, directed=directed, args=same,
                                  G=G, reverse=False),
                            _host(host_lib, directed, args, G, False)), n
+
+
+def _row_cuts(n, k):
+    """Shard boundaries of the k-th shape: halves, or (every other shape,
+    where n allows it) three shards whose offsets are not multiples of 4
+    nor of the tile."""
+    if n >= 6 and k % 2:
+        return [0, n // 3 + 1, (2 * n) // 3 + 1, n]
+    return [0, n // 2, n]
+
+
+@pytest.mark.parametrize('per_chain', [False, True])
+@pytest.mark.parametrize('directed', [False, True])
+def test_host_kernels_row_range(host_lib, directed, per_chain):
+    """The row-range mode on the host: each shard's float64 share within
+    rtol 1e-5 of the plain row version's and bit-stable in both block
+    orders; the shards' shares add to the whole network's plain value
+    (rtol 1e-5), and the mode at row0 = 0, rows = n equals the whole
+    launch's float64 sum rounded once."""
+    n_cand = 3 if directed else 2
+    plain_rows = dir_loglik_rows_plain if directed else pair_loglik_rows_plain
+    plain = dir_loglik_plain if directed else pair_loglik_plain
+    for k, (C, T, n, d) in enumerate(SHAPES):
+        args = _inputs(40 + k + 7 * directed, C, T, n, d, n_cand, directed,
+                       per_chain)
+        Y = args[0]
+        whole = _host(host_lib, directed, args, 1, False)
+        full = _host(host_lib, directed, args, 1, False, row0=0)
+        assert torch.equal(full.float(), whole), n
+        for cuts in [_row_cuts(n, k)]:
+            total = torch.zeros((C, n_cand), dtype=torch.float64)
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                part = (Y[..., a:b, :].contiguous(),) + args[1:]
+                want = plain_rows(*part, row0=a)
+                items = loglik_tiles.n_items(T, n, a, b - a)
+                for G in sorted({1, (items + 1) // 2, items}):
+                    got = _host(host_lib, directed, part, G, False, row0=a)
+                    torch.testing.assert_close(got, want, rtol=RTOL,
+                                               atol=1e-9)
+                    again = _host(host_lib, directed, part, G, True, row0=a)
+                    assert torch.equal(got, again), (n, a, G)
+                total += got
+            torch.testing.assert_close(total.float(), plain(*args),
+                                       rtol=RTOL, atol=0.0)
 
 
 def _index_order_sum(values):

@@ -1,7 +1,8 @@
 """Community-splitting recovery through the port on the CPU: the HDP-LPCM's
 headline scenario (SURVEY.md §7.5 item 4), the reduced-budget variant of
 ``tests/test_splitting_recovery.py`` (the same network, budget and bar).
-The full-budget variant runs on the card in ``chip_smoke.py`` phase 16.
+A variant at half the full budget runs on the card in ``chip_smoke.py``
+phase 16.
 """
 import numpy as np
 

@@ -20,6 +20,7 @@
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
@@ -127,32 +128,44 @@ extern "C" int block_finish_host(const double* values, double* partials,
   run_grid(C, G, 0, reverse, [&] {
     const int c = blockIdx.y, blk = blockIdx.x;
     const double s[1] = {threadIdx.x == 0 ? values[c * G + blk] : 0.0};
-    loglik::block_finish<1>(s, partials, tickets, out, c, blk, G);
+    loglik::block_finish<1>(s, partials, tickets, out, nullptr, c, blk, G);
   });
   return 0;
 }
 
-// pair_loglik_launch's arguments, but run on the host.
+// pair_loglik_launch's arguments, with the row range and the float64
+// output of pair_loglik_rows_launch (out64 null: the float32 out), but run
+// on the host.
 extern "C" int pair_loglik_host(const float* X, const uint8_t* Y,
                                 const float* b_cur, const float* b_prop,
                                 double* partials, unsigned* tickets,
-                                float* out, int C, int T, int n, int d, int G,
+                                float* out, double* out64, int C, int T,
+                                int n, int row0, int rows, int d, int G,
                                 long long y_chain, int reverse) {
-  const int words = loglik::word_rows(Y, n, y_chain);
+  const loglik::Rows range{row0, rows};
+  const int words = loglik::word_rows(Y, n, y_chain, row0);
   const size_t smem = loglik::smem_bytes(d, 0);
   // as the launch picks them: compiled for d = 2, or for any d
   auto run = [&](auto kernel, const float* b_second) {
     run_grid(C, G, smem, reverse, [&] {
-      kernel(X, Y, y_chain, b_cur, b_second, partials, tickets, out, T, n, d,
-             G, words);
+      kernel(X, Y, y_chain, b_cur, b_second, partials, tickets, out, out64, T,
+             n, range, d, G, words);
     });
   };
+  // the row-range instantiation where the float64 output is asked for
+  auto pick = [&](auto whole, auto ranged, const float* b_second) {
+    out64 == nullptr ? run(whole, b_second) : run(ranged, b_second);
+  };
   if (b_prop == nullptr) {
-    d == 2 ? run(pair_loglik_kernel<1, 2>, b_cur)
-           : run(pair_loglik_kernel<1, 0>, b_cur);
+    d == 2 ? pick(pair_loglik_kernel<1, 2, false>,
+                  pair_loglik_kernel<1, 2, true>, b_cur)
+           : pick(pair_loglik_kernel<1, 0, false>,
+                  pair_loglik_kernel<1, 0, true>, b_cur);
   } else {
-    d == 2 ? run(pair_loglik_kernel<2, 2>, b_prop)
-           : run(pair_loglik_kernel<2, 0>, b_prop);
+    d == 2 ? pick(pair_loglik_kernel<2, 2, false>,
+                  pair_loglik_kernel<2, 2, true>, b_prop)
+           : pick(pair_loglik_kernel<2, 0, false>,
+                  pair_loglik_kernel<2, 0, true>, b_prop);
   }
   return 0;
 }
@@ -162,41 +175,50 @@ namespace {
 template <int NC>
 void dir_host(const float* X, const uint8_t* Yp, long long y_chain,
               const float* radii, const float* b, double* partials,
-              unsigned* tickets, float* out, int C, int T, int n, int d,
-              int G, int reverse) {
-  const int words = loglik::word_rows(Yp, n, y_chain);
+              unsigned* tickets, float* out, double* out64, int C, int T,
+              int n, loglik::Rows range, int d, int G, int reverse) {
+  const int words = loglik::word_rows(Yp, n, y_chain, range.row0);
   // as the launch picks them: compiled for d = 2, or for any d
   run_grid(C, G, loglik::smem_bytes(d, kUvFloats<NC>), reverse, [&] {
-    if (d == 2) {
-      dir_loglik_kernel<NC, 2>(X, Yp, y_chain, radii, b, partials, tickets,
-                               out, T, n, d, G, words);
+    // the row-range instantiation where the float64 output is asked for
+    auto run = [&](auto kernel) {
+      kernel(X, Yp, y_chain, radii, b, partials, tickets, out, out64, T, n,
+             range, d, G, words);
+    };
+    if (out64 == nullptr) {
+      d == 2 ? run(dir_loglik_kernel<NC, 2, false>)
+             : run(dir_loglik_kernel<NC, 0, false>);
     } else {
-      dir_loglik_kernel<NC, 0>(X, Yp, y_chain, radii, b, partials, tickets,
-                               out, T, n, d, G, words);
+      d == 2 ? run(dir_loglik_kernel<NC, 2, true>)
+             : run(dir_loglik_kernel<NC, 0, true>);
     }
   });
 }
 
 }  // namespace
 
-// dir_loglik_launch's arguments, but run on the host.
+// dir_loglik_launch's arguments, with the row range and the float64
+// output of dir_loglik_rows_launch (out64 null: the float32 out), but run
+// on the host.
 extern "C" int dir_loglik_host(const float* X, const uint8_t* Yp,
                                const float* radii, const float* b,
                                double* partials, unsigned* tickets,
-                               float* out, int C, int n_cand, int T, int n,
-                               int d, int G, long long y_chain, int reverse) {
+                               float* out, double* out64, int C, int n_cand,
+                               int T, int n, int row0, int rows, int d, int G,
+                               long long y_chain, int reverse) {
+  const loglik::Rows range{row0, rows};
   switch (n_cand) {
     case 1:
-      dir_host<1>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
-                  d, G, reverse);
+      dir_host<1>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
+                  T, n, range, d, G, reverse);
       return 0;
     case 2:
-      dir_host<2>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
-                  d, G, reverse);
+      dir_host<2>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
+                  T, n, range, d, G, reverse);
       return 0;
     case 3:
-      dir_host<3>(X, Yp, y_chain, radii, b, partials, tickets, out, C, T, n,
-                  d, G, reverse);
+      dir_host<3>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
+                  T, n, range, d, G, reverse);
       return 0;
     default:
       return 1;
