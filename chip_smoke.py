@@ -250,6 +250,29 @@ Phases, each of which fails the run (exit code 1) when it fails:
    twin bit for bit; then ``entry.dryrun_multichip``.  The row-range
    counters are set to 0 before the node-sharded sweeps and fits and
    read after: both must be above 0;
+19. the JAX package's examples that need numpy and the package alone,
+   run against the port from their unedited sources
+   (``scripts/run_example.py``: a copy with ``dynetlsm_tpu`` swapped for
+   ``dynetlsm_tpu_torch``), each with the launch counters set to 0 just
+   before and read just after: ``examples/parallel_tempering.py::run`` at
+   ``tests/test_examples_smoke.py``'s budget (400 + 150 + 150), whose
+   claim ``b_pt.std() < b_plain.std()`` must hold, launching the node scan
+   (its tempered lane) and ``dir_loglik``; ``examples/got.py`` at its full
+   width (T = 4, n = 313, 25 components) with its budget constants cut to
+   ``GOT_BUDGET``, its report printed, launching the node scan and
+   ``pair_loglik``; the
+   case-control sweep without colour classes (the sequential scan, one
+   control draw a chain) on the directed north-star network (T = 10,
+   n = 500, 64 controls, ``UNCOLORED_CC``): its scan on the card against
+   the same code on the CPU for 2 chains on seeded noise, node by node
+   from the card's positions (accepts equal but at near ties), its logp
+   at the case-control log joint, ms/sweep, launches a sweep and the
+   device's busy share (``torch.profiler``); these three in a child
+   process started with phase 17, beside 17 and 18; and the public
+   functions the port gained for the JAX package's exports on CUDA
+   tensors against the same call on the CPU (rtol 1e-5).
+   ``example_launches`` in the kernels line counts each kernel's launches
+   in the two examples;
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats; the node scan's plain version, seconds
    a call, is timed once, in its check), the node scan's at each cluster size
@@ -277,7 +300,8 @@ Phases, each of which fails the run (exit code 1) when it fails:
    on two chains (``slice_*``).  ``checkpoint_launches`` counts each
 kernel's launches in phase 17's uninterrupted fits.  The row-range rows
 (``pair_loglik_rows``, ``dir_loglik_rows``) are 18's timed shares, their
-``launches`` the node-sharded sweeps' and fits' of 18.
+``launches`` the node-sharded sweeps' and fits' of 18, their
+``issue_bound_ms`` at the whole modes' median SM clock.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -387,7 +411,10 @@ PER_CHAIN = 'per-chain Y'
 LOGLIK_SASS = {
     ('pair_loglik', 1): (82.75, 2), ('pair_loglik', 2): (134.0, 3),
     ('dir_loglik', 1): (144.25, 3), ('dir_loglik', 2): (238.5, 5),
-    ('dir_loglik', 3): (337.5, 7)}
+    ('dir_loglik', 3): (337.5, 7),
+    # the row-range instantiations phase 18 times (their MUFU counts the
+    # whole mode's: the row offset adds integer instructions only)
+    ('pair_loglik_rows', 2): (139.75, 3), ('dir_loglik_rows', 3): (338.0, 7)}
 
 
 class SmokeFailure(Exception):
@@ -1442,21 +1469,29 @@ def cc_log_joint(sweep, s):
         s.mean_var, s.b_scale, radii=s.radii, cc=cc)
 
 
-def check_colored_scan(name, s, sweep, dev, seed):
+def check_colored_scan(name, s, sweep, dev, seed, chains=CC_SCAN_CHAINS):
     """The chromatic scan on the card against the same code on the CPU, on
-    CC_SCAN_CHAINS chains of the state ``s`` with the slice's controls and
+    ``chains`` chains of the state ``s`` with the slice's controls and
     seeded noise, one colour class at a time from the card's positions, so
-    that every class starts from one state on both devices.  Returns (the
-    accepts that differ, the largest CPU margin among them, max |dX| over
-    the sites whose accepts agree, accept rate)."""
+    that every class starts from one state on both devices.  Without
+    colour classes (the sequential scan) each node is a class, in index
+    order, and each chain has its own controls.  Returns (the accepts that
+    differ, the largest CPU margin among them, max |dX| over the sites
+    whose accepts agree, accept rate)."""
     import torch
     from dynetlsm_tpu_torch.mcmc.latent import cc_colored_scan
     from dynetlsm_tpu_torch.mcmc.sweeps import build_cc_dict
     cfg = sweep.cfg
     cc = build_cc_dict(cfg, None, sweep.cc_static, s.ctrl_in, s.ctrl_out)
     cpu = torch.device('cpu')
-    C = CC_SCAN_CHAINS
+    C = chains
     _, T, n, d = s.X.shape
+    if 'color_groups' not in cc:
+        cc.update(color_groups=torch.arange(n, device=dev)[:, None],
+                  group_sizes=(1,) * n)
+        for k in ('ctrl_in', 'ctrl_out', 'ctrl_in_valid', 'ctrl_out_valid'):
+            if cc[k] is not None:
+                cc[k] = cc[k][:C]
     rng = np.random.RandomState(seed)
     eps = torch.as_tensor(rng.randn(C, 2, n, T, d), dtype=torch.float32)
     log_u = torch.as_tensor(np.log(rng.uniform(size=(C, 2, n, T))),
@@ -2165,7 +2200,9 @@ def checkpoint_child(mode, names, root, device):
     fit each of the comma-separated NAMES over its checkpoint, timing the
     writes, and save the compared traces, the write numbers and the
     launches to ROOT/NAME/result.npz.  'large-fit' (phase 15, NAMES '-'):
-    :func:`large_fit`, its launches to ROOT/launches.json."""
+    :func:`large_fit`, its launches to ROOT/launches.json.  'examples'
+    (phase 19, NAMES '-'): :func:`examples_child`, its numbers to
+    ROOT/result.json."""
     import torch
     from dynetlsm_tpu_torch.mcmc import driver
     dev = torch.device(device)
@@ -2174,6 +2211,10 @@ def checkpoint_child(mode, names, root, device):
         torch.zeros(1, device=dev)
         with open(os.path.join(root, 'launches.json'), 'w') as f:
             json.dump(large_fit(dev), f)
+        return 0
+    if mode == 'examples':
+        with open(os.path.join(root, 'result.json'), 'w') as f:
+            json.dump(examples_child(dev), f)
         return 0
     if mode == 'crash':
         orig = driver.collect_traces
@@ -2911,16 +2952,327 @@ def busy_sm_clock_hz(fn, launches=2000):
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
-def issue_bound_ms(name, args, n_cand, clock_hz):
+def issue_bound_ms(name, args, n_cand, clock_hz, dyads=None):
     """The least time the card needs to issue the compiled inner loop for
-    every dyad: ``LOGLIK_SASS`` instructions per dyad over SMS x LANES
-    lanes a clock, or, if larger, its MUFU instructions over a quarter of
-    the lanes."""
-    C, T, n, _ = args[1].shape
-    dyads = C * T * n * (n - 1) // 2
+    every dyad (``dyads``, or all of the inputs ``args``):
+    ``LOGLIK_SASS`` instructions per dyad over SMS x LANES lanes a clock,
+    or, if larger, its MUFU instructions over a quarter of the lanes."""
+    if dyads is None:
+        C, T, n, _ = args[1].shape
+        dyads = C * T * n * (n - 1) // 2
     instr, mufu = LOGLIK_SASS[name, n_cand]
     slots = max(instr / LANES, mufu / (LANES / 4))
     return 1e3 * dyads * slots / (SMS * clock_hz)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the examples, the uncoloured case-control scan, the exports
+# ---------------------------------------------------------------------------
+
+# got.py's budget constants on the card (its own: 20,000 + 5,000 + 5,000)
+GOT_BUDGET = dict(N_ITER=300, N_TUNE=100, N_BURN=100)
+# the tempering demo at tests/test_examples_smoke.py's budget
+PT_DEMO = dict(n_iter=400, tune=150, burn=150)
+# the uncoloured case-control slice: directed north star, controls a node,
+# chains, (warm, timed) sweeps
+UNCOLORED_CC = dict(n=500, m=64, C=8, sweeps=(1, 2))
+UNCOLORED_SCAN_CHAINS = 2
+
+
+def example_module(name, constants=None):
+    """``examples/NAME.py`` against the port (``scripts/run_example.py``),
+    its copy under build/examples."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'run_example', os.path.join(ROOT, 'scripts', 'run_example.py'))
+    run_example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run_example)
+    return run_example.load_port_example(name, constants)
+
+
+def got_example(dev):
+    """``examples/got.py`` at ``GOT_BUDGET`` on the card (its estimator's
+    default device), launches counted; its checks must hold.  Returns its
+    numbers."""
+    import contextlib
+    import io
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        m = example_module('got', GOT_BUDGET).model
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(m.Y_fit_.shape == (4, 313, 313), 'got.py: network %s'
+          % (m.Y_fit_.shape,))
+    check(bool(np.isfinite(m.logps_).all()), 'got.py: non-finite logp')
+    check(0.5 < m.auc_ <= 1.0, 'got.py: auc_ %g' % m.auc_)
+    check(m.forecast_probas_marginalized_.shape == (313, 313),
+          'got.py: forecast shape')
+    check(launches['node_scan'] > 0 and launches['pair_loglik'] > 0,
+          'got.py: launches %s' % launches)
+    return dict(seconds=seconds, launches=launches, auc=float(m.auc_),
+                report=out.getvalue().strip().splitlines(),
+                stage_seconds={k: round(v, 3)
+                               for k, v in m.stage_seconds_.items()},
+                sweeps=m.n_iter + m.tune + m.burn, chains=m.n_chains,
+                device=str(m.device_))
+
+
+def examples_child(dev):
+    """Phase 19's work that runs in a child process beside phases 17 and
+    18: the tempering demo, the uncoloured case-control slice and
+    ``got.py``, each with the launch counters set to 0 just before it and
+    read just after.  Returns their numbers."""
+    return dict(pt=pt_demo(), cc=uncolored_cc(dev), got=got_example(dev))
+
+
+def start_examples(dev):
+    """Start :func:`examples_child` in a child process (``--checkpoint-child
+    examples``).  Returns the child for :func:`examples_result`."""
+    import shutil
+    root = os.path.join(ROOT, 'build', 'examples_child')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    threads = str(max(1, (os.cpu_count() or 2) // 2))
+    env = dict(os.environ, OMP_NUM_THREADS=threads,
+               OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+    return run_child(['examples', '-', root, str(dev)],
+                     os.path.join(root, 'child.log'), 900, env=env), root
+
+
+def examples_result(started):
+    """Wait for the :func:`start_examples` child and return its numbers
+    (its checks fail the child, and so the phase)."""
+    import shutil
+    child, root = started
+    code, out = wait_child(child)
+    check(code == 0, 'examples child exited %s: %s' % (code, out))
+    with open(os.path.join(root, 'result.json')) as f:
+        result = json.load(f)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def pt_demo():
+    """``examples/parallel_tempering.py::run`` at ``PT_DEMO`` on the card,
+    launches counted; its claim must hold.  Returns its numbers."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    b_plain, b_pt, ladder = example_module('parallel_tempering').run(
+        **PT_DEMO)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(b_plain.shape == (8,) and b_pt.shape == (2,),
+          'tempering demo: shapes %s %s' % (b_plain.shape, b_pt.shape))
+    check(bool(np.isfinite(b_plain).all() and np.isfinite(b_pt).all()),
+          'tempering demo: non-finite means')
+    check(b_pt.std() < b_plain.std(), 'tempering demo: tempered spread %g '
+          'not below the untempered %g' % (b_pt.std(), b_plain.std()))
+    check(ladder.shape == (8,) and bool(np.allclose(ladder[::4], 1.0)),
+          'tempering demo: ladder %s' % ladder)
+    check(launches['node_scan'] > 0 and launches['dir_loglik'] > 0,
+          'tempering demo: launches %s' % launches)
+    return dict(seconds=seconds, launches=launches,
+                spread_plain=float(b_plain.std()),
+                spread_pt=float(b_pt.std()), b_plain=b_plain.tolist(),
+                b_pt=b_pt.tolist(), ladder=ladder.tolist())
+
+
+def uncolored_cc(dev):
+    """The case-control sweep without colour classes on the directed
+    north-star network (``UNCOLORED_CC``): the HDP-LPCM state of
+    ``build_state_and_sweep`` with one control draw a chain and the sweep
+    of its edge lists alone; its scan on the card against the CPU, its
+    logp against the case-control log joint, its times.  Returns its
+    numbers."""
+    import torch
+    from dynetlsm_tpu_torch import profile_blocks
+    from dynetlsm_tpu_torch.datasets import northstar_network
+    from dynetlsm_tpu_torch.entry import build_state_and_sweep
+    from dynetlsm_tpu_torch.mcmc.driver import make_scan_runner
+    from dynetlsm_tpu_torch.mcmc.sweeps import make_hdp_sweep
+    from dynetlsm_tpu_torch.ops.case_control import sample_control_nodes
+    n, m, C = UNCOLORED_CC['n'], UNCOLORED_CC['m'], UNCOLORED_CC['C']
+    warm, timed = UNCOLORED_CC['sweeps']
+    name = 'cc uncoloured directed northstar'
+    Y = northstar_network(n=n, directed=True)
+    state, sweep, gen = build_state_and_sweep(
+        Y, C, K=CC_K, device=dev, is_directed=True, n_control=m)
+    static = {k: sweep.cc_static[k]
+              for k in ('in_edges', 'out_edges', 'degrees')}
+    sweep = make_hdp_sweep(None, np.zeros(2, np.float32), sweep.cfg,
+                           device=dev, cc_static=static)
+    ci, co = sample_control_nodes(gen, state.X[..., 0], m, directed=True,
+                                  n_chains=C)
+    state = state.replace(ctrl_in=ci, ctrl_out=co)
+    runner = make_scan_runner(sweep, lambda s: {'logp': s.logp},
+                              chunk=timed)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    state, _ = runner(state, gen, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, traced = runner(state, gen, timed)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / timed
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(all(v == 0 for v in launches.values()),
+          '%s: dense kernels launched %s' % (name, launches))
+    check(tuple(state.ctrl_out.shape) == (C, n, m),
+          '%s: controls %s' % (name, tuple(state.ctrl_out.shape)))
+    check(bool(torch.isfinite(traced['logp']).all()),
+          '%s: non-finite logp' % name)
+    want = cc_log_joint(sweep, state)
+    gap = (want - state.logp).abs()
+    rel = float((gap / state.logp.abs()).max())
+    check(bool((gap <= 1e-5 * state.logp.abs() + 1e-3).all()),
+          '%s: sweep logp vs the case-control log joint rel err %g'
+          % (name, rel))
+    acc_rate = float(state.acc_X.mean()) / (warm + timed)
+    check(0.0 < acc_rate < 1.0, '%s: X acceptance %g' % (name, acc_rate))
+    device = profile_blocks.device_times(sweep, state, gen, 1)
+    flips, margin, dx, rate = check_colored_scan(
+        name, state, sweep, dev, seed=n + 2, chains=UNCOLORED_SCAN_CHAINS)
+    return dict(name=name, n=n, m=m, chains=C, ms=ms, acc_rate=acc_rate,
+                logp_rel_err=rel,
+                launches_per_sweep=device['launches_per_sweep'],
+                device_busy=device['device_busy'], cpu_flips=flips,
+                cpu_margin=margin, cpu_dx=dx)
+
+
+def exports_on_card(dev):
+    """The functions the port gained for the JAX package's exports on CUDA
+    tensors against the same call on the CPU (rtol 1e-5).  Returns the
+    largest relative difference."""
+    import torch
+    from dynetlsm_tpu_torch import math as pmath, ops as pops
+    from dynetlsm_tpu_torch.math import distributions as pdist
+    from dynetlsm_tpu_torch.math import procrustes as pproc
+    from dynetlsm_tpu_torch.mcmc import labels as plabels
+    from dynetlsm_tpu_torch.ops import likelihoods as plik
+    rng = np.random.RandomState(19)
+    T, n, K = 3, 40, 4
+    Y = (rng.uniform(size=(T, n, n)) < 0.3).astype(np.float32)
+    X = rng.randn(T, n, 2).astype(np.float32)
+    radii = rng.uniform(0.5, 1.0, n).astype(np.float32)
+    mu = rng.randn(K, 2).astype(np.float32)
+    sig = rng.uniform(0.5, 2.0, K).astype(np.float32)
+    Xs = rng.randn(5, T, n, 2).astype(np.float32)
+    g = rng.gumbel(size=(1, T, n, K)).astype(np.float32)
+    w0 = rng.dirichlet(np.ones(K)).astype(np.float32)
+    w = rng.dirichlet(np.ones(K), size=K).astype(np.float32)
+
+    def calls(d):
+        def t(a):
+            return torch.as_tensor(a, device=d)
+        tY, tX, tr = t(Y), t(X), t(radii)
+        dist = pops.pairwise_distances(tX)
+        return {
+            'distances_to_point': pops.distances_to_point(tX, tX[:, 3]),
+            'undirected_partial_loglik': pops.undirected_partial_loglik(
+                tY[:, 3], tX, tX[:, 3] + 0.1, 0.4),
+            'directed_partial_loglik': pops.directed_partial_loglik(
+                tY[:, 3], tY[:, :, 3], tX, tX[:, 3] + 0.1, tr,
+                tr[3].expand(T), 0.3, -0.2),
+            'directed_intercept_grad': pops.directed_intercept_grad(
+                tY, dist, tr, 0.3, -0.2),
+            'dynamic_network_loglikelihood': torch.stack([
+                plik.dynamic_network_loglikelihood(tY, tX, 0.4),
+                plik.dynamic_network_loglikelihood(
+                    tY, tX, t(np.float32([0.3, -0.2])), radii=tr)]),
+            'loglik_pair': torch.stack(plik.undirected_loglik_pair(
+                tY, dist, 0.4, 0.5) + plik.directed_loglik_pair(
+                tY, dist, tr, (0.3, -0.2), (0.4, -0.1))),
+            'emission_logliks': pops.emission_logliks(tX, t(mu), t(sig),
+                                                      0.8),
+            'emission_likelihoods': pops.emission_likelihoods(
+                tX, t(mu), t(sig), 0.8),
+            'spherical_normal_logpdf': pops.spherical_normal_logpdf(
+                tX, t(mu[0]), 0.7),
+            'multivariate_t_logpdf': torch.stack([
+                pmath.multivariate_t_logpdf(tX[0, 0], 4.0, t(mu[0]), t(
+                    np.float32([[2.0, 0.3], [0.3, 1.0]]))),
+                pmath.multivariate_t_logpdf(tX[0, 0], 4.0, t(mu[0]), 1.7)]),
+            'spherical_normal_log_pdf': pdist.spherical_normal_log_pdf(
+                tX, t(mu[0]), 0.7),
+            'longitudinal_procrustes_transform':
+                pmath.longitudinal_procrustes_transform(t(Xs))[0],
+            'static_procrustes_rotation': pproc.static_procrustes_rotation(
+                tX[0], tX[1])[0],
+            'labels_gibbs_from_gumbel': plabels.labels_gibbs_from_gumbel(
+                tX[None], t(mu)[None], t(sig)[None],
+                t(np.float32([0.8])), t(w0)[None], t(w)[None], t(g)),
+            'log_normalize': plabels.log_normalize(t(X[0])),
+        }
+    card = calls(dev)
+    cpu = calls(torch.device('cpu'))
+    worst = 0.0
+    for k, v in card.items():
+        check(v.device.type == 'cuda', '%s: result on %s' % (k, v.device))
+        v, c = v.cpu(), cpu[k]
+        if not v.is_floating_point():
+            check(torch.equal(v, c), '%s: card and CPU differ' % k)
+            continue
+        err = float(((v - c).abs() / (c.abs() + 1e-6)).max())
+        worst = max(worst, err)
+        check(bool(torch.allclose(v, c, rtol=1e-5, atol=1e-5)),
+              '%s: card and CPU differ by %g (relative)' % (k, err))
+    gen = torch.Generator(device=dev).manual_seed(19)
+    draws = [pdist.truncated_normal(gen, torch.full((4096,), 0.99999,
+                                                    device=dev),
+                                    torch.full((4096,), 1e-8, device=dev)),
+             pdist.sample_inv_gamma(gen, 3.0, 2.0),
+             pdist.sample_categorical(gen, torch.full((64, 3), 1 / 3,
+                                                      device=dev))]
+    check(all(d.device == dev for d in draws), 'samplers: a draw off the '
+          'card')
+    check(bool(((draws[0] > 0) & (draws[0] < 1)).all()),
+          'truncated_normal: a draw on or past a bound')
+    log('exports on the card against the CPU: %d functions, largest '
+        'relative difference %g; samplers draw on the generator\'s device'
+        % (len(card), worst))
+    return worst
+
+
+def examples_phase(dev, child):
+    """Phase 19: the exports on the card, then the numbers of the
+    :func:`start_examples` child.  Returns (its numbers, each kernel's
+    launches in the two examples)."""
+    worst = exports_on_card(dev)
+    out = examples_result(child)
+    pt, cc, got = out['pt'], out['cc'], out['got']
+    log('tempering demo (%s): %.1f s, per-chain mean b_in untempered %s '
+        '(spread %.4f), tempered %s (spread %.4f), ladder %s, launches %s'
+        % (', '.join('%s=%d' % kv for kv in PT_DEMO.items()), pt['seconds'],
+           np.round(pt['b_plain'], 4).tolist(), pt['spread_plain'],
+           np.round(pt['b_pt'], 4).tolist(), pt['spread_pt'],
+           np.round(pt['ladder'], 4).tolist(), pt['launches']))
+    log('slice %s (T=10, n=%d, m=%d, %d chains, one control draw a chain): '
+        '%.3f ms/sweep, %.0f kernel launches/sweep, device busy %.3f, X '
+        'acceptance %.3f, case-control log joint rel err %g; the scan on '
+        'the card against the CPU, %d chains node by node: %d accepts '
+        'differ (largest CPU margin %g), max |dX| %g at the others'
+        % (cc['name'], cc['n'], cc['m'], cc['chains'], cc['ms'],
+           cc['launches_per_sweep'], cc['device_busy'], cc['acc_rate'],
+           cc['logp_rel_err'], UNCOLORED_SCAN_CHAINS, cc['cpu_flips'],
+           cc['cpu_margin'], cc['cpu_dx']))
+    log('got.py (%s, %d sweeps, %d chain(s), on %s): %.1f s, auc_ %.4f, '
+        'launches %s, stage seconds %s; its report: %s'
+        % (', '.join('%s=%d' % kv for kv in GOT_BUDGET.items()),
+           got['sweeps'], got['chains'], got['device'], got['seconds'],
+           got['auc'], got['launches'], got['stage_seconds'],
+           ' | '.join(got['report'])))
+    log('(the demo, the slice and got.py in a child process beside phases '
+        '17 and 18)')
+    launches = {k: pt['launches'][k] + got['launches'][k]
+                for k in pt['launches']}
+    return dict(out, exports_worst=worst), launches
 
 
 def main():
@@ -3121,7 +3473,8 @@ def main():
             fit_launches[k] = fit_launches.get(k, 0) + v
         phase_done('phase 16')
 
-        # phase 17: checkpoints
+        # phase 17: checkpoints, with phase 19's examples beside it and 18
+        examples_child = start_examples(dev)
         ckpt_launches, ckpt_writes = checkpoint_phase(dev)
         for k, v in ckpt_launches.items():
             fit_launches[k] = fit_launches.get(k, 0) + v
@@ -3130,6 +3483,11 @@ def main():
         # phase 18: multi-device fits
         row_rows, row_launches, node_sweeps = multi_device_phase(dev)
         phase_done('phase 18')
+
+        # phase 19: the examples, the uncoloured case-control scan, the
+        # exports
+        examples_out, example_launches = examples_phase(dev, examples_child)
+        phase_done('phase 19')
 
         from dynetlsm_tpu_torch.ops.dir_loglik import (
             dir_loglik_cuda, dir_loglik_plain)
@@ -3163,6 +3521,7 @@ def main():
                 'dir_loglik': (dir_loglik_cuda, dir_loglik_plain)}[name]
             args, errs = logliks[key]
             clock = busy_sm_clock_hz(lambda: kernel(*args))
+            clocks.append(clock)
             in_graph, replayed = graph_ms(lambda: kernel(*args), 20)
             check(torch.equal(replayed, kernel(*args)),
                   '%s n_cand=%d n=%d: the CUDA graph replay differs from '
@@ -3177,6 +3536,7 @@ def main():
                      'diff_err_vs_float64': errs['diff_err64']})
 
         kernels = []
+        clocks = []
         scan_cu = 'dynetlsm_tpu_torch/csrc/node_scan.cu'
         pair_cu = 'dynetlsm_tpu_torch/csrc/pair_loglik.cu'
         dir_cu = 'dynetlsm_tpu_torch/csrc/dir_loglik.cu'
@@ -3293,14 +3653,22 @@ def main():
                 'bound_ms': bound_ms, 'bound_by': bound_by,
                 'library_ms': None, 'fit_launches': fit_launches[name],
                 'checkpoint_launches': ckpt_launches[name],
+                'example_launches': example_launches[name],
                 'mode': mode, 'slice': slice_at,
                 'shape': 'T=%(T)d n=%(n)d chains=%(C)d' % shape}, **extra))
         for name, (err, nums, mode, shape) in row_rows.items():
             bound_ms, bound_by = nums['bound']
+            # at the median SM clock of the whole modes' rows
+            clock = float(np.median(clocks))
+            issue_ms = issue_bound_ms(
+                name, None, 2 if name.startswith('pair') else 3, clock,
+                dyads=nums['dyads'])
             log('%s (%s) %s: kernel %.4f ms, %.4f ms a call in a CUDA graph '
-                'of 5, plain %.4f ms, bound %.6f ms (%s), %d dyads'
+                'of 5, plain %.4f ms, bound %.6f ms (%s), issue bound %.6f '
+                'ms at %.0f MHz, %d dyads'
                 % (name, mode, shape, nums['ms'], nums['graph_ms'],
-                   nums['plain_ms'], bound_ms, bound_by, nums['dyads']))
+                   nums['plain_ms'], bound_ms, bound_by, issue_ms,
+                   clock / 1e6, nums['dyads']))
             kernels.append({
                 'name': name, 'route': 'cuda',
                 'source': pair_cu if name.startswith('pair') else dir_cu,
@@ -3310,6 +3678,7 @@ def main():
                 'ms': nums['ms'], 'plain_ms': nums['plain_ms'],
                 'bound_ms': bound_ms, 'bound_by': bound_by,
                 'library_ms': None, 'graph_ms': nums['graph_ms'],
+                'issue_bound_ms': issue_ms, 'sm_clock_mhz': clock / 1e6,
                 'mode': mode, 'shape': shape,
                 'slice': 'phase 18 node-sharded sweeps and fits'})
         log('node-sharded sweeps at n = 8,192: ' + ', '.join(

@@ -1,7 +1,8 @@
 """Networks in NumPy alone (counterpart of ``dynetlsm_tpu/datasets``):
 
 * ``loaders``: Sampson's monastery (:func:`load_dynamic_monks`,
-  :func:`load_monks`), Game of Thrones (:func:`load_got`) and the Cold-War
+  :func:`load_static_monks`, :func:`load_monks`), Game of Thrones
+  (:func:`load_got`, :func:`load_got_edgelists`) and the Cold-War
   alliances (:func:`load_alliances`), read from the JAX package's raw
   files in place;
 * ``samples_generator`` and ``detection_limit``: the JAX package's
@@ -12,7 +13,7 @@
 from .detection_limit import detection_limit_simulation, make_lookup_table
 from .loaders import (
     RAW, core_number, load_alliances, load_dynamic_monks, load_got,
-    load_monks, network_from_edgelist)
+    load_got_edgelists, load_monks, load_static_monks, network_from_edgelist)
 from .northstar import (
     network_of_edge_lists, northstar_edge_lists, northstar_network,
     northstar_probas, with_missing_dyads)
@@ -26,7 +27,7 @@ __all__ = [
     'RAW', 'core_number', 'detection_limit_simulation', 'forecast_probas',
     'forecast_probas_map', 'homogeneous_simulation',
     'inhomogeneous_simulation', 'load_alliances', 'load_dynamic_monks',
-    'load_got', 'load_monks', 'make_lookup_table', 'merging_block_model',
+    'load_got', 'load_got_edgelists', 'load_monks', 'load_static_monks', 'make_lookup_table', 'merging_block_model',
     'merging_dynamic_network', 'network_from_dynamic_latent_space',
     'network_from_edgelist', 'network_of_edge_lists', 'northstar_edge_lists',
     'northstar_network', 'northstar_probas',

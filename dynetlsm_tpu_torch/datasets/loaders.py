@@ -61,6 +61,15 @@ def load_monks(dynamic=True, is_directed=True, include_waverers=False,
             _lines(os.path.join(RAW, 'sampson_names.txt')))
 
 
+def load_static_monks(encode_labels=True, include_waverers=False,
+                      is_directed=True):
+    """The aggregated single-wave (n=18) monastery network and its faction
+    labels (reference load_monks.py:52-71)."""
+    return load_monks(dynamic=False, is_directed=is_directed,
+                      include_waverers=include_waverers,
+                      encode_labels=encode_labels)
+
+
 def network_from_edgelist(edgelist, n_nodes):
     """Symmetric binary adjacency from an (n_edges, 2) integer edge list
     (reference load_got.py:16-25)."""
@@ -83,6 +92,20 @@ def _got_edges():
                               return_inverse=True)
     summed = np.bincount(inverse.ravel(), weights=weight.astype(np.int64))
     return keys[0], keys[1], keys[2].astype(np.int64), summed
+
+
+def load_got_edgelists():
+    """Per-season GoT co-occurrence edge lists as one pandas dataframe
+    with summed weights (reference load_got.py:28-42); pandas is imported
+    here, as the JAX loader does."""
+    import pandas as pd
+
+    frames = [pd.read_csv(path, names=['source', 'target', 'weight',
+                                       'season'], skiprows=1)
+              for path in sorted(glob.glob(os.path.join(
+                  RAW, 'got', 'got-s*-edges.csv')))]
+    return pd.concat(frames).groupby(['source', 'target', 'season'],
+                                     as_index=False).agg({'weight': 'sum'})
 
 
 def load_got(seasons=None, weight_min=None):

@@ -152,3 +152,105 @@ def truncated_normal_logpdf(x, mean, var, lower=0.0, upper=1.0):
     inside = (x > lower) & (x < upper)
     return torch.where(inside, log_phi - log_mass,
                        torch.full_like(x, -math.inf))
+
+
+def _on(v, gen, like=None):
+    """v as a float32 tensor on the device of the tensor ``like`` (or of
+    v itself, if a tensor), else of the generator ``gen``."""
+    if like is not None:
+        dev = like.device
+    elif torch.is_tensor(v):
+        dev = v.device
+    else:
+        dev = gen.device
+    return torch.as_tensor(v, dtype=DTYPE, device=dev)
+
+
+def truncated_normal(gen, mean, var, lower=0.0, upper=1.0):
+    """N(mean, var) truncated to (lower, upper), one draw per element of
+    ``mean``, by the inverse CDF, strictly inside the interval (reference
+    distributions.py:72-77)."""
+    mean = _on(mean, gen)
+    u = uniform(gen, mean.shape, mean.device,
+                minval=torch.finfo(DTYPE).tiny)
+    return truncated_normal_from_uniform(mean, _on(var, gen, mean), u,
+                                         lower, upper)
+
+
+def sample_categorical_logits(gen, logits, axis=-1):
+    """Categorical draws by Gumbel-argmax over ``axis`` of the logits."""
+    return torch.argmax(logits + gumbel(gen, logits.shape, logits.device),
+                        dim=axis)
+
+
+def sample_categorical(gen, probas, axis=-1):
+    """Categorical(probas) draws along ``axis`` (reference
+    distributions.py:13-19), by Gumbel-argmax of the clamped
+    log-probabilities."""
+    return sample_categorical_logits(
+        gen, torch.log(torch.clamp_min(probas, _TINY)), axis=axis)
+
+
+def sample_inv_gamma(gen, shape, rate):
+    """1 / Gamma(shape, rate), i.e. InvGamma(shape, scale=rate), from the
+    fixed-round gamma (the reference draws ``1 / rng.gamma(shape=a,
+    scale=1/b)``, e.g. hdp_lpcm.py:937)."""
+    shape = _on(shape, gen)
+    return inv_gamma_from_draws(
+        shape, rate, gamma_draws(gen, shape.shape, shape.device))
+
+
+# ---------------------------------------------------------------------------
+# densities (reference distributions.py:22-69)
+# ---------------------------------------------------------------------------
+
+
+def multivariate_t_logpdf(x, df, mu0, S):
+    """Log density of a multivariate t with ``df`` degrees of freedom,
+    location mu0 and a scalar (spherical) or (p, p) scale S."""
+    x = torch.atleast_1d(torch.as_tensor(x))
+    mu0 = torch.atleast_1d(torch.as_tensor(mu0, dtype=x.dtype,
+                                           device=x.device))
+    p = x.shape[-1]
+    S = torch.as_tensor(S, dtype=x.dtype, device=x.device)
+    df = torch.as_tensor(df, dtype=x.dtype, device=x.device)
+    if S.dim() < 2:
+        rss = torch.sum((x - mu0) ** 2, dim=-1) / S
+        log_var = p * 0.5 * torch.log(S)
+    else:
+        L = torch.linalg.cholesky(S)
+        r = x - mu0
+        sol = torch.linalg.solve_triangular(
+            L, r[:, None] if r.dim() == 1 else r, upper=False)
+        rss = torch.sum(sol * sol, dim=0)
+        if r.dim() == 1:
+            rss = rss[0]
+        log_var = torch.sum(torch.log(torch.diagonal(L)))
+    return (torch.lgamma((p + df) / 2.0) - torch.lgamma(df / 2.0) - log_var
+            - (p / 2.0) * torch.log(df * math.pi)
+            - 0.5 * (df + p) * torch.log1p(rss / df))
+
+
+def multivariate_t_pdf(x, df, mu0, S):
+    return torch.exp(multivariate_t_logpdf(x, df, mu0, S))
+
+
+# the reference's spelling (reference distributions.py:42)
+multivariate_t_log_pdf = multivariate_t_logpdf
+
+
+def spherical_normal_log_pdf(x, mean, var):
+    """Log density of N(mean, var I) over the trailing axis, batched over
+    the leading ones (reference distributions.py:22-28)."""
+    x = torch.as_tensor(x)
+    mean = torch.atleast_1d(torch.as_tensor(mean, dtype=x.dtype,
+                                            device=x.device))
+    var = torch.as_tensor(var, dtype=x.dtype, device=x.device)
+    p = mean.shape[-1]
+    sum_sq = torch.sum((x - mean) ** 2, dim=-1)
+    return -0.5 * p * torch.log(2.0 * math.pi * var) - 0.5 * sum_sq / var
+
+
+def spherical_normal_pdf(x, mean, var):
+    """(reference distributions.py:31-39)"""
+    return torch.exp(spherical_normal_log_pdf(x, mean, var))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from scipy.optimize import minimize
 from scipy.sparse import csgraph
+from scipy.special import expit
 
 from ..ops.distances import pairwise_distances
 from ..ops.likelihoods import directed_loglik_full, undirected_loglik_full
@@ -385,3 +386,43 @@ def directed_intercept_mle(Y, X, radii, intercept_init=None, tol=1e-4,
     res = _bfgs(lambda p: -directed_loglik_full(Yt, dist, rt, p[0], p[1]),
                 x0, tol, device)
     return float(res.x[0]), float(res.x[1])
+
+
+# ---------------------------------------------------------------------------
+# public gradient and distance helpers (reference latent_space.py:19-33,
+# lsm.py:32-44), NumPy in float64
+# ---------------------------------------------------------------------------
+
+
+def calculate_distances(X, squared=False):
+    """Pairwise latent distances of a static (n, d) or longitudinal (T, n,
+    d) configuration (reference latent_space.py:19-33)."""
+    X = np.asarray(X, np.float64)
+    diff = X[..., :, None, :] - X[..., None, :, :]
+    d2 = np.sum(diff * diff, axis=-1)
+    return d2 if squared else np.sqrt(np.maximum(d2, 0.0))
+
+
+def _offdiag_sum(g):
+    """Sum of g (T, n, n) over every off-diagonal entry."""
+    return np.sum(g) - np.einsum('ikk', g).sum()
+
+
+def undirected_intercept_grad(Y, X, intercept, squared=False, dist=None):
+    """d loglik / d intercept of the undirected model, each dyad once
+    (reference lsm.py:32-36)."""
+    if dist is None:
+        dist = calculate_distances(X, squared=squared)
+    g = np.asarray(Y, np.float64) - expit(intercept - dist)
+    return 0.5 * float(_offdiag_sum(g))
+
+
+def scale_grad(Y, X, intercept, scale, squared=False, dist=None):
+    """d loglik / d log-scale of the latent positions, summed over the
+    full off-diagonal matrix as the reference does (reference
+    lsm.py:39-44; the scale is exp(scale))."""
+    if dist is None:
+        dist = calculate_distances(X, squared=squared)
+    sd = np.exp(scale) * dist
+    g = -sd * (np.asarray(Y, np.float64) - expit(intercept - sd))
+    return float(_offdiag_sum(g))

@@ -30,7 +30,7 @@ import torch
 
 from ..ops.shards import RowShards, node_bounds
 from .states import (
-    NODE_FIELDS, SHARED_FIELDS, place_like, state_from_numpy)
+    NODE_FIELDS, SHARED_FIELDS, is_shared, place_like, state_from_numpy)
 
 
 class Mesh:
@@ -161,7 +161,7 @@ def shard_state(state, mesh):
             v = getattr(state, f.name)
             if v is None:
                 continue
-            if f.name in SHARED_FIELDS:
+            if is_shared(f.name, v):
                 fields[f.name] = v.to(devs[0])
             elif nodes and f.name in NODE_FIELDS:
                 fields[f.name] = RowShards.split(v[sl], devs)
@@ -203,7 +203,7 @@ def state_sharding(mesh, state):
         v = getattr(row, f.name)
         if v is None:
             continue
-        if f.name in SHARED_FIELDS:
+        if is_shared(f.name, v):
             specs[f.name] = (None,) * len(v.shape)
             continue
         spec = ['chains'] + [None] * (len(v.shape) - 1)
@@ -215,7 +215,7 @@ def state_sharding(mesh, state):
     return StateSharding(mesh, specs)
 
 
-def replicate_state(state0, n_chains, device):
+def replicate_state(state0, n_chains, device, shared=SHARED_FIELDS):
     """Broadcast a single-chain state, given as a dict of arrays keyed by
     the field names of :class:`~.states.LSMState` or
     :class:`~.states.MixtureState` (no chain axis; the fields given pick
@@ -223,8 +223,11 @@ def replicate_state(state0, n_chains, device):
     axis of length ``n_chains`` on ``device``; ``None`` fields stay
     ``None``.  Every chain gets its own copy of the network ``Y`` (missing
     dyads resampled), and a zero ``missing_sum`` unless one is given; the
-    case-control controls (``states.SHARED_FIELDS``) stay one for all."""
-    batched = {k: (np.asarray(v) if k in SHARED_FIELDS else
+    fields named in ``shared`` (the coloured case-control controls,
+    ``states.SHARED_FIELDS``) stay one for all: pass ``shared=()`` to give
+    every chain its copy of the controls of a sweep without colour
+    classes, which redraws them per chain."""
+    batched = {k: (np.asarray(v) if k in shared else
                    np.broadcast_to(np.asarray(v), (n_chains,)
                                    + np.shape(v)).copy())
                for k, v in state0.items() if v is not None}

@@ -8,9 +8,9 @@ Gumbel-argmax (``torch.argmax`` takes the first index on ties, as
 """
 import torch
 
-from ..config import SMALL_EPS
+from ..config import LOG_GUARD, SMALL_EPS
 from ..math.distributions import gumbel
-from ..ops.emissions import emission_likelihoods_kn
+from ..ops.emissions import emission_likelihoods_kn, emission_logliks_kn
 
 
 def _backward_messages(lik, w):
@@ -94,6 +94,48 @@ def sample_labels_block_lpcm(gen, X, mu, sigma, lmbda, init_weights,
     z = _forward_sample(gen, pm, init_weights, w)
     n_trans, nk, resp = _label_statistics(z, K)
     return z, n_trans, nk, resp
+
+
+def labels_gibbs_from_gumbel(X, mu, sigma, lmbda, w0, w, g):
+    """Labels drawn forward in time, each site from its emission
+    likelihood times the transition from its previous label, with no
+    backward messages (reference sample_labels.py:22-70): X (C, T, n, d),
+    mu (C, K, d), sigma (C, K), lmbda (C,), w0 (C, K) the initial
+    distribution, w (C, K, K) the transitions, g (C, T, n, K) Gumbel
+    noise.  Returns z (C, T, n) int64."""
+    C, T, n, _ = X.shape
+    K = sigma.shape[-1]
+    loglik = emission_logliks_kn(X, mu, sigma, lmbda).transpose(2, 3)
+    logits = torch.log(w0 + LOG_GUARD)[:, None, :] + loglik[:, 0]
+    z_t = torch.argmax(logits + g[:, 0], dim=-1)
+    zs = [z_t]
+    for t in range(1, T):
+        rows = torch.gather(w, 1, z_t[:, :, None].expand(C, n, K))
+        logits = torch.log(rows + LOG_GUARD) + loglik[:, t]
+        z_t = torch.argmax(logits + g[:, t], dim=-1)
+        zs.append(z_t)
+    return torch.stack(zs, dim=1)
+
+
+def sample_labels_gibbs(gen, X, mu, sigma, lmbda, w0, w):
+    """Per-site forward label sampling (JAX ``sample_labels_gibbs``, kept
+    for parity; the fits use the blocked samplers above): shapes as
+    :func:`labels_gibbs_from_gumbel`, the Gumbel noise drawn from ``gen``.
+    Returns (z, n_trans, nk, resp)."""
+    C, T, n, _ = X.shape
+    K = sigma.shape[-1]
+    z = labels_gibbs_from_gumbel(X, mu, sigma, lmbda, w0, w,
+                                 gumbel(gen, (C, T, n, K), X.device))
+    n_trans, nk, resp = _label_statistics(z, K)
+    return z, n_trans, nk, resp
+
+
+def log_normalize(log_probas, axis=-1):
+    """Probabilities from unnormalised log-probabilities along ``axis``
+    (reference sample_labels.py:8-13)."""
+    x = torch.exp(log_probas - torch.amax(log_probas, dim=axis,
+                                          keepdim=True))
+    return x / torch.sum(x, dim=axis, keepdim=True)
 
 
 def latent_marginal_loglikelihood(X, init_w, trans_w, mu, sigma, lmbda):

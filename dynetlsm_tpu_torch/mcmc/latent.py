@@ -9,7 +9,9 @@ package's three schemes:
   also holds the per-partner likelihood terms and the prior terms of each
   site's conditional).  Under the case-control likelihood it is the
   chromatic scan (:func:`cc_colored_scan`), torch code on any device: one
-  vectorised update per colour class instead of one per node.
+  vectorised update per colour class instead of one per node; without
+  colour classes, the same scan with one node a class (the sequential
+  scan, 2n dependent steps), each chain with its own controls.
 * ``'parallel'``: every site's proposal scored against the stale field
   with its own accept (:func:`_parallel_site_update`; a perturbed Markov
   kernel, as in JAX), dense or case-control.
@@ -112,10 +114,11 @@ def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                   else latent_noise(gen, C, T, n, d, X.device))
     if cc is not None:
         if 'color_groups' not in cc:
-            raise NotImplementedError(
-                'the sequential case-control scan without colour classes is '
-                'not ported; build the structures with '
-                'models.base.build_case_control')
+            # the sequential scan (JAX xla_exact_scan's case-control
+            # branch) is the chromatic scan with one node a class in index
+            # order (JAX latent.py:513)
+            cc = dict(cc, color_groups=torch.arange(n, device=X.device)[
+                :, None], group_sizes=(1,) * n)
         return cc_colored_scan(X, intercept, step_size, eps, log_u,
                                radii=radii, tau_sq=tau_sq, sigma_sq=sigma_sq,
                                mu=mu, sigma=sigma, lmbda=lmbda, z=z, cc=cc,
@@ -575,7 +578,8 @@ def cc_colored_scan(X, intercept, step_size, eps, log_u, *, radii=None,
     the random-walk prior tau_sq, sigma_sq; temper (C,) or None.  ``cc``
     (``mcmc/sweeps.py::build_cc_dict``): color_groups (n_colors, S),
     group_sizes (each class's node count), the edge lists, degrees and
-    control masks, shared or per chain, and the shared controls.
+    control masks, shared or per chain, and the controls, shared (n, m)
+    or one draw a chain (C, n, m).
     ``margins`` (C, T, n), when given, receives each site's |log_u -
     ratio| at its decision (how close it came to the other outcome).
     Returns (X_new (C, T, n, d), accepted (C, T, n))."""
@@ -595,17 +599,27 @@ def cc_colored_scan(X, intercept, step_size, eps, log_u, *, radii=None,
         ctrl_tabs = (cc['ctrl_out'],)
         mask_tabs = (cc['ctrl_out_valid'],)
         degs = (cc['degrees'][..., 1],)
+    ctrl_chain = ctrl_tabs[0].dim() == 3
+    if ctrl_chain and not per_chain:
+        # one control draw a chain (the sequential scan's): the shared
+        # lists as every chain's own, so each chain gathers its controls
+        edge_tabs = tuple(e.expand((C,) + e.shape) for e in edge_tabs)
+        degs = tuple(dg.expand((C,) + dg.shape) for dg in degs)
+        per_chain, node_axis = True, 3
     widths = ([e.shape[-1] for e in edge_tabs]
               + [c.shape[-1] for c in ctrl_tabs])
     offsets = (0,) + tuple(int(v) for v in np.cumsum(widths))
 
     # class-sorted tables, once a scan: (n_colors, [C,] T, S, ...)
     e_cls = _by_class(torch.cat(edge_tabs, -1), groups, node_axis - 1)
-    c_cls = _by_class(torch.cat(ctrl_tabs, -1), groups, 0)  # (nc, S, Mc)
     m_cls = _by_class(torch.cat(mask_tabs, -1), groups, node_axis - 1)
-    c_cls = c_cls.reshape((c_cls.shape[0],) + (1,) * (e_cls.dim() - 3)
-                          + c_cls.shape[1:]).expand(
-        e_cls.shape[:-1] + c_cls.shape[-1:])
+    if ctrl_chain:
+        c_cls = _by_class(torch.cat(ctrl_tabs, -1), groups, 1)[:, :, None]
+    else:
+        c_cls = _by_class(torch.cat(ctrl_tabs, -1), groups, 0)  # (nc, S, Mc)
+        c_cls = c_cls.reshape((c_cls.shape[0],) + (1,) * (e_cls.dim() - 3)
+                              + c_cls.shape[1:])
+    c_cls = c_cls.expand(e_cls.shape[:-1] + c_cls.shape[-1:])
     partner = torch.cat([e_cls, c_cls], -1)    # (nc, [C,] T, S, Mtot)
     valid = torch.cat([e_cls >= 0, m_cls], -1)
     del e_cls, c_cls

@@ -3,11 +3,14 @@
 are chain-batched tensors adapted with the reference's piecewise schedules
 (reference metropolis.py:5-37, 122-136) and the JAX package's MALA
 schedule; the random-walk accept and the
-Dirichlet-proposal step of the social radii (metropolis.py:57-82)."""
+Dirichlet-proposal step of the social radii (metropolis.py:57-82); and
+the reference's functional steps and self-tuning :class:`Metropolis` for
+a user's log density (metropolis.py:40-136)."""
 import torch
 
+from ..config import DTYPE, resolve_device
 from ..math.distributions import (
-    _TINY, dirichlet_logpdf, sample_dirichlet, uniform)
+    _TINY, dirichlet_logpdf, normal, sample_dirichlet, uniform)
 
 # (below, above): the schedule's rate bounds in the reference's if/elif
 # order, the "below" ones first
@@ -120,3 +123,85 @@ def dirichlet_metropolis_step(gen, x0, logp_fn, step_size, logp_cur=None,
     x_new = torch.where(accept[:, None], x, x0)
     logp_new = torch.where(accept, logp_prop, logp_cur)
     return x_new, accept.to(x0.dtype), logp_new
+
+
+def _where(accept, x, x0):
+    """x where ``accept`` (broadcast over x's trailing axes), else x0."""
+    accept = accept.reshape(accept.shape + (1,) * (x.dim() - accept.dim()))
+    return torch.where(accept, x, x0)
+
+
+def random_walk_metropolis(gen, x0, logp_fn, step_size):
+    """One Gaussian random-walk MH step of x0 against ``logp_fn``
+    (reference metropolis.py:40-55).  Returns (x_new, accepted as a float
+    tensor, the log ratio)."""
+    x = x0 + step_size * normal(gen, x0.shape, x0.device)
+    ratio = logp_fn(x) - logp_fn(x0)
+    accept = random_walk_accept(gen, torch.as_tensor(ratio))
+    return _where(accept, x, x0), accept.to(x0.dtype), ratio
+
+
+def dirichlet_metropolis(gen, x0, logp_fn, step_size):
+    """One MH step of x0 (n,) on the simplex with a Dirichlet(step_size *
+    x0) proposal and its asymmetry correction (reference
+    metropolis.py:57-82); the ratio in float64
+    (:func:`dirichlet_mh_ratio`).  Returns (x_new, accepted as a float
+    tensor, the log ratio)."""
+    x = sample_dirichlet(gen, step_size * x0)
+    s = torch.as_tensor(step_size, dtype=DTYPE, device=x0.device).reshape(1)
+    ratio = dirichlet_mh_ratio(x0[None], x[None],
+                               torch.as_tensor(logp_fn(x0)).reshape(1),
+                               torch.as_tensor(logp_fn(x)).reshape(1), s)[0]
+    accept = random_walk_accept(gen, ratio)
+    return _where(accept, x, x0), accept.to(x0.dtype), ratio
+
+
+class Metropolis:
+    """Self-tuning MH sampler of a user's log density (reference
+    metropolis.py:85-136): its step size, acceptance counters and the
+    piecewise schedule of the in-sweep samplers, with a ``torch.Generator``
+    seeded by ``seed`` on ``device`` (the card unless ``device='cpu'``;
+    it raises without one, ``config.resolve_device``)."""
+
+    def __init__(self, step_size=0.1, tune=500, tune_interval=100,
+                 proposal_type='random_walk', seed=0, device='cuda'):
+        if proposal_type not in ('random_walk', 'dirichlet'):
+            raise ValueError("`proposal_type` must be in "
+                             "{'random_walk', 'dirichlet'}, but got "
+                             "%r" % (proposal_type,))
+        self.step_size = step_size
+        self.tune = tune
+        self.tune_interval = tune_interval
+        self.proposal_type = proposal_type
+        self.n_accepted = 0
+        self.n_steps = 0
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def step(self, x, logp):
+        """One MH step from x; returns the new position (a tensor on the
+        sampler's device)."""
+        fn = (dirichlet_metropolis if self.proposal_type == 'dirichlet'
+              else random_walk_metropolis)
+        x_new, accepted, _ = fn(
+            self.gen, torch.as_tensor(x, dtype=DTYPE, device=self.device),
+            logp, self.step_size)
+        self.n_accepted += float(accepted)
+        self.n_steps += 1
+        if self.tune:
+            self.tune_step_size()
+        return x_new
+
+    def tune_step_size(self):
+        """Adapt the step size from the window's acceptance rate every
+        ``tune_interval`` steps during the first ``tune``."""
+        if (self.n_steps < self.tune
+                and self.n_steps % self.tune_interval == 0):
+            rate = self.n_accepted / self.tune_interval
+            tune_fn = (tune_step_size_dirichlet
+                       if self.proposal_type == 'dirichlet'
+                       else tune_step_size_random_walk)
+            self.step_size = float(tune_fn(
+                torch.tensor(self.step_size, dtype=DTYPE),
+                torch.tensor(rate, dtype=DTYPE)))
+            self.n_accepted = 0

@@ -177,7 +177,8 @@ def shard_cc_static(cc_static, home, devices):
     lists split by rows over ``devices`` (``'shards'``, each with its
     ``'row0'``; none with missing dyads, whose lists are rebuilt from each
     chain's rows), and the shards' ``'bounds'`` and ``'devices'``."""
-    n = cc_static['colors'].shape[0]
+    n = (cc_static['colors'] if 'colors' in cc_static
+         else cc_static['out_edges'][0]).shape[0]
     bounds = node_bounds(n, len(devices))
     out = {k: (v.to(home) if torch.is_tensor(v) else v)
            for k, v in cc_static.items()
@@ -212,8 +213,8 @@ def build_cc_shards(cfg, Y, cc_static, ctrl_in, ctrl_out):
                 Y_in=packed.parts[s] >> 1 if packed is not None else rows)
         else:
             lists = dict(cc_static['shards'][s])
-        ci = None if ctrl_in is None else ctrl_in[a:b].to(dev)
-        co = ctrl_out[a:b].to(dev)
+        ci = None if ctrl_in is None else ctrl_in[..., a:b, :].to(dev)
+        co = ctrl_out[..., a:b, :].to(dev)
         civ, cov = control_masks(ci, co, lists, cfg.is_directed)
         shards.append(dict(lists, ctrl_in=ci, ctrl_out=co, ctrl_in_valid=civ,
                            ctrl_out_valid=cov, row0=a))

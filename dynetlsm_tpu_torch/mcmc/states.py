@@ -26,9 +26,11 @@ the network they were built with.
 
 The case-control likelihood (``SweepConfig.n_control``) adds ``ctrl_in``
 and ``ctrl_out``, the control nodes of every node (n, n_control) int64,
--1 where a draw is void: one draw shared by every chain, so these two
-fields carry no chain axis (``SHARED_FIELDS``); ``ctrl_in`` is ``None``
-when undirected.
+-1 where a draw is void: with colour classes one draw shared by every
+chain, so these two fields carry no chain axis (``SHARED_FIELDS``,
+:func:`is_shared`); without them (the sequential scan's draw, as in JAX)
+one draw a chain, (C, n, n_control).  ``ctrl_in`` is ``None`` when
+undirected.
 
 Parallel tempering (``mcmc/tempering.py``) adds ``temper``, each slot's
 inverse temperature of the network likelihood, and ``acc_swap``, the
@@ -87,7 +89,7 @@ class LSMState(_State):
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
-    # case-control only: one draw shared by the chains
+    # case-control only: one draw shared by the chains, or (C, n, m)
     ctrl_in: Optional[torch.Tensor] = None     # (n, m) int64, directed
     ctrl_out: Optional[torch.Tensor] = None    # (n, m) int64
 
@@ -128,14 +130,23 @@ class MixtureState(_State):
     # parallel tempering only
     temper: Optional[torch.Tensor] = None      # (C,) inverse temperatures
     acc_swap: Optional[torch.Tensor] = None    # (C,) swaps of (c, c + 1)
-    # case-control only: one draw shared by the chains
+    # case-control only: one draw shared by the chains, or (C, n, m)
     ctrl_in: Optional[torch.Tensor] = None     # (n, m) int64, directed
     ctrl_out: Optional[torch.Tensor] = None    # (n, m) int64
 
 
 _INT_FIELDS = ('it', 'z', 'ctrl_in', 'ctrl_out')
-# the fields with no chain axis
+# the fields with no chain axis when they hold one draw for all chains
 SHARED_FIELDS = ('ctrl_in', 'ctrl_out')
+
+
+def is_shared(name, v):
+    """Whether field ``name`` of value v has no chain axis: the controls
+    of a coloured case-control sweep (n, m), not one draw a chain (C, n,
+    m)."""
+    return name in SHARED_FIELDS and v.dim() == 2
+
+
 # the fields that node sharding splits by rows (their axis 2 of 4)
 NODE_FIELDS = ('Y', 'missing_sum')
 
@@ -196,7 +207,7 @@ def gather_state(states, device='cpu'):
         vals = [getattr(s, f.name) for s in states]
         if vals[0] is None:
             continue
-        if f.name in SHARED_FIELDS:
+        if is_shared(f.name, vals[0]):
             fields[f.name] = vals[0].to(device)
             continue
         fields[f.name] = torch.cat(
@@ -222,7 +233,7 @@ def place_like(state, like):
             v, ref = getattr(state, f.name), getattr(row, f.name)
             if v is None:
                 continue
-            if f.name in SHARED_FIELDS:
+            if is_shared(f.name, v):
                 fields[f.name] = v.to(ref.device)
             elif isinstance(ref, RowShards):
                 fields[f.name] = RowShards.split(v[sl], ref.devices,

@@ -50,7 +50,10 @@ sweep count, so it is reproducible and never touches ``gen``;
 :func:`_refresh_controls`) and builds the structures of
 :func:`build_cc_dict` (with missing dyads, each chain's edge lists from
 ``state.Y``); the latent update is the chromatic scan
-(``mcmc/latent.py::cc_colored_scan``), the coefficient steps score their
+(``mcmc/latent.py::cc_colored_scan``).  A ``cc_static`` without colour
+classes (edge lists alone, JAX's legacy dicts) gives the sequential scan
+instead (one node a class) and a control draw a chain from ``gen``,
+``ctrl_in`` / ``ctrl_out`` (C, n, m).  The coefficient steps score their
 candidates with the case-control estimator, and the log joint reuses the
 last one's value.  The missing-dyad step resamples as on a dense network
 and scores the new network with the case-control estimator on edge lists
@@ -88,7 +91,7 @@ from ..math.procrustes import longitudinal_procrustes_rotation
 from ..models.base import validate_network
 from ..ops.case_control import (
     cc_network_loglik, control_masks, edge_lists_device,
-    sample_controls_colored)
+    sample_control_nodes, sample_controls_colored)
 from ..ops.likelihoods import (
     dense_network_loglik, directed_loglik_full, undirected_loglik_full)
 from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
@@ -348,15 +351,24 @@ def draw_controls(cfg, cc_static, it):
         colors, colors.shape[0], cfg.n_control, directed=cfg.is_directed)
 
 
-def _refresh_controls(cfg, state, cc_static):
+def _refresh_controls(cfg, gen, state, cc_static):
     """The controls of this sweep: redrawn when the sweep count ``it`` is a
     multiple of ``cfg.n_resample_control`` (reference
     CaseControlSampler.resample, case_control_likelihood.py:27-33), else
     the state's.  The cadence is read from chain 0's count on the host
-    (one synchronisation a sweep): the draw is one for all chains."""
+    (one synchronisation a sweep).  With colour classes the draw is one
+    for all chains (:func:`draw_controls`); without them (a ``cc_static``
+    of edge lists alone, the sequential scan's) each chain draws its own
+    from the sweep's generator ``gen``, (C, n, m), as the JAX sweep draws
+    them from each chain's key
+    (``ops.case_control.sample_control_nodes``)."""
     it = int(state.it[0])
     if it % cfg.n_resample_control:
         return state.ctrl_in, state.ctrl_out
+    if 'colors' not in cc_static:
+        return sample_control_nodes(gen, state.X[..., 0], cfg.n_control,
+                                    directed=cfg.is_directed,
+                                    n_chains=state.X.shape[0])
     return draw_controls(cfg, cc_static, it)
 
 
@@ -364,7 +376,8 @@ def build_cc_dict(cfg, Y, cc_static, ctrl_in, ctrl_out):
     """The case-control structures every block reads: the edge lists
     (``cc_static``'s, or with ``cfg.sample_missing`` rebuilt from the
     network Y ((C,) T, n, n), each chain's own), the controls with their
-    validity masks, and the colour classes.  The sweeps' and the initial
+    validity masks, and the colour classes when ``cc_static`` has them.
+    The sweeps' and the initial
     logp's single source (JAX ``build_cc_dict``).  Node-sharded
     structures (``nodes.shard_cc_static``) give one such dict a shard
     (``nodes.build_cc_shards``)."""
@@ -376,16 +389,17 @@ def build_cc_dict(cfg, Y, cc_static, ctrl_in, ctrl_out):
         lists = {k: cc_static[k]
                  for k in ('in_edges', 'out_edges', 'degrees')}
     civ, cov = control_masks(ctrl_in, ctrl_out, lists, cfg.is_directed)
-    return dict(lists, ctrl_in=ctrl_in, ctrl_out=ctrl_out,
-                ctrl_in_valid=civ, ctrl_out_valid=cov,
-                color_groups=cc_static['color_groups'],
-                group_sizes=cc_static['group_sizes'])
+    cc = dict(lists, ctrl_in=ctrl_in, ctrl_out=ctrl_out,
+              ctrl_in_valid=civ, ctrl_out_valid=cov)
+    cc.update({k: cc_static[k] for k in ('color_groups', 'group_sizes')
+               if k in cc_static})
+    return cc
 
 
-def _cc_structures(cfg, state, cc_static):
+def _cc_structures(cfg, gen, state, cc_static):
     """(the structures of :func:`build_cc_dict` for this sweep, ctrl_in,
     ctrl_out)."""
-    ctrl_in, ctrl_out = _refresh_controls(cfg, state, cc_static)
+    ctrl_in, ctrl_out = _refresh_controls(cfg, gen, state, cc_static)
     return (build_cc_dict(cfg, state.Y, cc_static, ctrl_in, ctrl_out),
             ctrl_in, ctrl_out)
 
@@ -625,7 +639,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     def sweep(state: LSMState, gen: torch.Generator) -> LSMState:
         it_next = state.it + 1
         cc, ctrl_in, ctrl_out = (
-            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            _cc_structures(cfg, gen, state, cc_static) if cc_static is not None
             else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
 
@@ -775,7 +789,7 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
 
     def sweep(state: MixtureState, gen: torch.Generator) -> MixtureState:
         cc, ctrl_in, ctrl_out = (
-            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            _cc_structures(cfg, gen, state, cc_static) if cc_static is not None
             else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,
@@ -843,7 +857,7 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
         C, T, n, _ = state.X.shape
         eye = torch.eye(K, dtype=state.X.dtype, device=state.X.device)
         cc, ctrl_in, ctrl_out = (
-            _cc_structures(cfg, state, cc_static) if cc_static is not None
+            _cc_structures(cfg, gen, state, cc_static) if cc_static is not None
             else (None, None, None))
         Yk, Yk_scan = _sweep_network(cfg, Y, Y_scan, state)
         (X, acc_X, intercept, acc_int, radii, acc_radii,

@@ -21,6 +21,8 @@ one:
 * :func:`sample_controls_colored` draws ``n_control`` control nodes per
   node, shared across time steps and across chains (one draw), -1 where
   the draw is the node itself or in its own colour class;
+  :func:`sample_control_nodes`, the draw of a sweep without colour
+  classes, one a chain (C, n, m), -1 only at the node itself;
   :func:`control_masks` gives each draw's per-time validity (a control is
   valid at t when it is not an edge there), (T, n, m) for lists shared by
   the chains and (C, T, n, m) for per-chain lists;
@@ -216,12 +218,38 @@ def sample_controls_colored(gen, colors, n, n_control, directed=True):
     return (draw() if directed else None), ctrl_out
 
 
+def sample_control_nodes(gen, Y, n_control, directed=True, n_chains=None):
+    """The control draw of a sweep without colour classes (JAX
+    ``sample_control_nodes``, the sequential scan's): ``n_control``
+    control nodes per node, uniform on [0, n) with replacement from
+    ``gen`` (on its device), -1 where the draw is the node itself; ``Y``
+    supplies only the node count n (its last axis).  With ``n_chains``,
+    one draw a chain, (C, n, m), as the JAX sweep draws them from each
+    chain's key.  Returns (ctrl_in, ctrl_out) int64, the out-controls
+    drawn first; ctrl_in is None when undirected."""
+    n = Y.shape[-1]
+    lead = () if n_chains is None else (n_chains,)
+    node = torch.arange(n, device=gen.device)[:, None]
+
+    def draw():
+        cand = torch.randint(0, n, lead + (n, n_control), generator=gen,
+                             device=gen.device)
+        return torch.where(cand == node, torch.full_like(cand, -1), cand)
+
+    ctrl_out = draw()
+    return (draw() if directed else None), ctrl_out
+
+
 def control_valid_masks(ctrl, edges):
-    """Per-time validity of shared control draws: slot (.., t, j, k) is
-    valid when ``ctrl[j, k]`` is a node (not -1) and not an edge partner of
-    j at t.  ctrl (n, m); edges (..., T, n, D) -1-padded lists (out-edges
-    for ctrl_out, in-edges for ctrl_in).  Returns (..., T, n, m) bool.
+    """Per-time validity of control draws: slot (.., t, j, k) is valid
+    when ``ctrl[.., j, k]`` is a node (not -1) and not an edge partner of
+    j at t.  ctrl (n, m), or one draw a chain (C, n, m); edges (..., T, n,
+    D) -1-padded lists (out-edges for ctrl_out, in-edges for ctrl_in).
+    Returns (..., T, n, m) bool, (C, T, n, m) for per-chain draws.
     Membership is a binary search in each sorted list row."""
+    if ctrl.dim() == 3:
+        ctrl = ctrl[:, None]
+        edges = edges.expand(ctrl.shape[:1] + edges.shape[-3:])
     n_big = torch.iinfo(torch.int64).max
     seq, _ = torch.sort(torch.where(edges < 0, n_big, edges.to(torch.int64)),
                         dim=-1)
@@ -425,6 +453,7 @@ def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
     structures (``cc['row0']``) (C, T, rows) of its nodes."""
     C, T, n, d = X.shape
     per_chain = cc['out_edges'].dim() == 4
+    ctrl_chain = cc['ctrl_out'].dim() == 3
     row0 = cc.get('row0', 0)
     rows = cc['out_edges'].shape[-2]
     if is_directed:
@@ -442,6 +471,10 @@ def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
     offsets = (0,) + tuple(int(v) for v in np.cumsum(widths))
     scales = tuple(control_scale(n, dg, mk) for dg, mk in zip(degs, masks))
     valid_ctrl = torch.cat(masks, -1)
+    if ctrl_chain and not per_chain:
+        # one control draw a chain: gather per chain
+        edges = edges.expand((C,) + edges.shape)
+        per_chain = True
     sender = None
     b_in, b_out = intercept[:, 0], None
     Xr = X
@@ -456,7 +489,8 @@ def approx_partial_loglik_all(X, Xq, cc, intercept, radii, is_directed):
     for lo in range(0, rows, nb):
         hi = min(lo + nb, rows)
         e = _rows(edges, lo, hi, 2)                       # ([C,] T, b, De)
-        c = ctrl[lo:hi].expand(e.shape[:-1] + ctrl.shape[-1:])
+        c = (ctrl[:, None, lo:hi] if ctrl_chain else ctrl[lo:hi]).expand(
+            e.shape[:-1] + ctrl.shape[-1:])
         partner = torch.cat([e, c], -1)                   # ([C,] T, b, Mtot)
         valid = torch.cat([e >= 0, _rows(valid_ctrl, lo, hi, 2)], -1)
         g = _take(Xr, partner, per_chain)                 # (C, T, b, Mtot, q)
@@ -518,9 +552,10 @@ def _full_loglik(X, radii, edges, degree, ctrl, ctrl_valid, eta_fn, row0=0):
                        r_self)                               # (K, C, T, b, Mo)
         ll = torch.sum(torch.where(e >= 0, eta_e - softplus(eta_e), 0.0),
                        dim=(-3, -2, -1), dtype=torch.float64)
-        co = torch.clamp_min(ctrl[lo:hi], 0)                 # (b, m)
+        co = torch.clamp_min(ctrl[..., lo:hi, :], 0)         # ([C,] b, m)
         cov = _rows(ctrl_valid, lo, hi, 2)                   # (.., T, b, m)
-        gc = Xr[:, :, co]                                    # (C, T, b, m, q)
+        gc = (Xr[:, :, co] if co.dim() == 2 else             # (C, T, b, m, q)
+              _take(Xr, co[:, None].expand(C, T, hi - lo, m), True))
         dist_c = _dist_to(gc[..., :d], x_blk)
         eta_c = eta_fn(dist_c, None if radii is None else gc[..., d],
                        r_self)
@@ -546,7 +581,8 @@ def approx_directed_loglik_full(X, radii, out_edges, degrees, ctrl_out,
     sent dyads, summed over (t, i) (reference
     directed_likelihoods_fast.pyx:208-270).  X (C, T, n, d); radii (C, n);
     out_edges (T, n, Mo) or (C, T, n, Mo); degrees (T, n, 2) or (C, T, n,
-    2); ctrl_out (n, m) with validity (T, n, m) or (C, T, n, m);
+    2); ctrl_out (n, m) or (C, n, m) with validity (T, n, m) or (C, T,
+    n, m);
     intercepts (C,), or (C, K) to score K candidates on one set of
     distances.  Returns (C,), or (C, K), float32."""
     (b_in, b_out), several = _candidates(intercept_in, intercept_out)
@@ -564,9 +600,9 @@ def approx_undirected_loglik_full(X, edges, degrees, ctrl, ctrl_valid,
     """Case-control network log-likelihood, undirected: each row's exact
     edge terms plus its scaled control estimate, halved because every dyad
     appears in two rows.  X (C, T, n, d); edges (T, n, D) or (C, T, n, D);
-    degrees (T, n) or (C, T, n); ctrl (n, m) with validity (T, n, m) or
-    (C, T, n, m); intercept (C,), or (C, K) to score K candidates on one
-    set of distances.  Returns (C,), or (C, K), float32."""
+    degrees (T, n) or (C, T, n); ctrl (n, m) or (C, n, m) with validity
+    (T, n, m) or (C, T, n, m); intercept (C,), or (C, K) to score K
+    candidates on one set of distances.  Returns (C,), or (C, K), float32."""
     (b,), several = _candidates(intercept)
 
     def eta_fn(dist, r_other, r_self):

@@ -21,3 +21,13 @@ def pairwise_distances(X, squared=False):
     if squared:
         return d2
     return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
+def distances_to_point(X, x, squared=False):
+    """Distances from every row of X (..., n, d) to the point x (..., d),
+    broadcast against X without its node axis: (..., n) (reference
+    static_network_fast.pyx:29-38)."""
+    d2 = _sum_sq_last(X - x[..., None, :])
+    if squared:
+        return d2
+    return torch.sqrt(torch.clamp_min(d2, 0.0))

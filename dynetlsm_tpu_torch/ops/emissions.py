@@ -45,3 +45,33 @@ def emission_likelihoods_kn(X, mu, sigma, lmbda, normalize=True):
     if normalize:
         ll = ll - torch.amax(ll, dim=2, keepdim=True)
     return torch.exp(ll)
+
+
+def spherical_normal_logpdf(x, mean, var):
+    """Log density of N(mean, var I) over the trailing axis, broadcast over
+    the leading ones (reference gaussian_likelihood_fast.pyx:17-27)."""
+    d = x.shape[-1]
+    var = torch.as_tensor(var, dtype=x.dtype, device=x.device)
+    sum_sq = torch.sum((x - mean) ** 2, dim=-1)
+    return -0.5 * d * (LOG_2PI + torch.log(var)) - 0.5 * sum_sq / var
+
+
+def _one_chain(X, mu, sigma, lmbda):
+    """One sample's emission inputs with a chain axis of 1."""
+    lam = torch.as_tensor(lmbda, dtype=X.dtype, device=X.device).reshape(1)
+    return X[None], mu[None], sigma[None], lam
+
+
+def emission_logliks(X, mu, sigma, lmbda):
+    """Emission log-likelihoods (T, n, K) of one sample: X (T, n, d), mu
+    (K, d), sigma (K,), lmbda a scalar (reference
+    gaussian_likelihood_fast.pyx:30-54)."""
+    return emission_logliks_kn(*_one_chain(X, mu, sigma, lmbda))[0] \
+        .transpose(1, 2)
+
+
+def emission_likelihoods(X, mu, sigma, lmbda, normalize=True):
+    """exp of :func:`emission_logliks`, optionally max-normalised per
+    (t, node) (reference gaussian_likelihood_fast.pyx:51-54)."""
+    return emission_likelihoods_kn(*_one_chain(X, mu, sigma, lmbda),
+                                   normalize=normalize)[0].transpose(1, 2)

@@ -10,7 +10,7 @@ counterpart to float32 rounding of the total.
 """
 import torch
 
-from .distances import pairwise_distances
+from .distances import distances_to_point, pairwise_distances
 
 # values of one (times, n, n) block of :func:`dense_network_loglik`
 # (float32: 256 MB a temporary)
@@ -106,6 +106,92 @@ def undirected_network_probas(dist, intercept):
                         device=dist.device)[..., None, None, None]
     probas = torch.sigmoid(b - dist)
     return probas * _offdiag_mask(n, probas.dtype, probas.device)
+
+
+def undirected_loglik_pair(Y, dist, b_cur, b_prop):
+    """(:func:`undirected_loglik_full` at ``b_cur``, at ``b_prop``) on the
+    given distances: the intercept MH step's two candidates (JAX
+    ``undirected_loglik_pair``)."""
+    return (undirected_loglik_full(Y, dist, b_cur),
+            undirected_loglik_full(Y, dist, b_prop))
+
+
+def directed_loglik_pair(Y, dist, radii, bs_cur, bs_prop):
+    """(:func:`directed_loglik_full` at the (b_in, b_out) pair ``bs_cur``,
+    at ``bs_prop``) on the given distances (JAX ``directed_loglik_pair``)."""
+    return (directed_loglik_full(Y, dist, radii, *bs_cur),
+            directed_loglik_full(Y, dist, radii, *bs_prop))
+
+
+def undirected_partial_loglik(Y_rows, X, x_new, intercept):
+    """The Bernoulli terms (..., n) of one node at position x_new (..., d)
+    against the field X (..., n, d) and its adjacency row Y_rows (..., n);
+    the caller masks the node's own slot (reference
+    static_network_fast.pyx:17-44)."""
+    eta = intercept - distances_to_point(X, x_new)
+    return Y_rows * eta - softplus(eta)
+
+
+def directed_partial_loglik(Y_row, Y_col, X, x_new, radii, r_node,
+                            intercept_in, intercept_out):
+    """The directed terms (..., n) of node j at position x_new: its sent
+    dyads (row Y[t, j, :]) and received ones (column Y[t, :, j]); radii
+    (..., n), r_node (...,) j's radius; the caller masks slot j (reference
+    directed_likelihoods_fast.pyx:46-80)."""
+    dist = distances_to_point(X, x_new)
+    r_node = r_node[..., None]
+    eta_out = (intercept_in * (1.0 - dist / radii)
+               + intercept_out * (1.0 - dist / r_node))
+    eta_in = (intercept_in * (1.0 - dist / r_node)
+              + intercept_out * (1.0 - dist / radii))
+    ll = Y_row * eta_out - softplus(eta_out)
+    return ll + (Y_col * eta_in - softplus(eta_in))
+
+
+def directed_intercept_grad(Y, dist, radii, intercept_in, intercept_out):
+    """Gradient (2,) of the directed log-likelihood in (b_in, b_out) at Y,
+    dist (T, n, n) and radii (n,), summed in float64 (reference
+    directed_likelihoods_fast.pyx:20-43)."""
+    n = Y.shape[-1]
+    d_in = 1.0 - dist / radii[None, None, :]
+    d_out = 1.0 - dist / radii[None, :, None]
+    eta = intercept_in * d_in + intercept_out * d_out
+    step = ((Y.to(dist.dtype) - torch.sigmoid(eta))
+            * _offdiag_mask(n, dist.dtype, dist.device))
+    f64 = torch.float64
+    return torch.stack([torch.sum(d_in * step, dtype=f64),
+                        torch.sum(d_out * step, dtype=f64)]).to(dist.dtype)
+
+
+def dynamic_network_loglikelihood_undirected(Y, X, intercept, squared=False,
+                                             dist=None):
+    """:func:`undirected_loglik_full` at ``dist``, or at the distances of
+    X (reference network_likelihoods.py:26-33)."""
+    if dist is None:
+        dist = pairwise_distances(X, squared=squared)
+    return undirected_loglik_full(Y, dist, intercept)
+
+
+def dynamic_network_loglikelihood_directed(Y, X, intercept_in, intercept_out,
+                                           radii, squared=False, dist=None):
+    """:func:`directed_loglik_full` at ``dist``, or at the distances of X."""
+    if dist is None:
+        dist = pairwise_distances(X, squared=squared)
+    return directed_loglik_full(Y, dist, radii, intercept_in, intercept_out)
+
+
+def dynamic_network_loglikelihood(Y, X, intercept, radii=None, squared=False,
+                                  dist=None):
+    """The directed log-likelihood when ``radii`` is given (``intercept``
+    then (..., 2) = (b_in, b_out)), else the undirected one (reference
+    network_likelihoods.py:16-23)."""
+    if radii is not None:
+        intercept = torch.atleast_1d(torch.as_tensor(intercept))
+        return dynamic_network_loglikelihood_directed(
+            Y, X, intercept[..., 0], intercept[..., 1], radii,
+            squared=squared, dist=dist)
+    return dynamic_network_loglikelihood_undirected(
+        Y, X, intercept, squared=squared, dist=dist)
 
 
 def dense_network_loglik(Y, X, intercept, radii=None):
