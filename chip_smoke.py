@@ -157,10 +157,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    positions of every other site within 1e-5; the case-control Geweke
    check runs in 12;
 15. past the resident node scan's shared memory, and the other latent
-   updates: the split-field mode forced at clusters of 2, 4 and 8 against
-   the resident launch in all eight instantiations at the north star
-   (identical accepts, max |dX| = 0); the split-field mode (the launch
-   rule's, and forced at 2, 4, 8) against the plain version at T=10,
+   updates: the split-field mode forced at clusters of 1, 2, 4, 8 and 16
+   against the resident launch in all eight instantiations at the north
+   star (identical accepts, max |dX| = 0); the split-field mode (the
+   launch rule's, and forced at every cluster it takes) against the
+   plain version at T=10,
    n=2,560 (P = 4,096), 2 chains, undirected and directed, mixture and
    random-walk prior, shared and per-chain network, as in 3; the slices
    past n = 2048 (HDP-LPCM K=25 at n = 8,192, 16 chains, undirected and
@@ -171,10 +172,11 @@ Phases, each of which fails the run (exit code 1) when it fails:
    scan's device
    time from one profiled sweep, the time per phase step, the cluster
    size, the bound, the device's busy share and peak memory; the scan
-   launch of that profiled sweep, captured, timed at clusters of 2, 4 and
-   8 and, at n = 8,192 undirected and directed and n = 16,384, rerun on
-   two of its chains at the rule's cluster and at 2, 4, 8 against the
-   plain version (identical accepts, max |dX| = 0, the rule's launch
+   launch of that profiled sweep, captured, timed at every cluster of 1,
+   2, 4, 8 and 16 that its shape takes and, at n = 8,192 undirected and
+   directed and n = 16,384, rerun on two of its chains at the rule's
+   cluster and at those against the plain version (identical accepts,
+   max |dX| = 0, the rule's launch
    equal to the sweep's own on those chains); a DynamicNetworkLSM fit at
    T=10, n=2,100 (20 sweeps), which the estimators refused before, with
    its stage seconds (in a child process started with the phase and
@@ -289,7 +291,12 @@ Phases, each of which fails the run (exit code 1) when it fails:
    ``graph_ms``, the time per call of 20 calls captured in one CUDA graph
    and replayed (the device's time without the host's gaps, and the proof
    that a call can be captured: the replay's result equals the eager
-   call's bit for bit).  No single PyTorch call computes any of these
+   call's bit for bit).  The node scan's rows carry ``issue_bound_ms``
+   too: ``NODE_SCAN_SASS`` instructions per partner term of its compiled
+   partner-term loop (``scripts/node_scan_sass.py``) times the C T n
+   (n - 1) partner terms, at the log-likelihood rows' median SM clock
+   (the split-field rows also their slice's, ``slice_issue_bound_ms``).
+   No single PyTorch call computes any of these
    functions, so ``library_ms`` is null.  The rows of 10's per-chain mode
    (``mode`` ending in "per-chain Y") count the per-chain networks' bytes
    in their bound and the missing-dyad slices' launches.  The split-field
@@ -354,7 +361,7 @@ LARGE_SLICES = [('hdp n8192', 'hdp', False, 8192, 16, True),
                 ('lsm n4096', 'lsm', False, 4096, 32, False),
                 ('lsm n16384', 'lsm', False, 16384, 4, True)]
 SPLIT_CHAINS = (0, -1)
-SPLIT_CLUSTERS_TIMED = (2, 4, 8)
+SPLIT_CLUSTERS_TIMED = (1, 2, 4, 8, 16)
 # warm and timed sweeps of each slice past n = 2048 (0.35-1.9 s a sweep;
 # fewer than the other slices' to keep the script inside its time)
 LARGE_SLICE_SWEEPS = (1, 2)
@@ -415,6 +422,16 @@ LOGLIK_SASS = {
     # the row-range instantiations phase 18 times (their MUFU counts the
     # whole mode's: the row offset adds integer instructions only)
     ('pair_loglik_rows', 2): (139.75, 3), ('dir_loglik_rows', 3): (338.0, 7)}
+# (instructions, MUFU instructions among them) per partner term of the
+# node scan's partner-term loop (its chunk of four terms, compiled for
+# d = 2; CUDA 12.8, sm_90a, -fmad=false), by directed and split-field
+# mode, the mixture prior's untempered instantiations (the other six of a
+# mode are within 1.5 instructions: the prior and the temperature do not
+# enter the loop): printed by scripts/node_scan_sass.py from cuobjdump
+# -sass
+NODE_SCAN_SASS = {
+    (False, False): (165.25, 4), (False, True): (162.25, 4),
+    (True, False): (264.0, 6), (True, True): (264.25, 6)}
 
 
 class SmokeFailure(Exception):
@@ -556,7 +573,7 @@ def scan_clusters(t):
     """(the launch rule's (cluster size, mode), every (size, mode) a forced
     ``cluster=`` reaches) at the shape and mode of ``t``: the resident
     clusters of 1, 2, 4 whose block fits and, where the rule takes the
-    split-field mode, its clusters of 2, 4, 8."""
+    split-field mode, its clusters of 1, 2, 4, 8, 16 that fit."""
     from dynetlsm_tpu_torch.ops.node_scan import (
         SPLIT_CLUSTERS, _MAX_SMEM_BYTES, cuda_layout, smem_bytes)
     C, T, n, d = t['X'].shape
@@ -571,7 +588,12 @@ def scan_clusters(t):
             reach.append((b, 'resident'))
     _, rule, split = cuda_layout(C, T, n, d, *mode)
     if split:
-        reach += [(b, 'split') for b in SPLIT_CLUSTERS]
+        for b in SPLIT_CLUSTERS:
+            try:
+                cuda_layout(C, T, n, d, *mode, cluster=b, mode='split')
+            except ValueError:
+                continue
+            reach.append((b, 'split'))
     return (rule, 'split' if split else 'resident'), reach
 
 
@@ -843,8 +865,9 @@ def check_scan_layouts(lib, dev):
         C, T, n = shape['C'], shape['T'], shape['n']
         for directed in (False, True):
             for cluster, mode in ((None, None), (1, None), (2, None),
-                                  (4, None), (2, 'split'), (4, 'split'),
-                                  (8, 'split')):
+                                  (4, None), (1, 'split'), (2, 'split'),
+                                  (4, 'split'), (8, 'split'),
+                                  (16, 'split')):
                 try:
                     W, B, split = cuda_layout(C, T, n, 2, dev.index,
                                               directed, True, False, cluster,
@@ -865,11 +888,42 @@ def check_scan_layouts(lib, dev):
             'a time, clusters of %d, %d threads, %d bytes of shared memory '
             '(directed, mixture prior); the card runs %s clusters of %s '
             'blocks at once' % (T, n, C, sms, W, B,
-                                lib.node_scan_threads(T, W),
+                                lib.node_scan_threads(T, W, 0),
                                 lib.node_scan_smem_bytes(
                                     T, n, 2, partner_pad(n), 32 * W * B, 1,
                                     B, 0),
                                 list(fits.values()), list(fits)))
+    # the split-field rule at each slice past n = 2048: the library's
+    # shared memory against the wrapper's at every cluster it takes, and
+    # the card's count of clusters it runs at once
+    for name, model, directed, n, C, _ in LARGE_SLICES:
+        mixture = model != 'lsm'
+        P = partner_pad(n)
+        counts = {}
+        for b in SPLIT_CLUSTERS_TIMED:
+            try:
+                W, B, _ = cuda_layout(C, 10, n, 2, dev.index, directed,
+                                      mixture, False, b, 'split')
+            except ValueError:
+                continue
+            want = smem_bytes(10, n, 2, directed, W, B, True)
+            got = lib.node_scan_smem_bytes(10, n, 2, P, 32 * W * B,
+                                           int(directed), B, 1)
+            check(got == want, 'node_scan split layout (%s, cluster %d): the '
+                  'library gives %d bytes of shared memory, the wrapper %d'
+                  % (name, B, got, want))
+            counts['%d (%d warps)' % (B, W)] = lib.node_scan_max_clusters(
+                10, n, 2, P, W, B, int(directed), int(mixture), 0, 1)
+        W, B, split = cuda_layout(C, 10, n, 2, dev.index, directed, mixture,
+                                  False)
+        check(split, '%s: the launch rule took the resident mode' % name)
+        at_once = counts['%d (%d warps)' % (B, W)]
+        check(at_once >= 1, '%s: the card runs no cluster of the rule\'s %d '
+              'blocks' % (name, B))
+        log('node_scan split-field rule at %s (T=10, n=%d, %d chains): %d '
+            'warps a time, clusters of %d, %d wave(s); the card runs %s '
+            'clusters at once' % (name, n, C, W, B, -(-C // at_once),
+                                  counts))
 
 
 class SplitCounter:
@@ -1657,15 +1711,16 @@ def cc_phase(dev):
 # ---------------------------------------------------------------------------
 
 def check_split_vs_resident(scans):
-    """The split-field mode forced at clusters of 2, 4 and 8 against the
-    resident mode's launch on the same inputs, in all eight instantiations
-    at the north star: identical accepts, max |dX| = 0."""
+    """The split-field mode forced at every cluster size it takes (1, 2,
+    4, 8 and 16) against the resident mode's launch on the same inputs, in
+    all eight instantiations at the north star: identical accepts, max
+    |dX| = 0."""
     import torch
     for (key, n), (t, _) in scans.items():
         if n != NS['n'] or PER_CHAIN in key:
             continue
         X_r, acc_r = run_scan(t, kernel=True)
-        for b in (2, 4, 8):
+        for b in SPLIT_CLUSTERS_TIMED:
             X_s, acc_s = run_scan(t, kernel=True, cluster=b, mode='split')
             torch.cuda.synchronize()
             check(torch.equal(acc_s, acc_r),
@@ -1674,9 +1729,9 @@ def check_split_vs_resident(scans):
             err = float((X_s - X_r).abs().max())
             check(err == 0.0, 'node_scan split (%s, cluster %d): max |dX| '
                   '%g against the resident mode' % (key, b, err))
-        log('node_scan split-field (%s) at the north star, clusters of 2, '
-            '4, 8: accepts identical to the resident mode, max |dX| 0'
-            % key)
+        log('node_scan split-field (%s) at the north star, clusters of %s: '
+            'accepts identical to the resident mode, max |dX| 0'
+            % (key, list(SPLIT_CLUSTERS_TIMED)))
 
 
 def large_network(n, directed, T=10):
@@ -1714,8 +1769,9 @@ def capture_scan(fn):
 
 def check_split_at_slice(name, call, plain):
     """The slice's own split-field launch (``call``, captured from its
-    sweep) at the launch rule's cluster and at forced clusters of 2, 4
-    and 8, each timed on all the slice's chains (CUDA events).  With
+    sweep) at the launch rule's cluster and at every forced cluster of
+    SPLIT_CLUSTERS_TIMED that the shape takes, each timed on all the
+    slice's chains (CUDA events).  With
     ``plain``, on SPLIT_CHAINS of its chains (chains are independent)
     against the plain version, timed once: identical accepts, max |dX| 0
     at every cluster size, and the rule's launch on those chains equal,
@@ -1723,13 +1779,21 @@ def check_split_at_slice(name, call, plain):
     plain version's ms or None, {cluster: ms})."""
     import torch
     from dynetlsm_tpu_torch.ops.node_scan import (
-        node_scan_cuda, node_scan_plain)
+        cuda_layout, node_scan_cuda, node_scan_plain)
     (Y, X, b, step, eps, log_u), kw, (X_main, acc_main) = call
     C, T, n, d = X.shape
     kw = {k: v for k, v in kw.items() if v is not None}
+    taken = []
+    for B in SPLIT_CLUSTERS_TIMED:
+        try:
+            cuda_layout(C, T, n, d, X.device.index, 'radii' in kw,
+                        kw.get('mixture', True), 'temper' in kw, B, 'split')
+        except ValueError:
+            continue
+        taken.append(B)
     by = {B: cuda_ms(lambda: node_scan_cuda(Y, X, b, step, eps, log_u,
                                             cluster=B, mode='split', **kw),
-                     2) for B in SPLIT_CLUSTERS_TIMED}
+                     2) for B in taken}
     if not plain:
         return None, by
     idx = torch.tensor(sorted({c % C for c in SPLIT_CHAINS}),
@@ -1747,8 +1811,7 @@ def check_split_at_slice(name, call, plain):
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    for B, mode in ((None, None),) + tuple(
-            (B, 'split') for B in SPLIT_CLUSTERS_TIMED):
+    for B, mode in ((None, None),) + tuple((B, 'split') for B in taken):
         X_k, acc_k = node_scan_cuda(Y, *sub, cluster=B, mode=mode,
                                     **sub_kw)
         torch.cuda.synchronize()
@@ -1808,18 +1871,23 @@ def run_large_slice(name, model, directed, n, C, plain, dev):
     plain_ms, by = check_split_at_slice(name, calls[-1], plain)
     bound_ms, bound_by = scan_bound_of(C, shape['T'], n, 2, directed,
                                        model != 'lsm', False, False)
+    # the rule's launch against the fastest cluster timed
+    fastest = min(by, key=by.get)
     out = dict(name=name, n=n, chains=C, ms=ms, scan_ms=scan_ms,
                us_per_step=1e3 * scan_ms / (2 * n), warps=W, cluster=B,
-               ms_by_cluster=by, plain_ms=plain_ms,
+               ms_by_cluster=by, fastest_cluster=fastest,
+               rule_over_fastest=by[B] / by[fastest], plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                device_busy=device['device_busy'],
                peak_gb=report['peak_gb'], network_s=net_s)
     log('slice %s: split-field scan %.3f ms (one sweep, synchronised), '
-        '%.3f us a phase step, %d warps a time, clusters of %d, the launch '
+        '%.3f us a phase step, %d warps a time, clusters of %d (%.4f x the '
+        'fastest, clusters of %d), the launch '
         'at clusters of %s: %s ms (CUDA events), bound %.4f ms (%s), %.3f '
         'ms/sweep, device busy %s, peak device memory %.3f GB, network '
         '%.1f s; largest kernels (ms/sweep, profiled) %s'
-        % (name, scan_ms, out['us_per_step'], W, B, list(by),
+        % (name, scan_ms, out['us_per_step'], W, B,
+           out['rule_over_fastest'], fastest, list(by),
            [round(v, 3) for v in by.values()], bound_ms, bound_by, ms,
            device['device_busy'], report['peak_gb'], net_s,
            [(k[:60], round(v, 3)) for k, v in device['kernels_ms'][:3]]))
@@ -2952,6 +3020,16 @@ def busy_sm_clock_hz(fn, launches=2000):
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
+def scan_issue_bound_ms(C, T, n, directed, split, clock_hz):
+    """The least time the card needs to issue the node scan's compiled
+    partner-term loop for every site's n - 1 partners: ``NODE_SCAN_SASS``
+    instructions per term over SMS x LANES lanes a clock, or, if larger,
+    its MUFU instructions over a quarter of the lanes."""
+    instr, mufu = NODE_SCAN_SASS[bool(directed), bool(split)]
+    slots = max(instr / LANES, mufu / (LANES / 4))
+    return 1e3 * C * T * n * (n - 1) * slots / (SMS * clock_hz)
+
+
 def issue_bound_ms(name, args, n_cand, clock_hz, dyads=None):
     """The least time the card needs to issue the compiled inner loop for
     every dyad (``dyads``, or all of the inputs ``args``):
@@ -3502,14 +3580,15 @@ def main():
             by = {b: cuda_ms(lambda: run_scan(t, kernel=True, cluster=b,
                                               mode=m), 10)
                   for b, m in reach}
-            steps = 2 * t['X'].shape[2]
+            C, T, n, _ = t['X'].shape
             # the plain version's run of the check: a yardstick, seconds
             # a call
             return (by[rule], t['plain_ms'],
                     {'cluster': rule,
                      'ms_by_cluster': {str(b): v for b, v in by.items()},
-                     'us_per_step': {str(b): 1e3 * v / steps
-                                     for b, v in by.items()}})
+                     'us_per_step': {str(b): 1e3 * v / (2 * n)
+                                     for b, v in by.items()},
+                     'issue_of': (C, T, n, 'radii' in t, False)})
 
         def loglik_times(key):
             """(ms, plain ms, the row's extra fields) of one log-likelihood
@@ -3613,11 +3692,15 @@ def main():
                   'slice_scan_ms': big['scan_ms'],
                   'slice_us_per_step': big['us_per_step'],
                   'slice_cluster': big['cluster'],
+                  'slice_rule_over_fastest': big['rule_over_fastest'],
                   'slice_ms_by_cluster': {str(b): v for b, v in
                                           big['ms_by_cluster'].items()},
                   'slice_plain_ms_2_chains': big['plain_ms'],
                   'slice_bound_ms': big['bound_ms'],
-                  'slice_bound_by': big['bound_by']}),
+                  'slice_bound_by': big['bound_by'],
+                  'issue_of': tuple(t['X'].shape[:3]) + (directed, True),
+                  'slice_issue_of': (big['chains'], 10, big['n'], directed,
+                                     True)}),
                 scan_bound(t)))
         for name, n_cand, shape, slice_at, *per_chain in loglik_rows:
             key = (name, n_cand, shape['n']) + tuple(per_chain)
@@ -3634,7 +3717,21 @@ def main():
              (ms, pms, extra), (bound_ms, bound_by)) in rows:
             log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f ms '
                 '(%s)' % (name, mode, shape, ms, pms, bound_ms, bound_by))
-            if 'issue_bound_ms' in extra:
+            # the node scan's issue bound at the log-likelihood rows'
+            # median SM clock
+            for key in ('issue_of', 'slice_issue_of'):
+                if key in extra:
+                    clock = float(np.median(clocks))
+                    extra[key[:-3] + '_bound_ms'] = scan_issue_bound_ms(
+                        *extra.pop(key), clock)
+                    extra['sm_clock_mhz'] = clock / 1e6
+            if name.startswith('node_scan'):
+                log('  issue bound %.6f ms%s at an SM clock of %.0f MHz'
+                    % (extra['issue_bound_ms'],
+                       ' (its slice: %.4f ms)' % extra['slice_issue_bound_ms']
+                       if 'slice_issue_bound_ms' in extra else '',
+                       extra['sm_clock_mhz']))
+            if 'graph_ms' in extra:
                 log('  %.4f ms a call in a CUDA graph of 20; issue bound '
                     '%.6f ms at an SM clock of %.0f MHz'
                     % (extra['graph_ms'], extra['issue_bound_ms'],
@@ -3689,11 +3786,11 @@ def main():
             '%s %.3f' % (k, v[1]) for k, v in slices.items()))
         log('slices past n = 2048: ' + ', '.join(
             '%s %.3f ms/sweep (split-field scan %.3f ms, %.3f us/step, '
-            'clusters of %d, the launch at clusters of 2 / 4 / 8: %s ms, '
+            'clusters of %d, the launch at clusters of %s: %s ms, '
             'bound %.4f ms, busy %s, %.3f GB)'
             % (o['name'], o['ms'], o['scan_ms'], o['us_per_step'],
-               o['cluster'], ' / '.join('%.3f' % v for v in
-                                        o['ms_by_cluster'].values()),
+               o['cluster'], ' / '.join(map(str, o['ms_by_cluster'])),
+               ' / '.join('%.3f' % v for v in o['ms_by_cluster'].values()),
                o['bound_ms'], o['device_busy'], o['peak_gb'])
             for o in large.values()))
         log('case-control parallel: %.3f ms/sweep (scan %.3f ms)'

@@ -19,11 +19,12 @@
 // sweep (1,000 at the north star, T=10, n=500), so it is bound by the
 // latency of one step, not by bandwidth.  Within a step a chain evaluates
 // ceil(T/2) * n partner terms (two sqrt and two exp/log1p softplus each,
-// four softplus directed; ~220 SASS instructions a term undirected with
-// -fmad=false and the accurate expf/log1pf, each term one long dependent
-// chain), so once the fixed latency is gone the next bounds are one SM's
-// issue rate for those terms (~2,500 terms a step at the north star) and
-// the latency of one term's chain.  The design takes on both:
+// four softplus directed; ~165 SASS instructions a term undirected and
+// ~263 directed on the compiled loop's path with -fmad=false and the
+// accurate expf/log1pf, scripts/node_scan_sass.py, each term one long
+// dependent chain), so once the fixed latency is gone the next bounds are
+// one SM's issue rate for those terms (~2,500 terms a step at the north
+// star) and the latency of one term's chain.  The design takes on both:
 //
 // 1. The partner sum is a pairwise tree over the partner axis padded to a
 //    power of two P >= 32, level h adding element i + h into element i;
@@ -77,25 +78,47 @@
 //    B > 1 only where the card runs all the chains' clusters at once.
 // 4. Split-field mode (template kSplit), for fields past shared memory
 //    (n > 2048 at T = 10, d = 2: the (T, n, d) field and two staged rows
-//    of P bytes a time outgrow a block's 227 KB).  No block holds the
-//    field: the chain's positions live in X_out (copied from X_in at the
-//    start; 655 KB a chain at n = 8,192, so L2 holds a few dozen chains),
-//    and a block reads and writes only the positions of its own partner
-//    residues i = r (mod R), r in [32 W rank, 32 W (rank + 1)).  Every
-//    block reaches the same accept decisions, so the owner of node j's
-//    residue writes X_out[t, j] after each accept and no block ever reads
-//    another's writes: the block barrier of the field update orders them,
-//    and no barrier spans the cluster.  The node's own positions (T, d),
-//    which its two phases read and move, are staged from X_in with its
-//    other inputs (a node is at its input values until its step) and
-//    updated in shared memory by every block.  A block stages only its
-//    share of the two adjacency rows (2 T P / B bytes, 32 W-byte pieces at
-//    a stride of R) and, directed, its share of the u and v rows; the
-//    node's own b_out / r_j and b_in / r_j are divided from its staged
-//    radius.  The field is read with ordinary loads (no read-only cache
-//    path: the kernel writes it), and a padded partner (i >= n) reads no
-//    position.  The sums, the tree and the decisions are the resident
-//    mode's, so both give the same bits.
+//    of P bytes a time outgrow a block's 227 KB).  There a step evaluates
+//    thousands of partner terms, so it is bound by the issue rate of the
+//    SMs it runs on: a chain spreads over a cluster of B blocks (1 to 16;
+//    16 is a non-portable cluster, which the H100 runs), as many as the
+//    waves of its chains make worth it (ops/node_scan.py::split_layout).
+//    Block `rank` owns the partners i = rank (mod B).  The tree's levels
+//    h >= B pair elements of one residue mod B, so each block runs them
+//    itself, over its own P / B partners, as the resident mode runs a
+//    block's tree (lane rl the partners rank + B (rl + 32 W k), register,
+//    exchange and shuffle levels); it sends its one partial a time to each
+//    peer (st.async, as above: (B - 1) ceil(T/2) stores a step, whatever
+//    the lanes), and every block adds the B partials with the last log2 B
+//    levels in the same order (shuffles), decides the accepts itself and
+//    moves its copy of the node.  The block's partners are every B-th
+//    column of a row and every B-th position of the field, so both are
+//    kept residue-major: partner i = rank + B m at slot rank P / B + m.
+//    Block rank's partners are then one contiguous run of P / B slots, and
+//    the lanes of a warp read adjacent slots, as in the resident mode.  The
+//    wrapper passes the adjacency so permuted (ops/node_scan.py::
+//    residue_major, built once a network and cluster size) and a scratch
+//    field (C, T, P, d), into which each block copies its share of X_in at
+//    the start, zeros at padded partners, and from which it writes its
+//    share to X_out at the end.  Every block reaches the same accept
+//    decisions, so the owner of node j's residue writes its moves into the
+//    scratch after each accept and no block ever reads another's writes: a
+//    block barrier orders them.  The phase steps are pipelined: step
+//    s = 2 j + phase reads positions of its parity, which only step s - 2
+//    moved, so each group's reducing warp finishes step s - 1 (the
+//    exchange, the prior terms while the partials are in flight, the
+//    accepts) during step s, while the other warps already evaluate step
+//    s's partners and keep the SM issuing; one block barrier ends a step
+//    (the prior warp only announces the partials).  The node's own positions
+//    (T, d), which its two phases read and move, are staged from X_in with
+//    its other inputs (a node is at its input values until its step) and
+//    updated in shared memory by every block.  A block stages only its run
+//    of the two adjacency rows (2 T P / B bytes) and, directed, its run of
+//    the u and v rows; the node's own b_out / r_j and b_in / r_j are
+//    divided from its staged radius.  The field is read with ordinary
+//    loads (no read-only cache path: the kernel writes it).  The terms, the
+//    tree and the decisions are the resident mode's, so both give the same
+//    bits.
 //
 // Random-walk prior (kMixture false): with the node's own neighbours
 // prev = x[t-1] and nxt = x[t+1],
@@ -136,17 +159,25 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// threads of one block, and named barriers (ids 1..15) for the groups
+// threads of one block (split-field: fewer, so that a thread may hold up to
+// 96 registers), and named barriers (ids 1..15) for the groups
 constexpr int kMaxThreads = 768;
+constexpr int kMaxSplitThreads = 672;
 constexpr int kMaxGroups = 15;
+// the split-field mode's finishing warp reduces up to kBatch in-phase times
+// at once (their shuffles independent)
+constexpr int kBatch = 8;
 // a lane evaluates up to kChunk partners at once; the pairwise stack of
 // its chunks: up to 2^8 chunks, 2^10 partners a lane (P <= 32768)
 constexpr int kChunk = 4;
 constexpr int kChunkLevels = 9;
-// exchange values a reducing lane reads: R / 32 <= 16 (R <= 512)
+// exchange values a reducing lane reads: R / 32 <= 16 (R <= 512; the
+// split-field mode's reducing lane reads W <= 4)
 constexpr int kMaxExchange = 16;
-// blocks of a cluster: at most 8, the portable cluster size
+// blocks of a cluster: at most 8, the portable cluster size; the
+// split-field mode also takes 16, a non-portable size
 constexpr int kMaxCluster = 8;
+constexpr int kMaxSplitCluster = 16;
 
 // ---- inline PTX ----------------------------------------------------------
 
@@ -306,6 +337,32 @@ __device__ __forceinline__ float halve_exchange(const float* xb, int lane) {
   return a[0];
 }
 
+// The levels B/2 .. 1 of the split-field mode's B partials of one time,
+// p[0 .. B): p[i] + p[i + h] level by level, as _tree_sum adds.
+template <int kN>
+__device__ __forceinline__ float partial_tree(const float* p) {
+  float a[kN];
+#pragma unroll
+  for (int q = 0; q < kN; ++q) a[q] = p[q];
+  if constexpr (kN > 1) halve_levels<kN / 2>(a);
+  return a[0];
+}
+
+__device__ __forceinline__ float cluster_levels(const float* p, int B) {
+  switch (B) {
+    case 1:
+      return p[0];
+    case 2:
+      return partial_tree<2>(p);
+    case 4:
+      return partial_tree<4>(p);
+    case 8:
+      return partial_tree<8>(p);
+    default:
+      return partial_tree<kMaxSplitCluster>(p);
+  }
+}
+
 __device__ __forceinline__ float exchange_levels(const float* xb, int R,
                                                  int lane) {
   switch (R >> 5) {
@@ -357,12 +414,12 @@ __device__ __forceinline__ float partner_delta(
 }
 
 // The likelihood delta of partner i at time t: its position in the
-// field x_t (shared memory, or X_out in the split-field mode: no
-// __restrict__, so never the read-only cache path), its adjacency byte
-// y_row[li], the node at xn (its position at t), xc (current) and xp
-// (proposal).  D = 2 keeps the node's coordinates in registers; D = 0
-// reads them for any d (then xc, xp are unused).  In the split-field mode
-// a padded partner (i >= n, zeroed by the caller) reads no position.
+// field x_t (shared memory, or in the split-field mode the block's run of
+// the scratch field: no __restrict__, so never the read-only cache path),
+// its adjacency byte y_row[li], the node at xn (its position at t), xc
+// (current) and xp (proposal).  D = 2 keeps the node's coordinates in
+// registers; D = 0 reads them for any d (then xc, xp are unused).  The
+// split-field mode reads the position at the partner's slot li too.
 template <bool kDirected, bool kSplit, int D>
 __device__ __forceinline__ float partner_term(
     const float* x_t, const uint8_t* __restrict__ y_row,
@@ -375,8 +432,7 @@ __device__ __forceinline__ float partner_term(
   if constexpr (D == 2) {
     float2 xi;
     if constexpr (kSplit) {
-      xi = i < n ? reinterpret_cast<const float2*>(x_t)[i]
-                 : float2{xc[0], xc[1]};
+      xi = reinterpret_cast<const float2*>(x_t)[li];
     } else {
       xi = reinterpret_cast<const float2*>(x_t)[i];
     }
@@ -390,7 +446,7 @@ __device__ __forceinline__ float partner_term(
     for (int q = 0; q < d; ++q) {
       const float xcq = xn[q];
       const float xpq = xcq + s * e[q];
-      const float xiq = (kSplit && i >= n) ? xcq : x_t[i * d + q];
+      const float xiq = x_t[(kSplit ? li : i) * d + q];
       const float dp = xiq - xpq;
       const float dc = xiq - xcq;
       d2p = (q == 0) ? dp * dp : d2p + dp * dp;
@@ -402,13 +458,15 @@ __device__ __forceinline__ float partner_term(
 }
 
 // The register levels of one lane: the pairwise sum of its partners
-// i = r + R * k (k < P / R; the padding i >= n contributes 0) at time t,
-// whose adjacency bytes (and directed u, v values) sit at rl + Rl * k of
-// the block's staged share (resident: rl = r, Rl = R, the whole row).
-// Its partners go in bit-reversed k order, kCh at once (independent
+// i = r + R * k (k < nv = P / R; the padding i >= n contributes 0) at time
+// t.  Its partners go in bit-reversed k order, kCh at once (independent
 // terms, evaluated side by side; a padded slot evaluates a real partner,
-// or in the split-field mode the node itself, and is zeroed), each
-// chunk's adjacent-pairs tree pushed as one subtree.
+// or in the split-field mode the zeros of its slot, and is zeroed), each
+// chunk's adjacent-pairs tree pushed as one subtree.  Resident: partner i's
+// position, adjacency byte (and directed u, v values) sit at i.  Split-
+// field: partner i = rank + B (rl + Rl k) sits at slot rl + Rl k of the
+// block's residue-major run (rl the lane's residue in the block, Rl its
+// lanes of one time).
 template <bool kDirected, bool kSplit, int D, int kCh>
 __device__ __forceinline__ float lane_chunks(
     const float* x_t, const uint8_t* __restrict__ y_row,
@@ -422,9 +480,14 @@ __device__ __forceinline__ float lane_chunks(
   float v = 0.0f;
   for (int kk = 0; kk < nv; kk += kCh) {
     float tm[kCh];
+    // split-field: the chunk's k as the first's plus a constant multiple
+    // of nv / kCh (kk is a multiple of kCh: its bits and u's reverse apart)
+    const int k0 = kSplit ? bit_reverse(kk, lg) : 0;
 #pragma unroll
     for (int u = 0; u < kCh; ++u) {
-      const int k = bit_reverse(kk + u, lg);
+      const int k = kSplit ? k0 + (kCh == 4 ? ((u & 1) << 1) | (u >> 1) : u)
+                                      * (nv / kCh)
+                           : bit_reverse(kk + u, lg);
       const int i = r + R * k;
       const int ie = kSplit ? i : (i < n ? i : j);
       const float term = partner_term<kDirected, kSplit, D>(
@@ -493,15 +556,19 @@ struct Stage {
 // b: (C,) intercepts, or (C, 2) = (b_in, b_out) when kDirected; radii:
 // (C, n) when kDirected, unused otherwise; Y: the 0/1 adjacency, or the
 // packed Y + 2 Y^T when kDirected, its rows padded to P bytes (T, n, P),
-// chain c's at Y + c * y_chain (0: one network for all chains).
+// chain c's at Y + c * y_chain (0: one network for all chains); in the
+// split-field mode with each row residue-major (partner i = r + B m at
+// r P / B + m).
 // mu_z, sig_z, lmbda: the mixture prior's per-site cluster means and
 // variances and per-chain lambda (kMixture); tau_sq, sigma_sq: the
 // random-walk prior's variances (!kMixture).  temper: (C,) per-chain
 // inverse temperatures (kTempered), unused otherwise.  W warps per
 // in-phase time, B blocks (a cluster) per chain.  kSplit: the
-// split-field mode (X_out holds the field during the scan).
+// split-field mode (Xs, (C, T, P, d) scratch, holds the field during the
+// scan, residue-major; unused otherwise).
 template <bool kDirected, bool kMixture, bool kTempered, bool kSplit>
-__global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
+__global__ void __launch_bounds__(kSplit ? kMaxSplitThreads : kMaxThreads)
+    node_scan_kernel(
     const float* __restrict__ X_in, const uint8_t* __restrict__ Y,
     long long y_chain, const float* __restrict__ step,
     const float* __restrict__ eps, const float* __restrict__ log_u,
@@ -509,8 +576,8 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     const float* __restrict__ b,
     const float* __restrict__ radii, const float* __restrict__ lmbda,
     const float* __restrict__ temper, float* X_out,
-    float* __restrict__ acc, int T, int n, int d, int P, int W, int B,
-    float tau_sq, float sigma_sq) {
+    float* __restrict__ acc, float* Xs, int T, int n, int d, int P, int W,
+    int B, float tau_sq, float sigma_sq) {
   extern __shared__ __align__(16) float smem[];
   const int field = T * n * d;
   const int H = (T + 1) / 2;  // in-phase times, at most
@@ -520,6 +587,9 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   // directed, its u and v values (resident: the whole row)
   const int Pb = kSplit ? P / B : P;
   const int nu = kSplit ? Pb : n;
+  // the lane values of one time in the exchange buffer: the cluster's
+  // (resident) or the block's (split-field: its blocks exchange partials)
+  const int Rx = kSplit ? Rl : R;
   const Stage st(T, d, kSplit);
   // (2,) mbarriers of the exchange halves, then (2, T, Pb) staged rows
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);
@@ -527,8 +597,9 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   float* xs = smem + 4 + T * Pb / 2;                // (T, n, d) positions
   float* u_s = xs + (kSplit ? 0 : field);          // directed: b_in / r
   float* v_s = u_s + nu;                           // directed: b_out / r
-  float* xbuf = u_s + (kDirected ? 2 * nu : 0);    // (2, H, R)
-  float* ss = xbuf + 2 * H * R;                    // (2, st.size) scalars
+  float* xbuf = u_s + (kDirected ? 2 * nu : 0);    // (2, H, Rx)
+  float* pbuf = xbuf + 2 * H * Rx;                 // split: (2, H, B)
+  float* ss = pbuf + (kSplit ? 2 * H * B : 0);     // (2, st.size) scalars
   float* pri = ss + 2 * st.size;                   // (H, 2) lp, lc
   float* beta_s = pri + 2 * H;                     // the chain's temper
 
@@ -544,25 +615,31 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = B > 1 ? (int)cluster.block_rank() : 0;
   const int rl = 32 * w + lane;   // this lane's residue within the block
-  const int r = Rl * rank + rl;   // this lane's residue
-  // the partner of the block's slot m (m < Pb): its residue rank's lane
-  // m % Rl, at k = m / Rl
-  auto slot_partner = [&](int m) {
-    return kSplit ? Rl * rank + (m % Rl) + R * (m / Rl) : m;
-  };
+  // this lane's residue: resident, the block's run of Rl residues from
+  // Rl rank; split-field, every B-th residue from rank
+  const int r = kSplit ? rank + B * rl : Rl * rank + rl;
+  // split-field: the block's run of the residue-major partner axis (its
+  // partners i = rank + B m at slots base + m, m < Pb)
+  const int base = kSplit ? rank * Pb : 0;
+  // the partner of the block's slot m (m < Pb)
+  auto slot_partner = [&](int m) { return kSplit ? rank + B * m : m; };
 
   const float* X_c = X_in + (size_t)c * field;
   float* Xo_c = X_out + (size_t)c * field;
+  // split-field: the chain's scratch field (T, P, d)
+  float* Xf_c = kSplit ? Xs + (size_t)c * T * P * d : nullptr;
   const uint8_t* Y_c = Y + (size_t)c * y_chain;
   const float* radii_c = kDirected ? radii + (size_t)c * n : nullptr;
   if constexpr (kSplit) {
-    // this block's partners' positions at every time, into X_out
+    // this block's partners' positions at every time, into its run of the
+    // scratch (a padded partner's: zeros)
     for (int k = tid; k < T * Pb; k += nthr) {
       const int t = k / Pb;
-      const int i = slot_partner(k - t * Pb);
-      if (i < n)
-        for (int q = 0; q < d; ++q)
-          Xo_c[(t * n + i) * d + q] = X_c[(t * n + i) * d + q];
+      const int m = k - t * Pb;
+      const int i = slot_partner(m);
+      for (int q = 0; q < d; ++q)
+        Xf_c[((size_t)t * P + base + m) * d + q] =
+            i < n ? X_c[(t * n + i) * d + q] : 0.0f;
     }
   } else {
     for (int k = tid; k < field; k += nthr) xs[k] = X_c[k];
@@ -599,8 +676,7 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
   // a node reads src + jn * stride and writes at byte dst + half * cp.half
   // of shared memory; each thread keeps its first copy's description.  A
   // row is copied as its block's share: the whole row, or in the
-  // split-field mode the 2 W 16-byte pieces of the block's lanes at each
-  // k < P / R.
+  // split-field mode the block's run of Pb bytes.
   const int row_chunks = Pb / 16;
   const int n_mu = kMixture ? T * d : 0;
   const int n_sig = kMixture ? T : 0;
@@ -615,13 +691,7 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     if (k < T * row_chunks) {
       const int t = k / row_chunks;
       const int q = k - t * row_chunks;  // 16-byte piece of the share
-      int src = 16 * q, dst = 16 * q;
-      if (kSplit) {
-        const int kk = q / (2 * W);
-        const int piece = 16 * (q - kk * 2 * W);
-        src = Rl * rank + R * kk + piece;
-        dst = Rl * kk + piece;
-      }
+      const int src = base + 16 * q, dst = 16 * q;
       cp = {reinterpret_cast<const char*>(Y_c + (size_t)t * n * P + src), P,
             ys_at + t * Pb + dst, ys_half, 16};
       return cp;
@@ -688,28 +758,208 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     __syncthreads();
   }
 
-  // the field: shared memory, or the chain's X_out
-  float* xf = kSplit ? Xo_c : xs;
-  for (int j = 0; j < n; ++j) {
+  if constexpr (kSplit) {
+    // the block's run of the chain's scratch field, floats of one time;
+    // node j's staged scalars, and its own positions (staged with them):
+    // time t at node_at(j) + t * d
+    float* xf = Xf_c + (size_t)base * d;
+    const int fts = P * d;
+    const int xts = d;
+    auto scalars = [&](int j) { return ss + (j & 1) * st.size; };
+    auto node_at = [&](int j) { return scalars(j) + st.xj; };
+    // directed: node j's own reciprocal terms b_out / r_j and b_in / r_j,
+    // divided from its staged radius
+    auto node_terms = [&](int j, float& bo_rj, float& bi_rj) {
+      bo_rj = b_out / scalars(j)[st.rad];
+      bi_rj = b_in / scalars(j)[st.rad];
+    };
+
+    // prior delta, accept and write-back of in-phase time m of node j's
+    // phase, by the lane that holds its summed likelihood delta dll; the
+    // block that owns node j's residue writes its moves at the node's slot
+    // of the scratch
+    auto accept_site = [&](int j, int phase, int m, float dll) {
+      const float* sc = scalars(j);
+      const int t = phase + 2 * m;
+      const float s = sc[st.step + t];
+      const float* e = sc + st.eps + phase * T * d + t * d;
+      const float dl = kTempered ? beta_s[0] * dll : dll;
+      const float ratio = (dl + pri[2 * m]) - pri[2 * m + 1];
+      const bool accept = sc[st.logu + phase * T + t] < ratio;
+      if (accept) {
+        float* x_j = node_at(j) + t * xts;
+        for (int q = 0; q < d; ++q) x_j[q] = x_j[q] + s * e[q];
+        if ((j & (B - 1)) == rank)
+          for (int q = 0; q < d; ++q)
+            Xf_c[((size_t)t * P + base + (j >> (__ffs(B) - 1))) * d + q] =
+                x_j[q];
+      }
+      if (rank == 0) acc_c[t * n + j] = accept ? 1.0f : 0.0f;
+    };
+
+    // the prior terms lp, lc of in-phase time m of node j's phase, into pri
+    // (one lane), as the resident loop's prior_site computes them
+    auto prior_site = [&](int j, int phase, int m) {
+      const float* sc = scalars(j);
+      const float* xnode = node_at(j);
+      const int t = phase + 2 * m;
+      const bool first = (t == 0);
+      const bool last = (t == T - 1);
+      const int tp = first ? t : t - 1;
+      const int tn = last ? t : t + 1;
+      const float s = sc[st.step + t];
+      const float* e = sc + st.eps + phase * T * d + t * d;
+      const float* x_j = xnode + t * xts;
+      const float* x_prev = xnode + tp * xts;
+      const float* x_next = xnode + tn * xts;
+      float bp = 0.0f, bcur = 0.0f, fp = 0.0f, fcur = 0.0f;
+      for (int q = 0; q < d; ++q) {
+        const float xc = x_j[q];
+        const float xp = xc + s * e[q];
+        const float prev = x_prev[q];
+        const float nxt = x_next[q];
+        float dp, dc, gp, gc;
+        if (kMixture) {
+          const float mu_t = sc[st.mu + t * d + q];
+          const float mu_nxt = sc[st.mu + tn * d + q];
+          dp = first ? xp - mu_t : (xp - one_m * prev) - lam * mu_t;
+          dc = first ? xc - mu_t : (xc - one_m * prev) - lam * mu_t;
+          gp = (nxt - one_m * xp) - lam * mu_nxt;
+          gc = (nxt - one_m * xc) - lam * mu_nxt;
+        } else {
+          dp = first ? xp : xp - prev;
+          dc = first ? xc : xc - prev;
+          gp = nxt - xp;
+          gc = nxt - xc;
+        }
+        bp = (q == 0) ? dp * dp : bp + dp * dp;
+        bcur = (q == 0) ? dc * dc : bcur + dc * dc;
+        fp = (q == 0) ? gp * gp : fp + gp * gp;
+        fcur = (q == 0) ? gc * gc : fcur + gc * gc;
+      }
+      float back_p, back_c, fwd_p, fwd_c;
+      if (kMixture) {
+        const float sig = sc[st.sig + t];
+        const float sig_nxt = last ? 1.0f : sc[st.sig + tn];
+        back_p = (-0.5f * bp) / sig;
+        back_c = (-0.5f * bcur) / sig;
+        fwd_p = last ? 0.0f : (-0.5f * fp) / sig_nxt;
+        fwd_c = last ? 0.0f : (-0.5f * fcur) / sig_nxt;
+      } else {
+        const float var0 = first ? tau_sq : sigma_sq;
+        back_p = (-0.5f * bp) / var0;
+        back_c = (-0.5f * bcur) / var0;
+        fwd_p = last ? 0.0f : (-0.5f * fp) / sigma_sq;
+        fwd_c = last ? 0.0f : (-0.5f * fcur) / sigma_sq;
+      }
+      pri[2 * m] = back_p + fwd_p;
+      pri[2 * m + 1] = back_c + fwd_c;
+    };
+
+    // this lane's register levels of in-phase time m of node j's phase
+    auto lane_value = [&](int j, int phase, int m, float bo_rj, float bi_rj) {
+      const float* sc = scalars(j);
+      const int t = phase + 2 * m;
+      const float s = sc[st.step + t];
+      const float* e = sc + st.eps + phase * T * d + t * d;
+      const float* x_t = xf + t * fts;
+      const uint8_t* y_row = ys + (j & 1) * T * Pb + t * Pb;
+      const float* xn = node_at(j) + t * xts;
+      return d == 2 ? lane_levels<kDirected, kSplit, 2>(
+                          x_t, y_row, xn, e, s, j, n, d, r, R, rl, Rl, P, bc,
+                          both, u_s, v_s, bo_rj, bi_rj)
+                    : lane_levels<kDirected, kSplit, 0>(
+                          x_t, y_row, xn, e, s, j, n, d, r, R, rl, Rl, P, bc,
+                          both, u_s, v_s, bo_rj, bi_rj);
+    };
+
+    // split-field: a pipeline of phase steps s = 2 j + phase.  A step's
+    // partner terms read the positions of its parity, which only the
+    // accepts of step s - 2 moved, so while every group evaluates step s's
+    // partners the prior warp finishes step s - 1: its block's levels
+    // Rl/2 .. 1 over the lanes of every in-phase time (up to kBatch times
+    // at once) and each partial into every block's partials buffer
+    // (2, H, B), slot rank, one lane a peer; the prior terms while the
+    // partials are in flight; then, lane m for time m, the levels
+    // B/2 .. 1 over the B partials and the accept.  No warp is late to its
+    // partners, so the SM keeps issuing, and one block barrier ends a
+    // step.  Node j + 1's inputs are staged during step 2 j + 1, once step
+    // 2 j - 1 has read node j - 1's half of the staging buffers, and have
+    // landed at its end.
+    auto finish_step = [&](int s) {
+      const int j = s >> 1, phase = s & 1;
+      const int th = (T - phase + 1) / 2;
+      const float* xb = xbuf + phase * H * Rl;
+      float* pb = pbuf + phase * H * B;
+      for (int m0 = 0; m0 < th; m0 += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          v[u] = m0 + u < th ? exchange_levels(xb + (m0 + u) * Rl, Rl, lane)
+                             : 0.0f;
+#pragma unroll
+        for (int h = 16; h >= 1; h >>= 1)
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u)
+            if (m0 + u < th)
+              v[u] = v[u] + __shfl_down_sync(0xffffffffu, v[u], h);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int m = m0 + u;
+          if (m >= th) break;
+          const float part = __shfl_sync(0xffffffffu, v[u], 0);
+          if (lane == rank) {
+            pb[m * B + rank] = part;
+          } else if (lane < B) {
+            st_async(pb + m * B + rank, part, &mbar[phase], lane);
+          }
+        }
+      }
+      for (int m = lane; m < th; m += 32) prior_site(j, phase, m);
+      __syncwarp();
+      if (B > 1) mbar_wait(&mbar[phase], j & 1);
+      for (int m = lane; m < th; m += 32)
+        accept_site(j, phase, m, cluster_levels(pb + m * B, B));
+    };
+    for (int s = 0; s <= 2 * n; ++s) {
+      const int j = s >> 1, phase = s & 1;
+      const int th = (T - phase + 1) / 2;
+      if (s < 2 * n && phase == 1 && j + 1 < n)
+        stage_node(j + 1, (j + 1) & 1);
+      if (warp == pw) {
+        // the peers' partials of this step complete on this half's
+        // mbarrier
+        if (s < 2 * n && B > 1 && lane == 0)
+          mbar_expect(&mbar[phase], 4 * (B - 1) * th);
+        if (s > 0) finish_step(s - 1);
+      } else if (s < 2 * n) {
+        float bo_rj = 0.0f, bi_rj = 0.0f;
+        if (kDirected) node_terms(j, bo_rj, bi_rj);
+        for (int m = g; m < th; m += G)
+          xbuf[phase * H * Rl + m * Rl + rl] =
+              lane_value(j, phase, m, bo_rj, bi_rj);
+      }
+      // node j+1's inputs have landed before node j+1 starts
+      if (s < 2 * n && phase == 1) cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+  // resident: the field in shared memory, one phase step after another
+  // (the split-field instantiations ran their loop above)
+  float* xf = xs;
+  for (int j = 0; j < (kSplit ? 0 : n); ++j) {
     const int cur = j & 1;
     if (j + 1 < n) stage_node(j + 1, cur ^ 1);
     const uint8_t* yst = ys + cur * T * Pb;
     float* sc = ss + cur * st.size;
     // the node's own positions: time t at xnode + t * xts
-    float* xnode = kSplit ? sc + st.xj : xs + j * d;
-    const int xts = kSplit ? d : n * d;
-    // split-field: this block owns node j's residue, and writes its moves
-    const bool owner = kSplit && (j & (R - 1)) / Rl == rank;
+    float* xnode = xs + j * d;
+    const int xts = n * d;
     // directed: the node's own reciprocal terms b_out / r_j and b_in / r_j
     float bo_rj = 0.0f, bi_rj = 0.0f;
     if (kDirected) {
-      if (kSplit) {
-        bo_rj = b_out / sc[st.rad];
-        bi_rj = b_in / sc[st.rad];
-      } else {
-        bo_rj = v_s[j];
-        bi_rj = u_s[j];
-      }
+      bo_rj = v_s[j];
+      bi_rj = u_s[j];
     }
     for (int phase = 0; phase < 2; ++phase) {
       const int th = (T - phase + 1) / 2;  // in-phase times phase, phase+2, ..
@@ -728,8 +978,6 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
         if (accept) {
           float* x_j = xnode + t * xts;
           for (int q = 0; q < d; ++q) x_j[q] = x_j[q] + s * e[q];
-          if (owner)
-            for (int q = 0; q < d; ++q) Xo_c[(t * n + j) * d + q] = x_j[q];
         }
         if (rank == 0) acc_c[t * n + j] = accept ? 1.0f : 0.0f;
       };
@@ -851,10 +1099,21 @@ __global__ void __launch_bounds__(kMaxThreads) node_scan_kernel(
     }
   }
 
-  // resident: the cluster's block 0 writes the field (split-field: X_out
-  // is the field)
-  if (!kSplit && rank == 0)
+  // resident: the cluster's block 0 writes the field; split-field: each
+  // block its partners' positions, from its run of the scratch
+  if constexpr (kSplit) {
+    for (int k = tid; k < T * Pb; k += nthr) {
+      const int t = k / Pb;
+      const int m = k - t * Pb;
+      const int i = slot_partner(m);
+      if (i < n)
+        for (int q = 0; q < d; ++q)
+          Xo_c[(t * n + i) * d + q] =
+              Xf_c[((size_t)t * P + base + m) * d + q];
+    }
+  } else if (rank == 0) {
     for (int k = tid; k < field; k += nthr) Xo_c[k] = xs[k];
+  }
   // no block leaves while a peer may still address its shared memory
   if (B > 1) cluster.sync();
 }
@@ -868,26 +1127,30 @@ int min3(int a, int b, int c) {
 // Shared memory of one block: two mbarriers, the (2, T, Pb) staged
 // adjacency rows, the (T, n, d) field (resident only), the directed u and
 // v rows (n each; split-field: the block's Pb slots), the
-// (2, ceil(T/2), R) exchange buffer, the (2, 4T + 3Td) staged scalars
-// (split-field: and the node's (T, d) positions and radius), the
-// (ceil(T/2), 2) prior terms and the temperature; R = 32 * warps *
-// cluster, Pb = P (resident) or P / cluster (split-field).  A cluster
-// launch asks for at least half an SM's shared memory (see configure).
+// (2, ceil(T/2), R) exchange buffer (split-field: (2, ceil(T/2), R /
+// cluster), and the (2, ceil(T/2), cluster) partials), the (2, 4T + 3Td)
+// staged scalars (split-field: and the node's (T, d) positions and
+// radius), the (ceil(T/2), 2) prior terms and the temperature;
+// R = 32 * warps * cluster, Pb = P (resident) or P / cluster
+// (split-field).  A cluster launch asks for at least half an SM's shared
+// memory (see configure).
 extern "C" int node_scan_smem_bytes(int T, int n, int d, int P, int R,
                                     int directed, int cluster, int split) {
   const int H = (T + 1) / 2;
   const int Pb = split ? P / cluster : P;
   const int stage = 4 * T + 3 * T * d + (split ? T * d + 1 : 0);
+  const int exchange = split ? R / cluster + cluster : R;
   return 4 * (4 + T * Pb / 2 + (split ? 0 : T * n * d)
-              + (directed ? 2 * (split ? Pb : n) : 0) + 2 * H * R
+              + (directed ? 2 * (split ? Pb : n) : 0) + 2 * H * exchange
               + 2 * stage + 2 * H + 1);
 }
 
 // Threads of one block: ceil(T/2) groups of `warps` warps and the prior
-// warp, at most kMaxThreads threads and kMaxGroups groups (which then
-// loop over the times).
-extern "C" int node_scan_threads(int T, int warps) {
-  return 32 * (warps * min3((T + 1) / 2, (kMaxThreads - 32) / (32 * warps),
+// warp, at most kMaxThreads threads (split-field: kMaxSplitThreads) and
+// kMaxGroups groups (which then loop over the times).
+extern "C" int node_scan_threads(int T, int warps, int split) {
+  const int most = split ? kMaxSplitThreads : kMaxThreads;
+  return 32 * (warps * min3((T + 1) / 2, (most - 32) / (32 * warps),
                             kMaxGroups)
                + 1);
 }
@@ -899,8 +1162,8 @@ namespace {
 using NodeScanKernel = void (*)(
     const float*, const uint8_t*, long long, const float*, const float*,
     const float*, const float*, const float*, const float*, const float*,
-    const float*, const float*, float*, float*, int, int, int, int, int, int,
-    float, float);
+    const float*, const float*, float*, float*, float*, int, int, int, int,
+    int, int, float, float);
 
 template <bool kDirected, bool kMixture, bool kSplit>
 NodeScanKernel pick_tempered(bool tempered) {
@@ -928,8 +1191,9 @@ cudaError_t configure(int C, int T, int n, int d, int P, int warps,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const int R = 32 * warps * cluster;
   if ((warps != 1 && warps != 2 && warps != 4) || cluster < 1
-      || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0
-      || R > 32 * kMaxExchange || P % R != 0
+      || cluster > (split ? kMaxSplitCluster : kMaxCluster)
+      || (cluster & (cluster - 1)) != 0
+      || (!split && R > 32 * kMaxExchange) || P % R != 0
       || P / R > (kChunk << (kChunkLevels - 1)) || P < 32
       || (P & (P - 1)) != 0)
     return cudaErrorInvalidValue;
@@ -964,9 +1228,22 @@ cudaError_t configure(int C, int T, int n, int d, int P, int warps,
     if (err != cudaSuccess) return err;
     opted = smem_launch;
   }
+  // a cluster past the portable size: the split-field instantiations opt
+  // in to it once per device
+  static bool non_portable[kMaxDevices][8] = {};
+  bool unrecorded_np = false;
+  bool& np = dev < kMaxDevices
+      ? non_portable[dev][4 * (directed != 0) + 2 * (mixture != 0) + tempered]
+      : unrecorded_np;
+  if (cluster > kMaxCluster && !np) {
+    err = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    np = true;
+  }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(C * cluster);
-  cfg->blockDim = dim3(node_scan_threads(T, warps));
+  cfg->blockDim = dim3(node_scan_threads(T, warps, split));
   cfg->dynamicSmemBytes = smem_launch;
   cfg->stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -981,7 +1258,8 @@ cudaError_t configure(int C, int T, int n, int d, int P, int warps,
 }  // namespace
 
 // How many clusters of `cluster` blocks the card runs at once (for
-// cluster 1, blocks), or minus a CUDA error code.
+// cluster 1, blocks), or minus a CUDA error code; 0 for a cluster past
+// the portable size that the card does not run.
 extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
                                       int cluster, int directed, int mixture,
                                       int tempered, int split) {
@@ -991,11 +1269,10 @@ extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
   cudaError_t err = configure(cluster, T, n, d, P, warps, cluster, directed,
                               mixture, tempered != 0, split, nullptr, &kernel,
                               &cfg, &attr);
-  if (err != cudaSuccess) return -(int)err;
   int count = 0;
-  if (cluster > 1) {
+  if (err == cudaSuccess && cluster > 1) {
     err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &cfg);
-  } else {
+  } else if (err == cudaSuccess) {
     int per_sm = 0, sms = 0, dev = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, kernel, (int)cfg.blockDim.x, cfg.dynamicSmemBytes);
@@ -1003,6 +1280,10 @@ extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     count = per_sm * sms;
+  }
+  if (err != cudaSuccess && cluster > kMaxCluster) {
+    cudaGetLastError();
+    return 0;
   }
   return err != cudaSuccess ? -(int)err : count;
 }
@@ -1017,19 +1298,23 @@ extern "C" int node_scan_max_clusters(int T, int n, int d, int P, int warps,
 // mixture prior (mu_z, sig_z, lmbda); otherwise the random-walk prior with
 // tau_sq and sigma_sq, and mu_z, sig_z, lmbda may be null.  temper: (C,)
 // inverse temperatures, or null for the untempered scan.  warps (1, 2, 4)
-// per in-phase time and cluster (1, 2, 4, 8) blocks per chain, with
-// R = 32 * warps * cluster dividing P and at most 512; a cluster the card
-// refuses returns its error.  split != 0 selects the split-field mode
-// (X_out holds the field during the scan; X and X_out must not overlap).
+// per in-phase time and cluster blocks per chain, with
+// R = 32 * warps * cluster dividing P: cluster 1, 2, 4 or 8 and R at most
+// 512 in the resident mode, 1, 2, 4, 8 or 16 in the split-field mode; a
+// cluster the card refuses returns its error.  split != 0 selects the
+// split-field mode: Y with each row residue-major (partner i = r + B m
+// at column r P / B + m, B = cluster), and `field` a (C, T, P, d) float
+// scratch that holds the field during the scan (null otherwise).
 extern "C" int node_scan_launch(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
     const float* b, const float* radii, const float* lmbda,
-    const float* temper, float* X_out, float* acc, int C, int T, int n,
-    int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq, long long y_chain, int split,
+    const float* temper, float* X_out, float* acc, float* field, int C,
+    int T, int n, int d, int P, int warps, int cluster, int directed,
+    int mixture, float tau_sq, float sigma_sq, long long y_chain, int split,
     void* stream) {
-  if (y_chain != 0 && y_chain != (long long)T * n * P)
+  if ((y_chain != 0 && y_chain != (long long)T * n * P)
+      || (split && field == nullptr))
     return (int)cudaErrorInvalidValue;
   NodeScanKernel kernel;
   cudaLaunchConfig_t cfg;
@@ -1040,7 +1325,8 @@ extern "C" int node_scan_launch(
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, kernel, X, Y, y_chain, step, eps, log_u,
                            mu_z, sig_z, b, radii, lmbda, temper, X_out, acc,
-                           T, n, d, P, warps, cluster, tau_sq, sigma_sq);
+                           field, T, n, d, P, warps, cluster, tau_sq,
+                           sigma_sq);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

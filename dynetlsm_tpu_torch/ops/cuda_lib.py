@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    'node_scan_launch': [_P] * 13 + [_I] * 9 + [_F] * 2 + [_L, _I, _P],
+    'node_scan_launch': [_P] * 14 + [_I] * 9 + [_F] * 2 + [_L, _I, _P],
     'node_scan_smem_bytes': [_I] * 8,
-    'node_scan_threads': [_I] * 2,
+    'node_scan_threads': [_I] * 3,
     'node_scan_max_clusters': [_I] * 10,
     'pair_loglik_launch': [_P] * 7 + [_I] * 5 + [_L, _P],
     'pair_loglik_rows_launch': [_P] * 7 + [_I] * 7 + [_L, _P],

@@ -15,8 +15,8 @@ iff log_u < ratio.
   random-walk prior; undirected, or directed when given ``radii``;
   untempered, or with a per-chain temperature ``temper``), in its resident
   mode (each block holds the chain's field) or, past shared memory, its
-  split-field mode (the field in X_out, each block its partners' share;
-  :func:`launch_layout`).
+  split-field mode (the field in a scratch, each block of a cluster the
+  partners of its residue mod the cluster size; :func:`launch_layout`).
 * :func:`node_scan` picks by device: the kernel for CUDA tensors (or an
   error for what it does not take), the plain version for CPU tensors.
 
@@ -24,9 +24,11 @@ Both sum each site's partner terms as a pairwise tree over the partner
 axis padded to :func:`partner_pad` (level s adds element i + s into
 element i), so they compute bit-identical ratios.  The kernel splits that
 tree over registers, warps, blocks of a cluster and shuffles
-(:func:`_kernel_order_sum` spells its order out), and reads the adjacency
-with its rows padded to the partner axis (:func:`pad_partners`); the
-launch shape comes from :func:`scan_layout`.
+(:func:`_kernel_order_sum` and, split-field, :func:`_split_order_sum`
+spell its order out), and reads the adjacency with its rows padded to the
+partner axis (:func:`pad_partners`; split-field, that axis
+residue-major, :func:`residue_major`); the launch shape comes from
+:func:`scan_layout` and :func:`split_layout`.
 
 The directed model takes the adjacency packed as ``Y + 2 Y^T`` uint8
 (:func:`pack_directed`): row j of it holds both the out-edge bit Y[j, i]
@@ -48,12 +50,25 @@ from .likelihoods import softplus
 # shared memory a block may opt into on sm_90 (232,448 bytes)
 _MAX_SMEM_BYTES = 232448
 # csrc/node_scan.cu: threads of one block, groups (named barriers), lanes
-# sharing one time's partners (R = 32 W B <= 32 kMaxExchange), and the
-# split-field mode's cluster sizes (at most 8, the portable size)
+# sharing one time's partners in the resident mode (R = 32 W B <=
+# 32 kMaxExchange), and the split-field mode's cluster sizes (16 is past
+# the portable 8: taken where the card confirms it runs the clusters)
 _MAX_THREADS = 768
 _MAX_GROUPS = 15
 _MAX_LANES = 512
-SPLIT_CLUSTERS = (2, 4, 8)
+_MAX_PORTABLE = 8
+SPLIT_CLUSTERS = (1, 2, 4, 8, 16)
+# the split-field launch rule's cost of one step of a block, in
+# instructions a time: its P / B partner terms at the instructions of the
+# compiled partner-term loop (scripts/node_scan_sass.py: 162 a term
+# undirected, 264 directed, CUDA 12.8 on an H100) and a fixed share of a
+# step, the same for every cluster size (the barrier, the finishing warp's
+# chain and the tail of the slowest warp); fitted to the split-field
+# launches of PERF.md's slices on an H100, where every cluster size from 1
+# to 16 was timed (the fixed share 41,500-67,900 instructions puts every
+# slice's fastest launch first)
+_TERM_INSTRUCTIONS = {False: 162, True: 264}
+_STEP_INSTRUCTIONS = 55000
 
 
 def partner_pad(n):
@@ -117,6 +132,24 @@ def _kernel_order_sum(a, P, warps, cluster):
     return v[..., 0]
 
 
+def _split_order_sum(a, P, warps, cluster):
+    """:func:`_tree_sum` over the last axis (zero-padded to P), in the
+    order the kernel's split-field mode adds: block ``rank`` of the
+    cluster of B = ``cluster`` holds the partners i = rank (mod B), its
+    lane rl the partners rank + B (rl + 32 W k); each block adds its own
+    partners as the resident mode adds a block's (:func:`_kernel_order_sum`
+    of one block over its P / B elements), and the B partials are halved
+    level by level (B/2 .. 1), lane l of one warp holding block l's."""
+    a = torch.nn.functional.pad(a, (0, P - a.shape[-1]))
+    B = cluster
+    v = torch.stack([_kernel_order_sum(a[..., rank::B], P // B, warps, 1)
+                     for rank in range(B)], -1)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:2 * h]
+    return v[..., 0]
+
+
 def pad_partners(Y):
     """The adjacency (T, n, n), or (C, T, n, n), with its rows
     zero-padded to the partner axis, (..., T, n, partner_pad(n))
@@ -127,6 +160,32 @@ def pad_partners(Y):
     if partner_pad(n) == n:
         return Y.contiguous()
     return torch.nn.functional.pad(Y, (0, partner_pad(n) - n)).contiguous()
+
+
+def residue_major(Y, cluster):
+    """The padded adjacency (..., T, n, P) with its partner axis
+    residue-major for clusters of B = ``cluster`` blocks, as the kernel's
+    split-field mode reads it: partner i = r + B m at column r P / B + m,
+    so block r's partners i = r (mod B) are one run of P / B columns.  Y
+    itself for B = 1."""
+    if cluster == 1:
+        return Y
+    P = Y.shape[-1]
+    return (Y.reshape(Y.shape[:-1] + (P // cluster, cluster))
+            .transpose(-1, -2).reshape(Y.shape).contiguous())
+
+
+def _split_rows(Y, cluster):
+    """:func:`residue_major` of the padded adjacency Y, built once a
+    network and cluster size: kept on Y with Y's version counter (a fixed
+    network is permuted at its first split-field launch, a per-chain
+    network, which a sweep makes anew, once a sweep; an in-place change
+    rebuilds it)."""
+    kept = getattr(Y, '_residue_major', None)
+    if kept is None or kept[:2] != (Y._version, cluster):
+        kept = (Y._version, cluster, residue_major(Y, cluster))
+        Y._residue_major = kept
+    return kept[2]
 
 
 def _widest(T, P, B):
@@ -176,30 +235,63 @@ def scan_layout(C, T, n, sm_count, cluster=None, max_clusters=None):
     return W, B
 
 
-def split_layout(T, n, d, directed=False, cluster=None):
-    """The split-field launch (W, B) of a (T, n, d) field: the given
-    ``cluster`` (1, 2, 4 or 8), or the smallest B of 2, 4, 8 whose block
-    fits the card's shared memory (``None`` if none does); W the widest
-    that B allows (:func:`_widest`).  A given ``cluster`` that no W
-    allows raises."""
+def split_layout(C, T, n, d, sm_count, directed=False, cluster=None,
+                 max_clusters=None):
+    """The split-field launch (W, B) of C chains of (T, n, d) fields.  A
+    step is bound by the issue rate of the SMs a chain runs on, so the
+    rule takes the B of 1, 2, 4, 8, 16 whose launch it expects to finish
+    first: the waves the chains take (the clusters the card runs at once,
+    ``max_clusters(W, B)`` where the card is asked; without it only the
+    portable clusters, at most 8, one block an SM of ``sm_count``) times a
+    block's cost of a step (its P / B partner terms at
+    ``_TERM_INSTRUCTIONS`` and ``_STEP_INSTRUCTIONS``), the smaller B on a
+    tie; at the widest W of 4, 2, 1 whose block fits the card's shared
+    memory with 32 W <= P / B.  So few chains spread over the card in one
+    wave, and a larger cluster in more waves wins where the partner terms
+    outweigh the fixed share.  ``None`` if no launch fits.  A given
+    ``cluster`` (1, 2, 4, 8 or 16) is taken at the widest W that fits, and
+    raises where no W does."""
     P = partner_pad(n)
+
+    def widest(B):
+        for W in (4, 2, 1):
+            if (W <= (_widest(T, P // B, 1) or 0)
+                    and smem_bytes(T, n, d, directed, W, B, split=True)
+                    <= _MAX_SMEM_BYTES):
+                return W
+        return None
+
     if cluster is not None:
-        if cluster not in (1, 2, 4, 8):
+        if cluster not in SPLIT_CLUSTERS:
             raise ValueError('node_scan: a split-field cluster must be 1, '
-                             '2, 4 or 8, got %r' % (cluster,))
-        W = _widest(T, P, cluster)
+                             '2, 4, 8 or 16, got %r' % (cluster,))
+        W = widest(cluster)
         if W is None:
             raise ValueError(
-                'node_scan: a split-field cluster of %d blocks needs 32 * %d '
-                '= %d partner lanes, more than the padded partner axis P = '
-                '%d (n = %d)' % (cluster, cluster, 32 * cluster, P, n))
+                'node_scan: no split-field launch of clusters of %d blocks '
+                'takes the padded partner axis P = %d (n = %d): a block '
+                'needs 32 partners a time a warp and its shared memory '
+                'within %d bytes' % (cluster, P, n, _MAX_SMEM_BYTES))
         return W, cluster
+    best = None
     for B in SPLIT_CLUSTERS:
-        W = _widest(T, P, B)
-        if W is not None and smem_bytes(T, n, d, directed, W, B,
-                                        split=True) <= _MAX_SMEM_BYTES:
-            return W, B
-    return None
+        W = widest(B)
+        if W is None:
+            continue
+        if max_clusters is None:
+            if B > _MAX_PORTABLE:
+                continue
+            at_once = max(sm_count // B, 1)
+        else:
+            at_once = max_clusters(W, B)
+            if at_once < 1:
+                continue
+        cost = (-(-C // at_once)
+                * (P // B * _TERM_INSTRUCTIONS[bool(directed)]
+                   + _STEP_INSTRUCTIONS))
+        if best is None or cost < best[0]:
+            best = (cost, W, B)
+    return None if best is None else best[1:]
 
 
 def launch_layout(C, T, n, d, sm_count, directed=False, cluster=None,
@@ -208,12 +300,11 @@ def launch_layout(C, T, n, d, sm_count, directed=False, cluster=None,
     split).  The resident mode, every block holding the chain's field,
     wherever its block fits (:func:`scan_layout`'s W and B; for every
     n <= 2048 at T = 10, d = 2, as before the split-field mode existed);
-    past that the split-field mode at the smallest cluster that fits
-    (:func:`split_layout`).  ``mode`` 'resident' or 'split' forces a mode,
-    ``cluster`` the blocks per chain (with no ``mode``: the resident mode
-    at that cluster).  ``max_clusters(W, B, split)`` tells how many
-    clusters the card runs at once.  Raises where no mode fits
-    (:func:`check_smem`)."""
+    past that the split-field mode at :func:`split_layout`'s cluster.
+    ``mode`` 'resident' or 'split' forces a mode, ``cluster`` the blocks
+    per chain (with no ``mode``: the resident mode at that cluster).
+    ``max_clusters(W, B, split)`` tells how many clusters the card runs at
+    once.  Raises where no mode fits (:func:`check_smem`)."""
     if mode not in (None, 'resident', 'split'):
         raise ValueError("node_scan: mode must be 'resident' or 'split', "
                          "got %r" % (mode,))
@@ -229,7 +320,10 @@ def launch_layout(C, T, n, d, sm_count, directed=False, cluster=None,
             else lambda W, B: max_clusters(W, B, False) if fits(W, B) else 0)
         if mode == 'resident' or cluster is not None or fits(W, B):
             return W, B, False
-    layout = split_layout(T, n, d, directed, cluster)
+    layout = split_layout(
+        C, T, n, d, sm_count, directed, cluster,
+        None if max_clusters is None
+        else lambda W, B: max_clusters(W, B, True))
     if layout is None:
         _too_large(T, n, d, directed, 'no launch of the node-scan kernel '
                    'fits')
@@ -412,31 +506,34 @@ def smem_bytes(T, n, d, directed=False, warps=1, cluster=1, split=False):
     per-node scalars of two nodes (2, 4 T + 3 T d; split-field: and the
     node's T d positions and radius), the prior terms (ceil(T/2), 2) and
     the temperature, float32 but the rows; Pb = P resident, P / cluster
-    split-field."""
+    split-field, whose exchange buffer holds a block's 32 * warps lanes
+    and then the cluster's partials (2, ceil(T/2), cluster)."""
     P = partner_pad(n)
     H = (T + 1) // 2
     R = 32 * warps * cluster
     Pb = P // cluster if split else P
     stage = 4 * T + 3 * T * d + (T * d + 1 if split else 0)
+    exchange = 32 * warps + cluster if split else R
     return 4 * (4 + T * Pb // 2 + (0 if split else T * n * d)
                 + ((2 * Pb if split else 2 * n) if directed else 0)
-                + 2 * H * R + 2 * stage + 2 * H + 1)
+                + 2 * H * exchange + 2 * stage + 2 * H + 1)
 
 
 def max_nodes(T, d, directed=False):
     """The largest n whose (T, n, d) field some node-scan launch takes:
     the largest power of two P at which the resident mode (one block) or
-    the split-field mode (2, 4 or 8 blocks) fits shared memory.  At T = 10,
-    d = 2: 65,536 undirected, 32,768 directed (the split-field mode at
-    8 blocks).  A limit of shared memory only: the card must also hold the
-    network, T n^2 bytes (43 GB at n = 65,536, T = 10), and the scan has
-    run on an H100 to n = 16,384."""
+    the split-field mode (a portable cluster, at most 8 blocks) fits
+    shared memory.  At T = 10, d = 2: 65,536, undirected and directed (the
+    split-field mode at 8 blocks; directed one warp a time).  A limit of
+    shared memory only: the card must also hold the network, T n^2 bytes
+    (43 GB at n = 65,536, T = 10; the split-field mode reads a second,
+    residue-major copy), and the scan has run on an H100 to n = 16,384."""
     best, P = 0, 32
     while P <= 1 << 24:
         W = _widest(T, P, 1)
         fits = ((W is not None
                  and smem_bytes(T, P, d, directed, W, 1) <= _MAX_SMEM_BYTES)
-                or split_layout(T, P, d, directed) is not None)
+                or split_layout(1, T, P, d, 1, directed) is not None)
         if not fits:
             break
         best, P = P, 2 * P
@@ -519,10 +616,13 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
     random-walk prior (``mixture=False``): float tau_sq, sigma_sq.
     ``temper`` (C,) scales each chain's log-likelihood delta (``None``:
     untempered).  ``mode`` ('resident' or 'split') forces the mode and
-    ``cluster`` (1, 2 or 4; split-field also 8) the blocks per chain;
-    ``None`` takes :func:`launch_layout`'s rule: the resident mode wherever
-    it fits, else the split-field mode.  A resident launch adds one to
-    ``node_scan_cuda.launches``, a split-field one to
+    ``cluster`` (1, 2 or 4; split-field 1, 2, 4, 8 or 16) the blocks per
+    chain; ``None`` takes :func:`launch_layout`'s rule: the resident mode
+    wherever it fits, else the split-field mode.  The split-field mode
+    reads the padded adjacency residue-major (:func:`residue_major`, kept
+    on the padded Y for its next launch) and holds the field in a
+    (C, T, P, d) scratch.  A resident launch adds
+    one to ``node_scan_cuda.launches``, a split-field one to
     ``node_scan_cuda.split_launches``.  Every tensor float32 on the same
     CUDA device, contiguous, shaped as in :func:`node_scan_plain`."""
     C, T, n, d = X.shape
@@ -569,6 +669,10 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
                split=split)
     X_out = torch.empty_like(X)
     acc = torch.empty((C, T, n), dtype=f32, device=dev)
+    field = None
+    if split:
+        Y = _split_rows(Y, cluster)
+        field = torch.empty((C, T, P, d), dtype=f32, device=dev)
     if mixture:
         prior = (mu_z.data_ptr(), sig_z.data_ptr(), lmbda.data_ptr(), 0.0,
                  1.0)
@@ -581,8 +685,9 @@ def node_scan_cuda(Y, X, intercept, step_size, eps, log_u, mu_z=None,
             log_u.data_ptr(), prior[0], prior[1], intercept.data_ptr(),
             radii.data_ptr() if directed else None, prior[2],
             temper.data_ptr() if temper is not None else None,
-            X_out.data_ptr(), acc.data_ptr(), C, T, n, d, P, warps, cluster,
-            int(directed), int(mixture), prior[3], prior[4],
+            X_out.data_ptr(), acc.data_ptr(),
+            None if field is None else field.data_ptr(), C, T, n, d, P,
+            warps, cluster, int(directed), int(mixture), prior[3], prior[4],
             T * n * P if per_chain else 0, int(split),
             cuda_lib.stream_handle(dev))
     if split:

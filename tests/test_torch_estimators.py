@@ -257,8 +257,9 @@ def test_large_network_reaches_initialisation(monkeypatch, cls):
     """n = 2049 at T = 10, past the resident node scan's shared memory,
     runs in the split-field mode: the fit passes the size check and
     reaches GMDS or the nested LSM (monkeypatched to raise).  A field past
-    every launch (n = max_nodes + 1 at T = 400) still raises before any
-    initialisation, naming the limit and case-control."""
+    every launch (n = max_nodes + 1 at T = 720, where the split-field
+    mode's block outgrows shared memory past n = 128) still raises before
+    any initialisation, naming the limit and case-control."""
     def no_init(*args, **kw):
         raise AssertionError('initialisation ran')
     monkeypatch.setattr(lsm_mod, 'generalized_mds', no_init)
@@ -266,9 +267,9 @@ def test_large_network_reaches_initialisation(monkeypatch, cls):
     Y = np.zeros((10, 2049, 2049), np.uint8)
     with pytest.raises(AssertionError, match='initialisation ran'):
         cls(device='cpu').fit(Y)
-    limit = max_nodes(400, 2)
+    limit = max_nodes(720, 2)
     assert 32 <= limit < 256
-    Y = np.zeros((400, limit + 1, limit + 1), np.uint8)
+    Y = np.zeros((720, limit + 1, limit + 1), np.uint8)
     with pytest.raises(ValueError, match='at most n = %d.*case-control'
                        % limit):
         cls(device='cpu').fit(Y)

@@ -16,9 +16,11 @@ import jax.numpy as jnp
 from dynetlsm_tpu.mcmc.latent import xla_exact_scan
 from dynetlsm_tpu.ops.pallas_scan import _node_scan_with_noise
 from dynetlsm_tpu_torch.ops.node_scan import (
-    _kernel_order_sum, _tree_sum, check_smem, node_scan, node_scan_cuda,
-    launch_layout, max_nodes, node_scan_plain, pack_directed, pad_partners,
-    partner_pad, scan_layout, site_cluster_params, smem_bytes, split_layout)
+    _kernel_order_sum, _split_order_sum, _split_rows, _tree_sum,
+    check_smem, node_scan, node_scan_cuda, launch_layout, max_nodes,
+    node_scan_plain, pack_directed, pad_partners, partner_pad,
+    residue_major, scan_layout, site_cluster_params, smem_bytes,
+    split_layout)
 
 # (chains, T, n, mixture, tempered): the cases of tests/test_pallas_scan.py
 # that the port covers (undirected)
@@ -231,6 +233,14 @@ def test_pack_directed_and_smem():
     assert smem_bytes(10, 500, 2) == 4 * (4 + 2560 + 10000 + 320 + 200 + 11)
     assert smem_bytes(10, 500, 2, directed=True, warps=4, cluster=4) == \
         4 * (4 + 2560 + 10000 + 1000 + 5120 + 200 + 11)
+    # split-field at n = 8,192, 8 blocks: a block's run of the two staged
+    # rows (2 x 10 x 1,024 bytes), no field, the exchange of its 128 lanes
+    # and the 8 partials (2 x 5 x (128 + 8)), two nodes' scalars and
+    # positions (2 x 121); directed, its run of u and v (2 x 1,024)
+    assert smem_bytes(10, 8192, 2, warps=4, cluster=8, split=True) == \
+        4 * (4 + 5120 + 1360 + 242 + 11)
+    assert smem_bytes(10, 8192, 2, True, 4, 8, split=True) == \
+        4 * (4 + 5120 + 2048 + 1360 + 242 + 11)
 
 
 def test_partner_pad():
@@ -243,6 +253,60 @@ def _lanes(P):
     512 lanes a time (clusters of 8 only in the split-field mode)."""
     return [(W, B) for W in (1, 2, 4) for B in (1, 2, 4, 8)
             if 32 * W * B <= min(P, 512)]
+
+
+def _split_lanes(P):
+    """Every (warps, cluster) of the split-field mode at partner axis P:
+    clusters of 1 to 16, at least 32 partners a block's warp."""
+    return [(W, B) for W in (1, 2, 4) for B in (1, 2, 4, 8, 16)
+            if 32 * W * B <= P]
+
+
+@pytest.mark.parametrize('P', [32, 64, 128, 256, 512, 1024, 2048, 4096,
+                               8192, 16384])
+def test_split_order_sum_matches_tree_sum(P):
+    """The split-field mode's split of the partner tree (block r of B the
+    partners r mod B, its own register, exchange and shuffle levels, then
+    the levels B/2 .. 1 over the B partials) adds in ``_tree_sum``'s
+    order, bit for bit, at every (W, B) it takes up to B = 16, on float32
+    terms of both signs spread over 1e-8 .. 1e8."""
+    rng = np.random.RandomState(1000 + P)
+    for n in (P, P - 3, P // 2 + 1):
+        a = torch.as_tensor((rng.choice([-1.0, 1.0], (4, n))
+                             * 10.0 ** rng.uniform(-8, 8, (4, n)))
+                            .astype(np.float32))
+        want = _tree_sum(a, P)
+        assert not torch.equal(torch.cumsum(a, -1)[:, -1], want)
+        for warps, cluster in _split_lanes(P):
+            got = _split_order_sum(a, P, warps, cluster)
+            assert torch.equal(got, want), (n, warps, cluster)
+    assert len(_split_lanes(P)) == {32: 1, 64: 3, 128: 6, 256: 9,
+                                    512: 12, 1024: 14}.get(P, 15)
+
+
+def test_residue_major():
+    """The split-field mode's partner axis for clusters of B: partner
+    i = r + B m at column r P / B + m, so block r's partners i = r (mod B)
+    are one run of P / B columns, lane l's k-th at l + 32 W k of it; the
+    network itself for B = 1; the permuted copy is kept on the padded
+    network for its cluster size and rebuilt after an in-place change or
+    for another size."""
+    P = 64
+    Y = torch.arange(3 * 5 * P).reshape(3, 5, P)
+    assert residue_major(Y, 1) is Y
+    for B in (2, 4, 8, 16):
+        Yr = residue_major(Y, B)
+        assert Yr.is_contiguous() and Yr.shape == Y.shape
+        for r in range(B):
+            run = Yr[..., r * P // B:(r + 1) * P // B]
+            assert torch.equal(run, Y[..., r::B])
+    Yp = pad_partners(torch.ones((2, 40, 40), dtype=torch.uint8))
+    kept = _split_rows(Yp, 4)
+    assert _split_rows(Yp, 4) is kept
+    assert torch.equal(_split_rows(Yp, 2), residue_major(Yp, 2))
+    Yp[0, 0, 0] = 0
+    again = _split_rows(Yp, 2)
+    assert torch.equal(again, residue_major(Yp, 2)) and again[0, 0, 0] == 0
 
 
 @pytest.mark.parametrize('P', [32, 64, 128, 256, 512, 1024, 2048, 4096,
@@ -326,7 +390,7 @@ def test_smem_limit():
             10, 500, 2, True, 4, cluster) < 232448
     with pytest.raises(ValueError, match='at most 232448'):
         check_smem(10, 2800, 2, False, 1, 1)
-    W, B = split_layout(10, 2800, 2)
+    W, B = split_layout(1, 10, 2800, 2, 1)
     assert check_smem(10, 2800, 2) == smem_bytes(10, 2800, 2, False, W, B,
                                                  split=True) < 232448
 
@@ -345,10 +409,9 @@ def test_smem_boundary_is_n_2048(directed):
         layouts[1] + (False,)
     for warps, cluster in layouts + [scan_layout(32, 10, 2049, 132)]:
         with pytest.raises(ValueError, match='T=10, n=2049, d=2.*at most '
-                           '232448.*at most n = %d.*case-control'
-                           % (32768 if directed else 65536)):
+                           '232448.*at most n = 65536.*case-control'):
             check_smem(10, 2049, 2, directed, warps, cluster)
-    assert launch_layout(32, 10, 2049, 2, 132, directed) == (4, 2, True)
+    assert launch_layout(32, 10, 2049, 2, 132, directed) == (4, 4, True)
 
 
 @pytest.mark.parametrize('directed', [False, True])
@@ -366,20 +429,23 @@ def test_launch_rule_keeps_resident_mode_to_n_2048(directed):
 
 @pytest.mark.parametrize('directed', [False, True])
 def test_launch_rule_past_n_2048(directed):
-    """Past n = 2048 the split-field mode at the smallest cluster of 2, 4,
-    8 whose block fits; ``mode='split'`` forces it at any n; past
+    """Past n = 2048 the split-field mode, each chain spread over the
+    card (without the card's count, portable clusters of at most 8, one
+    block an SM); ``mode='split'`` forces it at any n; past
     :func:`max_nodes` every launch raises, naming the limit and
     case-control."""
     for n in (2049, 4096, 8192):
-        assert launch_layout(16, 10, n, 2, 132, directed) == (4, 2, True)
-        W, B = split_layout(10, n, 2, directed)
+        assert launch_layout(16, 10, n, 2, 132, directed) == (4, 8, True)
+        assert launch_layout(32, 10, n, 2, 132, directed) == (4, 4, True)
+        W, B = split_layout(1, 10, n, 2, 1, directed)
         assert check_smem(10, n, 2, directed) == smem_bytes(
             10, n, 2, directed, W, B, split=True) <= 232448
-    assert launch_layout(4, 10, 16384, 2, 132, directed) == \
-        ((4, 4, True) if directed else (4, 2, True))
-    limit = 32768 if directed else 65536
+    assert launch_layout(4, 10, 16384, 2, 132, directed) == (4, 8, True)
+    limit = 65536
     assert max_nodes(10, 2, directed) == limit
-    assert launch_layout(4, 10, limit, 2, 132, directed) == (2, 8, True)
+    # directed, the block's run of u and v leaves room for one warp a time
+    assert launch_layout(4, 10, limit, 2, 132, directed) == \
+        ((1, 8, True) if directed else (4, 8, True))
     for n in (limit + 1, 4 * limit):
         with pytest.raises(ValueError, match='n=%d.*no launch.*at most n = '
                            '%d.*case-control' % (n, limit)):
@@ -388,17 +454,65 @@ def test_launch_rule_past_n_2048(directed):
             launch_layout(4, 10, n, 2, 132, directed)
     # forced: the split-field mode at the north star, any cluster
     assert launch_layout(32, 10, 500, 2, 132, directed, mode='split') == \
-        (4, 2, True)
+        (4, 4, True)
     assert [launch_layout(32, 10, 500, 2, 132, directed, cluster=b,
-                          mode='split') for b in (1, 2, 4, 8)] == \
-        [(4, 1, True), (4, 2, True), (4, 4, True), (2, 8, True)]
+                          mode='split') for b in (1, 2, 4, 8, 16)] == \
+        [(4, 1, True), (4, 2, True), (4, 4, True), (2, 8, True),
+         (1, 16, True)]
     assert launch_layout(32, 10, 500, 2, 132, directed, cluster=4) == \
         (4, 4, False)
-    with pytest.raises(ValueError, match='1, 2, 4 or 8'):
+    with pytest.raises(ValueError, match='1, 2, 4, 8 or 16'):
         launch_layout(32, 10, 500, 2, 132, directed, cluster=3,
                       mode='split')
     with pytest.raises(ValueError, match="'resident' or 'split'"):
         launch_layout(32, 10, 500, 2, 132, directed, mode='streamed')
+
+
+def test_split_layout_rule():
+    """The split-field rule: the cluster whose launch it expects to finish
+    first, waves times a block's cost of a step.  On a card that runs 132
+    blocks and 66, 30, 15 and 7 clusters of 2, 4, 8 and 16 at once (an
+    H100's counts for this kernel at T = 10, n = 8,192): 2 and 4 chains
+    take clusters of 16 in one wave; 16 chains clusters of 4, one wave,
+    where 16 clusters of 8 would take two, but directed (its partner terms
+    cost more) clusters of 16 in three waves; 32 chains clusters of 8 in
+    three waves (at n = 4,096, clusters of 2 in one); 132 chains one block
+    each and 200 chains clusters of 4 in seven waves; a
+    card that refuses clusters of 16 gives 4 chains 8.  Every cluster that
+    fits is asked of the card; without its count, the portable sizes at
+    one block an SM.  A forced cluster at the widest group that fits; and
+    the errors."""
+    card = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+    def rule(C, n=8192, fits=card, directed=False, **kw):
+        return split_layout(C, 10, n, 2, 132, directed,
+                            max_clusters=lambda W, B: fits[B], **kw)
+    assert [rule(C) for C in (2, 4, 16, 32, 132, 200)] == \
+        [(4, 16), (4, 16), (4, 4), (4, 8), (4, 1), (4, 4)]
+    assert rule(16, directed=True) == (4, 16)
+    assert rule(8, directed=True) == (4, 8)
+    seen = []
+    split_layout(16, 10, 8192, 2, 132,
+                 max_clusters=lambda W, B: seen.append((W, B)) or card[B])
+    assert seen == [(4, 1), (4, 2), (4, 4), (4, 8), (4, 16)]
+    # a card that runs 16 clusters of 8 gives 16 chains one wave of them
+    assert rule(16, fits={**card, 8: 16}) == (4, 8)
+    assert rule(4, fits={**card, 16: 0}) == (4, 8)
+    # n = 16,384: one block no longer fits, so 132 chains take two waves
+    # of clusters of 2; n = 4,096 at 32 chains clusters of 2 in one wave
+    assert rule(132, n=16384) == (4, 2)
+    assert rule(32, n=4096) == (4, 2)
+    assert split_layout(4, 10, 8192, 2, 132) == (4, 8)
+    assert split_layout(4, 10, 8192, 2, 132, True) == (4, 8)
+    assert split_layout(32, 10, 8192, 2, 132) == (4, 4)
+    # forced
+    assert rule(4, cluster=16) == (4, 16)
+    assert split_layout(4, 10, 300, 2, 132, cluster=16) == (1, 16)
+    assert split_layout(4, 10, 100, 2, 132, cluster=4) == (1, 4)
+    for bad, match in ((32, '1, 2, 4, 8 or 16'), (3, '1, 2, 4, 8 or 16'),
+                       (16, 'clusters of 16.*P = 128')):
+        with pytest.raises(ValueError, match=match):
+            split_layout(4, 10, 100, 2, 132, cluster=bad)
 
 
 @pytest.mark.cuda

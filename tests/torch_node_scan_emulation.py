@@ -31,7 +31,7 @@ import torch
 
 from dynetlsm_tpu_torch.ops.node_scan import (
     node_scan_plain, pack_directed, pad_partners, partner_pad,
-    site_cluster_params)
+    residue_major, site_cluster_params)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KERNEL = ROOT / 'dynetlsm_tpu_torch' / 'csrc' / 'node_scan.cu'
@@ -74,7 +74,7 @@ def host_lib(tmp_path_factory):
                     str(out / HOST.name)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.node_scan_host.argtypes = ([p] * 13 + [i] * 9 + [f] * 2
+    lib.node_scan_host.argtypes = ([p] * 14 + [i] * 9 + [f] * 2
                                    + [ctypes.c_longlong, i])
     return lib
 
@@ -117,11 +117,19 @@ def _inputs(seed, C, T, n, directed, d=2, K=3, per_chain=False):
 
 
 def _host_scan(lib, t, mixture, tempered, warps, cluster, split=False):
+    """The kernel on the host, as ``node_scan_cuda`` launches it: the
+    split-field mode reads the residue-major adjacency and a scratch field
+    (NaN where the kernel writes before it reads)."""
     C, T, n, d = t['X'].shape
+    P = partner_pad(n)
     Yp = pad_partners(t['Y'])
-    y_chain = T * n * partner_pad(n) if Yp.dim() == 4 else 0
+    y_chain = T * n * P if Yp.dim() == 4 else 0
     X_out = torch.full_like(t['X'], float('nan'))
     acc = torch.full((C, T, n), float('nan'))
+    field = None
+    if split:
+        Yp = residue_major(Yp, cluster)
+        field = torch.full((C, T, P, d), float('nan'))
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -131,8 +139,8 @@ def _host_scan(lib, t, mixture, tempered, warps, cluster, split=False):
         ptr(t['log_u']), ptr(t['mu_z']) if mixture else None,
         ptr(t['sig_z']) if mixture else None, ptr(t['b']),
         ptr(t.get('radii')), ptr(t['lmbda']) if mixture else None,
-        ptr(t['temper']) if tempered else None, ptr(X_out), ptr(acc), C, T,
-        n, d, partner_pad(n), warps, cluster, int('radii' in t),
+        ptr(t['temper']) if tempered else None, ptr(X_out), ptr(acc),
+        ptr(field), C, T, n, d, P, warps, cluster, int('radii' in t),
         int(mixture), 2.0, 0.1, y_chain, int(split))
     return X_out, acc
 
@@ -193,18 +201,19 @@ def check_per_chain_network(host_lib, directed, mixture):
 
 
 # the split-field mode forced at T = 4, n = 130 (P = 256): (warps,
-# cluster) = (1, 8), every lane one partner slot of a block's 32 (R = P),
-# and (1, 2), four partners a lane; both padded past n
-SPLIT_LAYOUTS = [(1, 8), (1, 2)]
+# cluster) = (2, 4), one partner slot a lane of a block's 64 (R = P), and
+# (1, 2), four partners a lane; both padded past n
+SPLIT_LAYOUTS = [(2, 4), (1, 2)]
 
 
 def check_split_field(host_lib, directed, mixture, tempered):
-    """The split-field mode (no block holds the field: each reads and
-    writes its partner residues' positions in X_out, stages its share of
-    the rows and u, v, and keeps the node's own positions in shared
-    memory) gives the plain version's accepts and positions, with one
-    network shared by the chains and one a chain; and the resident
-    mode's bits on the same inputs."""
+    """The split-field mode (no block holds the field: block r of a
+    cluster of B reads and writes the positions of its partners i = r
+    (mod B) in its run of the residue-major scratch, stages its run of the
+    residue-major rows and u, v, keeps the node's own positions in shared
+    memory and exchanges one partial a time) gives the plain version's
+    accepts and positions, with one network shared by the chains and one a
+    chain."""
     T, n = 4, 130
     # one chain shares the network; two chains read one network each at
     # the chain stride

@@ -64,7 +64,8 @@ struct Block {
   std::vector<float> smem;
   std::unique_ptr<Barrier> all;
   std::vector<std::unique_ptr<Barrier>> named, warp;
-  std::vector<float> shuffle;
+  // two rounds of shuffle slots, used in turn
+  std::vector<float> shuffle[2];
   std::map<const void*, std::unique_ptr<Mbarrier>> mbar;
   std::mutex mbar_mu;
   int group_threads;
@@ -76,6 +77,10 @@ struct Cluster {
 };
 
 thread_local Block* this_block;
+// the thread's count of shuffles: a shuffle's slots are those of its
+// round's parity, which no thread rewrites before every thread has passed
+// the next shuffle's barrier (and so read this one's)
+thread_local unsigned shuffle_round;
 thread_local Cluster* this_cluster_;
 thread_local int this_rank;
 
@@ -100,13 +105,22 @@ T* in_block(T* p, int rank) {
 
 inline void __syncthreads() { this_block->all->arrive_and_wait(); }
 
+inline void __syncwarp() { this_block->warp[threadIdx.x / 32]->arrive_and_wait(); }
+
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32;
+  std::vector<float>& slots = this_block->shuffle[shuffle_round++ & 1];
+  slots[threadIdx.x] = v;
+  this_block->warp[w]->arrive_and_wait();
+  return slots[32 * w + src];
+}
+
 inline float __shfl_down_sync(unsigned, float v, int h) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  this_block->shuffle[threadIdx.x] = v;
+  std::vector<float>& slots = this_block->shuffle[shuffle_round++ & 1];
+  slots[threadIdx.x] = v;
   this_block->warp[w]->arrive_and_wait();
-  const float got = lane + h < 32 ? this_block->shuffle[threadIdx.x + h] : v;
-  this_block->warp[w]->arrive_and_wait();
-  return got;
+  return lane + h < 32 ? slots[threadIdx.x + h] : v;
 }
 
 // the kernel's inline PTX, on the host
@@ -168,7 +182,8 @@ using Kernel = void (*)(const float*, const uint8_t*, long long,
                         const float*, const float*, const float*,
                         const float*, const float*, const float*,
                         const float*, const float*, const float*, float*,
-                        float*, int, int, int, int, int, int, float, float);
+                        float*, float*, int, int, int, int, int, int, float,
+                        float);
 
 template <bool kDirected, bool kMixture, bool kSplit>
 Kernel pick_tempered(bool tempered) {
@@ -192,10 +207,11 @@ extern "C" int node_scan_host(
     const float* X, const uint8_t* Y, const float* step, const float* eps,
     const float* log_u, const float* mu_z, const float* sig_z,
     const float* b, const float* radii, const float* lmbda,
-    const float* temper, float* X_out, float* acc, int C, int T, int n,
-    int d, int P, int warps, int cluster, int directed, int mixture,
-    float tau_sq, float sigma_sq, long long y_chain, int split) {
-  const int threads = node_scan_threads(T, warps);
+    const float* temper, float* X_out, float* acc, float* field, int C,
+    int T, int n, int d, int P, int warps, int cluster, int directed,
+    int mixture, float tau_sq, float sigma_sq, long long y_chain,
+    int split) {
+  const int threads = node_scan_threads(T, warps, split);
   const int smem = node_scan_smem_bytes(T, n, d, P, 32 * warps * cluster,
                                         directed, cluster, split);
   const bool tempered = temper != nullptr;
@@ -215,7 +231,8 @@ extern "C" int node_scan_host(
         blk->named.push_back(std::make_unique<Barrier>(blk->group_threads));
       for (int w = 0; w < threads / 32; ++w)
         blk->warp.push_back(std::make_unique<Barrier>(32));
-      blk->shuffle.assign(threads, 0.0f);
+      blk->shuffle[0].assign(threads, 0.0f);
+      blk->shuffle[1].assign(threads, 0.0f);
       cl.blocks.push_back(blk.get());
       blocks.push_back(std::move(blk));
     }
@@ -224,14 +241,15 @@ extern "C" int node_scan_host(
       for (int t = 0; t < threads; ++t)
         pool.emplace_back([&, rank, t] {
           threadIdx = dim3(t);
+          shuffle_round = 0;
           blockIdx = dim3(c * cluster + rank);
           blockDim = dim3(threads);
           this_block = cl.blocks[rank];
           this_cluster_ = &cl;
           this_rank = rank;
           kernel(X, Y, y_chain, step, eps, log_u, mu_z, sig_z, b, radii,
-                 lmbda, temper, X_out, acc, T, n, d, P, warps, cluster,
-                 tau_sq, sigma_sq);
+                 lmbda, temper, X_out, acc, field, T, n, d, P, warps,
+                 cluster, tau_sq, sigma_sq);
         });
     for (auto& t : pool) t.join();
   }
