@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..config import DTYPE, SMALL_EPS
+from ..tracing import traced
 
 _TINY = 1e-20
 _F32_TINY = SMALL_EPS
@@ -84,6 +85,7 @@ def dirichlet_from_draws(alphas, draws):
     return out / torch.sum(out, dim=-1, keepdim=True)
 
 
+@traced
 def sample_dirichlet(gen, alphas):
     return dirichlet_from_draws(
         alphas, gamma_draws(gen, alphas.shape, alphas.device))

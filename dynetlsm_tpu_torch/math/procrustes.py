@@ -8,6 +8,8 @@ reflection.
 """
 import torch
 
+from ..tracing import traced
+
 
 def procrustes_rotation(X_ref, X):
     """Orthogonal R (C, d, d) minimising ||X R - X_ref||_F per chain
@@ -17,6 +19,7 @@ def procrustes_rotation(X_ref, X):
     return torch.matmul(u, vt)
 
 
+@traced
 def longitudinal_procrustes_rotation(X_ref, X):
     """One rotation per chain shared by all time steps, fitted on the
     time-flattened positions (reference procrustes.py:28-35).  X_ref, X

@@ -27,6 +27,7 @@ from ..math.distributions import normal
 from ..ops.case_control import cc_loglik, cc_network_loglik
 from ..ops.dir_loglik import dir_loglik
 from ..ops.pair_loglik import pair_loglik
+from ..tracing import traced
 from .metropolis import dirichlet_metropolis_step, random_walk_accept
 
 
@@ -46,6 +47,7 @@ def network_loglik(cfg, Y, X, intercept, radii=None, cc=None):
     return pair_loglik(Y, X, intercept[:, 0].contiguous())[:, 0]
 
 
+@traced
 def sample_intercept_undirected(gen, Y, X, intercept, step_size,
                                 prior_mean, prior_var, temper=None, cc=None):
     """intercept (C, 1); step_size (C, 1); prior_mean / prior_var floats.
@@ -77,6 +79,7 @@ def _cc_directed(X, radii, b_in, b_out, cc):
     return cc_loglik(X, cc, True, b_in, b_out, radii)
 
 
+@traced
 def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
                                prior_mean, prior_var, temper=None, cc=None):
     """Sequential MH for (b_in, b_out) (reference
@@ -134,6 +137,7 @@ def sample_intercepts_directed(gen, Yp, X, intercept, radii, step_size,
     return torch.stack([b_in, b_out], dim=-1), acc, ll_new
 
 
+@traced
 def sample_radii(gen, Yp, X, intercept, radii, step_size, loglik_cur=None,
                  temper=None, cc=None):
     """Dirichlet-proposal MH on the radii simplex (reference

@@ -13,6 +13,7 @@ from ..math.distributions import (
     _F32_TINY, gamma_draws, gamma_fixed_from_draws, inv_gamma_from_draws,
     normal, truncated_normal_from_uniform, uniform)
 from ..ops.node_scan import site_cluster_params
+from ..tracing import traced
 
 
 def cluster_means_from_draws(X, resp, nk, sigma, lmbda, mean_var, noise):
@@ -34,6 +35,7 @@ def cluster_means_from_draws(X, resp, nk, sigma, lmbda, mean_var, noise):
     return var[..., None] * mk + torch.sqrt(var)[..., None] * noise
 
 
+@traced
 def sample_cluster_means(gen, X, resp, nk, sigma, lmbda, mean_var):
     C, K = sigma.shape
     noise = normal(gen, (C, K, X.shape[-1]), X.device)
@@ -68,6 +70,7 @@ def cluster_variances_from_draws(X, resp, nk, mu, lmbda, a, b, draws):
     return torch.clamp_min(inv_gamma_from_draws(ak, bk, draws), 1e-8)
 
 
+@traced
 def sample_cluster_variances(gen, X, resp, nk, mu, lmbda, a, b):
     draws = gamma_draws(gen, mu.shape[:2], X.device)
     return cluster_variances_from_draws(X, resp, nk, mu, lmbda, a, b, draws)
@@ -93,6 +96,7 @@ def lambda_from_draws(X, z, mu, sigma, lambda_prior, lambda_variance_prior,
     return truncated_normal_from_uniform(ml, sl, u)
 
 
+@traced
 def sample_lambda(gen, X, z, mu, sigma, lambda_prior, lambda_variance_prior):
     u = uniform(gen, X.shape[:1], X.device, minval=_F32_TINY)
     return lambda_from_draws(X, z, mu, sigma, lambda_prior,
@@ -108,6 +112,7 @@ def mean_variance_from_draws(mu, a0, b0, draws):
     return torch.clamp_min(inv_gamma_from_draws(a, b, draws), 1e-8)
 
 
+@traced
 def sample_mean_variance_hyper(gen, mu, a0, b0):
     return mean_variance_from_draws(mu, a0, b0,
                                     gamma_draws(gen, mu.shape[:1], mu.device))
@@ -125,6 +130,7 @@ def sigma_scale_from_draws(sigma, a, c0, d0, draws):
                            1e-8)
 
 
+@traced
 def sample_sigma_scale_hyper(gen, sigma, a, c0, d0):
     return sigma_scale_from_draws(
         sigma, a, c0, d0, gamma_draws(gen, sigma.shape[:1], sigma.device))

@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops.shards import RowShards, node_bounds
 from .states import (
     NODE_FIELDS, SHARED_FIELDS, is_shared, place_like, state_from_numpy)
@@ -248,7 +249,7 @@ def make_scan_runner(sweep_fn, trace_fn, chunk=512, thin=1):
     sweeps (thinning on the device: the sweeps between two samples are
     never recorded), writing ``trace_fn(state)`` (a dict of tensors) into
     buffers of ``n_samples`` rows on the device.  Nothing in it waits on
-    the device.
+    the device.  Each call is a ``chunk`` span (``tracing``).
 
     ``sweep_fn`` may be a list of sweeps, one a chain row of a mesh: the
     runner then takes the rows' states and generators as lists and
@@ -265,13 +266,14 @@ def make_scan_runner(sweep_fn, trace_fn, chunk=512, thin=1):
             raise ValueError('n_samples=%d exceeds the runner chunk %d'
                              % (n_samples, chunk))
         states, gens = ([state], [gen]) if single else (list(state), gen)
-        bufs = [_buffers(trace_fn, s, n_samples) for s in states]
-        for i in range(n_samples):
-            for r, sweep in enumerate(rows):
-                for _ in range(thin):
-                    states[r] = sweep(states[r], gens[r])
-                for k, v in trace_fn(states[r]).items():
-                    bufs[r][k][i].copy_(v)
+        with tracing.span('chunk'):
+            bufs = [_buffers(trace_fn, s, n_samples) for s in states]
+            for i in range(n_samples):
+                for r, sweep in enumerate(rows):
+                    for _ in range(thin):
+                        states[r] = sweep(states[r], gens[r])
+                    for k, v in trace_fn(states[r]).items():
+                        bufs[r][k][i].copy_(v)
         return (states[0], bufs[0]) if single else (states, bufs)
 
     runner.chunk = chunk
@@ -294,7 +296,8 @@ def _host_traces(ys):
 def collect_traces(runner, state, gen, n_samples, chunk=512, progress=None,
                    checkpoint_dir=None):
     """Record ``n_samples`` samples in chunks, copying each chunk's traces
-    to host memory (the copy is the only wait on the device) and calling
+    to host memory (the copy is the only wait on the device, a
+    ``tracing.host_sync``) and calling
     ``progress(done, n_samples)`` after each.  Returns (final_state,
     traces) with traces a dict of NumPy arrays, sample axis first.
 
@@ -349,7 +352,8 @@ def collect_traces(runner, state, gen, n_samples, chunk=512, progress=None,
     while done < n_samples:
         step_n = min(chunk, n_samples - done)
         state, ys = runner(state, gen, step_n)
-        host_chunk = _host_traces(ys)
+        with tracing.host_sync():
+            host_chunk = _host_traces(ys)
         if checkpoint_dir is not None:
             save_traces_chunk(checkpoint_dir, len(chunks), host_chunk)
             save_state(state_path, state, gens)

@@ -12,6 +12,7 @@ import torch
 from ..config import SMALL_EPS
 from ..math.distributions import (
     normal, sample_beta, sample_gamma, sample_gamma_fixed, uniform)
+from ..tracing import traced
 
 
 def _fast_poisson_from_draws(lam, u, z, n_terms=8):
@@ -79,6 +80,7 @@ def tables_from_draws(n_trans, beta, alpha_init, alpha, kappa, n_max, cap,
     return m
 
 
+@traced
 def sample_tables(gen, n_trans, beta, alpha_init, alpha, kappa, n_max,
                   cap=64):
     """CRF table counts m (C, T, K, K) (reference sample_auxillary.py:6-28).
@@ -118,6 +120,7 @@ def mbar_from_draws(m, beta, kappa, alpha, n_max, cap, draws):
     return m_bar_sum, w
 
 
+@traced
 def sample_mbar(gen, m, beta, kappa, alpha, n_max, cap=64):
     """Sticky override counts w (C, T-1, K) and the corrected table counts
     summed to m_bar (C, K) (reference sample_auxillary.py:31-50).
@@ -126,6 +129,7 @@ def sample_mbar(gen, m, beta, kappa, alpha, n_max, cap=64):
                            mbar_draws(gen, m, n_max, cap))
 
 
+@traced
 def sample_concentration_param(gen, alpha, n_clusters, n_samples,
                                prior_shape=1.0, prior_rate=1.0):
     """Escobar & West (1995) auxiliary-variable update of a concentration
@@ -142,6 +146,7 @@ def sample_concentration_param(gen, alpha, n_clusters, n_samples,
     return sample_gamma(gen, m_shape, m_scale)
 
 
+@traced
 def sample_alpha_kappa_rho(gen, n_trans, m, w, alpha, kappa,
                            alpha_kappa_shape, alpha_kappa_rate,
                            rho_a=8.0, rho_b=2.0):

@@ -11,6 +11,7 @@ import torch
 from ..config import LOG_GUARD, SMALL_EPS
 from ..math.distributions import gumbel
 from ..ops.emissions import emission_likelihoods_kn, emission_logliks_kn
+from ..tracing import traced
 
 
 def _backward_messages(lik, w):
@@ -68,6 +69,7 @@ def _label_statistics(z, K):
     return torch.cat([init, trans], dim=1), nk, resp
 
 
+@traced
 def sample_labels_block(gen, X, mu, sigma, lmbda, weights):
     """Blocked FFBS with time-inhomogeneous transitions.  weights
     (C, T, K, K), weights[:, 0, 0] the initial distribution.
@@ -80,6 +82,7 @@ def sample_labels_block(gen, X, mu, sigma, lmbda, weights):
     return z, n_trans, nk, resp
 
 
+@traced
 def sample_labels_block_lpcm(gen, X, mu, sigma, lmbda, init_weights,
                              trans_weights):
     """Blocked FFBS with one time-constant transition matrix (LPCM,

@@ -42,6 +42,7 @@ from ..ops.shards import RowShards
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
     _directed_partial_loglik_terms, _mixture_prior_per_t,
     _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
+from .. import tracing
 
 SCHEMES = ('exact', 'parallel', 'mala')
 
@@ -55,6 +56,7 @@ def latent_noise(gen, C, T, n, d, device):
     return eps, log_u
 
 
+@tracing.traced
 def sample_latent_positions(gen, Y, X, intercept, step_size, *, mu=None,
                             sigma=None, lmbda=None, z=None, tau_sq=None,
                             sigma_sq=None, radii=None, is_directed=False,
@@ -671,41 +673,44 @@ def cc_colored_scan(X, intercept, step_size, eps, log_u, *, radii=None,
     acc = torch.zeros((C, T, n), dtype=X.dtype, device=dev)
     rows = X.view(-1, d)
     for c in range(groups.shape[0]):
-        flat = partner[c]                                # ([C,] T, S, Mtot)
-        pos = rows[flat] if per_chain else X.view(C, T * n, d)[:, flat]
-        valid_c = valid[c]
-        scales_c = tuple(s[c] for s in scales)
-        x_cur = X[:, :, g_safe[c]]                       # (C, T, S, d)
-        x_prop = x_cur + step_cls[c] * eps_cls[c]
-        xq = torch.stack([x_prop, x_cur])                # (2, C, T, S, d)
-        diff = pos - xq[..., None, :]                    # (2,C,T,S,Mtot,d)
-        dist = torch.sqrt(_sq_norm(diff))
-        r_all = None
-        if is_directed:
-            r_all = r_rows[flat] if per_chain else r_rows.view(C, T * n)[
-                :, flat]
-        ll = class_partial_loglik_segments(
-            dist, valid_c, r_all, r_cls[c] if is_directed else None, sender,
-            offsets, None, b_in, b_out, n, is_directed, scales=scales_c)
-        delta = ll[0] - ll[1]
-        if tb is not None:
-            delta = tb * delta
-        accepted = margin = None
-        for p in (0, 1):
-            lp, lc = prior(xq, x_cur, c)
-            ratio = delta + lp - lc
-            accept = (u_cls[c] < ratio) & phase_sites[c, p]
-            x_cur = torch.where(accept[..., None], x_prop, x_cur)
-            if p == 0:
-                xq = torch.stack([x_prop, x_cur])
-            accepted = accept if accepted is None else accepted | accept
+        with tracing.span('cc_class'):
+            flat = partner[c]                            # ([C,] T, S, Mtot)
+            pos = rows[flat] if per_chain else X.view(C, T * n, d)[:, flat]
+            valid_c = valid[c]
+            scales_c = tuple(s[c] for s in scales)
+            x_cur = X[:, :, g_safe[c]]                   # (C, T, S, d)
+            x_prop = x_cur + step_cls[c] * eps_cls[c]
+            xq = torch.stack([x_prop, x_cur])            # (2, C, T, S, d)
+            diff = pos - xq[..., None, :]                # (2,C,T,S,Mtot,d)
+            dist = torch.sqrt(_sq_norm(diff))
+            r_all = None
+            if is_directed:
+                r_all = (r_rows[flat] if per_chain
+                         else r_rows.view(C, T * n)[:, flat])
+            ll = class_partial_loglik_segments(
+                dist, valid_c, r_all, r_cls[c] if is_directed else None,
+                sender, offsets, None, b_in, b_out, n, is_directed,
+                scales=scales_c)
+            delta = ll[0] - ll[1]
+            if tb is not None:
+                delta = tb * delta
+            accepted = margin = None
+            for p in (0, 1):
+                lp, lc = prior(xq, x_cur, c)
+                ratio = delta + lp - lc
+                accept = (u_cls[c] < ratio) & phase_sites[c, p]
+                x_cur = torch.where(accept[..., None], x_prop, x_cur)
+                if p == 0:
+                    xq = torch.stack([x_prop, x_cur])
+                accepted = accept if accepted is None else accepted | accept
+                if margins is not None:
+                    m = torch.abs(u_cls[c] - ratio)
+                    margin = m if margin is None else torch.where(
+                        phase_sites[c, 1], m, margin)
+            k = sizes[c]
+            X.index_copy_(2, groups[c, :k], x_cur[:, :, :k])
+            acc.index_copy_(2, groups[c, :k],
+                            accepted[:, :, :k].to(X.dtype))
             if margins is not None:
-                m = torch.abs(u_cls[c] - ratio)
-                margin = m if margin is None else torch.where(
-                    phase_sites[c, 1], m, margin)
-        k = sizes[c]
-        X.index_copy_(2, groups[c, :k], x_cur[:, :, :k])
-        acc.index_copy_(2, groups[c, :k], accepted[:, :, :k].to(X.dtype))
-        if margins is not None:
-            margins.index_copy_(2, groups[c, :k], margin[:, :, :k])
+                margins.index_copy_(2, groups[c, :k], margin[:, :, :k])
     return X, acc

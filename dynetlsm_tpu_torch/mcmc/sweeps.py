@@ -94,8 +94,12 @@ from ..ops.case_control import (
     sample_control_nodes, sample_controls_colored)
 from ..ops.likelihoods import (
     dense_network_loglik, directed_loglik_full, undirected_loglik_full)
-from ..ops.node_scan import pack_directed, pad_partners, site_cluster_params
+from ..ops.dir_loglik import dir_loglik_cuda, dir_loglik_rows_cuda
+from ..ops.node_scan import (
+    node_scan_cuda, pack_directed, pad_partners, site_cluster_params)
+from ..ops.pair_loglik import pair_loglik_cuda, pair_loglik_rows_cuda
 from ..ops.shards import RowShards
+from .. import tracing
 from .coefficients import (
     network_loglik, sample_intercept_undirected, sample_intercepts_directed,
     sample_radii)
@@ -244,11 +248,23 @@ def _sweep_inputs(Y_fixed, intercept_prior, cfg, device, miss_mask,
     return out + (cc_static, node_gens)
 
 
+def launch_counts():
+    """The running launch counts of the port's kernels (``ops/*_cuda``)."""
+    return {'node_scan_launches': node_scan_cuda.launches,
+            'node_scan_split_launches': node_scan_cuda.split_launches,
+            'pair_loglik_launches': pair_loglik_cuda.launches,
+            'pair_loglik_rows_launches': pair_loglik_rows_cuda.launches,
+            'dir_loglik_launches': dir_loglik_cuda.launches,
+            'dir_loglik_rows_launches': dir_loglik_rows_cuda.launches}
+
+
 def _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices):
-    """The sweep with its configuration ``sweep.cfg``, its stored network
-    ``sweep.Y``, the missing-dyad mask ``sweep.miss_mask``, the
+    """The sweep, recorded as a ``sweep`` span with its kernel launches
+    (``tracing.traced``), with its configuration ``sweep.cfg``, its stored
+    network ``sweep.Y``, the missing-dyad mask ``sweep.miss_mask``, the
     case-control structures ``sweep.cc_static``, the node shards'
     generators ``sweep.node_gens`` and their count ``sweep.node_shards``."""
+    sweep = tracing.traced(sweep, name='sweep', counters=launch_counts)
     sweep.cfg = cfg
     sweep.Y = Y
     sweep.miss_mask = None if miss is None else miss.mask
@@ -356,13 +372,15 @@ def _refresh_controls(cfg, gen, state, cc_static):
     multiple of ``cfg.n_resample_control`` (reference
     CaseControlSampler.resample, case_control_likelihood.py:27-33), else
     the state's.  The cadence is read from chain 0's count on the host
-    (one synchronisation a sweep).  With colour classes the draw is one
-    for all chains (:func:`draw_controls`); without them (a ``cc_static``
-    of edge lists alone, the sequential scan's) each chain draws its own
+    (one synchronisation a sweep, a ``tracing.host_sync``).  With colour
+    classes the draw is one for all chains (:func:`draw_controls`);
+    without them (a ``cc_static`` of edge lists alone, the sequential
+    scan's) each chain draws its own
     from the sweep's generator ``gen``, (C, n, m), as the JAX sweep draws
     them from each chain's key
     (``ops.case_control.sample_control_nodes``)."""
-    it = int(state.it[0])
+    with tracing.host_sync():
+        it = int(state.it[0])
     if it % cfg.n_resample_control:
         return state.ctrl_in, state.ctrl_out
     if 'colors' not in cc_static:
@@ -396,6 +414,7 @@ def build_cc_dict(cfg, Y, cc_static, ctrl_in, ctrl_out):
     return cc
 
 
+@tracing.traced
 def _cc_structures(cfg, gen, state, cc_static):
     """(the structures of :func:`build_cc_dict` for this sweep, ctrl_in,
     ctrl_out)."""
@@ -404,6 +423,7 @@ def _cc_structures(cfg, gen, state, cc_static):
             ctrl_in, ctrl_out)
 
 
+@tracing.traced
 def _missing_dyad_step(cfg, gen, state, dyads, X, intercept, radii,
                        it_next, cc_static=None, ctrl=None, node_gens=None):
     """Step 7 of the JAX sweeps: resample the missing ``dyads``
@@ -466,6 +486,7 @@ def _intercept_logprior(cfg, intercept, intercept_prior):
                       dim=1)
 
 
+@tracing.traced
 def _lsm_logp(cfg, Y, X, intercept, radii, dist, intercept_prior,
               net_ll=None, cc=None):
     """LSM log joint per chain (reference lsm.py:576-625): the network
@@ -501,6 +522,7 @@ def _latent_mixture_loglik(X, z, mu, sigma, lmbda):
     return ll
 
 
+@tracing.traced
 def _count_chain_loglik(n_trans, nk, w0, w_trans):
     """sum_k nk[0,k] log w0[k] + sum_{t>0} n_trans[t] . log w[t], per
     chain."""
@@ -530,6 +552,7 @@ def _network_loglik(cfg, Y, dist, intercept, radii, X=None, cc=None):
     return undirected_loglik_full(Y, dist, intercept[:, 0])
 
 
+@tracing.traced
 def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
                          mean_var, b_scale, intercept_prior, net_ll=None,
                          radii=None, cc=None):
@@ -558,6 +581,7 @@ def _mixture_common_logp(cfg, Y, X, intercept, dist, z, mu, sigma, lmbda,
     return ll
 
 
+@tracing.traced
 def _hdp_weights_logp(beta, w0, weights, gamma, alpha_init, alpha, kappa):
     """Dirichlet prior terms of beta, the initial and the transition
     distributions, per chain."""
@@ -594,6 +618,7 @@ def hdp_logp_at_state(cfg, Y, intercept_prior, X, intercept, z, mu, sigma,
         prior, radii=radii, cc=cc)
 
 
+@tracing.traced
 def _finish_tuning(cfg, state, acc_X, acc_int, acc_radii):
     step_X, acc_X = maybe_tune(state.it, cfg.tune, cfg.tune_interval,
                                state.step_X, acc_X,
@@ -698,6 +723,7 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
     return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
 
 
+@tracing.traced
 def _lpcm_weights_logp(cfg, init_weights, trans_weights):
     """Dirichlet(dirichlet_prior) prior terms of the LPCM's initial
     distribution (C, K) and transition rows (C, K, K), per chain."""

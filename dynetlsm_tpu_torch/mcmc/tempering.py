@@ -27,6 +27,7 @@ import torch
 
 from ..config import DTYPE
 from ..math.distributions import uniform
+from ..tracing import traced
 from .coefficients import network_loglik
 from .driver import replicate_state
 from .sweeps import kernel_network
@@ -113,6 +114,7 @@ def swap_loglik(cfg, Y, state):
     return network_loglik(cfg, Y, state.X, state.intercept, state.radii)
 
 
+@traced
 def replica_exchange(cfg, Y, state, partner, log_u, do=None):
     """One round of adjacent replica exchange.  ``partner`` (C,) pairs the
     slots (a slot paired with itself sits out); ``log_u`` (C,) holds

@@ -48,20 +48,10 @@ import torch
 
 from .mcmc import sweeps as _sweeps
 from .mcmc import tempering as _tempering
-
 # the functions the sweep calls through mcmc.sweeps' namespace; none of
 # them calls another one of them through it, so no time is counted twice
-BLOCKS = (
-    'sample_latent_positions', 'longitudinal_procrustes_rotation',
-    'sample_intercept_undirected', 'sample_intercepts_directed',
-    'sample_radii', 'sample_labels_block', 'sample_labels_block_lpcm',
-    'sample_tables', 'sample_mbar', 'sample_dirichlet',
-    'sample_cluster_means', 'sample_cluster_variances', 'sample_lambda',
-    'sample_mean_variance_hyper', 'sample_sigma_scale_hyper',
-    'sample_concentration_param', 'sample_alpha_kappa_rho',
-    '_missing_dyad_step', '_cc_structures', '_hdp_weights_logp', '_lpcm_weights_logp',
-    '_count_chain_loglik', '_mixture_common_logp', '_lsm_logp',
-    '_finish_tuning')
+from .tracing import BLOCKS
+
 # the swap of a parallel-tempering step, called through mcmc.tempering's
 # namespace after the sweep returns
 SWAP_BLOCKS = ('replica_exchange',)
