@@ -185,13 +185,20 @@ Phases, each of which fails the run (exit code 1) when it fails:
    and 'mala' latent updates through ``build_state_and_sweep(...,
    latent_update=)`` at the north star (HDP-LPCM with each, the LSM with
    'mala', the directed HDP-LPCM with 'parallel', a tempered HDP-LPCM with
-   'mala': no node scan launched, the logp at its dense log joint), the
-   directed case-control row with 'parallel' (as in 14), a Sampson
+   'mala': no node scan launched, the site kernel once a 'parallel' sweep,
+   the logp at its dense log joint), the
+   directed case-control row with 'parallel' (as in 14, no kernel), a Sampson
    HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43), and the HDP-LPCM
    with 'parallel' and with 'mala' (from a step of 0.02) at n = 8,192, 16
    chains, 1 + 2 sweeps as in 8, each with its ms/sweep, X acceptance,
    busy share and peak memory, which must stay within 3 GB of the exact
-   scan's slice at that shape; the MALA LSM's Geweke check runs in 12;
+   scan's slice at that shape; at the 'parallel' one, and at the north
+   star's two 'parallel' slices, the site kernel on all of the slice's
+   chains, from its final state and a seeded proposal, against its plain
+   version and a float64 evaluation (within 1e-5 of the terms' magnitude,
+   bit-equal on rerun), its row-range mode's two shares bit-equal to the
+   whole launch, each timed beside the plain version; the MALA LSM's
+   Geweke check runs in 12;
 16. forecasts and the HDP-LPCM's headline scenario: the north-star fit's
    ``forecast_probas_marginalized_`` and ``forecast_probas_pp_`` on the
    card, timed with their peak memory, and the forecast functions on the
@@ -245,13 +252,15 @@ Phases, each of which fails the run (exit code 1) when it fails:
    (``node_devices=2``, 'parallel', 4 chains, 79 sweeps, a mixture's
    nested LSM cut to 99): LSM, HDP-LPCM, directed LSM, missing-dyad LSM
    and case-control LSM, each with finite log joints, no whole-network
-   kernel launched, the row-range modes launched (none under
-   case-control) and ``auc_`` within 0.05 of its unsharded twin's; the
+   kernel launched, the row-range modes launched (the site kernel's once
+   a shard and 'parallel' sweep; none under case-control) and ``auc_``
+   within 0.05 of its unsharded twin's (whose sweeps launch the site
+   kernel, the estimators' check of it; none under case-control); the
    missing-dyad one killed after its second chunk in a child process
    (17's machinery) and resumed in another, equal to its uninterrupted
    twin bit for bit; then ``entry.dryrun_multichip``.  The row-range
    counters are set to 0 before the node-sharded sweeps and fits and
-   read after: both must be above 0;
+   read after: each must be above 0;
 19. the JAX package's examples that need numpy and the package alone,
    run against the port from their unedited sources
    (``scripts/run_example.py``: a copy with ``dynetlsm_tpu`` swapped for
@@ -308,7 +317,14 @@ Phases, each of which fails the run (exit code 1) when it fails:
 kernel's launches in phase 17's uninterrupted fits.  The row-range rows
 (``pair_loglik_rows``, ``dir_loglik_rows``) are 18's timed shares, their
 ``launches`` the node-sharded sweeps' and fits' of 18, their
-``issue_bound_ms`` at the whole modes' median SM clock.
+``issue_bound_ms`` at the whole modes' median SM clock.  The site
+kernel's rows (``site_loglik`` at 15's three 'parallel' slices,
+``launches`` the slice's; ``site_loglik_rows``, the first share at
+n = 8,192, ``launches`` 18's node-sharded sweeps' and fits') carry 15's
+check: ms, plain ms, the bound (30 operations a partner term undirected,
+72 directed), ``issue_bound_ms`` (``SITE_SASS`` instructions per partner
+term at the SM clock read while the kernel runs) and the errors over the
+terms' magnitude.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -388,6 +404,11 @@ LARGE_SCHEME_PEAK_SLACK_GB = 3.0
 # tuned side (scripts/latent_scheme_memory.py --step prints the
 # acceptance at a given step)
 LARGE_MALA_STEP = 0.02
+# the site kernel against its plain version and float64 at the 'parallel'
+# slice there: the largest gap a site may have, over its terms' magnitude
+# (float32 rounds each term by ~6e-8 of it; the plain version's two row
+# sums cancel)
+SITE_RTOL = 1e-5
 MALA_FIT = dict(n_iter=150, tune=150, burn=150, n_components=6,
                 random_state=3, latent_update='mala')
 # phase 14: bench.py's case-control rows (name, directed, n, controls a
@@ -432,6 +453,12 @@ LOGLIK_SASS = {
 NODE_SCAN_SASS = {
     (False, False): (165.25, 4), (False, True): (162.25, 4),
     (True, False): (264.0, 6), (True, True): (264.25, 6)}
+# (instructions, MUFU instructions among them) per partner term of the
+# site kernel's partner loop (a lane's word of four partners, both
+# candidates; compiled for d = 2; CUDA 12.8, sm_90a, -fmad=false), by
+# directed: the shortest path through the loop body, printed by
+# scripts/site_loglik_sass.py from cuobjdump -sass
+SITE_SASS = {False: (126.75, 4), True: (264.25, 10)}
 
 
 class SmokeFailure(Exception):
@@ -947,8 +974,10 @@ def launch_counters():
     from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_cuda
     from dynetlsm_tpu_torch.ops.node_scan import node_scan_cuda
     from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_cuda
+    from dynetlsm_tpu_torch.ops.site_loglik import site_loglik_cuda
     return {'node_scan': node_scan_cuda, 'node_scan_split': SplitCounter(),
-            'pair_loglik': pair_loglik_cuda, 'dir_loglik': dir_loglik_cuda}
+            'pair_loglik': pair_loglik_cuda, 'dir_loglik': dir_loglik_cuda,
+            'site_loglik': site_loglik_cuda}
 
 
 def run_slice(name, Y, shape, dev, directed=False, model='hdp',
@@ -963,7 +992,8 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     size of the latent update.  Dyads of Y coded -1 are missing: the
     state carries each chain's network and the checks of phase 11 apply.
     The exact scheme launches the node scan once a sweep, in the mode its
-    launch rule takes; 'parallel' and 'mala' launch none.  ``report``, a
+    launch rule takes; 'parallel' the site kernel once a sweep instead;
+    'mala' neither.  ``report``, a
     dict, receives the final state, sweep and generator.  Returns
     (launches, ms per timed sweep)."""
     import torch
@@ -1003,6 +1033,7 @@ def run_slice(name, Y, shape, dev, directed=False, model='hdp',
     expected['node_scan'] = (sweeps if latent_update == 'exact'
                              and not split else 0)
     expected['node_scan_split'] = sweeps if split else 0
+    expected['site_loglik'] = sweeps if latent_update == 'parallel' else 0
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -1301,7 +1332,8 @@ def counted_fit(name, est, Y, dev, nested=True, missing=False,
     read just after, and check the counts: per sweep the node scan once
     (in its split-field mode with ``split``; the fit's own sweeps none
     under ``latent_update`` 'parallel' or 'mala', the nested LSM's
-    exact ones still) and the pair kernel once (three directed-kernel
+    exact ones still), the site kernel once a 'parallel' sweep of the
+    fit's, and the pair kernel once (three directed-kernel
     launches when directed), one more with missing dyads and one more a
     tempered step (the swap), over the nested LSM's sweeps (untempered)
     and the fit's; none at all under case-control (``cc``).  Returns
@@ -1325,7 +1357,9 @@ def counted_fit(name, est, Y, dev, nested=True, missing=False,
     scans = nested + (main if est.latent_update == 'exact' else 0)
     expected = {'node_scan': 0 if split else scans,
                 'node_scan_split': scans if split else 0, 'pair_loglik': 0,
-                'dir_loglik': 0}
+                'dir_loglik': 0,
+                'site_loglik': (main if est.latent_update == 'parallel'
+                                else 0)}
     expected[loglik] = ((per + missing) * nested
                         + (per + missing + tempered) * main)
     if cc:
@@ -1498,8 +1532,10 @@ def estimator_phase(dev):
                               for kv in m.stage_seconds_.items()),
            float(m.logps_[:, -1].mean()), m.auc_, launches))
     for k, v in total.items():
-        # the split-field scan's fit (LARGE_FIT) is phase 15's
-        check(v > 0 or k == 'node_scan_split',
+        # the split-field scan's fit (LARGE_FIT) is phase 15's; the site
+        # kernel's estimator fits ('parallel') are phase 18's unsharded
+        # twins, checked there
+        check(v > 0 or k in ('node_scan_split', 'site_loglik'),
               'estimators: %s was never launched' % k)
     return total, ns_fit
 
@@ -1953,20 +1989,29 @@ def large_fit_launches(started):
     return launches
 
 
-def scheme_phase(dev, networks, slices):
+def scheme_phase(dev, networks, slices, site):
     """The 'parallel' and 'mala' latent updates at the north star through
     ``build_state_and_sweep(..., latent_update=)`` (phase 8's checks: no
-    node scan launched, the coefficient kernels as before, the logp at the
-    dense log joint), the case-control row with 'parallel', and a Sampson
-    HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43; its nested LSM's
-    exact scans counted).  Returns the fit's launches."""
+    node scan launched, the coefficient kernels as before, the site kernel
+    once a 'parallel' sweep, the logp at the dense log joint;
+    :func:`check_site_kernel` on each 'parallel' slice's final state, its
+    numbers into ``site``), the case-control row with 'parallel', and a
+    Sampson HDP-LPCM fit with 'mala' (JAX tests/test_mala.py:43; its
+    nested LSM's exact scans counted).  Returns the fit's launches."""
     from dynetlsm_tpu_torch import DynamicNetworkHDPLPCM
     from dynetlsm_tpu_torch.datasets import load_dynamic_monks
     for model, directed, scheme, n_temps in SCHEME_SLICES:
         name = '%s %s' % (slice_name(model, NS, directed, n_temps), scheme)
+        report = {} if scheme == 'parallel' else None
         slices[name] = run_slice(name, networks[NS['n'], directed], NS, dev,
                                  directed=directed, model=model,
-                                 n_temps=n_temps, latent_update=scheme)
+                                 n_temps=n_temps, latent_update=scheme,
+                                 report=report)
+        if report is not None:
+            site[name] = check_site_kernel(
+                name, networks[NS['n'], directed], report['state'],
+                directed)
+        del report
     out = run_cc_slice(SCHEME_CC[0] + ' parallel', *SCHEME_CC[1:], dev=dev,
                        latent_update='parallel')
     m = DynamicNetworkHDPLPCM(device=dev, **MALA_FIT)
@@ -1982,11 +2027,13 @@ def scheme_phase(dev, networks, slices):
 def run_large_schemes(dev, exact):
     """The 'parallel' and 'mala' HDP-LPCM slices at the shape of the
     first large slice (LARGE_SLICES[0]), as in 8 (no node scan launched,
-    the logp at the dense log joint), LARGE_SCHEME_SWEEPS each ('mala'
-    from LARGE_MALA_STEP), then one
-    profiled sweep: ms/sweep, X acceptance, peak device memory (within
+    the site kernel once a 'parallel' sweep, the logp at the dense log
+    joint), LARGE_SCHEME_SWEEPS each ('mala' from LARGE_MALA_STEP), then
+    one profiled sweep: ms/sweep, X acceptance, peak device memory (within
     LARGE_SCHEME_PEAK_SLACK_GB of the exact-scan slice's, ``exact``, from
-    this run) and the device's busy share.  Returns {name: numbers}."""
+    this run) and the device's busy share; at the 'parallel' slice
+    :func:`check_site_kernel` on its final state.  Returns {name:
+    numbers}."""
     from dynetlsm_tpu_torch import profile_blocks
     base, model, directed, n, C, _ = LARGE_SLICES[0]
     Y = large_network(n, directed)
@@ -2012,6 +2059,9 @@ def run_large_schemes(dev, exact):
                          peak_gb=report['peak_gb'],
                          exact_peak_gb=exact['peak_gb'],
                          device_busy=device['device_busy'])
+        if scheme == 'parallel':
+            out[name]['site_kernel'] = check_site_kernel(
+                name, Y, report['state'], directed)
         log('slice %s: %.3f ms/sweep, X acceptance %.4f, peak device memory '
             '%.3f GB (the exact scan\'s slice %.3f GB), device busy %s; '
             'largest kernels (ms/sweep, profiled) %s'
@@ -2019,6 +2069,156 @@ def run_large_schemes(dev, exact):
                exact['peak_gb'], device['device_busy'],
                [(k[:60], round(v, 3)) for k, v in device['kernels_ms'][:3]]))
         del report
+    return out
+
+
+def site_terms64(Y, X, X_prop, b, radii, directed):
+    """(delta, magnitude), (C, T, n) float64: each site's sum over its
+    partners of l(x_prop) - l(x) and of |l(x_prop)| + |l(x)| (the scale
+    of its delta's rounding), the plain arithmetic in float64 on Y (T, n,
+    S) uint8 (packed when directed), a chain and time at a time."""
+    import torch
+    C, T, n, _ = X.shape
+    delta = torch.empty((C, T, n), dtype=torch.float64, device=X.device)
+    mag = torch.empty_like(delta)
+    off = ~torch.eye(n, dtype=torch.bool, device=X.device)
+    zero = torch.zeros((), dtype=torch.float64, device=X.device)
+    b = b.double()
+    for c in range(C):
+        r = radii[c].double() if directed else None
+        for t in range(T):
+            x = X[c, t].double()
+            y = Y[t, :, :n].double()
+            ll = []
+            for cand in (X_prop[c, t].double(), x):
+                dist = torch.sqrt(torch.sum(
+                    (cand[:, None, :] - x[None, :, :]) ** 2, -1))
+                if directed:
+                    q_j, q_i = dist / r[None, :], dist / r[:, None]
+                    eo = b[c, 0] * (1 - q_j) + b[c, 1] * (1 - q_i)
+                    ei = b[c, 0] * (1 - q_i) + b[c, 1] * (1 - q_j)
+                    terms = (torch.remainder(y, 2) * eo
+                             - torch.logaddexp(eo, zero)
+                             + torch.floor(y / 2) * ei
+                             - torch.logaddexp(ei, zero))
+                else:
+                    eta = b[c, 0] - dist
+                    terms = y * eta - torch.logaddexp(eta, zero)
+                ll.append(torch.where(off, terms, zero))
+            delta[c, t] = (ll[0] - ll[1]).sum(-1)
+            mag[c, t] = (ll[0].abs() + ll[1].abs()).sum(-1)
+    return delta, mag
+
+
+def site_bound(args, rows):
+    """(bound_ms, bound_by) of the site kernel over the sites ``rows`` of
+    the inputs ``args`` (Y holding those rows): per site and partner 30
+    operations undirected, as ``port_bench``'s counts take a partner of a
+    site's update, 72 directed (each candidate's distance 6, two etas 14,
+    two softplus 10, two y eta 2, two subtractions and their sum 3; the
+    difference and the accumulation 2); the bytes of every input once and
+    of the output."""
+    Y, X = args[:2]
+    C, T, n, _ = X.shape
+    ops = (72 if args[-1] else 30) * C * T * rows * (n - 1)
+    return bound(ops, _bytes(*args[:-1]) + 4 * C * T * rows)
+
+
+def site_issue_bound_ms(C, T, n, rows, directed, clock_hz):
+    """The least time the card needs to issue the site kernel's compiled
+    partner loop for ``rows`` sites of n - 1 partners each, C chains and
+    T times: ``SITE_SASS`` instructions per partner term over SMS x LANES
+    lanes a clock, or, if larger, its MUFU instructions over a quarter of
+    the lanes."""
+    instr, mufu = SITE_SASS[bool(directed)]
+    slots = max(instr / LANES, mufu / (LANES / 4))
+    return 1e3 * C * T * rows * (n - 1) * slots / (SMS * clock_hz)
+
+
+def check_site_kernel(name, Y, state, directed):
+    """The site kernel on every chain of a 'parallel' slice (its final
+    state, a seeded proposal at each site's step, the network's rows
+    padded as the sweeps store them): within SITE_RTOL of the terms'
+    magnitude (at least 1) of its plain version and of the plain
+    arithmetic in float64, bit-equal on rerun; its row-range mode's two
+    shares, cut at a row no multiple of 4, bit-equal to the whole launch's
+    sites.  Timed beside the plain version (the whole network and the
+    first share), with the bounds and the issue bounds at the SM clock
+    ``nvidia-smi`` reports while it runs.  Returns its numbers."""
+    import torch
+    from dynetlsm_tpu_torch.ops.node_scan import pack_directed, pad_partners
+    from dynetlsm_tpu_torch.ops.site_loglik import (
+        site_loglik_cuda, site_loglik_plain, site_loglik_rows_cuda)
+    t0 = time.perf_counter()
+    Y = torch.as_tensor(Y).to(device=state.X.device, dtype=torch.uint8)
+    Yk = pad_partners(pack_directed(Y) if directed else Y)
+    X = state.X.contiguous()
+    C, T, n, _ = X.shape
+    gen = torch.Generator(device=X.device).manual_seed(19)
+    eps = torch.randn(X.shape, generator=gen, device=X.device)
+    X_prop = (X + state.step_X[..., None] * eps).contiguous()
+    b = state.intercept.contiguous()
+    radii = state.radii.contiguous() if directed else None
+    args = (Yk, X, X_prop, b, radii, directed)
+    big = n > 2048
+    got = site_loglik_cuda(*args)
+    again = site_loglik_cuda(*args)
+    # past n = 2,048 the plain version (a second a call at n = 8,192) is
+    # timed on its one call
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(site_loglik_plain(*args)),
+                       1 if big else 5, warmup=0 if big else 1)
+    plain = plain[0]
+    want, mag = site_terms64(Yk, X, X_prop, b, radii, directed)
+    # at least a nat, as the benchmark's mh_gap scales a ratio: a site
+    # whose terms all vanish (y = 0, eta far below 0) rounds them to 0
+    mag = torch.clamp_min(mag, 1.0)
+    err_plain = float(((got.double() - plain.double()).abs() / mag).max())
+    err64 = float(((got.double() - want).abs() / mag).max())
+    plain_err64 = float(((plain.double() - want).abs() / mag).max())
+    cut = n // 3 + 1
+    share = (Yk[..., :cut, :].contiguous(), X, X_prop, b, radii, directed)
+    shares = [site_loglik_rows_cuda(*share, row0=0),
+              site_loglik_rows_cuda(Yk[..., cut:, :].contiguous(),
+                                    *share[1:], row0=cut)]
+    rows_equal = torch.equal(torch.cat(shares, dim=2), got)
+    ms = cuda_ms(lambda: site_loglik_cuda(*args), 5 if big else 20)
+    rows_ms = cuda_ms(lambda: site_loglik_rows_cuda(*share, row0=0),
+                      5 if big else 20)
+    rows_plain_ms = cuda_ms(lambda: site_loglik_plain(*share),
+                            1 if big else 5, warmup=0 if big else 1)
+    clock = busy_sm_clock_hz(lambda: site_loglik_cuda(*args),
+                             max(20, int(1e3 / ms)))
+    out = dict(
+        chains=C, err_plain=err_plain, err64=err64, plain_err64=plain_err64,
+        max_abs_err=float((got.double() - want).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound=site_bound(args, n),
+        issue_bound_ms=site_issue_bound_ms(C, T, n, n, directed, clock),
+        rows=(0, cut), rows_ms=rows_ms, rows_plain_ms=rows_plain_ms,
+        rows_bound=site_bound(share, cut),
+        rows_issue_bound_ms=site_issue_bound_ms(C, T, n, cut, directed,
+                                                clock),
+        rows_max_abs_err=float((shares[0].double()
+                                - want[..., :cut]).abs().max()),
+        sm_clock_mhz=clock / 1e6, directed=directed,
+        shape='T=%d n=%d chains=%d' % (T, n, C))
+    log('site kernel at %s, %d chains: against the plain version %g and '
+        'float64 %g of the terms\' magnitude (the plain version against '
+        'float64 %g), rerun %s, row shares [0, %d) and [%d, %d) %s; kernel '
+        '%.3f ms, plain %.3f ms, bound %.4f ms (%s), issue bound %.3f ms at '
+        '%.0f MHz; share [0, %d): kernel %.3f ms, plain %.3f ms; %.1f s'
+        % (name, C, err_plain, err64, plain_err64,
+           'bit-equal' if torch.equal(got, again) else 'DIFFERENT', cut, cut,
+           n, 'bit-equal to the whole launch' if rows_equal else 'DIFFERENT',
+           ms, plain_ms, out['bound'][0], out['bound'][1],
+           out['issue_bound_ms'], clock / 1e6, cut, rows_ms, rows_plain_ms,
+           time.perf_counter() - t0))
+    check(torch.equal(got, again), '%s: site kernel rerun differs' % name)
+    check(rows_equal, '%s: the site kernel\'s row shares differ from the '
+          'whole launch' % name)
+    check(max(err_plain, err64) <= SITE_RTOL, '%s: site kernel off its plain '
+          'version by %g and float64 by %g of the terms\' magnitude'
+          % (name, err_plain, err64))
     return out
 
 
@@ -2524,8 +2724,10 @@ def row_counters():
     """The row-range modes' launch counters."""
     from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_rows_cuda
     from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_rows_cuda
+    from dynetlsm_tpu_torch.ops.site_loglik import site_loglik_rows_cuda
     return {'pair_loglik_rows': pair_loglik_rows_cuda,
-            'dir_loglik_rows': dir_loglik_rows_cuda}
+            'dir_loglik_rows': dir_loglik_rows_cuda,
+            'site_loglik_rows': site_loglik_rows_cuda}
 
 
 def share_dyads(C, T, n, a, b):
@@ -2854,9 +3056,14 @@ def node_fit_phase(dev):
             check(bool(np.isfinite(est.logps_[..., 1:]).all()),
                   '%s%s: non-finite logps_' % (name, '' if nodes
                                                else ' twin'))
-        (m, seconds, launches), (twin, twin_s, _) = runs[True], runs[False]
+        (m, seconds, launches), (twin, twin_s, twin_launches) = (
+            runs[True], runs[False])
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        # the unsharded 'parallel' twin: the site kernel once a sweep of
+        # its own (none under case-control)
+        check(('cc' in name) != (twin_launches['site_loglik'] > 0),
+              '%s twin: launches %s' % (name, twin_launches))
         # no whole-network kernel under node sharding; the row-range modes
         # unless case-control (its own estimator, no kernel)
         check(not any(v for k, v in launches.items()
@@ -3531,10 +3738,13 @@ def main():
             launches, ms, large[row[0]] = run_large_slice(*row, dev=dev)
             slices[row[0]] = (launches, ms)
         large_schemes = run_large_schemes(dev, large[LARGE_SLICES[0][0]])
+        site = {}
         for k, o in large_schemes.items():
             slices[k] = (o['launches'], o['ms'])
+            if 'site_kernel' in o:
+                site[k] = o['site_kernel']
         more_fits = [large_fit_launches(large_fit_child)]
-        launches, cc_parallel = scheme_phase(dev, networks, slices)
+        launches, cc_parallel = scheme_phase(dev, networks, slices, site)
         more_fits.append(launches)
         for launches in more_fits:
             for k, v in launches.items():
@@ -3778,6 +3988,44 @@ def main():
                 'issue_bound_ms': issue_ms, 'sm_clock_mhz': clock / 1e6,
                 'mode': mode, 'shape': shape,
                 'slice': 'phase 18 node-sharded sweeps and fits'})
+        site_cu = 'dynetlsm_tpu_torch/csrc/site_loglik.cu'
+        # JAX's 'parallel' update, one fused XLA pass: no Pallas kernel
+        site_replaces = 'dynetlsm_tpu/mcmc/latent.py:105'
+        for slice_at, nums in site.items():
+            site_rows = [(
+                'site_loglik', 'whole network', nums['ms'], nums['plain_ms'],
+                nums['bound'], nums['issue_bound_ms'], nums['max_abs_err'],
+                slices[slice_at][0]['site_loglik'], slice_at)]
+            if nums['shape'].startswith('T=10 n=8192'):
+                site_rows.append((
+                    'site_loglik_rows',
+                    'rows [%d, %d)' % tuple(nums['rows']), nums['rows_ms'],
+                    nums['rows_plain_ms'], nums['rows_bound'],
+                    nums['rows_issue_bound_ms'], nums['rows_max_abs_err'],
+                    row_launches['site_loglik_rows'],
+                    'phase 18 node-sharded sweeps and fits'))
+            for (name, mode, ms, pms, (bound_ms, bound_by), issue_ms, err,
+                 launches, at) in site_rows:
+                mode = '%s, %s' % ('directed' if nums['directed']
+                                   else 'undirected', mode)
+                log('%s (%s) %s: kernel %.4f ms, plain %.4f ms, bound %.6f '
+                    'ms (%s), issue bound %.6f ms at %.0f MHz'
+                    % (name, mode, nums['shape'], ms, pms, bound_ms,
+                       bound_by, issue_ms, nums['sm_clock_mhz']))
+                kernels.append({
+                    'name': name, 'route': 'cuda', 'source': site_cu,
+                    'replaces': site_replaces, 'launches': launches,
+                    'max_abs_err': err, 'ms': ms, 'plain_ms': pms,
+                    'bound_ms': bound_ms, 'bound_by': bound_by,
+                    'library_ms': None, 'issue_bound_ms': issue_ms,
+                    'sm_clock_mhz': nums['sm_clock_mhz'],
+                    'err_vs_plain': nums['err_plain'],
+                    'err_vs_float64': nums['err64'],
+                    'plain_err_vs_float64': nums['plain_err64'],
+                    'fit_launches': fit_launches.get(name),
+                    'checkpoint_launches': ckpt_launches.get(name),
+                    'example_launches': example_launches.get(name),
+                    'mode': mode, 'slice': at, 'shape': nums['shape']})
         log('node-sharded sweeps at n = 8,192: ' + ', '.join(
             '%s %.3f ms/sweep (%d accepts off the unsharded sweep, peak GB '
             'by card %s)' % (k, o['ms'], o['flips'], o['peak_gb'])

@@ -19,14 +19,18 @@ package's three schemes:
   whole field on the dense joint density (:func:`_mala_update`), the
   likelihood's gradient in closed form.
 
-The last two are torch code on any device.  Their dense passes run over
-blocks of (chains, times, sites) of at most ``_BLOCK_ELEMS`` dyads
-(:func:`_site_blocks`), each site against its whole row of partners, so
-no (C, T, n, n) tensor is made.  On a node-sharded network
-(``ops.shards.RowShards``, ``mcmc/nodes.py``) each shard scores its own
-sites from its rows, on its device with its own copy of the field, and
-the first device gathers the sites' terms (and adds the shards' float64
-shares of the MALA joint); the exact scan is not sharded.
+The dense 'parallel' site terms are one launch of the CUDA site kernel
+for CUDA tensors (``ops/site_loglik.py`` -> ``csrc/site_loglik.cu``), its
+plain PyTorch version for CPU tensors; the rest of 'parallel' (proposal,
+prior, accept, O(C T n)), its case-control terms and 'mala' are torch code
+on any device.  The plain dense passes run over blocks of (chains, times,
+sites) of at most ``_BLOCK_ELEMS`` dyads (:func:`_site_blocks`), each site
+against its whole row of partners, so no (C, T, n, n) tensor is made.  On
+a node-sharded network (``ops.shards.RowShards``, ``mcmc/nodes.py``) each
+shard scores its own sites from its rows, on its device with its own copy
+of the field (the site kernel's row-range mode on a card), and the first
+device gathers the sites' terms (and adds the shards' float64 shares of
+the MALA joint); the exact scan is not sharded.
 """
 from functools import lru_cache
 
@@ -39,6 +43,7 @@ from ..ops.case_control import (
 from ..ops.distances import _sum_sq_last
 from ..ops.likelihoods import _BLOCK_ELEMS, site_blocks, softplus
 from ..ops.shards import RowShards
+from ..ops.site_loglik import block_network as _block_network, site_loglik
 from ..ops.node_scan import (  # noqa: F401  (re-exported counterparts)
     _directed_partial_loglik_terms, _mixture_prior_per_t,
     _partial_loglik_terms, _rw_prior_per_t, node_scan, site_cluster_params)
@@ -157,24 +162,6 @@ def _shard_parts(Y):
     return [(Y, 0)]
 
 
-def _block_network(Y, c, t, r, n, is_directed, row0=0):
-    """(Y_row, Y_col, off) of one block's sites r of times t (chains c
-    when Y is one network a chain), from the kernels' form of the network
-    ((C,) T, n, n or padded rows; a node shard's rows from ``row0``): the
-    0/1 adjacency Y[t, i, j] of each site i of r and partner j and,
-    directed, Y[t, j, i] (the packed bits ``& 1`` and ``>> 1``; None when
-    undirected), uint8 (arithmetic with float32 promotes them exactly, no
-    float copy made); and the (sites, n) bool mask of the partners other
-    than the site itself."""
-    local = slice(r.start - row0, r.stop - row0)
-    Yb = (Y[c, t] if Y.dim() == 4 else Y[t])[..., local, :n]
-    rows = torch.arange(r.start, r.stop, device=Yb.device)
-    off = rows[:, None] != torch.arange(n, device=Yb.device)
-    if is_directed:
-        return Yb & 1, Yb >> 1, off
-    return Yb, None, off
-
-
 def _shift(a, step, fill):
     """a[:, t - 1] (step 1) or a[:, t + 1] (step -1) along axis 1, ``fill``
     where that time does not exist."""
@@ -194,11 +181,14 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     perturbed Markov kernel (each site's accept ignores the other sites'
     moves; JAX measures the temporal-smoothness moment E|X_{t+1} - X_t|^2
     ~9% inflated at T=3, n=8).  JAX's formulas term by term, with a chain
-    axis: each site's partner terms (:func:`_site_loglik`, in blocks of
-    sites), the prior with stale temporal neighbours, ``temper`` (C,)
-    times the likelihood delta.  Under the case-control structures ``cc``
-    the site terms are ``ops.case_control.approx_partial_loglik_all``'s (Y
-    unread).
+    axis: each site's likelihood delta over its partners
+    (:func:`_site_loglik`: one launch of the CUDA site kernel,
+    ``csrc/site_loglik.cu``, for CUDA tensors, one a node shard; its plain
+    version in blocks of eager ops, ``ops.site_loglik.site_loglik_plain``,
+    for CPU tensors), the prior with stale temporal neighbours, ``temper``
+    (C,) times the likelihood delta.  Under the case-control structures
+    ``cc`` the site terms are ``ops.case_control.
+    approx_partial_loglik_all``'s (Y unread; torch code on any device).
 
     Shapes as :func:`sample_latent_positions`.  The proposal eps (C, T, n,
     d) and the log-uniforms log_u (C, T, n) are drawn from ``gen`` (eps
@@ -209,11 +199,6 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
     if log_u is None:
         log_u = torch.log(uniform(gen, (C, T, n), X.device))
     X_prop = X + step_size[..., None] * eps
-
-    def site_ll(Xq):
-        if cc is not None:
-            return _cc_site_loglik(X, Xq, cc, intercept, radii, is_directed)
-        return _site_loglik(Y, X, Xq, intercept, radii, is_directed)
 
     prev = _shift(X, 1, 0.0)
     nxt = _shift(X, -1, 0.0)
@@ -243,7 +228,13 @@ def _parallel_site_update(gen, Y, X, intercept, step_size, radii=None,
             fwd = -0.5 * _sum_sq_last(nxt - Xq) / sig
         return back + torch.where(last, 0.0, fwd)
 
-    delta_ll = site_ll(X_prop) - site_ll(X)
+    if cc is not None:
+        delta_ll = (_cc_site_loglik(X, X_prop, cc, intercept, radii,
+                                    is_directed)
+                    - _cc_site_loglik(X, X, cc, intercept, radii,
+                                      is_directed))
+    else:
+        delta_ll = _site_loglik(Y, X, X_prop, intercept, radii, is_directed)
     if temper is not None:
         delta_ll = temper[:, None, None] * delta_ll
     ratio = delta_ll + site_prior(X_prop) - site_prior(X)
@@ -270,51 +261,23 @@ def _cc_site_loglik(X, Xq, cc, intercept, radii, is_directed):
     return torch.cat(parts, dim=2)
 
 
-def _site_loglik(Y, X, Xq, intercept, radii, is_directed):
-    """Each site's dense log-likelihood terms at its candidate Xq (C, T,
-    n, d) against the field X, its own slot dropped and the rest summed
-    over its whole row of partners in one sum (JAX
-    ``_parallel_site_update``'s ``site_ll``): undirected y_ij eta -
-    softplus(eta), eta = b - d; directed the sender's and the receiver's
-    terms, the packed bits of Y (:func:`_block_network`).  Blocks of
-    :func:`_site_blocks` cut only the site axis, so each site's sum is
-    over the same row.  A node-sharded Y: each shard's sites on its device
-    (its own copy of X, Xq and the coefficients), gathered on X's device.
-    Returns (C, T, n)."""
-    C, T, n, _ = X.shape
-    out = torch.empty((C, T, n), dtype=X.dtype, device=X.device)
+def _site_loglik(Y, X, X_prop, intercept, radii, is_directed):
+    """Each site's dense likelihood delta (C, T, n), its proposal X_prop
+    against its position X, both against the field X over its whole row
+    of partners, its own slot dropped (JAX ``_parallel_site_update``'s
+    ``site_ll(X_prop) - site_ll(X)``): ``ops.site_loglik.site_loglik``,
+    the CUDA kernel for CUDA tensors, its plain version (blocks of
+    :func:`_site_blocks`) for CPU tensors.  A node-sharded Y: each shard's
+    sites on its device (its own copy of X, X_prop and the coefficients;
+    the kernel's row-range mode on a card), gathered on X's device."""
+    parts = []
     for part, row0 in _shard_parts(Y):
         dev = part.device
-        Xs, Xqs, bs, rs = [None if v is None else v.to(dev)
-                           for v in (X, Xq, intercept, radii)]
-        rows = (row0, row0 + part.shape[-2])
-        for c, t, r in _site_blocks(C, T, n, rows):
-            out[c, t, r] = _site_block(part, Xs, Xqs, bs, rs, is_directed,
-                                       c, t, r, row0).to(X.device)
-    return out
-
-
-def _site_block(Y, X, Xq, intercept, radii, is_directed, c, t, r, row0=0):
-    """:func:`_site_loglik` of one block (its temporaries freed on
-    return)."""
-    Y_row, Y_col, off = _block_network(Y, c, t, r, X.shape[2], is_directed,
-                                       row0)
-    diff = Xq[c, t, r][:, :, :, None, :] - X[c, t][:, :, None, :, :]
-    dist = torch.sqrt(torch.clamp_min(_sum_sq_last(diff), 0.0))
-    del diff
-    b0 = intercept[c, 0, None, None, None]
-    if is_directed:
-        b1 = intercept[c, 1, None, None, None]
-        r_self = radii[c, None, r, None]
-        r_other = radii[c, None, None, :]
-        eta_out = b0 * (1.0 - dist / r_other) + b1 * (1.0 - dist / r_self)
-        eta_in = b0 * (1.0 - dist / r_self) + b1 * (1.0 - dist / r_other)
-        ll = Y_row * eta_out - softplus(eta_out)
-        ll = ll + (Y_col * eta_in - softplus(eta_in))
-    else:
-        eta = b0 - dist
-        ll = Y_row * eta - softplus(eta)
-    return torch.sum(ll.masked_fill_(~off, 0.0), dim=-1)
+        Xs, Xps, bs, rs = [None if v is None else v.to(dev).contiguous()
+                           for v in (X, X_prop, intercept, radii)]
+        parts.append(site_loglik(part, Xs, Xps, bs, rs, is_directed,
+                                 row0).to(X.device))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
 def _joint_loglik(Y, X, intercept, radii=None, is_directed=False,

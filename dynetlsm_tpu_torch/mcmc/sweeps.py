@@ -99,6 +99,7 @@ from ..ops.node_scan import (
     node_scan_cuda, pack_directed, pad_partners, site_cluster_params)
 from ..ops.pair_loglik import pair_loglik_cuda, pair_loglik_rows_cuda
 from ..ops.shards import RowShards
+from ..ops.site_loglik import site_loglik_cuda, site_loglik_rows_cuda
 from .. import tracing
 from .coefficients import (
     network_loglik, sample_intercept_undirected, sample_intercepts_directed,
@@ -255,7 +256,9 @@ def launch_counts():
             'pair_loglik_launches': pair_loglik_cuda.launches,
             'pair_loglik_rows_launches': pair_loglik_rows_cuda.launches,
             'dir_loglik_launches': dir_loglik_cuda.launches,
-            'dir_loglik_rows_launches': dir_loglik_rows_cuda.launches}
+            'dir_loglik_rows_launches': dir_loglik_rows_cuda.launches,
+            'site_loglik_launches': site_loglik_cuda.launches,
+            'site_loglik_rows_launches': site_loglik_rows_cuda.launches}
 
 
 def _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices):

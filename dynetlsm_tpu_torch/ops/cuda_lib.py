@@ -44,6 +44,9 @@ _SIGNATURES = {
     'dir_loglik_launch': [_P] * 7 + [_I] * 6 + [_L, _P],
     'dir_loglik_rows_launch': [_P] * 7 + [_I] * 8 + [_L, _P],
     'dir_loglik_blocks_per_sm': [_I] * 2,
+    'site_loglik_launch': [_P] * 6 + [_I] * 10 + [_L] * 3 + [_P],
+    'site_loglik_smem_bytes': [_I] * 5,
+    'site_loglik_blocks_per_sm': [_I] * 3,
 }
 
 

@@ -31,10 +31,12 @@ from dynetlsm_tpu_torch.mcmc import latent as pl
 from dynetlsm_tpu_torch.mcmc.metropolis import (
     maybe_tune, tune_step_size_mala)
 from dynetlsm_tpu_torch.ops import case_control as pcc
+from dynetlsm_tpu_torch.ops import likelihoods as plik
 from dynetlsm_tpu_torch.ops.likelihoods import (
     directed_loglik_full, undirected_loglik_full)
 from dynetlsm_tpu_torch.ops.distances import pairwise_distances
 from dynetlsm_tpu_torch.ops.node_scan import pack_directed, pad_partners
+from dynetlsm_tpu_torch.ops.shards import RowShards
 
 T, N, K, C, D = 3, 14, 4, 3, 2
 TAU_SQ, SIGMA_SQ = 2.0, 0.1
@@ -127,7 +129,8 @@ def _run_jax(fn, a, directed, mixture, tempered, cc=None):
     Xs, accs = [], []
     for c, key in enumerate(_keys(a['seed'])):
         extra = {} if cc is None else dict(cc=cc)
-        X, acc = fn(key, jnp.asarray(a['Y']), jnp.asarray(a['X'][c]),
+        Y = a['Y'][c] if a['Y'].ndim == 4 else a['Y']
+        X, acc = fn(key, jnp.asarray(Y), jnp.asarray(a['X'][c]),
                     jnp.asarray(a['b'][c]), jnp.asarray(a['step'][c]),
                     jnp.asarray(a['radii'][c]) if directed else None,
                     *_jax_prior(a, c, mixture), directed, mixture,
@@ -227,8 +230,39 @@ def test_schemes_in_site_blocks_match_jax(monkeypatch, directed, mixture,
     into many blocks of (chains, times, sites): the same inputs and
     tolerances."""
     monkeypatch.setattr(pl, '_BLOCK_ELEMS', block_elems)
+    monkeypatch.setattr(plik, '_BLOCK_ELEMS', block_elems)
     assert len(pl._site_blocks(C, T, N)) > 1
     CHECKS[check](directed, mixture, True)
+
+
+@pytest.mark.parametrize('block_elems', [5 * N, 1 << 26])
+@pytest.mark.parametrize('shards', [1, 2])
+@pytest.mark.parametrize('directed, mixture', MODES)
+def test_parallel_site_update_per_chain_networks_match_jax(
+        monkeypatch, directed, mixture, shards, block_elems):
+    """'parallel', tempered, with one network a chain (the missing-dyad
+    form (C, T, n, S)), whole or in two node shards cut mid-word, its
+    plain site terms (``ops.site_loglik.site_loglik_plain``) in blocks of
+    five sites or in one: JAX chain by chain on each chain's network, the
+    same tolerances."""
+    monkeypatch.setattr(plik, '_BLOCK_ELEMS', block_elems)
+    seed = 51 + 4 * directed + 2 * mixture
+    a = dict(_inputs(seed, directed, mixture), seed=seed)
+    rng = np.random.RandomState(seed)
+    a['Y'] = np.stack([_network(rng, directed, p) for p in (0.2, 0.3, 0.45)])
+    Y = _port_network(a['Y'], directed)
+    if shards == 2:
+        Y = RowShards([Y[..., :6, :].contiguous(), Y[..., 6:, :].contiguous()],
+                      (0, 6, N))
+    draws = [_parallel_draws(k) for k in _keys(seed)]
+    t, kw = _port_kw(a, directed, mixture, True)
+    X_p, acc_p = pl._parallel_site_update(
+        None, Y, t['X'], t['b'], t['step'],
+        eps=torch.as_tensor(np.stack([e for e, _ in draws])),
+        log_u=torch.as_tensor(np.stack([u for _, u in draws])), **kw)
+    X_j, acc_j = _run_jax(jl._parallel_site_update, a, directed, mixture,
+                          True)
+    _compare(X_p, acc_p, X_j, acc_j)
 
 
 @pytest.mark.parametrize('shape', [(3, 3, 14), (2, 5, 9), (1, 1, 1),

@@ -6,8 +6,9 @@ their plain versions: the host build and the helpers that
 ``dynetlsm_tpu_torch/csrc/pair_loglik.cu`` and ``dir_loglik.cu`` (with
 ``loglik_common.cuh``) cannot run without a card, but their kernels are
 plain C++ apart from a few intrinsics.  ``tests/torch_loglik_host.cpp``
-supplies those on the host (each CUDA thread a ``std::thread``, the block
-barrier and the warp shuffles emulated, blocks one after another), and this
+supplies those on the host (``tests/cuda_host.h``: each CUDA thread a
+``std::thread``, the block barrier and the warp shuffles emulated, blocks
+one after another), and this
 test builds it with g++ around the kernels' source as it stands.  So the
 tile walk, the split of a chain's work list over its blocks, the staging,
 the masks of the diagonal and the ragged edge, both adjacency loads (32-bit
@@ -76,8 +77,9 @@ def host_lib(tmp_path_factory):
     shutil.copy(HOST, out / HOST.name)
     so = out / 'libloglik_host.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-w',
-                    '-fPIC', '-shared', '-pthread', '-o', str(so),
-                    str(out / HOST.name)], check=True, capture_output=True)
+                    '-fPIC', '-shared', '-pthread', '-I', str(HOST.parent),
+                    '-o', str(so), str(out / HOST.name)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     q = ctypes.c_longlong

@@ -4,83 +4,11 @@
 //
 // The test copies each source's kernel part (everything before its
 // "---- launch" section) and the header, without the CUDA headers, beside
-// this file and builds all with g++ -std=c++20.  Here every CUDA thread of
-// a block is a std::thread; __syncthreads and the warp shuffles are
-// std::barriers; static shared memory is a function-local static (blocks
-// run one after another); dynamic shared memory starts as NaN, so a read
-// of a slot nothing wrote shows.  Blocks run in index order or, with
+// this file and builds all with g++ -std=c++20, the device intrinsics
+// emulated by tests/cuda_host.h.  Blocks run in index order or, with
 // `reverse`, in the opposite order, so another block is the last to take a
 // chain's ticket.
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <memory>
-#include <thread>
-#include <vector>
-
-#define __global__
-#define __host__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(...)
-#define __shared__ static
-
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct alignas(16) float4 {
-  float x, y, z, w;
-};
-thread_local dim3 threadIdx, blockIdx;
-
-using Barrier = std::barrier<>;
-
-struct Block {
-  std::vector<float4> smem;
-  std::unique_ptr<Barrier> all;
-  std::vector<std::unique_ptr<Barrier>> warp;
-  std::vector<double> shuffle_d;
-  std::vector<unsigned> shuffle_u;
-};
-
-thread_local Block* this_block;
-
-inline float* host_smem() {
-  return reinterpret_cast<float*>(this_block->smem.data());
-}
-
-inline void __syncthreads() { this_block->all->arrive_and_wait(); }
-
-inline double __shfl_down_sync(unsigned, double v, int h) {
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  this_block->shuffle_d[threadIdx.x] = v;
-  this_block->warp[w]->arrive_and_wait();
-  const double got =
-      lane + h < 32 ? this_block->shuffle_d[threadIdx.x + h] : v;
-  this_block->warp[w]->arrive_and_wait();
-  return got;
-}
-
-inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
-  const int w = threadIdx.x / 32;
-  this_block->shuffle_u[threadIdx.x] = v;
-  this_block->warp[w]->arrive_and_wait();
-  const unsigned got = this_block->shuffle_u[32 * w + src];
-  this_block->warp[w]->arrive_and_wait();
-  return got;
-}
-
-// blocks run one after another, so these need no atomicity
-inline void __threadfence() {}
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-  const unsigned old = *p;
-  *p = old + v;
-  return old;
-}
-inline double __ldcg(const double* p) { return *p; }
+#include "cuda_host.h"
 
 #include "pair_loglik_kernel.inc"
 #include "dir_loglik_kernel.inc"
@@ -95,24 +23,7 @@ void run_grid(int C, int G, size_t smem_bytes, bool reverse, Kernel kernel) {
     for (int bb = 0; bb < G; ++bb) {
       const int c = reverse ? C - 1 - cc : cc;
       const int blk = reverse ? G - 1 - bb : bb;
-      Block block;
-      float4 nan4;
-      nan4.x = nan4.y = nan4.z = nan4.w = std::nanf("");
-      block.smem.assign(smem_bytes / 16 + 1, nan4);
-      block.all = std::make_unique<Barrier>(loglik::kThreads);
-      for (int w = 0; w < loglik::kWarps; ++w)
-        block.warp.push_back(std::make_unique<Barrier>(32));
-      block.shuffle_d.assign(loglik::kThreads, 0.0);
-      block.shuffle_u.assign(loglik::kThreads, 0u);
-      std::vector<std::thread> pool;
-      for (int t = 0; t < loglik::kThreads; ++t)
-        pool.emplace_back([&, t] {
-          threadIdx = dim3(t);
-          blockIdx = dim3(blk, c);
-          this_block = &block;
-          kernel();
-        });
-      for (auto& t : pool) t.join();
+      run_block(loglik::kThreads, smem_bytes, dim3(blk, c), kernel);
     }
   }
 }
