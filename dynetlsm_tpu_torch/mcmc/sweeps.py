@@ -94,7 +94,8 @@ from ..ops.case_control import (
     sample_control_nodes, sample_controls_colored)
 from ..ops.likelihoods import (
     dense_network_loglik, directed_loglik_full, undirected_loglik_full)
-from ..ops.dir_loglik import dir_loglik_cuda, dir_loglik_rows_cuda
+from ..ops.dir_loglik import (
+    dir_loglik, dir_loglik_cuda, dir_loglik_rows_cuda)
 from ..ops.node_scan import (
     node_scan_cuda, pack_directed, pad_partners, site_cluster_params)
 from ..ops.pair_loglik import pair_loglik_cuda, pair_loglik_rows_cuda
@@ -250,13 +251,16 @@ def _sweep_inputs(Y_fixed, intercept_prior, cfg, device, miss_mask,
 
 
 def launch_counts():
-    """The running launch counts of the port's kernels (``ops/*_cuda``)."""
+    """The running launch counts of the port's kernels (``ops/*_cuda``) and
+    the candidate-dyads the directed log-likelihood scored
+    (``ops.dir_loglik.dir_loglik.dyads``)."""
     return {'node_scan_launches': node_scan_cuda.launches,
             'node_scan_split_launches': node_scan_cuda.split_launches,
             'pair_loglik_launches': pair_loglik_cuda.launches,
             'pair_loglik_rows_launches': pair_loglik_rows_cuda.launches,
             'dir_loglik_launches': dir_loglik_cuda.launches,
             'dir_loglik_rows_launches': dir_loglik_rows_cuda.launches,
+            'dir_loglik_dyads': dir_loglik.dyads,
             'site_loglik_launches': site_loglik_cuda.launches,
             'site_loglik_rows_launches': site_loglik_rows_cuda.launches}
 

@@ -28,6 +28,12 @@ shares cover every dyad once.  :func:`dir_loglik_rows` returns the share
 in float64: :func:`dir_loglik_rows_cuda` launches the kernel's row-range
 mode, :func:`dir_loglik_rows_plain` computes it in blocks of dyads
 (``likelihoods.site_blocks``), never as dense distances.
+
+``dir_loglik.dyads`` counts the candidate-dyads every call of the four
+evaluators scored, the kernels' launches and their plain versions alike:
+candidates x unordered dyads (both directions of each) x T x chains, from
+the call's shapes on the host (the ``dir_loglik_dyads`` count of each
+``sweep`` span, ``mcmc/sweeps.py::launch_counts``).
 """
 import torch
 
@@ -37,6 +43,17 @@ from .likelihoods import _dyad_sum, site_blocks, softplus
 from .shards import RowShards
 
 MAX_CANDIDATES = 3
+
+
+def _count_dyads(C, n_cand, T, dyads):
+    """Add a call's candidate-dyads to ``dir_loglik.dyads``: ``dyads`` the
+    unordered dyads it scores at one time of one chain."""
+    dir_loglik.dyads += C * n_cand * T * dyads
+
+
+def _row_dyads(n, row0, rows):
+    """The unordered dyads (i, j > i) of the rows [row0, row0 + rows)."""
+    return rows * (n - 1 - row0) - rows * (rows - 1) // 2
 
 
 def dir_loglik_plain(Y, X, radii_cands, b_cands):
@@ -49,6 +66,7 @@ def dir_loglik_plain(Y, X, radii_cands, b_cands):
     u = b_cands[..., 0:1] / radii_cands                 # (C, n_cand, n)
     v = b_cands[..., 1:2] / radii_cands
     B = b_cands[..., 0] + b_cands[..., 1]               # (C, n_cand)
+    _count_dyads(X.shape[0], b_cands.shape[1], X.shape[1], n * (n - 1) // 2)
     out = []
     for k in range(b_cands.shape[1]):
         s = u[:, k, None, None, :] + v[:, k, None, :, None]   # u[j] + v[i]
@@ -101,6 +119,7 @@ def dir_loglik_cuda(Y, X, radii_cands, b_cands):
             out.data_ptr(), C, n_cand, T, n, d, G,
             T * n * n if per_chain else 0, cuda_lib.stream_handle(dev))
     dir_loglik_cuda.launches += 1
+    _count_dyads(C, n_cand, T, n * (n - 1) // 2)
     cuda_lib.check_launch('dir_loglik', rc)
     return out
 
@@ -120,6 +139,9 @@ def dir_loglik(Y, X, radii_cands, b_cands):
     return dir_loglik_plain(Y, X, radii_cands, b_cands)
 
 
+dir_loglik.dyads = 0
+
+
 def dir_loglik_rows_plain(Yp, X, radii_cands, b_cands, row0=0):
     """The share of the packed rows [row0, row0 + rows) held in Yp (T,
     rows, n) or (C, T, rows, n): for t, i in the rows, j > i, the edge
@@ -134,6 +156,7 @@ def dir_loglik_rows_plain(Yp, X, radii_cands, b_cands, row0=0):
     v = b_cands[..., 1:2] / radii_cands
     B = b_cands[..., 0] + b_cands[..., 1]               # (C, n_cand)
     total = torch.zeros(B.shape, dtype=torch.float64, device=X.device)
+    _count_dyads(C, B.shape[1], T, _row_dyads(n, row0, rows))
     cols = torch.arange(n, device=X.device)
     for c, t, r in site_blocks(C, T, n, (row0, row0 + rows)):
         local = slice(r.start - row0, r.stop - row0)
@@ -187,6 +210,7 @@ def dir_loglik_rows_cuda(Yp, X, radii_cands, b_cands, row0=0):
             out.data_ptr(), C, n_cand, T, n, row0, rows, d, G,
             T * rows * n if per_chain else 0, cuda_lib.stream_handle(dev))
     dir_loglik_rows_cuda.launches += 1
+    _count_dyads(C, n_cand, T, _row_dyads(n, row0, rows))
     cuda_lib.check_launch('dir_loglik_rows', rc)
     return out
 

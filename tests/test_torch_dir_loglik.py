@@ -22,6 +22,7 @@ from dynetlsm_tpu.ops.pallas_loglik import (
 from dynetlsm_tpu_torch.ops.dir_loglik import (
     dir_loglik, dir_loglik_cuda, dir_loglik_plain)
 from dynetlsm_tpu_torch.ops.node_scan import pack_directed
+from dynetlsm_tpu_torch.ops.shards import RowShards
 
 RTOL = 2e-5
 
@@ -81,6 +82,21 @@ def test_dir_loglik_dispatch_uses_plain_on_cpu():
                      torch.as_tensor(radii), torch.as_tensor(bs))
     assert dir_loglik_cuda.launches == before
     np.testing.assert_array_equal(got.numpy(), _torch_plain(X, Y, radii, bs))
+
+
+def test_dyad_counter_counts_the_whole_network_and_its_row_shards_alike():
+    """``dir_loglik.dyads`` adds candidates x unordered dyads x T x
+    chains a call, and a row-split network's shards add up to the same."""
+    C, T, n, n_cand = 2, 3, 23, 2
+    X, Y, radii, bs = (torch.as_tensor(a)
+                       for a in _inputs(3, C, T, n, n_cand))
+    Yp = pack_directed(Y)
+    before = dir_loglik.dyads
+    dir_loglik(Yp, X, radii, bs)
+    assert dir_loglik.dyads - before == n_cand * C * T * n * (n - 1) // 2
+    before = dir_loglik.dyads
+    dir_loglik(RowShards.split(Yp, ['cpu'] * 3, [0, 7, 15, n]), X, radii, bs)
+    assert dir_loglik.dyads - before == n_cand * C * T * n * (n - 1) // 2
 
 
 def test_dir_loglik_cuda_rejects_cpu_tensors():

@@ -151,3 +151,28 @@ def test_span_edges_meet_the_device_idle_gap():
           statistics.median(end), max(end))
     assert min(start) >= -30 and abs(statistics.median(start)) <= 30
     assert min(end) >= 0
+
+
+def _tiny_directed_network(T=3, n=12, seed=1):
+    rng = np.random.RandomState(seed)
+    Y = rng.binomial(1, 0.3, (T, n, n)).astype(np.float64)
+    for t in range(T):
+        np.fill_diagonal(Y[t], 0.0)
+    return Y
+
+
+@pytest.mark.parametrize('is_directed', [False, True])
+def test_sweep_spans_count_the_directed_candidate_dyads(is_directed):
+    """A directed sweep scores its dense network at four candidates (b_in's
+    current and proposed, b_out's proposed, the radii's proposed), each
+    over every unordered dyad of every time and chain: the ``sweep``
+    span's ``dir_loglik_dyads``; an undirected sweep scores none."""
+    C, T, n = 3, 3, 12
+    Y = _tiny_directed_network(T, n) if is_directed else _tiny_network(T, n)
+    state, sweep, gen = build_state_and_sweep(
+        Y, C, K=3, device='cpu', is_directed=is_directed)
+    _, spans = _traced_sweeps(sweep, state, gen)
+    counted = [r.counts.get('dir_loglik_dyads', 0) for r in spans
+               if r.name == 'sweep']
+    want = 4 * C * T * n * (n - 1) // 2 if is_directed else 0
+    assert counted == [want, want]
