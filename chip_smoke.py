@@ -284,6 +284,27 @@ Phases, each of which fails the run (exit code 1) when it fails:
    tensors against the same call on the CPU (rtol 1e-5).
    ``example_launches`` in the kernels line counts each kernel's launches
    in the two examples;
+20. the sweeps replayed from CUDA graphs (``mcmc/graphs.py``), run
+   right after the build (``python3 chip_smoke.py --graphs`` runs 1, 2
+   and this phase alone): each slice of ``GRAPH_SLICES`` (the north
+   star's undirected exact scan at 32 chains and directed at 128, the
+   'parallel' update at n = 8,192, 16 chains, and at Sampson's shape the
+   LPCM, 'parallel', 'mala', the tempered step and missing dyads,
+   undirected and directed) is rebuilt
+   with tuning windows of 2 sweeps until sweep 4 and a burn-in of 3
+   (``GRAPH_TUNE``) and run ``GRAPH_SWEEPS`` sweeps through ``sweep``
+   (the first eager, the second captured, the rest replayed) and through
+   ``sweep.eager`` from the same state and generator state: every state
+   field and the generator's state equal bit for bit after every sweep,
+   the same launches counted, one capture and the replays counted, and
+   the state the first replay returned unchanged after the later sweeps;
+   then ms a sweep of ``GRAPH_TIMED`` replayed and eager sweeps (CUDA
+   events) for the three benchmark slices, and at the directed north star
+   a ``torch.profiler`` trace of three sweeps (the profile's start drops
+   the graphs: a capture, then two replays) that names the node-scan and
+   ``dir_loglik`` kernels, its ``sweep`` spans counting the capture, the
+   replays and the replays' launches; and the LSM's sweep is not graphed
+   (its Procrustes SVD reads the card on the host);
 9. each kernel's time beside its plain version's at the slices' shapes
    (CUDA events, median of repeats; the node scan's plain version, seconds
    a call, is timed once, in its check), the node scan's at each cluster size
@@ -459,6 +480,28 @@ NODE_SCAN_SASS = {
 # directed: the shortest path through the loop body, printed by
 # scripts/site_loglik_sass.py from cuobjdump -sass
 SITE_SASS = {False: (126.75, 4), True: (264.25, 10)}
+
+
+# phase 20: (name, model, network: 'ns', 'ns dir', 'n8192' or 'sampson',
+# chains, K, latent update, rungs of the tempered step, missing dyads)
+GRAPH_SLICES = [
+    ('hdp northstar exact', 'hdp', 'ns', 32, 25, 'exact', None, False),
+    ('hdp northstar directed exact', 'hdp', 'ns dir', 128, 25, 'exact',
+     None, False),
+    ('hdp n8192 parallel', 'hdp', 'n8192', 16, 25, 'parallel', None, False),
+    ('lpcm sampson exact', 'lpcm', 'sampson', 64, 4, 'exact', None, False),
+    ('hdp sampson mala', 'hdp', 'sampson', 64, 10, 'mala', None, False),
+    ('hdp sampson directed tempered', 'hdp', 'sampson dir', 64, 10,
+     'exact', N_TEMPS, False),
+    ('hdp sampson missing', 'hdp', 'sampson', 64, 10, 'exact', None, True),
+    ('lpcm sampson directed parallel', 'lpcm', 'sampson dir', 64, 4,
+     'parallel', None, False),
+    ('hdp sampson directed mala', 'hdp', 'sampson dir', 64, 10, 'mala',
+     None, False),
+    ('hdp sampson directed missing', 'hdp', 'sampson dir', 64, 10, 'exact',
+     None, True)]
+GRAPH_TUNE = dict(tune=4, tune_interval=2, n_burn=3)
+GRAPH_SWEEPS, GRAPH_TIMED = 5, 20
 
 
 class SmokeFailure(Exception):
@@ -3560,6 +3603,158 @@ def examples_phase(dev, child):
     return dict(out, exports_worst=worst), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the sweeps replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def graph_network(key):
+    """The slice network of ``GRAPH_SLICES``' key: 'sampson' or 'ns'
+    (directed with ' dir'), or 'n8192' (``large_network``)."""
+    from dynetlsm_tpu_torch.datasets import (
+        load_dynamic_monks, northstar_network)
+    directed = key.endswith(' dir')
+    if key.startswith('sampson'):
+        return load_dynamic_monks(is_directed=directed), directed
+    if key == 'n8192':
+        return large_network(8192, False), False
+    return northstar_network(directed=directed), directed
+
+
+def state_fields(state):
+    import dataclasses
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)
+            if getattr(state, f.name) is not None}
+
+
+def graph_slice(name, model, net, C, K, latent_update, n_temps, missing,
+                dev):
+    """One slice of phase 20 (see the module's text).  Returns (ms a
+    replayed sweep, ms an eager sweep), or None untimed."""
+    import dataclasses
+    import torch
+    from dynetlsm_tpu_torch.datasets import with_missing_dyads
+    from dynetlsm_tpu_torch.entry import build_state_and_sweep
+    from dynetlsm_tpu_torch.mcmc import graphs, sweeps
+    from dynetlsm_tpu_torch.mcmc.tempering import make_pt_step
+    Y, directed = graph_network(net)
+    if missing:
+        Y = with_missing_dyads(Y, MISSING, seed=5, directed=directed)
+    state, built, gen = build_state_and_sweep(
+        Y, C, K=K, device=dev, is_directed=directed, model=model,
+        n_temps=n_temps, beta_min=BETA_MIN, latent_update=latent_update)
+    cfg = dataclasses.replace(built.cfg, **GRAPH_TUNE)
+    factory = {'hdp': sweeps.make_hdp_sweep, 'lpcm': sweeps.make_lpcm_sweep,
+               'lsm': sweeps.make_lsm_sweep}[model]
+    sweep = factory(Y, np.zeros(2 if directed else 1, np.float32), cfg,
+                    device=dev)
+    check(sweep.graphs is not None, '%s: the sweep is not graphed' % name)
+    step = (sweep if n_temps is None
+            else make_pt_step(sweep, cfg, sweep.Y, n_temps))
+    gen_eager = torch.Generator(device=dev)
+    gen_eager.set_state(gen.get_state())
+    c0, g0 = sweeps.launch_counts(), graphs.counts()
+    graphed, gen_states, held = [], [], None
+    s = state
+    for k in range(GRAPH_SWEEPS):
+        s = step(s, gen)
+        graphed.append(s)
+        gen_states.append(gen.get_state())
+        if k == 2:
+            held = {n: v.clone() for n, v in state_fields(s).items()}
+    c1, g1 = sweeps.launch_counts(), graphs.counts()
+    s = state
+    for k in range(GRAPH_SWEEPS):
+        s = step.eager(s, gen_eager)
+        got, want = state_fields(graphed[k]), state_fields(s)
+        check(got.keys() == want.keys(), '%s: sweep %d: fields %s against '
+              '%s' % (name, k, sorted(got), sorted(want)))
+        for n in want:
+            check(torch.equal(got[n], want[n]),
+                  '%s: sweep %d: %s differs from the eager sweep\'s (max '
+                  '|diff| %s)' % (name, k, n, float(
+                      (got[n].double() - want[n].double()).abs().max())))
+        check(torch.equal(gen_states[k], gen_eager.get_state()),
+              '%s: sweep %d: the generator\'s state differs' % (name, k))
+    c2 = sweeps.launch_counts()
+    launched = {k: c1[k] - c0[k] for k in c0}
+    check(launched == {k: c2[k] - c1[k] for k in c0},
+          '%s: launches %s graphed, %s eager' % (
+              name, launched, {k: c2[k] - c1[k] for k in c0}))
+    check(g1['graph_captures'] - g0['graph_captures'] == 1
+          and g1['graph_replays'] - g0['graph_replays'] == GRAPH_SWEEPS - 2,
+          '%s: graph counts %s -> %s' % (name, g0, g1))
+    for n, v in state_fields(graphed[2]).items():
+        check(torch.equal(v, held[n]), '%s: the state of sweep 2 changed '
+              'after later sweeps (%s)' % (name, n))
+    log('graphs %s (C=%d): %d sweeps replayed equal to eager bit for bit, '
+        'generator included; launches %s'
+        % (name, C, GRAPH_SWEEPS, {k: v for k, v in launched.items() if v}))
+    if net == 'sampson' or net == 'sampson dir':
+        return None
+    times = []
+    for fn in (step, step.eager):
+        s = graphed[-1]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(GRAPH_TIMED):
+            s = fn(s, gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_TIMED)
+    log('graphs %s: %.3f ms a replayed sweep, %.3f ms an eager one (%d '
+        'each, CUDA events), peak %.3f GB'
+        % (name, times[0], times[1], GRAPH_TIMED,
+           torch.cuda.max_memory_allocated(dev) / 1e9))
+    if directed and model == 'hdp' and n_temps is None:
+        graph_trace(name, step, graphed[-1], gen)
+    return times
+
+
+def graph_trace(name, sweep, state, gen):
+    """Three sweeps under ``torch.profiler``: a capture, then two replays
+    whose kernels the trace names, counted on the ``sweep`` spans."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dynetlsm_tpu_torch import tracing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state = sweep(state, gen)
+        torch.cuda.synchronize()
+        roots = [sp.counts for sp in tracing.spans() if sp.name == 'sweep']
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    scans = sum('node_scan' in k for k in names)
+    dirs = sum('dir_loglik' in k for k in names)
+    check(scans >= 3 and dirs >= 9, '%s: the trace names %d node-scan and '
+          '%d dir_loglik kernels in 3 sweeps' % (name, scans, dirs))
+    check([r.get('graph_captures', 0) for r in roots] == [1, 0, 0]
+          and [r.get('graph_replays', 0) for r in roots] == [0, 1, 1]
+          and all(r.get('dir_loglik_launches') == 3 for r in roots),
+          '%s: sweep spans %s' % (name, roots))
+    log('graphs %s: a trace of a capture and two replays names %d '
+        'node-scan and %d dir_loglik kernels among %d device activities'
+        % (name, scans, dirs, len(names)))
+
+
+def graph_phase(dev):
+    """Phase 20.  Returns {slice: (ms replayed, ms eager)}."""
+    from dynetlsm_tpu_torch.mcmc.sweeps import SweepConfig, make_lsm_sweep
+    Y, _ = graph_network('sampson')
+    check(make_lsm_sweep(Y, np.zeros(1, np.float32), SweepConfig(),
+                         device=dev).graphs is None,
+          'the LSM sweep is graphed')
+    out = {}
+    for name, *row in GRAPH_SLICES:
+        times = graph_slice(name, *row, dev)
+        if times is not None:
+            out[name] = times
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'dynetlsm_tpu_torch')):
         log('chip_smoke: no dynetlsm_tpu_torch package beside this script; '
@@ -3568,6 +3763,7 @@ def main():
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ['--checkpoint-child']:
         return checkpoint_child(*sys.argv[2:6])
+    graphs_only = sys.argv[1:2] == ['--graphs']
     import torch
     if not torch.cuda.is_available():
         log('chip_smoke: torch.cuda.is_available() is False; this script '
@@ -3592,6 +3788,11 @@ def main():
             if 'registers' in line or 'smem' in line or 'Compiling' in line:
                 log('  ptxas: ' + line.strip())
         check_scan_layouts(lib, dev)
+        graph_times = graph_phase(dev)
+        phase_done('phase 20')
+        if graphs_only:
+            print(json.dumps({"graphs_ms": graph_times}), flush=True)
+            return 0
 
         # (name, shape, directed, mixture, seed) of each node-scan check,
         # untempered and then tempered
@@ -4076,6 +4277,9 @@ def main():
             % (pt_ms['untempered'], pt_ms['tempered'],
                np.median(pt_ms['untempered']), np.median(pt_ms['tempered']),
                [round(float(r), 4) for r in ratios], np.median(ratios)))
+        log('sweeps replayed from CUDA graphs, ms a sweep replayed / eager: '
+            + ', '.join('%s %.3f / %.3f' % (k, *v)
+                        for k, v in graph_times.items()))
         phase_done('phase 9')
     except SmokeFailure as e:
         log('chip_smoke FAILED: %s' % e)

@@ -102,6 +102,7 @@ from ..ops.pair_loglik import pair_loglik_cuda, pair_loglik_rows_cuda
 from ..ops.shards import RowShards
 from ..ops.site_loglik import site_loglik_cuda, site_loglik_rows_cuda
 from .. import tracing
+from . import graphs
 from .coefficients import (
     network_loglik, sample_intercept_undirected, sample_intercepts_directed,
     sample_radii)
@@ -250,34 +251,73 @@ def _sweep_inputs(Y_fixed, intercept_prior, cfg, device, miss_mask,
     return out + (cc_static, node_gens)
 
 
+# (name, function, attribute) of each running count the port's kernels
+# (``ops/*_cuda``) keep: their launches, and the candidate-dyads the
+# directed log-likelihood scored (``ops.dir_loglik.dir_loglik.dyads``)
+_COUNTERS = (
+    ('node_scan_launches', node_scan_cuda, 'launches'),
+    ('node_scan_split_launches', node_scan_cuda, 'split_launches'),
+    ('pair_loglik_launches', pair_loglik_cuda, 'launches'),
+    ('pair_loglik_rows_launches', pair_loglik_rows_cuda, 'launches'),
+    ('dir_loglik_launches', dir_loglik_cuda, 'launches'),
+    ('dir_loglik_rows_launches', dir_loglik_rows_cuda, 'launches'),
+    ('dir_loglik_dyads', dir_loglik, 'dyads'),
+    ('site_loglik_launches', site_loglik_cuda, 'launches'),
+    ('site_loglik_rows_launches', site_loglik_rows_cuda, 'launches'))
+
+
 def launch_counts():
     """The running launch counts of the port's kernels (``ops/*_cuda``) and
     the candidate-dyads the directed log-likelihood scored
     (``ops.dir_loglik.dir_loglik.dyads``)."""
-    return {'node_scan_launches': node_scan_cuda.launches,
-            'node_scan_split_launches': node_scan_cuda.split_launches,
-            'pair_loglik_launches': pair_loglik_cuda.launches,
-            'pair_loglik_rows_launches': pair_loglik_rows_cuda.launches,
-            'dir_loglik_launches': dir_loglik_cuda.launches,
-            'dir_loglik_rows_launches': dir_loglik_rows_cuda.launches,
-            'dir_loglik_dyads': dir_loglik.dyads,
-            'site_loglik_launches': site_loglik_cuda.launches,
-            'site_loglik_rows_launches': site_loglik_rows_cuda.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _COUNTERS}
 
 
-def _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices):
-    """The sweep, recorded as a ``sweep`` span with its kernel launches
-    (``tracing.traced``), with its configuration ``sweep.cfg``, its stored
-    network ``sweep.Y``, the missing-dyad mask ``sweep.miss_mask``, the
-    case-control structures ``sweep.cc_static``, the node shards'
-    generators ``sweep.node_gens`` and their count ``sweep.node_shards``."""
-    sweep = tracing.traced(sweep, name='sweep', counters=launch_counts)
+def add_launch_counts(deltas):
+    """Advance the counts of :func:`launch_counts` by ``deltas`` (a dict
+    of some of its keys): a sweep replayed from a CUDA graph launches what
+    its capture counted."""
+    for name, fn, attr in _COUNTERS:
+        if name in deltas:
+            setattr(fn, attr, getattr(fn, attr) + deltas[name])
+
+
+def sweep_counts():
+    """What a ``sweep`` span counts: :func:`launch_counts` and the CUDA
+    graphs' ``graph_replays`` and ``graph_captures``
+    (``mcmc/graphs.py``)."""
+    return dict(launch_counts(), **graphs.counts())
+
+
+def _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices,
+            device, host_reads=False):
+    """The sweep, replayed from a CUDA graph where :func:`graphs.engages`
+    (on a card, one node shard, no read of device data by the host: the
+    case-control sweeps' control cadence and ``host_reads`` are such
+    reads), recorded as a ``sweep`` span with its counts
+    (:func:`sweep_counts`, ``tracing.traced``), with the sweep run eager,
+    never from a graph, as ``sweep.eager``, its graphs
+    (``graphs.GraphCache``, or None) as ``sweep.graphs``, its configuration
+    ``sweep.cfg``, its stored network ``sweep.Y``, the missing-dyad mask
+    ``sweep.miss_mask``, the case-control structures ``sweep.cc_static``,
+    the node shards' generators ``sweep.node_gens`` and their count
+    ``sweep.node_shards``."""
+    eager = sweep
+    node_shards = 1 if node_devices is None else len(node_devices)
+    cache = None
+    if graphs.engages(device, node_shards,
+                      host_reads or cc_static is not None):
+        cache = graphs.GraphCache(eager, launch_counts, add_launch_counts)
+    sweep = tracing.traced(eager if cache is None else cache.__call__,
+                           name='sweep', counters=sweep_counts)
+    sweep.eager = eager
+    sweep.graphs = cache
     sweep.cfg = cfg
     sweep.Y = Y
     sweep.miss_mask = None if miss is None else miss.mask
     sweep.cc_static = cc_static
     sweep.node_gens = node_gens
-    sweep.node_shards = 1 if node_devices is None else len(node_devices)
+    sweep.node_shards = node_shards
     return sweep
 
 
@@ -727,7 +767,10 @@ def make_lsm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             radii_map=radii_map, logp_ref=logp_ref, X_ref=X_ref, Y=Y_new,
             missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
-    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
+    # the Procrustes rotation's torch.linalg.svd copies its (d, d)
+    # matrices to the host on a card: a host read, so never from a graph
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices,
+                   device, host_reads=True)
 
 
 @tracing.traced
@@ -866,7 +909,8 @@ def make_lpcm_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             logp=logp, Y=Y_new, missing_sum=missing_sum, ctrl_in=ctrl_in,
             ctrl_out=ctrl_out)
 
-    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices,
+                   device)
 
 
 def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
@@ -968,4 +1012,5 @@ def make_hdp_sweep(Y_fixed, intercept_prior, cfg: SweepConfig,
             step_radii=step_radii, acc_radii=acc_radii, logp=logp, Y=Y_new,
             missing_sum=missing_sum, ctrl_in=ctrl_in, ctrl_out=ctrl_out)
 
-    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices)
+    return _attach(sweep, cfg, Y, miss, cc_static, node_gens, node_devices,
+                   device)

@@ -155,11 +155,22 @@ def make_pt_step(sweep_fn, cfg, Y, n_temps, swap_every=1, adapt_until=0,
     ``adapt_interval`` sweeps while ``it0 < adapt_until``.  Every
     condition is a mask on the device, so the step never waits on the
     host.  ``pt_step(state, gen)`` plugs into ``driver.make_scan_runner``;
-    it carries ``cfg``, ``Y`` and ``n_temps``."""
+    it carries ``cfg``, ``Y`` and ``n_temps``, and as ``pt_step.eager``
+    the step over the sweep run eager (``sweep.eager``)."""
     if cfg.n_control is not None:
         raise ValueError('parallel tempering with the case-control '
                          'likelihood is not supported (the tempered '
                          'estimator would need its own control sets)')
+    step = _pt_step(sweep_fn, cfg, Y, n_temps, swap_every, adapt_until,
+                    adapt_interval)
+    eager = getattr(sweep_fn, 'eager', None)
+    step.eager = step if eager is None else _pt_step(
+        eager, cfg, Y, n_temps, swap_every, adapt_until, adapt_interval)
+    return step
+
+
+def _pt_step(sweep_fn, cfg, Y, n_temps, swap_every, adapt_until,
+             adapt_interval):
     partners = {}   # (C, device) -> the two phases' partners, made once
     # each pair is a phase head once per two swap rounds
     n_attempts = adapt_interval / (2.0 * swap_every)

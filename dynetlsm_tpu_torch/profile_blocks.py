@@ -18,7 +18,8 @@ dense network, 8 chains, m=64), all built by
 * ``sweep_ms``: ms per sweep with no instrumentation;
 * ``sweep_synced_ms`` and ``blocks_ms``: ms per sweep when every block
   function the sweep calls from ``mcmc.sweeps`` is wrapped with a device
-  synchronisation and a host clock (``other`` is the rest of the sweep);
+  synchronisation and a host clock, the sweep run eager (``other`` is the
+  rest of the sweep);
   a tempered step also times its replica exchange (``replica_exchange``,
   the swap's log-likelihood launch included) as one block, and a sweep
   with missing dyads their resample and the log-likelihood on the new
@@ -146,12 +147,15 @@ def device_times(sweep, state, gen, n, top=8):
 
 
 def profile_slice(sweep, state, gen, sweeps=10, warm=2):
-    """Time ``sweeps`` sweeps plain, then with the blocks timed.  Returns
-    (a dict of ms per sweep, the state after them)."""
+    """Time ``sweeps`` sweeps plain, then with the blocks timed, the
+    sweep run eager (``sweep.eager``: a sweep replayed from a CUDA graph
+    runs no block's Python).  Returns (a dict of ms per sweep, the state
+    after them)."""
     state, _ = _run(sweep, state, gen, warm)
     state, plain = _run(sweep, state, gen, sweeps)
     with timed_blocks(state.X.device) as totals:
-        state, synced = _run(sweep, state, gen, sweeps)
+        state, synced = _run(getattr(sweep, 'eager', sweep), state, gen,
+                             sweeps)
     blocks = {k: 1e3 * v / sweeps for k, v in totals.items()}
     blocks['other'] = 1e3 * synced / sweeps - sum(blocks.values())
     return {'sweep_ms': 1e3 * plain / sweeps,

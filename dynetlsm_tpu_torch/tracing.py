@@ -11,7 +11,10 @@ outside a sweep), and the counts raised inside it (``counts``).  The
 boundaries:
 
 * ``sweep``, every sweep call (``mcmc/sweeps.py::_attach``), with the
-  deltas of the kernels' launch counters over it;
+  deltas of the kernels' launch counters over it and its CUDA graph's
+  ``graph_replays`` or ``graph_captures`` (``mcmc/graphs.py``: a sweep
+  replayed from a graph counts its capture's launches and runs no
+  block's Python, so it has no block spans);
 * each block of :data:`BLOCKS` under its own name (the decorator
   :func:`traced` where the block is defined), ``replica_exchange``
   (``mcmc/tempering.py``), ``cc_class`` (one colour class's step of the
@@ -30,7 +33,8 @@ traced sweep is the untraced one, bit for bit.  With no profile open a
 boundary costs one read of the profiler's flag and a call.
 
 The recorder keeps at most :data:`CAP` spans (more are counted in
-:func:`dropped`) and clears itself when a profile starts.
+:func:`dropped`) and clears itself when a profile starts; functions
+registered with :func:`on_profile` run when a profile starts or stops.
 """
 import functools
 import time
@@ -176,17 +180,36 @@ def traced(fn, name=None, counters=None):
     return wrapper
 
 
-def _clear_on_profiler_start():
-    """Make a profile's start clear the recorder (once a process)."""
+_ON_PROFILE = []
+
+
+def on_profile(fn):
+    """Call ``fn()`` whenever a profile starts (before it records) or
+    stops (``mcmc/graphs.py`` drops the sweeps' CUDA graphs there)."""
+    _ON_PROFILE.append(fn)
+
+
+def _hook_profiler():
+    """Make a profile's start clear the recorder, and its start and stop
+    run the :func:`on_profile` functions (once a process)."""
     start = _profiler._run_on_profiler_start
+    stop = _profiler._run_on_profiler_stop
     if getattr(start, 'clears_spans', False):
         return
 
     def run_on_profiler_start():
         _REC.clear()
+        for fn in _ON_PROFILE:
+            fn()
         start()
+
+    def run_on_profiler_stop():
+        stop()
+        for fn in _ON_PROFILE:
+            fn()
     run_on_profiler_start.clears_spans = True
     _profiler._run_on_profiler_start = run_on_profiler_start
+    _profiler._run_on_profiler_stop = run_on_profiler_stop
 
 
-_clear_on_profiler_start()
+_hook_profiler()
