@@ -22,9 +22,6 @@ at the same tolerance, bit-equal on rerun and in a CUDA graph's replay;
 decisions but at near ties; and a 'parallel' sweep counts one launch.
 """
 import ctypes
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -34,11 +31,8 @@ from dynetlsm_tpu_torch.mcmc import latent
 from dynetlsm_tpu_torch.ops import site_loglik as sl
 from dynetlsm_tpu_torch.ops.node_scan import pack_directed, pad_partners
 
-from .torch_loglik_emulation import _kernel_source
+from .torch_host_build import build
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-CSRC = ROOT / 'dynetlsm_tpu_torch' / 'csrc'
-HOST = pathlib.Path(__file__).resolve().parent / 'torch_site_loglik_host.cpp'
 RTOL = 1e-5
 
 
@@ -150,21 +144,8 @@ def test_launch_layout():
 
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the kernel source for the host')
-    out = tmp_path_factory.mktemp('site_loglik_host')
-    (out / 'site_loglik_kernel.inc').write_text(
-        _kernel_source(CSRC / 'site_loglik.cu'))
-    (out / 'loglik_common.cuh').write_text(
-        _kernel_source(CSRC / 'loglik_common.cuh'))
-    shutil.copy(HOST, out / HOST.name)
-    so = out / 'libsite_loglik_host.so'
-    subprocess.run([gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-w',
-                    '-fPIC', '-shared', '-pthread', '-I', str(HOST.parent),
-                    '-o', str(so), str(out / HOST.name)], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build(tmp_path_factory, 'torch_site_loglik_host.cpp',
+                ['site_loglik.cu', 'loglik_common.cuh'])
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.site_loglik_host.argtypes = [p] * 6 + [i] * 10 + [q] * 3 + [i]
     return lib

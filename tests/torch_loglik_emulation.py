@@ -7,9 +7,9 @@ their plain versions: the host build and the helpers that
 ``loglik_common.cuh``) cannot run without a card, but their kernels are
 plain C++ apart from a few intrinsics.  ``tests/torch_loglik_host.cpp``
 supplies those on the host (``tests/cuda_host.h``: each CUDA thread a
-``std::thread``, the block barrier and the warp shuffles emulated, blocks
-one after another), and this
-test builds it with g++ around the kernels' source as it stands.  So the
+fiber, the block barrier and the warp shuffles emulated, blocks one after
+another; a deadlock fails the case), and ``tests/torch_host_build.py``
+builds it with g++ around the kernels' source as it stands.  So the
 tile walk, the split of a chain's work list over its blocks, the staging,
 the masks of the diagonal and the ragged edge, both adjacency loads (32-bit
 words where n is a multiple of 4, bytes elsewhere), one network shared by
@@ -27,9 +27,6 @@ the same way, at row offsets that are and are not multiples of the tile
 and of 4, and the shards' shares to the whole network.
 """
 import ctypes
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -40,9 +37,8 @@ from dynetlsm_tpu_torch.ops.dir_loglik import dir_loglik_plain
 from dynetlsm_tpu_torch.ops.node_scan import pack_directed
 from dynetlsm_tpu_torch.ops.pair_loglik import pair_loglik_plain
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-CSRC = ROOT / 'dynetlsm_tpu_torch' / 'csrc'
-HOST = pathlib.Path(__file__).resolve().parent / 'torch_loglik_host.cpp'
+from .torch_host_build import build
+
 RTOL = 1e-5
 
 # (C, T, n, d): n a multiple of the tile and of 4; ending mid-tile with
@@ -52,35 +48,10 @@ SHAPES = [(2, 2, 64, 2), (2, 2, 76, 2), (3, 1, 45, 2), (4, 3, 18, 2),
           (2, 1, 2, 2), (1, 2, 37, 3)]
 
 
-def _kernel_source(path):
-    """A .cu up to its launch section (or the header), without the CUDA
-    headers, its dynamic shared memory taken from the host block."""
-    src = path.read_text().replace('#include <cuda_runtime.h>\n', '')
-    src = src.replace('extern __shared__ __align__(16) float smem[];',
-                      'float* smem = host_smem();')
-    if '// ---- launch' in src:
-        src = src[:src.index('// ---- launch')]
-    return src
-
-
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the kernel source for the host')
-    out = tmp_path_factory.mktemp('loglik_host')
-    for name in ('pair_loglik', 'dir_loglik'):
-        (out / (name + '_kernel.inc')).write_text(
-            _kernel_source(CSRC / (name + '.cu')))
-    (out / 'loglik_common.cuh').write_text(
-        _kernel_source(CSRC / 'loglik_common.cuh'))
-    shutil.copy(HOST, out / HOST.name)
-    so = out / 'libloglik_host.so'
-    subprocess.run([gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-w',
-                    '-fPIC', '-shared', '-pthread', '-I', str(HOST.parent),
-                    '-o', str(so), str(out / HOST.name)], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build(tmp_path_factory, 'torch_loglik_host.cpp',
+                ['pair_loglik.cu', 'dir_loglik.cu', 'loglik_common.cuh'])
     p, i = ctypes.c_void_p, ctypes.c_int
     q = ctypes.c_longlong
     lib.pair_loglik_host.argtypes = [p] * 8 + [i] * 7 + [q, i]

@@ -2,12 +2,14 @@
 // csrc/ (pair_loglik.cu, dir_loglik.cu and their shared loglik_common.cuh),
 // for tests/test_torch_loglik_emulated.py.
 //
-// The test copies each source's kernel part (everything before its
-// "---- launch" section) and the header, without the CUDA headers, beside
-// this file and builds all with g++ -std=c++20, the device intrinsics
-// emulated by tests/cuda_host.h.  Blocks run in index order or, with
-// `reverse`, in the opposite order, so another block is the last to take a
-// chain's ticket.
+// tests/torch_host_build.py cuts each source's kernel part (everything
+// before its "---- launch" section) and the header, without the CUDA
+// headers, into a build directory and builds this file around them with
+// g++ -std=c++20, the device intrinsics emulated by tests/cuda_host.h.
+// Blocks run one after another, in index order or, with `reverse`, in the
+// opposite order, so another block is the last to take a chain's ticket.
+// The entries return nonzero where the threads deadlock (stderr says
+// where).
 #include "cuda_host.h"
 
 #include "pair_loglik_kernel.inc"
@@ -15,17 +17,19 @@
 
 namespace {
 
-// Run kernel(blk, c) for every block of the grid (G, C), each block's
-// kThreads threads at once, with `smem_bytes` of dynamic shared memory.
+// Run kernel() as every block of the grid (G, C), one block at a time,
+// with `smem_bytes` of dynamic shared memory; nonzero on a deadlock.
 template <class Kernel>
-void run_grid(int C, int G, size_t smem_bytes, bool reverse, Kernel kernel) {
+int run_grid(int C, int G, size_t smem_bytes, bool reverse, Kernel kernel) {
   for (int cc = 0; cc < C; ++cc) {
     for (int bb = 0; bb < G; ++bb) {
       const int c = reverse ? C - 1 - cc : cc;
       const int blk = reverse ? G - 1 - bb : bb;
-      run_block(loglik::kThreads, smem_bytes, dim3(blk, c), kernel);
+      if (!run_cluster(1, loglik::kThreads, smem_bytes, dim3(blk, c), kernel))
+        return 1;
     }
   }
+  return 0;
 }
 
 }  // namespace
@@ -36,12 +40,11 @@ void run_grid(int C, int G, size_t smem_bytes, bool reverse, Kernel kernel) {
 extern "C" int block_finish_host(const double* values, double* partials,
                                  unsigned* tickets, float* out, int C, int G,
                                  int reverse) {
-  run_grid(C, G, 0, reverse, [&] {
+  return run_grid(C, G, 0, reverse, [&] {
     const int c = blockIdx.y, blk = blockIdx.x;
     const double s[1] = {threadIdx.x == 0 ? values[c * G + blk] : 0.0};
     loglik::block_finish<1>(s, partials, tickets, out, nullptr, c, blk, G);
   });
-  return 0;
 }
 
 // pair_loglik_launch's arguments, with the row range and the float64
@@ -57,8 +60,9 @@ extern "C" int pair_loglik_host(const float* X, const uint8_t* Y,
   const int words = loglik::word_rows(Y, n, y_chain, row0);
   const size_t smem = loglik::smem_bytes(d, 0);
   // as the launch picks them: compiled for d = 2, or for any d
+  int rc = 0;
   auto run = [&](auto kernel, const float* b_second) {
-    run_grid(C, G, smem, reverse, [&] {
+    rc = run_grid(C, G, smem, reverse, [&] {
       kernel(X, Y, y_chain, b_cur, b_second, partials, tickets, out, out64, T,
              n, range, d, G, words);
     });
@@ -78,19 +82,19 @@ extern "C" int pair_loglik_host(const float* X, const uint8_t* Y,
            : pick(pair_loglik_kernel<2, 0, false>,
                   pair_loglik_kernel<2, 0, true>, b_prop);
   }
-  return 0;
+  return rc;
 }
 
 namespace {
 
 template <int NC>
-void dir_host(const float* X, const uint8_t* Yp, long long y_chain,
-              const float* radii, const float* b, double* partials,
-              unsigned* tickets, float* out, double* out64, int C, int T,
-              int n, loglik::Rows range, int d, int G, int reverse) {
+int dir_host(const float* X, const uint8_t* Yp, long long y_chain,
+             const float* radii, const float* b, double* partials,
+             unsigned* tickets, float* out, double* out64, int C, int T,
+             int n, loglik::Rows range, int d, int G, int reverse) {
   const int words = loglik::word_rows(Yp, n, y_chain, range.row0);
   // as the launch picks them: compiled for d = 2, or for any d
-  run_grid(C, G, loglik::smem_bytes(d, kUvFloats<NC>), reverse, [&] {
+  return run_grid(C, G, loglik::smem_bytes(d, kUvFloats<NC>), reverse, [&] {
     // the row-range instantiation where the float64 output is asked for
     auto run = [&](auto kernel) {
       kernel(X, Yp, y_chain, radii, b, partials, tickets, out, out64, T, n,
@@ -120,17 +124,14 @@ extern "C" int dir_loglik_host(const float* X, const uint8_t* Yp,
   const loglik::Rows range{row0, rows};
   switch (n_cand) {
     case 1:
-      dir_host<1>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
-                  T, n, range, d, G, reverse);
-      return 0;
+      return dir_host<1>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                          out64, C, T, n, range, d, G, reverse);
     case 2:
-      dir_host<2>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
-                  T, n, range, d, G, reverse);
-      return 0;
+      return dir_host<2>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                          out64, C, T, n, range, d, G, reverse);
     case 3:
-      dir_host<3>(X, Yp, y_chain, radii, b, partials, tickets, out, out64, C,
-                  T, n, range, d, G, reverse);
-      return 0;
+      return dir_host<3>(X, Yp, y_chain, radii, b, partials, tickets, out,
+                          out64, C, T, n, range, d, G, reverse);
     default:
       return 1;
   }

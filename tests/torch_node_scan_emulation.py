@@ -5,10 +5,11 @@ each (one module-scoped build a file keeps each file's time in bounds).
 
 ``dynetlsm_tpu_torch/csrc/node_scan.cu`` cannot run without a card, but
 its kernel is plain C++ apart from a few intrinsics and its inline PTX.
-``tests/torch_node_scan_host.cpp`` supplies those on the host (each CUDA
-thread a ``std::thread``, the barriers, shuffles, mbarriers and
-distributed-shared-memory stores emulated), and this test builds it with
-g++ around the kernel's source as it stands.  So the kernel's indexing,
+``tests/torch_node_scan_host.cpp`` supplies those on the host
+(``tests/cuda_host.h``: each CUDA thread a fiber, the barriers, shuffles,
+mbarriers and distributed-shared-memory stores emulated; a deadlock fails
+the case), and ``tests/torch_host_build.py`` builds it with g++ around the
+kernel's source as it stands.  So the kernel's indexing,
 its split of the partner tree over lanes, warps and the blocks of a
 cluster, its staging of node inputs and its barriers are held here to
 the same standard as on the card: identical accepts and positions to
@@ -21,9 +22,6 @@ The libraries' exp and log1p may differ from PyTorch's by an ulp, which
 could flip a decision at a near-tie; none of these inputs has one.
 """
 import ctypes
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -33,9 +31,7 @@ from dynetlsm_tpu_torch.ops.node_scan import (
     node_scan_plain, pack_directed, pad_partners, partner_pad,
     residue_major, site_cluster_params)
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-KERNEL = ROOT / 'dynetlsm_tpu_torch' / 'csrc' / 'node_scan.cu'
-HOST = pathlib.Path(__file__).resolve().parent / 'torch_node_scan_host.cpp'
+from .torch_host_build import build
 
 # (T, n, chains, [(warps, cluster), ...]): two partners a lane and one,
 # split over warps or over a cluster; chunks of four partners (n = 130,
@@ -45,34 +41,10 @@ SHAPES = [(5, 40, 4, [(1, 1), (2, 1), (1, 2)]),
           (3, 18, 8, [(1, 1)])]
 
 
-def _kernel_source():
-    """The .cu up to its launch section, without the CUDA headers and the
-    inline PTX, its shared memory taken from the host block."""
-    src = KERNEL.read_text()
-    for include in ('#include <cooperative_groups.h>\n',
-                    '#include <cuda_runtime.h>\n'):
-        src = src.replace(include, '')
-    start = src.index('// ---- inline PTX')
-    end = src.index('// ---- end of inline PTX')
-    src = src[:start] + src[end:]
-    src = src.replace('extern __shared__ __align__(16) float smem[];',
-                      'float* smem = host_smem();')
-    return src[:src.index('// ---- launch')]
-
-
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the kernel source for the host')
-    out = tmp_path_factory.mktemp('node_scan_host')
-    (out / 'node_scan_kernel.inc').write_text(_kernel_source())
-    shutil.copy(HOST, out / HOST.name)
-    so = out / 'libnode_scan_host.so'
-    subprocess.run([gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-w',
-                    '-fPIC', '-shared', '-pthread', '-o', str(so),
-                    str(out / HOST.name)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build(tmp_path_factory, 'torch_node_scan_host.cpp',
+                ['node_scan.cu'])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.node_scan_host.argtypes = ([p] * 14 + [i] * 9 + [f] * 2
                                    + [ctypes.c_longlong, i])
@@ -134,14 +106,14 @@ def _host_scan(lib, t, mixture, tempered, warps, cluster, split=False):
     def ptr(v):
         return None if v is None else v.data_ptr()
 
-    lib.node_scan_host(
+    assert lib.node_scan_host(
         ptr(t['X']), ptr(Yp), ptr(t['step']), ptr(t['eps']),
         ptr(t['log_u']), ptr(t['mu_z']) if mixture else None,
         ptr(t['sig_z']) if mixture else None, ptr(t['b']),
         ptr(t.get('radii')), ptr(t['lmbda']) if mixture else None,
         ptr(t['temper']) if tempered else None, ptr(X_out), ptr(acc),
         ptr(field), C, T, n, d, P, warps, cluster, int('radii' in t),
-        int(mixture), 2.0, 0.1, y_chain, int(split))
+        int(mixture), 2.0, 0.1, y_chain, int(split)) == 0
     return X_out, acc
 
 

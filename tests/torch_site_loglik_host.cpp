@@ -1,11 +1,13 @@
 // Host emulation of the site kernel (dynetlsm_tpu_torch/csrc/
 // site_loglik.cu), for tests/test_torch_site_loglik.py.
 //
-// The test copies the source's kernel part (everything before its
-// "---- launch" section) and loglik_common.cuh, without the CUDA headers,
-// beside this file and builds all with g++ -std=c++20, the device
-// intrinsics emulated by tests/cuda_host.h.  Blocks run one after
-// another, in index order or, with `reverse`, in the opposite order.
+// tests/torch_host_build.py cuts the source's kernel part (everything
+// before its "---- launch" section) and loglik_common.cuh, without the
+// CUDA headers, into a build directory and builds this file around them
+// with g++ -std=c++20, the device intrinsics emulated by
+// tests/cuda_host.h.  Blocks run one after
+// another, in index order or, with `reverse`, in the opposite order; the
+// entry returns nonzero where the threads deadlock (stderr says where).
 #include <algorithm>
 
 #include "cuda_host.h"
@@ -39,7 +41,7 @@ extern "C" int site_loglik_host(const float* X, const float* Xq,
     const long long k = reverse ? blocks - 1 - bb : bb;
     const dim3 idx((unsigned)(k % C), (unsigned)(k / C % tiles),
                    (unsigned)(k / C / tiles));
-    run_block(kThreads, smem, idx, [&] {
+    const bool ok = run_cluster(1, kThreads, smem, idx, [&] {
       auto run = [&](auto kernel) { kernel(X, Xq, Y, b, radii, out, s); };
       if (directed) {
         d == 2 ? run(site_loglik_kernel<true, 2>)
@@ -49,6 +51,7 @@ extern "C" int site_loglik_host(const float* X, const float* Xq,
                : run(site_loglik_kernel<false, 0>);
       }
     });
+    if (!ok) return 1;
   }
   return 0;
 }
